@@ -1,0 +1,210 @@
+"""The rasterizer's two forward kernels, each beside its plain PyTorch version.
+
+* `duplicate_with_keys` (csrc/duplicate_with_keys.cu) replaces
+  latentsplat_tpu/ops/rasterize/expand.py::expand_by_counts.
+* `composite_forward` (csrc/composite_forward.cu) replaces
+  latentsplat_tpu/ops/rasterize/pallas_kernels.py::composite_pairs_fwd.
+
+A wrapper given CPU tensors runs the `*_reference` version; given CUDA
+tensors it launches the kernel or raises. `launch_counts` counts kernel
+launches (not reference calls).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...cuda_build import check, load_library
+from .camera import ALPHA_CLAMP, ALPHA_THRESHOLD
+
+TILE = 16
+PIX = TILE * TILE
+TRANSMITTANCE_MIN = 1e-4
+
+launch_counts = {"duplicate_with_keys": 0, "composite_forward": 0}
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    devices = {t.device.type for t in tensors}
+    if devices == {"cpu"}:
+        return False
+    if devices != {"cuda"}:
+        raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {devices}")
+    return True
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous {ndim}-d {dtype} tensor, got "
+            f"{t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}"
+        )
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+# -- duplicate_with_keys ---------------------------------------------------------
+
+
+def duplicate_with_keys_reference(
+    counts: torch.Tensor, mask: torch.Tensor, base: torch.Tensor, nx: torch.Tensor,
+    depth: torch.Tensor, tiles_x: int, cap: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `duplicate_with_keys`: the set bits of every mask,
+    Gaussian-major and slot-ascending, as (gids int32, keys int64)."""
+    slots = torch.arange(cap, device=mask.device, dtype=torch.int32)
+    bits = ((mask[:, None] >> slots[None, :]) & 1).bool()
+    gid, slot = bits.nonzero(as_tuple=True)
+    assert gid.numel() == int(counts.sum())
+    w = nx[gid].long()
+    row = slot // w
+    tile = base[gid].long() + row * tiles_x + (slot - row * w)
+    depth_bits = depth.view(torch.int32).long()[gid]
+    return gid.to(torch.int32), (tile << 32) | depth_bits
+
+
+def duplicate_with_keys(
+    counts: torch.Tensor,   # (G,) int32 pairs per Gaussian (popcount of mask)
+    mask: torch.Tensor,     # (G,) int32 surviving rect slots
+    base: torch.Tensor,     # (G,) int32 tile id of the rect origin
+    nx: torch.Tensor,       # (G,) int32 rect width in tiles
+    depth: torch.Tensor,    # (G,) float32 camera-space depth (> 0 where counts > 0)
+    tiles_x: int,
+    cap: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One (Gaussian id, key = tile << 32 | depth bits) pair per surviving
+    tile, Gaussian-major. The pair buffer is sized exactly (one host read)."""
+    if not _on_cuda(counts, mask, base, nx, depth):
+        return duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, cap)
+    for t, name in ((counts, "counts"), (mask, "mask"), (base, "base"), (nx, "nx")):
+        _check(t, name, torch.int32, 1)
+    _check(depth, "depth", torch.float32, 1)
+    g = counts.shape[0]
+    if not all(t.shape[0] == g for t in (mask, base, nx, depth)):
+        raise ValueError("duplicate_with_keys: per-Gaussian inputs differ in length")
+    offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
+    total = int(offsets[-1]) if g else 0
+    gids = torch.empty((total,), dtype=torch.int32, device=counts.device)
+    keys = torch.empty((total,), dtype=torch.int64, device=counts.device)
+    rc = load_library().duplicate_with_keys(
+        g, offsets.data_ptr(), mask.data_ptr(), base.data_ptr(), nx.data_ptr(),
+        depth.data_ptr(), tiles_x, gids.data_ptr(), keys.data_ptr(), _stream(),
+    )
+    check(rc, "duplicate_with_keys")
+    launch_counts["duplicate_with_keys"] += 1
+    return gids, keys
+
+
+# -- composite_forward -----------------------------------------------------------
+
+
+def _tile_pixels(num_tiles: int, tiles_x: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pixel-center coordinates (T, PIX) of every tile, row-major in the tile."""
+    tile = torch.arange(num_tiles, device=device)[:, None]
+    p = torch.arange(PIX, device=device)[None, :]
+    px = (tile % tiles_x) * TILE + p % TILE
+    py = (tile // tiles_x) * TILE + p // TILE
+    return px.float(), py.float()
+
+
+def untile(x: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """(T, ..., PIX) per-tile values -> (..., H, W)."""
+    rest = x.shape[1:-1]
+    x = x.reshape(tiles_y, tiles_x, *rest, TILE, TILE)
+    x = x.movedim((0, 1), (-4, -2))          # (..., tiles_y, TILE, tiles_x, TILE)
+    return x.reshape(*rest, tiles_y * TILE, tiles_x * TILE)
+
+
+def composite_forward_reference(
+    gids: torch.Tensor, tile_ranges: torch.Tensor, attrs: torch.Tensor,
+    tiles_x: int, image_shape: tuple[int, int],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of `composite_forward`: all tiles advance together, one
+    pair position per step, with the kernel's per-pixel rules and rounding
+    order."""
+    h, w = image_shape
+    num_tiles = tile_ranges.shape[0] - 1
+    n_ch = attrs.shape[1] - 6
+    device = attrs.device
+    starts = tile_ranges[:-1].long()
+    lengths = tile_ranges[1:].long() - starts
+    px, py = _tile_pixels(num_tiles, tiles_x, device)
+
+    t = torch.ones((num_tiles, PIX), device=device)
+    acc = torch.zeros((num_tiles, n_ch, PIX), device=device)
+    last = starts[:, None].expand(num_tiles, PIX).clone()
+    done = torch.zeros((num_tiles, PIX), dtype=torch.bool, device=device)
+    n_steps = int(lengths.max()) if num_tiles else 0
+    for j in range(n_steps):
+        live = (j < lengths)[:, None]
+        idx = (starts + j).clamp(max=max(gids.shape[0] - 1, 0))
+        a = attrs[gids[idx].long()]                   # (T, 6 + n_ch)
+        x, y, ca, cb, cc, op = (a[:, i : i + 1] for i in range(6))
+        dx = px - x
+        dy = py - y
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        alpha = torch.clamp(op * torch.exp(power), max=ALPHA_CLAMP)
+        use = live & ~done & (power <= 0.0) & (alpha >= ALPHA_THRESHOLD)
+        alpha = torch.where(use, alpha, 0.0)
+        weight = alpha * t
+        acc = torch.where(use[:, None], acc + a[:, 6:, None] * weight[:, None, :], acc)
+        t = torch.where(use, t * (1.0 - alpha), t)
+        last = torch.where(use, starts[:, None] + j + 1, last)
+        done = done | (use & (t < TRANSMITTANCE_MIN))
+
+    tiles_y = h // TILE
+    return (
+        untile(acc, tiles_x, tiles_y),
+        untile(t, tiles_x, tiles_y),
+        untile(last.to(torch.int32), tiles_x, tiles_y),
+    )
+
+
+def supported_channel_counts() -> tuple[int, ...]:
+    lib = load_library()
+    out, i = [], 0
+    while (n := lib.composite_forward_channels(i)) > 0:
+        out.append(n)
+        i += 1
+    return tuple(out)
+
+
+def composite_forward(
+    gids: torch.Tensor,          # (P,) int32 Gaussian id of each pair, sorted by (tile, depth)
+    tile_ranges: torch.Tensor,   # (T + 1,) int32 start of each tile's pairs
+    attrs: torch.Tensor,         # (G, 6 + n_ch) float32: x, y, conic a/b/c, opacity, channels
+    tiles_x: int,
+    image_shape: tuple[int, int],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Composite every tile front to back. Returns channels (n_ch, H, W),
+    final transmittance (H, W) and each pixel's exclusive end of
+    contributing pairs (H, W) int32."""
+    h, w = image_shape
+    if h % TILE or w % TILE:
+        raise ValueError(f"image dims must be multiples of {TILE}, got {image_shape}")
+    num_tiles = (h // TILE) * (w // TILE)
+    if tile_ranges.shape != (num_tiles + 1,) or tiles_x != w // TILE:
+        raise ValueError("composite_forward: tile_ranges do not match the image")
+    if not _on_cuda(gids, tile_ranges, attrs):
+        return composite_forward_reference(gids, tile_ranges, attrs, tiles_x, image_shape)
+    _check(gids, "gids", torch.int32, 1)
+    _check(tile_ranges, "tile_ranges", torch.int32, 1)
+    _check(attrs, "attrs", torch.float32, 2)
+    n_ch = attrs.shape[1] - 6
+    if n_ch not in supported_channel_counts():
+        raise ValueError(
+            f"composite_forward is built for {supported_channel_counts()} channels, got {n_ch}"
+        )
+    channels = torch.empty((n_ch, h, w), dtype=torch.float32, device=attrs.device)
+    transmittance = torch.empty((h, w), dtype=torch.float32, device=attrs.device)
+    last = torch.empty((h, w), dtype=torch.int32, device=attrs.device)
+    rc = load_library().composite_forward(
+        n_ch, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(), attrs.data_ptr(),
+        tiles_x, h, w, channels.data_ptr(), transmittance.data_ptr(), last.data_ptr(),
+        _stream(),
+    )
+    check(rc, "composite_forward")
+    launch_counts["composite_forward"] += 1
+    return channels, transmittance, last

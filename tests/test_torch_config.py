@@ -1,0 +1,78 @@
+"""The port's config reader against the JAX package's loader and PyYAML,
+and the port's independence from JAX."""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import yaml
+
+from latentsplat_tpu.config import PRESET_DIR as JAX_PRESET_DIR
+from latentsplat_tpu.config import load_config as jax_load_config
+from latentsplat_tpu_torch.config import PRESET_DIR, load_config, parse_yaml
+
+PRESETS = sorted(Path(JAX_PRESET_DIR).rglob("*.yaml"))
+EXPERIMENTS = [None] + sorted(p.stem for p in (Path(JAX_PRESET_DIR) / "experiment").glob("*.yaml"))
+SMALL_OVERRIDES = [
+    "model.encoder.backbone.model=dino_vits8",
+    "model.encoder.d_feature=32",
+    "model.encoder.epipolar_transformer.num_layers=1",
+    "model.autoencoder.block_out_channels=[16,16,16,16]",
+    "model.discriminator=null",
+    "model.decoder.backend=dense",
+    "dataset.view_sampler={name: evaluation, index_path: assets/evaluation_index/re10k.json}",
+]
+
+
+def test_reads_the_jax_presets():
+    assert Path(PRESET_DIR).resolve() == Path(JAX_PRESET_DIR).resolve()
+    assert len(PRESETS) == 12
+
+
+@pytest.mark.parametrize("path", PRESETS, ids=lambda p: p.stem)
+def test_yaml_reader_matches_pyyaml(path):
+    assert parse_yaml(path.read_text()) == yaml.safe_load(path.read_text())
+
+
+@pytest.mark.parametrize(
+    "text",
+    ["5", "-3", "0.5", "1.e-3", "1e-4", "9.0e-6", "200001", "null", "~", "true", "False",
+     "dino_vits8", "[16,16,16,16]", "[0.5, 40.0]", "{name: kl, weight: 0.1}",
+     "[{name: mse, weight: 10}, {name: lpips, apply_after_step: 50000}]", "'quoted: text'",
+     ".inf", "a: 1", ""],
+)
+def test_yaml_scalars_and_flows_match_pyyaml(text):
+    ours, theirs = parse_yaml(text), yaml.safe_load(text)
+    assert ours == theirs and type(ours) is type(theirs)
+
+
+@pytest.mark.parametrize("experiment", EXPERIMENTS)
+def test_model_and_dataset_match_jax(experiment):
+    ours = load_config(experiment)
+    theirs = jax_load_config(experiment)
+    assert dataclasses.asdict(ours.model) == dataclasses.asdict(theirs.model)
+    assert dataclasses.asdict(ours.dataset) == dataclasses.asdict(theirs.dataset)
+    assert type(ours.dataset).__name__ == type(theirs.dataset).__name__
+
+
+def test_overrides_match_jax():
+    ours = load_config("re10k", SMALL_OVERRIDES)
+    theirs = jax_load_config("re10k", SMALL_OVERRIDES)
+    assert dataclasses.asdict(ours.model) == dataclasses.asdict(theirs.model)
+    assert dataclasses.asdict(ours.dataset) == dataclasses.asdict(theirs.dataset)
+    assert ours.model.encoder.backbone.model == "dino_vits8"
+    assert ours.dataset.view_sampler.name == "evaluation"
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys\n"
+        "import latentsplat_tpu_torch.model.latentsplat, latentsplat_tpu_torch.config, "
+        "latentsplat_tpu_torch.weights, latentsplat_tpu_torch.ops.rasterize.kernels\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'latentsplat_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    root = Path(__file__).resolve().parent.parent
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
