@@ -1,6 +1,6 @@
-"""Typed configuration for the port: the `model` and `dataset` sections of
-the preset YAML files (counterpart of latentsplat_tpu/config/__init__.py and
-config/loader.py).
+"""Typed configuration for the port: the `model`, `dataset`, `loss`,
+`optimizer`, `freeze` and `train` sections of the preset YAML files
+(counterpart of latentsplat_tpu/config/__init__.py and config/loader.py).
 
 The presets are read from the JAX package's directory, not copied. PyYAML is
 not a dependency of the port, so a small reader below covers the subset the
@@ -17,6 +17,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, List, Optional, Union
 
+from .loss.losses import LossesCfg
 from .model.autoencoder.kl import AutoencoderKLCfg
 from .model.decoder.splatting import DecoderSplattingCfg
 from .model.encoder.backbone import BackboneDinoCfg
@@ -314,11 +315,66 @@ DatasetCfg = Union[DatasetRE10kCfg, DatasetCO3DCfg]
 
 
 @dataclass
+class GeneratorOptimizerCfg:
+    name: str = "Adam"
+    lr: float = 1.5e-4
+    scale_lr: bool = False
+    autoencoder_lr: float = 9.0e-6
+    scale_autoencoder_lr: bool = True
+    autoencoder_betas: List[float] = field(default_factory=lambda: [0.5, 0.9])
+    betas: List[float] = field(default_factory=lambda: [0.9, 0.999])
+    warm_up_steps: int = 2000
+    warm_up_start_factor: float = 5.0e-4
+    gradient_clip_val: float = 0.5
+    # Skip both updates when |generator total| exceeds this factor times its
+    # running EMA (None: off); after `skip_loss_spike_patience` consecutive
+    # skips the guard re-seeds the EMA and resumes.
+    skip_loss_spike_factor: Optional[float] = None
+    skip_loss_spike_patience: int = 10
+
+
+@dataclass
+class DiscriminatorOptimizerCfg:
+    name: str = "Adam"
+    lr: float = 9.0e-6
+    scale_lr: bool = True
+    betas: List[float] = field(default_factory=lambda: [0.5, 0.9])
+    gradient_clip_val: float = 0.5
+
+
+@dataclass
+class OptimizerCfg:
+    generator: GeneratorOptimizerCfg = field(default_factory=GeneratorOptimizerCfg)
+    discriminator: Optional[DiscriminatorOptimizerCfg] = None
+
+
+@dataclass
+class FreezeCfg:
+    autoencoder: bool = False
+    encoder: bool = False
+    decoder: bool = False
+    discriminator: bool = False
+
+
+@dataclass
+class TrainCfg:
+    depth_mode: Optional[str] = None
+    extended_visualization: bool = False
+    step_offset: int = 0
+    video_interpolation: bool = False
+    video_wobble: bool = False
+
+
+@dataclass
 class PortCfg:
     """The sections of the root config that the port reads."""
 
     model: ModelCfg
     dataset: DatasetCfg
+    loss: LossesCfg = field(default_factory=LossesCfg)
+    optimizer: OptimizerCfg = field(default_factory=OptimizerCfg)
+    freeze: FreezeCfg = field(default_factory=FreezeCfg)
+    train: TrainCfg = field(default_factory=TrainCfg)
 
 
 def _is_dataclass_type(tp) -> bool:
@@ -384,17 +440,18 @@ def load_config(
     preset_dir: Path = PRESET_DIR,
 ) -> PortCfg:
     """presets/<base>.yaml, overlaid with presets/experiment/<experiment>.yaml
-    and `a.b.c=value` overrides; returns the model and dataset sections."""
+    and `a.b.c=value` overrides; returns the sections of `PortCfg`."""
     cfg = load_yaml(preset_dir / f"{base}.yaml")
     if experiment is not None:
         cfg = deep_merge(cfg, load_yaml(preset_dir / "experiment" / f"{experiment}.yaml"))
     for item in overrides or []:
         key, _, value = item.partition("=")
         set_dotted(cfg, key.strip(), parse_yaml(value))
-    return PortCfg(
-        model=from_dict(ModelCfg, cfg["model"]),
-        dataset=from_dict(DatasetCfg, cfg["dataset"]),
-    )
+    sections = {f.name: f for f in dataclasses.fields(PortCfg)}
+    hints = typing.get_type_hints(PortCfg)
+    return PortCfg(**{
+        name: from_dict(hints[name], cfg[name]) for name in sections if cfg.get(name) is not None
+    })
 
 
-__all__ = ["BackboneDinoCfg", "ModelCfg", "PortCfg", "load_config", "parse_yaml"]
+__all__ = ["BackboneDinoCfg", "ModelCfg", "OptimizerCfg", "PortCfg", "load_config", "parse_yaml"]

@@ -1,9 +1,10 @@
-"""DINO ViT backbone (counterpart of DinoViT and BackboneDino in
-latentsplat_tpu/model/encoder/backbone.py). NHWC in, NHWC out.
+"""DINO ViT and ResNet backbones (counterparts of BackboneDino and
+BackboneResnet in latentsplat_tpu/model/encoder/backbone.py). NHWC in, NHWC
+out.
 
 Submodule names follow the JAX parameter tree (block_i, LayerNorm_0,
-MultiHeadDotProductAttention_0, Dense_i, ...). The ResNet, ViT and ensemble
-backbones are not ported yet.
+MultiHeadDotProductAttention_0, Dense_i, BasicBlock_i, Conv_i, ...). The
+ViT and ensemble backbones are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,11 +27,28 @@ _VIT_SPECS = {
 }
 
 
+_RESNET_SPECS = {
+    # (block type, per-stage block counts, stage widths, embedding width)
+    "resnet18": ("basic", (2, 2, 2, 2), (64, 128, 256, 512), 64),
+    "resnet34": ("basic", (3, 4, 6, 3), (64, 128, 256, 512), 64),
+    "resnet50": ("bottleneck", (3, 4, 6, 3), (256, 512, 1024, 2048), 64),
+    "dino_resnet50": ("bottleneck", (3, 4, 6, 3), (256, 512, 1024, 2048), 64),
+}
+
+
 @dataclass
 class BackboneDinoCfg:
     name: str = "dino"
     model: str = "dino_vitb8"
     upscale_mode: str = "repeat"
+
+
+@dataclass
+class BackboneResnetCfg:
+    name: str = "resnet"
+    model: str = "resnet50"
+    num_layers: int = 4
+    use_first_pool: bool = False
 
 
 def get_integer(value) -> int:
@@ -151,7 +169,93 @@ class BackboneDino(nn.Module):
         return local + global_token[:, None, None, :]
 
 
+def _instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Per-sample, per-channel spatial normalization (affine=False), NCHW."""
+    mean = x.mean(dim=(-2, -1), keepdim=True)
+    var = x.var(dim=(-2, -1), keepdim=True, unbiased=False)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
+class BasicBlock(nn.Module):
+    def __init__(self, d_in: int, width: int, stride: int = 1):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(d_in, width, 3, stride=stride, padding=1, bias=False)
+        self.Conv_1 = nn.Conv2d(width, width, 3, padding=1, bias=False)
+        if d_in != width or stride != 1:
+            self.Conv_2 = nn.Conv2d(d_in, width, 1, stride=stride, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = _instance_norm(self.Conv_1(F.relu(_instance_norm(self.Conv_0(x)))))
+        residual = _instance_norm(self.Conv_2(x)) if hasattr(self, "Conv_2") else x
+        return F.relu(y + residual)
+
+
+class BottleneckBlock(nn.Module):
+    def __init__(self, d_in: int, width: int, stride: int = 1):
+        super().__init__()
+        inner = width // 4
+        self.Conv_0 = nn.Conv2d(d_in, inner, 1, bias=False)
+        self.Conv_1 = nn.Conv2d(inner, inner, 3, stride=stride, padding=1, bias=False)
+        self.Conv_2 = nn.Conv2d(inner, width, 1, bias=False)
+        if d_in != width or stride != 1:
+            self.Conv_3 = nn.Conv2d(d_in, width, 1, stride=stride, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(_instance_norm(self.Conv_0(x)))
+        y = F.relu(_instance_norm(self.Conv_1(y)))
+        y = _instance_norm(self.Conv_2(y))
+        residual = _instance_norm(self.Conv_3(x)) if hasattr(self, "Conv_3") else x
+        return F.relu(y + residual)
+
+
+class BackboneResnet(nn.Module):
+    """(B, H, W, d_in) -> (B, H*sf, W*sf, d_out): per-stage 1x1 projections,
+    resized bilinearly with align_corners=True and summed. InstanceNorm
+    without affine parameters stands in for BatchNorm, as in the JAX package."""
+
+    def __init__(self, cfg: BackboneResnetCfg, d_in: int, d_out: int, scale_factor: Fraction):
+        super().__init__()
+        kind, depths, widths, embed = _RESNET_SPECS[cfg.model]
+        block_cls = BasicBlock if kind == "basic" else BottleneckBlock
+        self.cfg = cfg
+        self.scale_factor = scale_factor
+        self.Conv_0 = nn.Conv2d(d_in, embed, 7, stride=2, padding=3, bias=False)
+        self.proj_stem = nn.Conv2d(embed, d_out, 1)
+        self.blocks = []
+        prev, index = embed, 0
+        for i in range(cfg.num_layers):
+            for b in range(depths[i]):
+                name = f"{block_cls.__name__}_{index}"
+                setattr(self, name, block_cls(prev, widths[i], (1 if i == 0 else 2) if b == 0 else 1))
+                self.blocks.append((i, name))
+                prev, index = widths[i], index + 1
+            setattr(self, f"proj_{i}", nn.Conv2d(prev, d_out, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[1:3]
+        out_hw = (get_integer(self.scale_factor * h), get_integer(self.scale_factor * w))
+
+        def project(name, y):
+            y = getattr(self, name)(y)
+            if tuple(y.shape[-2:]) == out_hw:
+                return y
+            return F.interpolate(y, size=out_hw, mode="bilinear", align_corners=True)
+
+        y = F.relu(_instance_norm(self.Conv_0(x.permute(0, 3, 1, 2))))
+        if self.cfg.use_first_pool:
+            y = F.max_pool2d(y, 3, stride=2, padding=1)
+        total = project("proj_stem", y)
+        for i in range(self.cfg.num_layers):
+            for stage, name in self.blocks:
+                if stage == i:
+                    y = getattr(self, name)(y)
+            total = total + project(f"proj_{i}", y)
+        return total.permute(0, 2, 3, 1)
+
+
 def get_backbone(cfg, d_in: int, d_out: int, scale_factor: Fraction) -> nn.Module:
-    if cfg.name != "dino":
-        raise NotImplementedError(f"backbone {cfg.name!r} is not ported yet")
-    return BackboneDino(cfg, d_in, d_out, scale_factor)
+    if cfg.name == "dino":
+        return BackboneDino(cfg, d_in, d_out, scale_factor)
+    if cfg.name == "resnet":
+        return BackboneResnet(cfg, d_in, d_out, scale_factor)
+    raise NotImplementedError(f"backbone {cfg.name!r} is not ported yet")

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from fractions import Fraction
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -18,7 +18,7 @@ from torch import nn
 from ...geometry import sample_image_grid
 from ...ops.distributions import DiagonalGaussian
 from ..types import VariationalGaussians
-from .backbone import BackboneDinoCfg, get_backbone
+from .backbone import BackboneDinoCfg, BackboneResnetCfg, get_backbone
 from .depth_predictor import DepthPredictorMonocular
 from .epipolar_transformer import EpipolarTransformer, EpipolarTransformerCfg
 from .gaussian_adapter import GaussianAdapter, GaussianAdapterCfg
@@ -39,7 +39,7 @@ class EncoderEpipolarCfg:
     num_monocular_samples: int
     num_surfaces: int
     predict_opacity: bool
-    backbone: BackboneDinoCfg
+    backbone: Union[BackboneDinoCfg, BackboneResnetCfg]
     near_disparity: float
     gaussian_adapter: GaussianAdapterCfg
     apply_bounds_shim: bool

@@ -1,6 +1,7 @@
-"""LatentSplat: the assembled generator and its serving entry point
-(counterpart of latentsplat_tpu/model/latentsplat.py plus the test-mode
-render path `Trainer._render_full` in latentsplat_tpu/training/trainer.py).
+"""LatentSplat: the assembled generator, its serving entry point and the
+helpers the train step needs (counterpart of
+latentsplat_tpu/model/latentsplat.py plus the test-mode render path
+`Trainer._render_full` in latentsplat_tpu/training/trainer.py).
 
 `render_full` takes a batch dict in the JAX layout (NHWC images, (b, v, ...)
 cameras) and returns {"image", "render", "depth"}:
@@ -27,8 +28,8 @@ from .encoder.encoder_epipolar import EncoderEpipolar
 
 
 class LatentSplat(nn.Module):
-    """Generator bundle; `cfg` is a config.ModelCfg. Discriminator and LPIPS
-    belong to training and are not part of this module."""
+    """Generator bundle; `cfg` is a config.ModelCfg. The discriminator and
+    LPIPS are separate modules (see `training.step.TrainState`)."""
 
     def __init__(self, cfg, background_color=(0.0, 0.0, 0.0)):
         super().__init__()
@@ -55,6 +56,19 @@ class LatentSplat(nn.Module):
     def scale_factor(self) -> Fraction:
         return Fraction(self.cfg.supersampling_factor, self.autoencoder.downscale_factor)
 
+    @staticmethod
+    def scaled_size(scale: Fraction, size) -> tuple[int, ...]:
+        return tuple(get_integer(scale * s) for s in size)
+
+    @staticmethod
+    def rescale(x: torch.Tensor, scale: Fraction) -> torch.Tensor:
+        """Antialiased NHWC resize by an exact rational factor."""
+        return resize_antialias(x, LatentSplat.scaled_size(scale, x.shape[-3:-1]))
+
+    def last_layer(self) -> nn.Parameter:
+        """The adaptive GAN weight's anchor: the VAE decoder's conv_out weight."""
+        return self.autoencoder.decoder.conv_out.weight
+
     def data_shim(self, batch: dict) -> dict:
         """Patch + bounds shims (near disparity scaled to pixels)."""
         batch = apply_patch_shim(batch, self.patch_multiple)
@@ -62,6 +76,13 @@ class LatentSplat(nn.Module):
             h, w = batch["context"]["image"].shape[-3:-1]
             batch = apply_bounds_shim(batch, self.cfg.encoder.near_disparity * min(h, w), 0.5)
         return batch
+
+
+def discriminate(discriminator: nn.Module, images: torch.Tensor) -> torch.Tensor:
+    """(b, v, h, w, c) images -> (b, v, h', w', 1) patch logits."""
+    b, v = images.shape[:2]
+    logits = discriminator(images.reshape(b * v, *images.shape[2:]))
+    return logits.reshape(b, v, *logits.shape[1:])
 
 
 def render_full(

@@ -1,5 +1,6 @@
-"""Model-level Gaussian containers (counterpart of
-latentsplat_tpu/model/types.py)."""
+"""Model-level containers: Gaussians and the loss sites' predictions and
+ground truths (counterpart of latentsplat_tpu/model/types.py). Images are
+NHWC, (batch, view, height, width, channel)."""
 
 from __future__ import annotations
 
@@ -45,3 +46,22 @@ class VariationalGaussians:
     ) -> Gaussians:
         return self._with_features(self.feature_harmonics.sample(generator, noise))
 
+
+
+@dataclass
+class Prediction:
+    """What a supervision site predicts (counterpart of the JAX Prediction)."""
+
+    image: Optional[torch.Tensor] = None          # (b, v, h, w, c)
+    posterior: Optional[DiagonalGaussian] = None
+    depth: Optional[torch.Tensor] = None          # (b, v, h, w)
+    logits_fake: Optional[torch.Tensor] = None    # (b, v, h', w', 1)
+    logits_real: Optional[torch.Tensor] = None
+    harmonics: Optional[torch.Tensor] = None      # (b, g, 3, d_sh) color SH, gaussian site
+
+
+@dataclass
+class GroundTruth:
+    image: Optional[torch.Tensor] = None          # (b, v, h, w, c)
+    near: Optional[torch.Tensor] = None           # (b, v)
+    far: Optional[torch.Tensor] = None            # (b, v)

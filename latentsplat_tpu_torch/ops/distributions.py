@@ -70,6 +70,12 @@ class DiagonalGaussian:
     def mode(self) -> torch.Tensor:
         return self.mean
 
+    def kl(self) -> torch.Tensor:
+        """Elementwise KL divergence from N(0, 1)."""
+        if self.logvar is None:
+            return torch.zeros_like(self.mean)
+        return 0.5 * (self.mean**2 + torch.exp(self.logvar) - 1.0 - self.logvar)
+
 
 def sample_discrete_distribution(
     pdf: torch.Tensor,

@@ -1,9 +1,13 @@
-"""The rasterizer's two forward kernels, each beside its plain PyTorch version.
+"""The rasterizer's four kernels, each beside its plain PyTorch version.
 
 * `duplicate_with_keys` (csrc/duplicate_with_keys.cu) replaces
   latentsplat_tpu/ops/rasterize/expand.py::expand_by_counts.
 * `composite_forward` (csrc/composite_forward.cu) replaces
   latentsplat_tpu/ops/rasterize/pallas_kernels.py::composite_pairs_fwd.
+* `composite_backward` (csrc/composite_backward.cu) replaces
+  latentsplat_tpu/ops/rasterize/pallas_kernels.py::composite_pairs_bwd.
+* `reduce_pairs` (csrc/reduce_pairs.cu) replaces
+  latentsplat_tpu/ops/rasterize/expand.py::reduce_by_counts.
 
 A wrapper given CPU tensors runs the `*_reference` version; given CUDA
 tensors it launches the kernel or raises. `launch_counts` counts kernel
@@ -21,7 +25,9 @@ TILE = 16
 PIX = TILE * TILE
 TRANSMITTANCE_MIN = 1e-4
 
-launch_counts = {"duplicate_with_keys": 0, "composite_forward": 0}
+launch_counts = {
+    "duplicate_with_keys": 0, "composite_forward": 0, "composite_backward": 0, "reduce_pairs": 0,
+}
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -117,6 +123,14 @@ def untile(x: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
     return x.reshape(*rest, tiles_y * TILE, tiles_x * TILE)
 
 
+def tile(x: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """(..., H, W) -> (T, ..., PIX), the inverse of `untile`."""
+    rest = x.shape[:-2]
+    x = x.reshape(*rest, tiles_y, TILE, tiles_x, TILE)
+    x = x.movedim((-4, -2), (0, 1))          # (tiles_y, tiles_x, ..., TILE, TILE)
+    return x.reshape(tiles_y * tiles_x, *rest, PIX)
+
+
 def composite_forward_reference(
     gids: torch.Tensor, tile_ranges: torch.Tensor, attrs: torch.Tensor,
     tiles_x: int, image_shape: tuple[int, int],
@@ -208,3 +222,146 @@ def composite_forward(
     check(rc, "composite_forward")
     launch_counts["composite_forward"] += 1
     return channels, transmittance, last
+
+
+# -- composite_backward ----------------------------------------------------------
+
+
+def composite_backward_reference(
+    gids: torch.Tensor, tile_ranges: torch.Tensor, attrs: torch.Tensor,
+    tiles_x: int, image_shape: tuple[int, int], last: torch.Tensor,
+    t_final: torch.Tensor, g_channels: torch.Tensor, g_t: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of `composite_backward`: all tiles step together, one
+    pair position per step, back to front, with the kernel's per-pixel
+    rules. Only running (T, PIX) state is kept, never a graph of the
+    forward."""
+    h, w = image_shape
+    tiles_y = h // TILE
+    num_tiles = tile_ranges.shape[0] - 1
+    n_ch = attrs.shape[1] - 6
+    device = attrs.device
+    starts = tile_ranges[:-1].long()
+    px, py = _tile_pixels(num_tiles, tiles_x, device)
+    last_t = tile(last, tiles_x, tiles_y).long()                # (T, PIX)
+    t = tile(t_final, tiles_x, tiles_y).clone()
+    g = tile(g_channels, tiles_x, tiles_y)                      # (T, n_ch, PIX)
+    suffix = tile(g_t, tiles_x, tiles_y) * t
+    d_pairs = torch.zeros((gids.shape[0], 6 + n_ch), device=device)
+    lengths = last_t.max(dim=1).values - starts if num_tiles else starts
+    n_steps = int(lengths.max()) if num_tiles else 0
+    for j in range(n_steps - 1, -1, -1):
+        live = j < lengths
+        pos = starts + j
+        a = attrs[gids[pos.clamp(max=max(gids.shape[0] - 1, 0))].long()]   # (T, 6 + n_ch)
+        x, y, ca, cb, cc, op = (a[:, i : i + 1] for i in range(6))
+        dx = px - x
+        dy = py - y
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        e = torch.exp(torch.clamp(power, max=0.0))   # power > 0 is dropped below
+        raw = op * e
+        alpha = torch.clamp(raw, max=ALPHA_CLAMP)
+        use = live[:, None] & (pos[:, None] < last_t) & (power <= 0.0) & (alpha >= ALPHA_THRESHOLD)
+        alpha = torch.where(use, alpha, 0.0)
+        one_minus = 1.0 - alpha
+        t_before = t / one_minus
+        weight = alpha * t_before
+        cg = (a[:, 6:, None] * g).sum(dim=1)                    # (T, PIX)
+        d_alpha = cg * t_before - suffix / one_minus
+        d_alpha = torch.where(use & (raw < ALPHA_CLAMP), d_alpha, 0.0)
+        d_pow = d_alpha * alpha
+        parts = torch.stack([
+            (ca * dx + cb * dy) * d_pow, (cc * dy + cb * dx) * d_pow,
+            -0.5 * dx * dx * d_pow, -dx * dy * d_pow, -0.5 * dy * dy * d_pow, d_alpha * e,
+        ], dim=1)                                               # (T, 6, PIX)
+        rows = torch.cat([parts, weight[:, None, :] * g], dim=1).sum(dim=-1)
+        d_pairs[pos[live]] = rows[live]
+        suffix = torch.where(use, suffix + weight * cg, suffix)
+        t = torch.where(use, t_before, t)
+    return d_pairs
+
+
+def composite_backward(
+    gids: torch.Tensor,          # (P,) int32, as given to composite_forward
+    tile_ranges: torch.Tensor,   # (T + 1,) int32
+    attrs: torch.Tensor,         # (G, 6 + n_ch) float32
+    tiles_x: int,
+    image_shape: tuple[int, int],
+    last: torch.Tensor,          # (H, W) int32 from composite_forward
+    t_final: torch.Tensor,       # (H, W) float32 from composite_forward
+    g_channels: torch.Tensor,    # (n_ch, H, W) float32 cotangent of the channels
+    g_t: torch.Tensor,           # (H, W) float32 cotangent of T_final
+) -> torch.Tensor:
+    """Gradients of the composited channels and final transmittance with
+    respect to each pair's attributes: (P, 6 + n_ch) in sorted order, rows
+    x, y, conic a/b/c, opacity, channels."""
+    h, w = image_shape
+    num_tiles = (h // TILE) * (w // TILE)
+    n_ch = attrs.shape[1] - 6
+    if tile_ranges.shape != (num_tiles + 1,) or tiles_x != w // TILE:
+        raise ValueError("composite_backward: tile_ranges do not match the image")
+    if g_channels.shape != (n_ch, h, w) or g_t.shape != (h, w):
+        raise ValueError("composite_backward: cotangents do not match the image")
+    if not _on_cuda(gids, tile_ranges, attrs, last, t_final, g_channels, g_t):
+        return composite_backward_reference(
+            gids, tile_ranges, attrs, tiles_x, image_shape, last, t_final, g_channels, g_t
+        )
+    _check(gids, "gids", torch.int32, 1)
+    _check(tile_ranges, "tile_ranges", torch.int32, 1)
+    _check(attrs, "attrs", torch.float32, 2)
+    _check(last, "last", torch.int32, 2)
+    _check(t_final, "t_final", torch.float32, 2)
+    _check(g_channels, "g_channels", torch.float32, 3)
+    _check(g_t, "g_t", torch.float32, 2)
+    if n_ch not in supported_channel_counts():
+        raise ValueError(
+            f"composite_backward is built for {supported_channel_counts()} channels, got {n_ch}"
+        )
+    d_pairs = torch.zeros((gids.shape[0], 6 + n_ch), dtype=torch.float32, device=attrs.device)
+    rc = load_library().composite_backward(
+        n_ch, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(), attrs.data_ptr(), tiles_x,
+        h, w, last.data_ptr(), t_final.data_ptr(), g_channels.data_ptr(), g_t.data_ptr(),
+        d_pairs.data_ptr(), _stream(),
+    )
+    check(rc, "composite_backward")
+    launch_counts["composite_backward"] += 1
+    return d_pairs
+
+
+# -- reduce_pairs ----------------------------------------------------------------
+
+
+def reduce_pairs_reference(
+    d_pairs: torch.Tensor, gids: torch.Tensor, num_gaussians: int
+) -> torch.Tensor:
+    """Plain version of `reduce_pairs`: index_add_ of the sorted rows into
+    their Gaussians."""
+    out = torch.zeros((num_gaussians, d_pairs.shape[1]), dtype=d_pairs.dtype, device=d_pairs.device)
+    return out.index_add_(0, gids.long(), d_pairs)
+
+
+def reduce_pairs(
+    d_pairs: torch.Tensor,   # (P, R) float32 per-pair rows in sorted order
+    gids: torch.Tensor,      # (P,) int32 Gaussian id of each sorted pair
+    inverse: torch.Tensor,   # (P,) int64 Gaussian-major pair position -> sorted position
+    offsets: torch.Tensor,   # (G,) int64 inclusive prefix sum of pair counts
+) -> torch.Tensor:
+    """Sum each Gaussian's pair rows: (G, R). The kernel reads them in
+    Gaussian-major order through `inverse`; the plain version adds them by
+    `gids`."""
+    num_gaussians = offsets.shape[0]
+    if not _on_cuda(d_pairs, gids, inverse, offsets):
+        return reduce_pairs_reference(d_pairs, gids, num_gaussians)
+    _check(d_pairs, "d_pairs", torch.float32, 2)
+    _check(inverse, "inverse", torch.int64, 1)
+    _check(offsets, "offsets", torch.int64, 1)
+    if inverse.shape[0] != d_pairs.shape[0]:
+        raise ValueError("reduce_pairs: inverse and d_pairs differ in length")
+    out = torch.empty((num_gaussians, d_pairs.shape[1]), dtype=torch.float32, device=d_pairs.device)
+    rc = load_library().reduce_pairs(
+        num_gaussians, d_pairs.shape[1], d_pairs.data_ptr(), inverse.data_ptr(),
+        offsets.data_ptr(), out.data_ptr(), _stream(),
+    )
+    check(rc, "reduce_pairs")
+    launch_counts["reduce_pairs"] += 1
+    return out

@@ -1,20 +1,24 @@
-"""Tiled rasterization, forward only (counterpart of the exact-precision
-forward of latentsplat_tpu/ops/rasterize/tiled.py).
+"""Tiled rasterization (counterpart of the exact-precision path of
+latentsplat_tpu/ops/rasterize/tiled.py), forward and backward.
 
 Pipeline per view: per-Gaussian tile rects with the exact ellipse-tile cull
 (`tile_rects`, a port of the JAX `_tile_rects`), pair duplication with
 int64 (tile << 32 | depth bits) keys (`duplicate_with_keys` kernel), one
 stable library sort, tile ranges by searchsorted, and per-tile compositing
-(`composite_forward` kernel). Channels stay float32 end to end; the JAX
-package's TPU workarounds (fast/coef mode, payload packing, rank sorts,
-static pair budgets) are not ported.
+(`composite_forward` kernel). The backward (`_PairComposite`, the
+counterpart of the JAX `_pair_composite` custom_vjp) replays each tile
+back to front (`composite_backward` kernel) and sums each Gaussian's pair
+rows (`reduce_pairs` kernel); like the JAX package, the cull and the sort
+carry no gradient. Channels stay float32 end to end; the JAX package's TPU
+workarounds (fast/coef mode, payload packing, rank sorts, static pair
+budgets) are not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels import TILE, composite_forward, duplicate_with_keys
+from .kernels import TILE, composite_backward, composite_forward, duplicate_with_keys, reduce_pairs
 from .types import ScreenGaussians
 
 DEFAULT_MAX_TILES_PER_GAUSSIAN = 9
@@ -93,13 +97,14 @@ def tile_rects(
 
 def sort_pairs(
     gids: torch.Tensor, keys: torch.Tensor, num_tiles: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Stable sort by (tile, depth); returns sorted gids and (T + 1,) tile ranges."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stable sort by (tile, depth); returns sorted gids, (T + 1,) tile
+    ranges and the sort's order (sorted position -> Gaussian-major position)."""
     keys_sorted, order = torch.sort(keys, stable=True)
     tiles = keys_sorted >> 32
     boundaries = torch.arange(num_tiles + 1, device=keys.device, dtype=tiles.dtype)
     ranges = torch.searchsorted(tiles, boundaries).to(torch.int32)
-    return gids[order].contiguous(), ranges
+    return gids[order].contiguous(), ranges, order
 
 
 def pack_attributes(sg: ScreenGaussians) -> torch.Tensor:
@@ -109,6 +114,32 @@ def pack_attributes(sg: ScreenGaussians) -> torch.Tensor:
     ).contiguous()
 
 
+class _PairComposite(torch.autograd.Function):
+    """Per-Gaussian attribute rows -> composited channels (n_ch, H, W) and
+    final transmittance (H, W), over pairs that are already duplicated and
+    sorted."""
+
+    @staticmethod
+    def forward(ctx, attrs, gids, tile_ranges, order, counts, tiles_x, image_shape):
+        out, t_final, last = composite_forward(gids, tile_ranges, attrs, tiles_x, image_shape)
+        ctx.save_for_backward(attrs, gids, tile_ranges, order, counts, last, t_final)
+        ctx.tiles_x, ctx.image_shape = tiles_x, image_shape
+        return out, t_final
+
+    @staticmethod
+    def backward(ctx, g_out, g_t):
+        attrs, gids, tile_ranges, order, counts, last, t_final = ctx.saved_tensors
+        d_pairs = composite_backward(
+            gids, tile_ranges, attrs, ctx.tiles_x, ctx.image_shape, last, t_final,
+            g_out.contiguous(), g_t.contiguous(),
+        )
+        inverse = torch.empty_like(order)
+        inverse[order] = torch.arange(order.shape[0], device=order.device)
+        offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
+        d_attrs = reduce_pairs(d_pairs, gids, inverse, offsets)
+        return d_attrs, None, None, None, None, None, None
+
+
 def composite_tiled(
     sg: ScreenGaussians,
     image_shape: tuple[int, int],
@@ -116,18 +147,21 @@ def composite_tiled(
     max_tiles_per_gaussian: int = DEFAULT_MAX_TILES_PER_GAUSSIAN,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Returns (channels (C, H, W), mask (H, W), expected depth (H, W),
-    number of tile pairs), the contract of `composite_dense` plus the pair count."""
+    number of tile pairs), the contract of `composite_dense` plus the pair
+    count. Differentiable in sg.mean2d, conic, opacity, channels, depth and
+    in `background`."""
     h, w = image_shape
     assert h % TILE == 0 and w % TILE == 0, "image dims must be multiples of 16"
     tiles_x, tiles_y = w // TILE, h // TILE
     c = sg.num_channels
-    counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y, max_tiles_per_gaussian)
-    gids, keys = duplicate_with_keys(
-        counts, mask, base, nx, sg.depth.contiguous(), tiles_x, max_tiles_per_gaussian
-    )
-    gids, tile_ranges = sort_pairs(gids, keys, tiles_x * tiles_y)
-    out, t_final, _ = composite_forward(
-        gids, tile_ranges, pack_attributes(sg), tiles_x, image_shape
+    with torch.no_grad():
+        counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y, max_tiles_per_gaussian)
+        gids, keys = duplicate_with_keys(
+            counts, mask, base, nx, sg.depth.contiguous(), tiles_x, max_tiles_per_gaussian
+        )
+        gids, tile_ranges, order = sort_pairs(gids, keys, tiles_x * tiles_y)
+    out, t_final = _PairComposite.apply(
+        pack_attributes(sg), gids, tile_ranges, order, counts, tiles_x, image_shape
     )
     channels = out[:c] + background[:, None, None] * t_final[None]
     return channels, 1.0 - t_final, out[c], gids.shape[0]

@@ -9,8 +9,10 @@ one layout rule per torch module type:
   Conv2d           kernel (kh, kw, in, out) -> weight (out, in, kh, kw)
   ConvTranspose2d  kernel (kh, kw, in, out) -> weight (in, out, kh, kw),
                    spatially flipped (flax does not flip the kernel)
-  LayerNorm, GroupNorm  scale -> weight
+  LayerNorm, GroupNorm, BatchNorm2d  scale -> weight
 Subtrees of modules the port does not have yet (`UNPORTED`) are dropped.
+The same walk maps the generator, discriminator and LPIPS trees, and any
+tree laid out like them, such as optax's Adam moments (`adam_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -48,12 +50,12 @@ def _convert_leaf(module: nn.Module, name: str, value: np.ndarray) -> tuple[str,
         if name == "kernel":
             return "weight", value.transpose(3, 2, 0, 1)
         return name, value
-    if isinstance(module, (nn.LayerNorm, nn.GroupNorm)):
+    if isinstance(module, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)):
         return {"scale": "weight"}.get(name, name), value
     raise TypeError(f"no flax conversion for {type(module).__name__}.{name}")
 
 
-_LAYERS = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d, nn.LayerNorm, nn.GroupNorm)
+_LAYERS = (nn.Linear, nn.Conv2d, nn.ConvTranspose2d, nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d)
 
 
 def params_from_jax(params: Mapping, model: nn.Module) -> dict[str, torch.Tensor]:
@@ -63,8 +65,8 @@ def params_from_jax(params: Mapping, model: nn.Module) -> dict[str, torch.Tensor
     def visit(tree: Mapping, prefix: str):
         for key, value in tree.items():
             path = f"{prefix}{key}"
-            if path in UNPORTED:
-                continue
+            if path in UNPORTED or (isinstance(value, tuple) and not value):
+                continue   # not ported, or an optax MaskedNode (a leaf another label owns)
             if isinstance(value, Mapping):
                 visit(value, path + ".")
                 continue
@@ -79,3 +81,13 @@ def params_from_jax(params: Mapping, model: nn.Module) -> dict[str, torch.Tensor
 
     visit(params, "")
     return state
+
+
+def adam_state_from_jax(mu: Mapping, nu: Mapping, count, model: nn.Module) -> dict:
+    """optax ScaleByAdamState (moments laid out like `model`'s flax tree) ->
+    the state of one group of `training.optim.ChainedAdam`."""
+    return {
+        "count": torch.tensor(int(np.asarray(count)), dtype=torch.int32),
+        "mu": params_from_jax(mu, model),
+        "nu": params_from_jax(nu, model),
+    }

@@ -48,6 +48,9 @@ def test_yaml_scalars_and_flows_match_pyyaml(text):
     assert ours == theirs and type(ours) is type(theirs)
 
 
+TRAINING_SECTIONS = ("loss", "optimizer", "freeze", "train")
+
+
 @pytest.mark.parametrize("experiment", EXPERIMENTS)
 def test_model_and_dataset_match_jax(experiment):
     ours = load_config(experiment)
@@ -55,6 +58,24 @@ def test_model_and_dataset_match_jax(experiment):
     assert dataclasses.asdict(ours.model) == dataclasses.asdict(theirs.model)
     assert dataclasses.asdict(ours.dataset) == dataclasses.asdict(theirs.dataset)
     assert type(ours.dataset).__name__ == type(theirs.dataset).__name__
+
+
+@pytest.mark.parametrize("experiment", EXPERIMENTS)
+@pytest.mark.parametrize("section", TRAINING_SECTIONS)
+def test_training_sections_match_jax(experiment, section):
+    ours = getattr(load_config(experiment), section)
+    theirs = getattr(jax_load_config(experiment), section)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+
+
+def test_re10k_training_config():
+    cfg = load_config("re10k")
+    combined = cfg.loss.target_combined
+    assert [(l.name, l.apply_after_step) for l in combined.nll] == [("l1", 100000), ("lpips", 100000)]
+    assert (combined.generator.weight, combined.generator.apply_after_step) == (0.5, 125000)
+    assert (combined.discriminator.loss, type(combined.discriminator).__name__) == ("hinge", "LossDiscriminatorCfg")
+    assert cfg.optimizer.discriminator.betas == [0.5, 0.9]
+    assert cfg.model.discriminator.name == "patch_gan"
 
 
 def test_overrides_match_jax():

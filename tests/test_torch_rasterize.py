@@ -156,7 +156,7 @@ class TestDuplicateWithKeys:
         _, t_sg = project_both(make_scene(4, 120))
         counts, base, nx, mask = tile_rects(t_sg, TILES_X, TILES_Y, CAP)
         gids, keys = duplicate_with_keys_reference(counts, mask, base, nx, t_sg.depth, TILES_X, CAP)
-        sorted_gids, ranges = sort_pairs(gids, keys, TILES_X * TILES_Y)
+        sorted_gids, ranges, _ = sort_pairs(gids, keys, TILES_X * TILES_Y)
         assert ranges[0] == 0 and ranges[-1] == gids.shape[0]
         for t in range(TILES_X * TILES_Y):
             seg = sorted_gids[ranges[t] : ranges[t + 1]].long()
