@@ -1,16 +1,22 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--profile DIR]
+    python3 chip_smoke.py [--seed N] [--profile DIR] [--parent DIR]
 
 1. Builds the CUDA kernels from latentsplat_tpu_torch/csrc (sm_90a).
 2. Kernel phase: on the Gaussians of the flagship model's first target
    view, holds each forward kernel against its plain PyTorch version (ids,
-   keys and tile ranges exactly; channels and transmittance within 1e-5)
-   and times both with CUDA events.
+   keys and tile ranges exactly; channels and transmittance within 1e-5),
+   times both with CUDA events (a kernel's device time with the host
+   queued ahead) and counts on the card the (pair, pixel) work the view
+   needs, from which each kernel's bound follows.
 3. Backward kernel phase: on the same view, with a seeded random
    cotangent, holds composite_backward against its plain version (within
-   1e-4 of each gradient column's largest value) and reduce_pairs against
-   its plain version run on the CPU (exactly), and times both.
+   1e-4 of each gradient column's largest value; bit-identical on a
+   second launch) and reduce_pairs against its plain version run on the CPU
+   (exactly), and times both; reduce_pairs with L2 flushed and warm, in
+   three rounds beside index_add_ and segment_reduce. With --parent DIR,
+   builds the backward kernels of the checkout DIR and times them in turns
+   with this tree's on the same inputs.
 4. Slice phase: serves one batch (1 scene, 2 context and 4 target views at
    256x256, probabilistic) through `render_full` on the flagship re10k
    model at full width with seeded random weights, checks the output and
@@ -27,7 +33,8 @@
    through the tiled kernels against those through the dense oracle.
 
 Prints the card's name and power limit, one JSON line describing the
-kernels, and last `{"ok": true, "device": {...}}`. Any failed check raises.
+kernels (device ms, plain ms, the bound and its share, the library call's
+ms, launches on the main path), and last `{"ok": true, "device": {...}}`. Any failed check raises.
 Exits non-zero without printing a result when no CUDA device is present.
 """
 
@@ -46,9 +53,28 @@ import numpy as np
 import torch
 
 KERNEL_ATOL = 1e-5
-# composite_backward sums each pair's partials over the tile in warp order,
-# the plain version in torch.sum's order: float32 rounding of ~256-term sums.
+# composite_backward sums each pair's partials over the tile in its own
+# order and recovers T with one reciprocal, the plain version sums in
+# torch.sum's order and divides: float32 rounding of ~256-term sums.
 BACKWARD_RTOL = 1e-4
+# Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Rounded float32 operations (an expf, a min or a compare counts as one)
+# that the composite kernels spend per (pair, pixel) evaluation, and per
+# composited (pair, pixel) on top: the forward's weight, channel sums and
+# transmittance; the backward's value path, 6 + n_ch partials and its
+# share of their sum over the tile's pixels.
+EVAL_OPS = 14
+FLUSH_BYTES = 128 << 20
+
+
+def forward_composited_ops(n_ch: int) -> int:
+    return 2 * n_ch + 3
+
+
+def backward_composited_ops(n_ch: int) -> int:
+    return 3 * n_ch + 29 + (6 + n_ch)
 TRAIN_STEP = 125000
 FORWARD_KERNELS = ("duplicate_with_keys", "composite_forward")
 SMALL_OVERRIDES = [
@@ -105,7 +131,8 @@ def build_model(cfg, seed: int, device, peaked_depth: bool = True):
 
 
 def cuda_ms(fn, repeats: int) -> float:
-    """Median milliseconds of `fn` over `repeats` runs, timed with CUDA events."""
+    """Median milliseconds of `fn` over `repeats` runs, timed with CUDA events
+    around each call: the host's time inside the call counts too."""
     fn()
     times = []
     for _ in range(repeats):
@@ -116,6 +143,100 @@ def cuda_ms(fn, repeats: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, repeats: int = 20, flush: torch.Tensor | None = None) -> float:
+    """Median device milliseconds of one `fn` call. All calls are queued
+    behind a sleeping kernel, so the host's time in them (checks,
+    allocation, the ctypes call) overlaps the device's and is not counted;
+    with `flush` (>= 64 MB) written before each call, L2 starts cold. `fn`
+    must not wait for the device."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 21
+    for _ in range(6):
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(repeats)]
+        asleep = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        asleep.record()
+        for start, end in pairs:
+            if flush is not None:
+                flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        queued_ahead = not asleep.query()
+        torch.cuda.synchronize()
+        if queued_ahead:
+            return statistics.median(start.elapsed_time(end) for start, end in pairs)
+        cycles *= 4
+    raise RuntimeError("device_ms: the host never got ahead of the device")
+
+
+def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    """Least milliseconds one H100 SXM could take: the larger of the bytes
+    over HBM's rate and the operations over the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def entry(name: str, source: str, replaces: str, err: float, ms: float, plain_ms: float,
+          n_bytes: int, n_ops: int, library_ms: float | None = None) -> dict:
+    """One kernel's record of the `kernels` JSON line (launches come later)."""
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    print(f"{name}: bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, {n_ops} operations), "
+          f"{ms:.4f} ms: {bound_ms / ms:.1%} of the bound")
+    return {"name": name, "route": "cuda", "source": f"latentsplat_tpu_torch/csrc/{source}",
+            "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
+            "library_ms": library_ms}
+
+
+def composite_work(view: dict) -> dict:
+    """The (pair, pixel) work this view's inputs need, counted on the card:
+    the forward's evaluations (each pixel up to its `last` if it
+    saturated, else to its tile's end), the backward's (each pixel up to
+    its `last`), the composited (pair, pixel) combinations, the pairs some
+    pixel composited, and the backward kernel's (pair, warp) steps: all of
+    them, those below the warp's largest `last`, and those where some lane
+    of the warp composited the pair."""
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+
+    gids, ranges, attrs, tiles_x, (h, w) = (view[k] for k in ("gids", "ranges", "attrs", "tiles_x", "shape"))
+    tiles_y = h // kernels.TILE
+    num_tiles = tiles_x * tiles_y
+    starts, stops = ranges[:-1].long(), ranges[1:].long()
+    last = kernels.tile(view["last"], tiles_x, tiles_y).long()                   # (T, 256)
+    saturated = kernels.tile(view["t_final"], tiles_x, tiles_y) < kernels.TRANSMITTANCE_MIN
+    px, py = kernels._tile_pixels(num_tiles, tiles_x, attrs.device)
+    pair_tile = torch.repeat_interleave(torch.arange(num_tiles, device=attrs.device), stops - starts)
+    used = used_pairs = used_steps = 0
+    for lo in range(0, gids.shape[0], 1 << 15):
+        hi = min(lo + (1 << 15), gids.shape[0])
+        t = pair_tile[lo:hi]
+        a = attrs[gids[lo:hi].long()]
+        dx, dy = px[t] - a[:, 0:1], py[t] - a[:, 1:2]
+        power = -0.5 * (a[:, 2:3] * dx * dx + a[:, 4:5] * dy * dy) - a[:, 3:4] * dx * dy
+        alpha = torch.clamp(a[:, 5:6] * torch.exp(power), max=kernels.ALPHA_CLAMP)
+        pos = torch.arange(lo, hi, device=attrs.device)[:, None]
+        use = (pos < last[t]) & (power <= 0.0) & (alpha >= kernels.ALPHA_THRESHOLD)
+        used += int(use.sum())
+        used_pairs += int(use.any(dim=1).sum())
+        used_steps += int(use.view(-1, kernels.PIX // 32, 32).any(dim=2).sum())
+    walk = last.max(dim=1).values - starts                 # pairs each tile's backward walks
+    work = {
+        "forward_evaluations": int((torch.where(saturated, last, stops[:, None]) - starts[:, None]).sum()),
+        "backward_evaluations": int((last - starts[:, None]).sum()),
+        "composited": used, "composited_pairs": used_pairs,
+        "warp_steps": int(walk.sum()) * (kernels.PIX // 32),
+        "warp_steps_below_warp_last": int((last.view(num_tiles, -1, 32).max(dim=2).values - starts[:, None]).sum()),
+        "warp_steps_composited": used_steps,
+        "tile_walk_median": int(walk.median()), "tile_walk_max": int(walk.max()),
+    }
+    print("composite work (counted on the card): " + ", ".join(f"{k} {v}" for k, v in work.items()))
+    return work
 
 
 def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
@@ -144,7 +265,8 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
     tiles_x, tiles_y = w // 16, h // 16
     counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y)
     depth = sg.depth.contiguous()
-    print(f"kernel phase: {sg.num_gaussians} Gaussians, {int(counts.sum())} pairs, "
+    g_count, p_count = sg.num_gaussians, int(counts.sum())
+    print(f"kernel phase: {g_count} Gaussians, {p_count} pairs, "
           f"{channels.shape[-1] + 1} channels, {tiles_x * tiles_y} tiles")
 
     # duplicate_with_keys
@@ -158,11 +280,14 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
     ref_sorted, ref_ranges, _ = sort_pairs(ref_gids, ref_keys, tiles_x * tiles_y)
     if not (torch.equal(sorted_gids, ref_sorted) and torch.equal(ranges, ref_ranges)):
         raise AssertionError("sorted pairs or tile ranges differ")
+    # The wrapper reads the pair total back to the host, so it is timed
+    # with the host's time in it.
     dup_ms = cuda_ms(lambda: kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9), 20)
     dup_plain_ms = cuda_ms(
         lambda: kernels.duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, 9), 5
     )
-    print(f"duplicate_with_keys: exact match; {dup_ms:.4f} ms vs plain {dup_plain_ms:.4f} ms")
+    print(f"duplicate_with_keys: exact match; {dup_ms:.4f} ms (host time included) vs plain "
+          f"{dup_plain_ms:.4f} ms")
 
     # composite_forward
     attrs = pack_attributes(sg)
@@ -177,77 +302,205 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
           f"last-contributor mismatches {last_mismatch}, saturated pixels {saturated:.3f}")
     if not (err_ch <= KERNEL_ATOL and err_t <= KERNEL_ATOL):
         raise AssertionError(f"composite_forward disagrees with its plain version beyond {KERNEL_ATOL}")
-    comp_ms = cuda_ms(lambda: kernels.composite_forward(sorted_gids, ranges, attrs, tiles_x, (h, w)), 20)
+    comp_ms = device_ms(lambda: kernels.composite_forward(sorted_gids, ranges, attrs, tiles_x, (h, w)))
     comp_plain_ms = cuda_ms(
         lambda: kernels.composite_forward_reference(sorted_gids, ranges, attrs, tiles_x, (h, w)), 3
     )
-    print(f"composite_forward: {comp_ms:.4f} ms vs plain {comp_plain_ms:.4f} ms")
+    print(f"composite_forward: {comp_ms:.4f} ms (device) vs plain {comp_plain_ms:.4f} ms")
     view = {"gids": sorted_gids, "ranges": ranges, "order": order, "counts": counts, "attrs": attrs,
             "tiles_x": tiles_x, "shape": (h, w), "t_final": out[1], "last": out[2]}
+    view["work"] = work = composite_work(view)
+    n_ch, row, plane = attrs.shape[1] - 6, attrs.shape[1], h * w
     return view, [
-        {"name": "duplicate_with_keys", "route": "cuda",
-         "source": "latentsplat_tpu_torch/csrc/duplicate_with_keys.cu",
-         "replaces": "latentsplat_tpu/ops/rasterize/expand.py:159",
-         "max_abs_err": float(dup_err), "ms": dup_ms, "plain_ms": dup_plain_ms},
-        {"name": "composite_forward", "route": "cuda",
-         "source": "latentsplat_tpu_torch/csrc/composite_forward.cu",
-         "replaces": "latentsplat_tpu/ops/rasterize/pallas_kernels.py:399",
-         "max_abs_err": max(err_ch, err_t), "ms": comp_ms, "plain_ms": comp_plain_ms},
+        entry("duplicate_with_keys", "duplicate_with_keys.cu", "latentsplat_tpu/ops/rasterize/expand.py:159",
+              float(dup_err), dup_ms, dup_plain_ms, n_bytes=5 * 4 * g_count + 12 * p_count, n_ops=0),
+        entry("composite_forward", "composite_forward.cu",
+              "latentsplat_tpu/ops/rasterize/pallas_kernels.py:399", max(err_ch, err_t), comp_ms,
+              comp_plain_ms,
+              n_bytes=4 * p_count + 4 * ranges.numel() + 4 * row * g_count + 4 * (n_ch + 2) * plane,
+              n_ops=EVAL_OPS * work["forward_evaluations"] + forward_composited_ops(n_ch) * work["composited"]),
     ]
 
 
-def backward_kernel_phase(view: dict, seed: int) -> list[dict]:
+def backward_kernel_phase(view: dict, seed: int, parent: str | None = None) -> list[dict]:
     """composite_backward and reduce_pairs at the shapes of one flagship
-    view, against their plain versions, with a seeded random cotangent."""
+    view, against their plain versions, with a seeded random cotangent;
+    with `parent`, also the backward kernels of that checkout, timed in
+    turns with this tree's on the same inputs."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
-    gids, ranges, attrs, tiles_x, shape = (view[k] for k in ("gids", "ranges", "attrs", "tiles_x", "shape"))
+    gids, ranges, order, attrs, tiles_x, shape = (
+        view[k] for k in ("gids", "ranges", "order", "attrs", "tiles_x", "shape"))
     device = attrs.device
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     g_out = torch.randn((attrs.shape[1] - 6, *shape), generator=gen, device=device)
     g_t = torch.randn(shape, generator=gen, device=device)
-    args = (gids, ranges, attrs, tiles_x, shape, view["last"], view["t_final"], g_out, g_t)
-    d_pairs = kernels.composite_backward(*args)
+    args = (gids, ranges, order, attrs, tiles_x, shape, view["last"], view["t_final"], g_out, g_t)
+    d_rows = kernels.composite_backward(*args)
     ref = kernels.composite_backward_reference(*args)
     torch.cuda.synchronize()
     scale = ref.abs().amax(dim=0).clamp(min=1e-30)
-    bwd_err = ((d_pairs - ref).abs() / scale).max().item()
+    bwd_err = ((d_rows - ref).abs() / scale).max().item()
     print(f"composite_backward: {gids.shape[0]} pair rows of {attrs.shape[1]}, max error relative to "
           f"each column's largest value {bwd_err:.3e} (tolerance {BACKWARD_RTOL})")
     if not bwd_err <= BACKWARD_RTOL:
         raise AssertionError("composite_backward disagrees with its plain version")
-    if not torch.equal(d_pairs, kernels.composite_backward(*args)):
+    if not torch.equal(d_rows, kernels.composite_backward(*args)):
         raise AssertionError("composite_backward is not deterministic")
-    bwd_ms = cuda_ms(lambda: kernels.composite_backward(*args), 20)
+    bwd_ms = device_ms(lambda: kernels.composite_backward(*args))
     bwd_plain_ms = cuda_ms(lambda: kernels.composite_backward_reference(*args), 3)
-    print(f"composite_backward: {bwd_ms:.4f} ms vs plain {bwd_plain_ms:.4f} ms")
+    print(f"composite_backward: {bwd_ms:.4f} ms (device) vs plain {bwd_plain_ms:.4f} ms; "
+          f"{bwd_ms * 1e6 / view['work']['tile_walk_max']:.1f} ns per pair of the longest tile walk")
 
-    order = view["order"]
-    inverse = torch.empty_like(order)
-    inverse[order] = torch.arange(order.shape[0], device=device)
-    offsets = torch.cumsum(view["counts"], dim=0, dtype=torch.int64)
-    rows = kernels.reduce_pairs(d_pairs, gids, inverse, offsets)
-    # The plain version on the CPU adds in index order, which is each
-    # Gaussian's tile order, as the kernel does: the same bits.
-    ref_rows = kernels.reduce_pairs_reference(d_pairs.cpu(), gids.cpu(), offsets.shape[0])
+    counts = view["counts"]
+    offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
+    rows = kernels.reduce_pairs(d_rows, offsets)
+    # The plain version on the CPU adds each Gaussian's rows in slot order,
+    # as the kernel does: the same bits.
+    ref_rows = kernels.reduce_pairs_reference(d_rows.cpu(), offsets.cpu())
     torch.cuda.synchronize()
     red_err = (rows.cpu() - ref_rows).abs().max().item()
     print(f"reduce_pairs: {rows.shape[0]} Gaussians, max abs error {red_err:.3e} (exact expected)")
     if not torch.equal(rows.cpu(), ref_rows):
         raise AssertionError("reduce_pairs disagrees with its plain version")
-    red_ms = cuda_ms(lambda: kernels.reduce_pairs(d_pairs, gids, inverse, offsets), 20)
-    red_plain_ms = cuda_ms(lambda: kernels.reduce_pairs_reference(d_pairs, gids, offsets.shape[0]), 5)
-    print(f"reduce_pairs: {red_ms:.4f} ms vs plain (index_add_ on the card) {red_plain_ms:.4f} ms")
+    # Yardsticks, never called by the port: index_add_ of the sorted rows by
+    # Gaussian id (what the plain version was), and segment_reduce of the
+    # Gaussian-major rows.
+    g_count, row = rows.shape
+    sorted_rows, sorted_ids, lengths = d_rows[order], gids.long(), counts.long()
+
+    def index_add():
+        return torch.zeros((g_count, row), device=device).index_add_(0, sorted_ids, sorted_rows)
+
+    def segment_reduce():
+        return torch.segment_reduce(d_rows, "sum", lengths=lengths, axis=0, unsafe=True)
+
+    lib_err = {f.__name__: ((f() - rows).abs().max() / rows.abs().max()).item() for f in (index_add, segment_reduce)}
+    print(f"reduce_pairs yardsticks, max error relative to the largest sum: {lib_err}")
+    flush = torch.empty(FLUSH_BYTES // 4, device=device)
+    # The card's streaming rate at this size: a copy that reads and writes
+    # as many bytes in all as the kernel's bound counts.
+    n_bytes = 4 * row * d_rows.shape[0] + 8 * g_count + 4 * row * g_count
+    copy_src = torch.empty(n_bytes // 8, dtype=torch.float32, device=device)
+    copy_dst = torch.empty_like(copy_src)
+    rounds = []
+    for _ in range(3):
+        rounds.append({
+            "kernel": device_ms(lambda: kernels.reduce_pairs(d_rows, offsets), flush=flush),
+            "index_add_": device_ms(index_add, flush=flush),
+            "segment_reduce": device_ms(segment_reduce, flush=flush),
+            "kernel_warm": device_ms(lambda: kernels.reduce_pairs(d_rows, offsets)),
+            "index_add_warm": device_ms(index_add),
+            "segment_reduce_warm": device_ms(segment_reduce),
+            "copy_same_bytes": device_ms(lambda: copy_dst.copy_(copy_src), flush=flush),
+        })
+    for i, r in enumerate(rounds):
+        print(f"reduce_pairs round {i} (device ms, L2 flushed / warm): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in r.items()))
+    wins = sum(r["kernel"] <= min(r["index_add_"], r["segment_reduce"]) for r in rounds)
+    red_ms = statistics.median(r["kernel"] for r in rounds)
+    library_ms = min(statistics.median(r[k] for r in rounds) for k in ("index_add_", "segment_reduce"))
+    red_plain_ms = cuda_ms(lambda: kernels.reduce_pairs_reference(d_rows, offsets), 5)
+    print(f"reduce_pairs: {red_ms:.4f} ms (device, L2 flushed), warm "
+          f"{statistics.median(r['kernel_warm'] for r in rounds):.4f} ms; library {library_ms:.4f} ms; "
+          f"no slower than the library in {wins} of {len(rounds)} rounds; plain on the card "
+          f"{red_plain_ms:.4f} ms")
+    if parent:
+        parent_comparison(parent, args, d_rows, offsets, flush)
+
+    work, n_ch, p_count = view["work"], attrs.shape[1] - 6, gids.shape[0]
+    plane = shape[0] * shape[1]
     return [
-        {"name": "composite_backward", "route": "cuda",
-         "source": "latentsplat_tpu_torch/csrc/composite_backward.cu",
-         "replaces": "latentsplat_tpu/ops/rasterize/pallas_kernels.py:667",
-         "max_abs_err": (d_pairs - ref).abs().max().item(), "ms": bwd_ms, "plain_ms": bwd_plain_ms},
-        {"name": "reduce_pairs", "route": "cuda",
-         "source": "latentsplat_tpu_torch/csrc/reduce_pairs.cu",
-         "replaces": "latentsplat_tpu/ops/rasterize/expand.py:254",
-         "max_abs_err": red_err, "ms": red_ms, "plain_ms": red_plain_ms},
+        entry("composite_backward", "composite_backward.cu",
+              "latentsplat_tpu/ops/rasterize/pallas_kernels.py:667", (d_rows - ref).abs().max().item(),
+              bwd_ms, bwd_plain_ms,
+              n_bytes=4 * p_count + 4 * ranges.numel() + 8 * p_count + 4 * (n_ch + 6) * attrs.shape[0]
+              + 4 * (n_ch + 3) * plane + 4 * (n_ch + 6) * p_count,
+              n_ops=EVAL_OPS * work["backward_evaluations"] + backward_composited_ops(n_ch) * work["composited"]),
+        entry("reduce_pairs", "reduce_pairs.cu", "latentsplat_tpu/ops/rasterize/expand.py:254", red_err,
+              red_ms, red_plain_ms, n_bytes=4 * row * p_count + 8 * g_count + 4 * row * g_count, n_ops=0,
+              library_ms=library_ms),
     ]
+
+
+def parent_comparison(parent: str, args: tuple, d_rows: torch.Tensor, offsets: torch.Tensor,
+                      flush: torch.Tensor) -> None:
+    """Builds the backward kernels of the checkout `parent`, whose
+    composite_backward writes rows in sorted order into a zero-filled buffer
+    and whose reduce_pairs reads them through the inverse of the sort's
+    order, checks them against this tree's, and times both on the same
+    inputs in turns (parent, this tree, this tree, parent)."""
+    import ctypes
+    from pathlib import Path
+
+    from latentsplat_tpu_torch import cuda_build
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+
+    sources = [Path(parent) / "latentsplat_tpu_torch" / "csrc" / f for f in ("composite_backward.cu", "reduce_pairs.cu")]
+    lib_path = cuda_build.BUILD_DIR.parent / "parent_kernels" / "libparent.so"
+    start = time.perf_counter()
+    cuda_build.compile_library(sources, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.composite_backward.argtypes = [i, i, p, p, p, i, i, i, p, p, p, p, p, p]
+    lib.reduce_pairs.argtypes = [i, i, p, p, p, p, p]
+    lib.composite_backward.restype = lib.reduce_pairs.restype = i
+    print(f"parent kernels from {parent} built in {time.perf_counter() - start:.2f} s")
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  parent ptxas:", line.strip())
+
+    gids, ranges, order, attrs, tiles_x, (h, w), last, t_final, g_out, g_t = args
+    n_ch, row = attrs.shape[1] - 6, attrs.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    old_rows = torch.zeros((gids.shape[0], row), device=attrs.device)
+
+    def parent_backward():
+        cuda_build.check(lib.composite_backward(
+            n_ch, ranges.numel() - 1, gids.data_ptr(), ranges.data_ptr(), attrs.data_ptr(), tiles_x, h, w,
+            last.data_ptr(), t_final.data_ptr(), g_out.data_ptr(), g_t.data_ptr(), old_rows.data_ptr(),
+            stream), "parent composite_backward")
+
+    sorted_rows = d_rows[order]
+    old_sums = torch.empty((offsets.shape[0], row), device=attrs.device)
+
+    def parent_reduce(inverse):
+        cuda_build.check(lib.reduce_pairs(
+            offsets.shape[0], row, sorted_rows.data_ptr(), inverse.data_ptr(), offsets.data_ptr(),
+            old_sums.data_ptr(), stream), "parent reduce_pairs")
+
+    def parent_reduce_route():   # the parent's path built the inverse first
+        inverse = torch.empty_like(order)
+        inverse[order] = torch.arange(order.shape[0], device=order.device)
+        parent_reduce(inverse)
+
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(order.shape[0], device=order.device)
+    parent_backward()
+    parent_reduce(inverse)
+    torch.cuda.synchronize()
+    scale = sorted_rows.abs().amax(dim=0).clamp(min=1e-30)
+    diff = ((old_rows - sorted_rows).abs() / scale).max().item()
+    print(f"parent composite_backward vs this tree's: max difference relative to each column's largest "
+          f"value {diff:.3e}")
+    if not diff <= 2 * BACKWARD_RTOL:
+        raise AssertionError("the parent's composite_backward and this tree's disagree")
+    if not torch.equal(old_sums, kernels.reduce_pairs(d_rows, offsets)):
+        raise AssertionError("the parent's reduce_pairs and this tree's disagree")
+    timings = {"composite_backward": [], "reduce_pairs": [], "reduce_pairs route": []}
+    for turn in ("parent", "this tree", "this tree", "parent"):
+        if turn == "parent":
+            bwd = device_ms(parent_backward)
+            red = device_ms(lambda: parent_reduce(inverse), flush=flush)
+            route = device_ms(parent_reduce_route, flush=flush)
+        else:
+            bwd = device_ms(lambda: kernels.composite_backward(*args))
+            red = route = device_ms(lambda: kernels.reduce_pairs(d_rows, offsets), flush=flush)
+        for key, value in zip(timings, (bwd, red, route)):
+            timings[key].append((turn, value))
+    for key, values in timings.items():
+        print(f"parent vs this tree, {key} (device ms" + (", L2 flushed" if "reduce" in key else "")
+              + "): " + ", ".join(f"{turn} {v:.4f}" for turn, v in values))
 
 
 def slice_phase(model, batch, seed: int, profile_dir: str | None = None) -> dict:
@@ -301,6 +554,8 @@ def slice_phase(model, batch, seed: int, profile_dir: str | None = None) -> dict
 
 # Device activity in a Chrome trace of torch.profiler.
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_RASTER_KERNELS = ("duplicate_with_keys", "composite_forward", "composite_backward", "reduce_pairs",
+                   "RadixSort")
 _TRACE_KEEP_BYTES = 16 << 20
 
 
@@ -337,6 +592,18 @@ def trace_breakdown(trace: dict) -> list[str]:
             f"({busy_us / max(span_us, 1e-9):.0%}), {len(items)} launches; top: "
             + "; ".join(f"{k[:70]} {v / 1e3:.3f}" for k, v in top)
         )
+    # The rasterizer's kernels (the port's four and the library sort).
+    raster: dict[str, list[float]] = {}
+    for e in device:
+        name = next((k for k in _RASTER_KERNELS if k in e["name"]), None)
+        if name:
+            raster.setdefault(name, []).append(e["dur"])
+    busy_us = sum(e["dur"] for e in device)
+    raster_us = sum(sum(v) for v in raster.values())
+    lines.append(
+        f"rasterizer kernels: {raster_us / 1e3:.3f} ms, {raster_us / max(busy_us, 1e-9):.2%} of device busy; "
+        + "; ".join(f"{k} {sum(v) / 1e3:.3f} ms in {len(v)} launches" for k, v in raster.items())
+    )
     return lines
 
 
@@ -537,7 +804,9 @@ def small_input_check(seed: int, device) -> None:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--profile", metavar="DIR", help="also profile one render_full into DIR")
+    parser.add_argument("--profile", metavar="DIR", help="also profile one render_full and one train step into DIR")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="also time the backward kernels of the checkout DIR beside this tree's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -555,14 +824,14 @@ def main() -> int:
     print(f"kernels: {'built' if info['built'] else 'loaded'} {info['path']} in {info['seconds']:.2f} s "
           f"from {info['sources']} with {' '.join(cuda_build.NVCC_FLAGS)}")
     for line in info["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
     cfg = load_config("re10k")
     model = build_model(cfg, args.seed, device)
     batch = make_batch(np.random.default_rng(args.seed), 2, 4, 256, device)
     view, results = kernel_phase(model, batch, args.seed)
-    results += backward_kernel_phase(view, args.seed)
+    results += backward_kernel_phase(view, args.seed, args.parent)
     del view
     serve_launches = slice_phase(model, batch, args.seed, args.profile)
     del model

@@ -6,29 +6,47 @@
 // triangular-matmul prefix and suffix scans in log space, and accumulated
 // per-pair gradients by read-modify-writes of overlapping chunk windows,
 // which the sequential TPU grid made race-free. Here one block owns one
-// tile and one thread owns one pixel, as in composite_forward. The block
-// walks its tile's pairs from the largest per-pixel `last` down to the tile
-// start, staging batches of 64 pairs' attributes in shared memory. A pixel
-// takes part only for pairs below its own `last`, which are exactly the
-// pairs its forward composited (the forward stops each pixel on its own).
+// tile and one thread owns one pixel; warp w owns the tile's rows 2w and
+// 2w + 1. The block walks its tile's pairs from the tile's largest
+// per-pixel `last` down to the tile start, staging batches of 64 pairs'
+// attributes in shared memory (one 16-float row per pair, read as float4).
+// A pixel takes part only for pairs below its own `last`, which are
+// exactly the pairs its forward composited (the forward stops each pixel
+// on its own).
 //
 // Per (pair, pixel) it recomputes alpha with the forward's rules and
-// rounding (0.99 clamp, drop when power > 0 or alpha < 1/255, expf),
-// recovers the transmittance before the pair as T / (1 - alpha) (finite
-// because alpha <= 0.99), and carries the suffix
-// S = g_T * T_final + sum of later pairs' alpha * T * (c . g):
+// rounding (0.99 clamp, drop when power > 0 or alpha < 1/255, expf), so
+// its decisions match composite_forward, recovers the transmittance before
+// the pair as T * (1 / (1 - alpha)) (finite because alpha <= 0.99), and
+// carries the suffix S = g_T * T_final + sum of later pairs'
+// alpha * T * (c . g):
 //   d_alpha   = (c . g) * T - S / (1 - alpha), zero where alpha was clamped
 //   d_opacity = d_alpha * exp(power),  d_power = d_alpha * alpha
 //   -> conic a/b/c and mean x/y;  d_channel = alpha * T * g.
-// Each pair's 6 + NCH partials are summed over the tile: a warp shuffle
-// reduction, then the 8 warps' sums, written to shared memory per warp and
-// added in warp order at the end of the batch. No atomics, so the result
-// is deterministic; a pair belongs to one tile, so blocks never share a row.
+// That value path is left to the compiler's contractions (FMA): it decides
+// nothing, and its rounding is inside the gradient tolerance.
 //
-// Bound: per (pair, pixel) ~40 flops, one expf and one division, plus a
-// warp reduction of 6 + NCH values for every pair that any lane of the
-// warp uses (skipped when none does); per pair the block reads 6 + NCH
-// floats once and writes one row of d_pairs. Compute- and latency-bound.
+// A warp steps over two pairs at a time, so that their alpha tests
+// overlap, and sums both pairs' 6 + NCH partials (each padded to 16) over
+// its 32 pixels by recursive halving: at each of five steps a lane keeps
+// half of its values and adds its partner's copy of that half, so lane l
+// ends with the warp sum of value l after 31 shuffles (a shuffle tree per
+// value takes 70 per pair), and the lanes store the 2 x 16 sums in one
+// instruction. A warp skips the alpha tests of a pair whose footprint (the
+// rows where alpha can reach 1/255, widened by a margin far above float
+// rounding) misses its two rows, and of pairs above its own largest
+// `last`; it stores zeros when none of its lanes composited either pair.
+// At the end of each batch the 8 warps' sums are added in warp order and
+// written to d_rows[order[pos]], the pair's Gaussian-major position, where
+// reduce_pairs sums contiguous segments; rows of pairs past the tile's
+// largest `last` are written as zeros, so every row is written. No
+// atomics, so the result is deterministic; a pair belongs to one tile, so
+// blocks never share a row.
+//
+// Bound: operations. Per (pair, pixel) below the pixel's `last` ~14 and
+// per composited (pair, pixel) ~60 more, against which the kernel pays for
+// whole warps (a composited pair uses about a quarter of a warp's lanes),
+// the shuffle exchange, and each tile's serial walk.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -39,35 +57,160 @@ constexpr int kTile = 16;
 constexpr int kPixels = kTile * kTile;
 constexpr int kWarps = kPixels / 32;
 constexpr int kBatch = 64;
+constexpr int kPad = 16;         // floats per staged row and partials per pair
+constexpr int kFootprint = 14;   // row slots of the footprint's first and last row
 constexpr float kAlphaClamp = 0.99f;
 constexpr float kAlphaThreshold = static_cast<float>(1.0 / 255.0);
+constexpr unsigned kFull = 0xffffffffu;
+
+// One halving step over N values: the lane whose bit kOffset is set keeps
+// values kHalf..2 kHalf-1, its partner 0..kHalf-1, and each adds the
+// other's copy of the half it keeps.
+template <int kHalf, int kOffset, int N>
+__device__ __forceinline__ void halve(float (&v)[N], int lane) {
+  const bool upper = (lane & kOffset) != 0;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float send = upper ? v[i] : v[i + kHalf];
+    const float keep = upper ? v[i + kHalf] : v[i];
+    v[i] = keep + __shfl_xor_sync(kFull, send, kOffset);
+  }
+}
+
+// Sums v[0..31] over the warp in 31 shuffles; lane l returns the sum of
+// value l.
+__device__ __forceinline__ float warp_sum32(float (&v)[2 * kPad], int lane) {
+  static_assert(kPad == 16, "five halving steps over 32 lanes");
+  halve<16, 16>(v, lane);
+  halve<8, 8>(v, lane);
+  halve<4, 4>(v, lane);
+  halve<2, 2>(v, lane);
+  halve<1, 1>(v, lane);
+  return v[0];
+}
+
+// The rows [lo, hi] outside which alpha < 1/255 at every pixel: for a
+// positive-definite conic -power >= dy^2 (ac - b^2) / (2a), and alpha
+// needs -power <= log(255 opacity). Widened by 1e-3 relative and 0.05 px;
+// empty when opacity < 1/255, unbounded when the conic is not positive
+// definite.
+__device__ __forceinline__ float2 footprint_rows(const float (&a)[kPad]) {
+  const float ca = a[2], cb = a[3], cc = a[4], opacity = a[5];
+  if (!(opacity * 255.0f >= 1.0f)) return make_float2(INFINITY, -INFINITY);
+  const float det = ca * cc - cb * cb;
+  if (!(ca > 0.0f && det > 0.0f)) return make_float2(-INFINITY, INFINITY);
+  const float tau = logf(255.0f * opacity) * 1.001f + 1e-3f;
+  const float half = sqrtf(2.0f * tau * ca / det) * 1.001f + 0.05f;
+  return make_float2(a[1] - half, a[1] + half);
+}
+
+// The forward's alpha test of one (pair, pixel), with its rounding. `e` is
+// clamped to exp(0) where power > 0 so that a lane that fails the test
+// still computes finite partials (which it then multiplies by zero).
+struct Hit {
+  float dx, dy, e, raw, alpha;
+  bool pass;
+};
+
+__device__ __forceinline__ Hit alpha_test(const float4& q0, const float4& q1, float fx, float fy,
+                                          bool in_range) {
+  Hit h;
+  const float ca = q0.z, cb = q0.w, cc = q1.x;
+  h.dx = __fsub_rn(fx, q0.x);
+  h.dy = __fsub_rn(fy, q0.y);
+  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, h.dx), h.dx),
+                               __fmul_rn(__fmul_rn(cc, h.dy), h.dy));
+  const float power = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(cb, h.dx), h.dy));
+  h.e = expf(fminf(power, 0.0f));
+  h.raw = __fmul_rn(q1.y, h.e);
+  h.alpha = fminf(kAlphaClamp, h.raw);
+  h.pass = in_range && power <= 0.0f && h.alpha >= kAlphaThreshold;
+  return h;
+}
+
+// One (pair, pixel)'s 6 + NCH partials into part[0..15], stepping the
+// pixel's transmittance t and suffix back over the pair. Branch-free: a
+// lane that failed the alpha test takes alpha = 0, so t and suffix keep
+// their values and every partial is zero.
+template <int NCH>
+__device__ __forceinline__ void partials(const float4 (&row)[kPad / 4], const Hit& h,
+                                         const float (&g)[NCH], float& t, float& suffix,
+                                         float* part) {
+  float a[kPad];
+#pragma unroll
+  for (int i = 0; i < kPad / 4; ++i) {
+    a[4 * i] = row[i].x;
+    a[4 * i + 1] = row[i].y;
+    a[4 * i + 2] = row[i].z;
+    a[4 * i + 3] = row[i].w;
+  }
+  const float ca = a[2], cb = a[3], cc = a[4];
+  const float alpha = h.pass ? h.alpha : 0.0f;
+  const float inv = __frcp_rn(1.0f - alpha);
+  const float t_before = t * inv;
+  const float w = alpha * t_before;
+  float cg_dot = 0.0f;
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    cg_dot += a[6 + c] * g[c];
+    part[6 + c] = w * g[c];
+  }
+  const float d_alpha = h.pass && h.raw < kAlphaClamp ? cg_dot * t_before - suffix * inv : 0.0f;
+  const float d_pow = d_alpha * alpha;
+  const float dx = h.dx, dy = h.dy;
+  part[0] = (ca * dx + cb * dy) * d_pow;
+  part[1] = (cc * dy + cb * dx) * d_pow;
+  part[2] = -0.5f * dx * dx * d_pow;
+  part[3] = -dx * dy * d_pow;
+  part[4] = -0.5f * dy * dy * d_pow;
+  part[5] = d_alpha * h.e;
+#pragma unroll
+  for (int r = 6 + NCH; r < kPad; ++r) part[r] = 0.0f;
+  suffix += w * cg_dot;
+  t = t_before;
+}
+
+// Shared memory of one block: the batch's attribute rows and destinations,
+// and the warps' partial sums, both double-buffered across batches so
+// that one barrier per batch suffices.
+struct Shared {
+  float4 attr[kBatch][kPad / 4];
+  int64_t dst[2][kBatch];
+  float part[2][kWarps][kBatch][kPad];
+  int end[kWarps];
+};
 
 template <int NCH>
-__global__ void __launch_bounds__(kPixels) composite_backward_kernel(
+__global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
     const int32_t* __restrict__ gids,         // (P,) depth-sorted within each tile
     const int32_t* __restrict__ tile_ranges,  // (T + 1,)
+    const int64_t* __restrict__ order,        // (P,) sorted position -> Gaussian-major position
     const float* __restrict__ attrs,          // (G, 6 + NCH)
     int tiles_x, int height, int width,
     const int32_t* __restrict__ last,         // (H, W) exclusive end of contributing pairs
     const float* __restrict__ t_final,        // (H, W)
     const float* __restrict__ g_channels,     // (NCH, H, W) cotangent of the channels
     const float* __restrict__ g_t,            // (H, W) cotangent of T_final
-    float* __restrict__ d_pairs) {            // (P, 6 + NCH), zero-filled by the caller
+    float* __restrict__ d_rows) {             // (P, 6 + NCH) Gaussian-major
   constexpr int kStride = 6 + NCH;
-  __shared__ float s_attr[kStride][kBatch];
-  __shared__ float s_part[kWarps][kBatch][kStride];
-  __shared__ int s_end;
+  static_assert(kStride <= kFootprint, "the staged row has no room for the footprint");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Shared& sm = *reinterpret_cast<Shared*>(smem_raw);
 
-  const int tile = blockIdx.x;
-  const int lane = static_cast<int>(threadIdx.x) & 31;
-  const int warp = static_cast<int>(threadIdx.x) >> 5;
-  const int px = (tile % tiles_x) * kTile + static_cast<int>(threadIdx.x) % kTile;
-  const int py = (tile / tiles_x) * kTile + static_cast<int>(threadIdx.x) / kTile;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tile = static_cast<int>(blockIdx.x);
+  const int ty0 = (tile / tiles_x) * kTile;
+  const int px = (tile % tiles_x) * kTile + tid % kTile;
+  const int py = ty0 + tid / kTile;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
+  const float warp_y0 = static_cast<float>(ty0 + 2 * warp);
   const int pixel = py * width + px;
   const int64_t plane = static_cast<int64_t>(height) * width;
   const int start = tile_ranges[tile];
+  const int stop = tile_ranges[tile + 1];
 
   const int my_last = last[pixel];
   float t = t_final[pixel];
@@ -76,126 +219,130 @@ __global__ void __launch_bounds__(kPixels) composite_backward_kernel(
   for (int c = 0; c < NCH; ++c) g[c] = g_channels[c * plane + pixel];
   float suffix = __fmul_rn(g_t[pixel], t);
 
-  if (threadIdx.x == 0) s_end = start;
+  // Above its own largest `last` a warp only stores zeros; the tile's
+  // largest `last` bounds the walk.
+  const int warp_last = __reduce_max_sync(kFull, my_last);
+  if (lane == 0) sm.end[warp] = warp_last;
   __syncthreads();
-  atomicMax(&s_end, my_last);
-  __syncthreads();
-  const int end = s_end;
+  int end = start;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) end = max(end, sm.end[w]);
 
-  for (int hi = end; hi > start; hi -= kBatch) {
+  // Pairs no pixel composited get zero rows.
+  for (int p = end + tid; p < stop; p += kPixels) {
+    float* row = d_rows + order[p] * kStride;
+#pragma unroll
+    for (int r = 0; r < kStride; ++r) row[r] = 0.0f;
+  }
+
+  int buf = 0;
+  const bool mine = (lane & 15) < kStride;
+  for (int hi = end; hi > start; hi -= kBatch, buf ^= 1) {
     const int lo = max(start, hi - kBatch);
     const int n = hi - lo;
-    if (static_cast<int>(threadIdx.x) < n) {
-      const float* a = attrs + static_cast<int64_t>(gids[lo + threadIdx.x]) * kStride;
+    if (tid < n) {
+      const float* src = attrs + static_cast<int64_t>(gids[lo + tid]) * kStride;
+      float a[kPad];
 #pragma unroll
-      for (int r = 0; r < kStride; ++r) s_attr[r][threadIdx.x] = a[r];
+      for (int r = 0; r < kPad; ++r) a[r] = r < kStride ? src[r] : 0.0f;
+      const float2 rows = footprint_rows(a);
+      a[kFootprint] = rows.x;
+      a[kFootprint + 1] = rows.y;
+#pragma unroll
+      for (int i = 0; i < kPad / 4; ++i) {
+        sm.attr[tid][i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+      }
+      sm.dst[buf][tid] = order[lo + tid];
     }
     __syncthreads();
-    for (int k = n - 1; k >= 0; --k) {
-      float part[kStride];
-#pragma unroll
-      for (int r = 0; r < kStride; ++r) part[r] = 0.0f;
-      bool used = false;
-      if (lo + k < my_last) {
-        const float ca = s_attr[2][k], cb = s_attr[3][k], cc = s_attr[4][k];
-        const float dx = __fsub_rn(fx, s_attr[0][k]);
-        const float dy = __fsub_rn(fy, s_attr[1][k]);
-        const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
-                                     __fmul_rn(__fmul_rn(cc, dy), dy));
-        const float power = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(cb, dx), dy));
-        if (power <= 0.0f) {
-          const float e = expf(power);
-          const float raw = __fmul_rn(s_attr[5][k], e);
-          const float alpha = fminf(kAlphaClamp, raw);
-          if (alpha >= kAlphaThreshold) {
-            used = true;
-            const float one_minus = __fsub_rn(1.0f, alpha);
-            const float t_before = __fdiv_rn(t, one_minus);
-            const float w = __fmul_rn(alpha, t_before);
-            float cg = 0.0f;
-#pragma unroll
-            for (int c = 0; c < NCH; ++c) {
-              cg = __fadd_rn(cg, __fmul_rn(s_attr[6 + c][k], g[c]));
-              part[6 + c] = __fmul_rn(w, g[c]);
-            }
-            if (raw < kAlphaClamp) {
-              const float d_alpha =
-                  __fsub_rn(__fmul_rn(cg, t_before), __fdiv_rn(suffix, one_minus));
-              const float d_pow = __fmul_rn(d_alpha, alpha);
-              part[0] = __fmul_rn(__fadd_rn(__fmul_rn(ca, dx), __fmul_rn(cb, dy)), d_pow);
-              part[1] = __fmul_rn(__fadd_rn(__fmul_rn(cc, dy), __fmul_rn(cb, dx)), d_pow);
-              part[2] = __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, dx), dx), d_pow);
-              part[3] = __fmul_rn(__fmul_rn(-dx, dy), d_pow);
-              part[4] = __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, dy), dy), d_pow);
-              part[5] = __fmul_rn(d_alpha, e);
-            }
-            suffix = __fadd_rn(suffix, __fmul_rn(w, cg));
-            t = t_before;
+    // Two pairs per step, a = k and b = k - 1 (back to front). Lane l
+    // ends with value l & 15 of pair a (l < 16) or b, and stores it.
+    for (int k = n - 1; k >= 0; k -= 2) {
+      const bool has_b = k >= 1;
+      const int kb = has_b ? k - 1 : k;
+      float sum = 0.0f;
+      if (lo + kb < warp_last) {
+        // Footprint rows (z, w) against the warp's rows y0 and y0 + 1.
+        const float4 fa = sm.attr[k][kFootprint / 4];
+        const float4 fb = sm.attr[kb][kFootprint / 4];
+        const bool near_a = fa.z <= warp_y0 + 1.0f && fa.w >= warp_y0;
+        const bool near_b = has_b && fb.z <= warp_y0 + 1.0f && fb.w >= warp_y0;
+        if (near_a || near_b) {
+          float4 ra[kPad / 4], rb[kPad / 4];
+          ra[0] = sm.attr[k][0];
+          ra[1] = sm.attr[k][1];
+          rb[0] = sm.attr[kb][0];
+          rb[1] = sm.attr[kb][1];
+          const Hit ha = alpha_test(ra[0], ra[1], fx, fy, near_a && lo + k < my_last);
+          const Hit hb = alpha_test(rb[0], rb[1], fx, fy, near_b && lo + kb < my_last);
+          if (__any_sync(kFull, ha.pass || hb.pass)) {
+            ra[2] = sm.attr[k][2];
+            ra[3] = sm.attr[k][3];
+            rb[2] = sm.attr[kb][2];
+            rb[3] = sm.attr[kb][3];
+            float part[2 * kPad];
+            partials<NCH>(ra, ha, g, t, suffix, part);
+            partials<NCH>(rb, hb, g, t, suffix, part + kPad);
+            sum = warp_sum32(part, lane);
           }
         }
       }
-      if (__any_sync(0xffffffffu, used)) {
-#pragma unroll
-        for (int r = 0; r < kStride; ++r) {
-          float v = part[r];
-#pragma unroll
-          for (int offset = 16; offset > 0; offset >>= 1) {
-            v += __shfl_down_sync(0xffffffffu, v, offset);
-          }
-          if (lane == 0) s_part[warp][k][r] = v;
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < kStride; ++r) s_part[warp][k][r] = 0.0f;
-      }
+      if (mine && (lane < 16 || has_b)) sm.part[buf][warp][lane < 16 ? k : kb][lane & 15] = sum;
     }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < n * kStride; idx += kPixels) {
+    for (int idx = tid; idx < n * kStride; idx += kPixels) {
       const int k = idx / kStride;
       const int r = idx - k * kStride;
       float sum = 0.0f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += s_part[w][k][r];
-      d_pairs[static_cast<int64_t>(lo + k) * kStride + r] = sum;
+      for (int w = 0; w < kWarps; ++w) sum += sm.part[buf][w][k][r];
+      d_rows[sm.dst[buf][k] * kStride + r] = sum;
     }
-    __syncthreads();
   }
 }
 
 template <int NCH>
-void launch(int num_tiles, const void* gids, const void* tile_ranges, const void* attrs,
-            int tiles_x, int height, int width, const void* last, const void* t_final,
-            const void* g_channels, const void* g_t, void* d_pairs, cudaStream_t stream) {
-  composite_backward_kernel<NCH><<<num_tiles, kPixels, 0, stream>>>(
+cudaError_t launch(int num_tiles, const void* gids, const void* tile_ranges, const void* order,
+                   const void* attrs, int tiles_x, int height, int width, const void* last,
+                   const void* t_final, const void* g_channels, const void* g_t, void* d_rows,
+                   cudaStream_t stream) {
+  auto kernel = composite_backward_kernel<NCH>;
+  constexpr int kBytes = static_cast<int>(sizeof(Shared));
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<num_tiles, kPixels, kBytes, stream>>>(
       static_cast<const int32_t*>(gids), static_cast<const int32_t*>(tile_ranges),
-      static_cast<const float*>(attrs), tiles_x, height, width,
-      static_cast<const int32_t*>(last), static_cast<const float*>(t_final),
+      static_cast<const int64_t*>(order), static_cast<const float*>(attrs), tiles_x, height,
+      width, static_cast<const int32_t*>(last), static_cast<const float*>(t_final),
       static_cast<const float*>(g_channels), static_cast<const float*>(g_t),
-      static_cast<float*>(d_pairs));
+      static_cast<float*>(d_rows));
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // Instantiated for the channel counts of composite_forward (5 and 8).
 extern "C" int composite_backward(
-    int n_channels, int num_tiles, const void* gids, const void* tile_ranges,
-    const void* attrs, int tiles_x, int height, int width, const void* last,
-    const void* t_final, const void* g_channels, const void* g_t, void* d_pairs,
-    void* stream) {
+    int n_channels, int num_tiles, const void* gids, const void* tile_ranges, const void* order,
+    const void* attrs, int tiles_x, int height, int width, const void* last, const void* t_final,
+    const void* g_channels, const void* g_t, void* d_rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
   if (num_tiles > 0) {
     switch (n_channels) {
       case 5:
-        launch<5>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, last, t_final,
-                  g_channels, g_t, d_pairs, s);
+        err = launch<5>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,
+                        t_final, g_channels, g_t, d_rows, s);
         break;
       case 8:
-        launch<8>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, last, t_final,
-                  g_channels, g_t, d_pairs, s);
+        err = launch<8>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,
+                        t_final, g_channels, g_t, d_rows, s);
         break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

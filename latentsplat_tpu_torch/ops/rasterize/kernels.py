@@ -16,6 +16,8 @@ launches (not reference calls).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ...cuda_build import check, load_library
@@ -176,7 +178,9 @@ def composite_forward_reference(
     )
 
 
+@functools.cache
 def supported_channel_counts() -> tuple[int, ...]:
+    """Channel counts the composite kernels are built for (read once)."""
     lib = load_library()
     out, i = [], 0
     while (n := lib.composite_forward_channels(i)) > 0:
@@ -228,14 +232,14 @@ def composite_forward(
 
 
 def composite_backward_reference(
-    gids: torch.Tensor, tile_ranges: torch.Tensor, attrs: torch.Tensor,
+    gids: torch.Tensor, tile_ranges: torch.Tensor, order: torch.Tensor, attrs: torch.Tensor,
     tiles_x: int, image_shape: tuple[int, int], last: torch.Tensor,
     t_final: torch.Tensor, g_channels: torch.Tensor, g_t: torch.Tensor,
 ) -> torch.Tensor:
     """Plain version of `composite_backward`: all tiles step together, one
     pair position per step, back to front, with the kernel's per-pixel
     rules. Only running (T, PIX) state is kept, never a graph of the
-    forward."""
+    forward. Rows are written at their Gaussian-major positions."""
     h, w = image_shape
     tiles_y = h // TILE
     num_tiles = tile_ranges.shape[0] - 1
@@ -278,12 +282,15 @@ def composite_backward_reference(
         d_pairs[pos[live]] = rows[live]
         suffix = torch.where(use, suffix + weight * cg, suffix)
         t = torch.where(use, t_before, t)
-    return d_pairs
+    d_rows = torch.empty_like(d_pairs)
+    d_rows[order] = d_pairs
+    return d_rows
 
 
 def composite_backward(
     gids: torch.Tensor,          # (P,) int32, as given to composite_forward
     tile_ranges: torch.Tensor,   # (T + 1,) int32
+    order: torch.Tensor,         # (P,) int64 sorted position -> Gaussian-major position
     attrs: torch.Tensor,         # (G, 6 + n_ch) float32
     tiles_x: int,
     image_shape: tuple[int, int],
@@ -293,8 +300,9 @@ def composite_backward(
     g_t: torch.Tensor,           # (H, W) float32 cotangent of T_final
 ) -> torch.Tensor:
     """Gradients of the composited channels and final transmittance with
-    respect to each pair's attributes: (P, 6 + n_ch) in sorted order, rows
-    x, y, conic a/b/c, opacity, channels."""
+    respect to each pair's attributes: (P, 6 + n_ch), rows x, y, conic
+    a/b/c, opacity, channels, in Gaussian-major order (the sorted pair at
+    position i lands in row order[i])."""
     h, w = image_shape
     num_tiles = (h // TILE) * (w // TILE)
     n_ch = attrs.shape[1] - 6
@@ -302,12 +310,15 @@ def composite_backward(
         raise ValueError("composite_backward: tile_ranges do not match the image")
     if g_channels.shape != (n_ch, h, w) or g_t.shape != (h, w):
         raise ValueError("composite_backward: cotangents do not match the image")
-    if not _on_cuda(gids, tile_ranges, attrs, last, t_final, g_channels, g_t):
+    if order.shape != gids.shape:
+        raise ValueError("composite_backward: order and gids differ in length")
+    if not _on_cuda(gids, tile_ranges, order, attrs, last, t_final, g_channels, g_t):
         return composite_backward_reference(
-            gids, tile_ranges, attrs, tiles_x, image_shape, last, t_final, g_channels, g_t
+            gids, tile_ranges, order, attrs, tiles_x, image_shape, last, t_final, g_channels, g_t
         )
     _check(gids, "gids", torch.int32, 1)
     _check(tile_ranges, "tile_ranges", torch.int32, 1)
+    _check(order, "order", torch.int64, 1)
     _check(attrs, "attrs", torch.float32, 2)
     _check(last, "last", torch.int32, 2)
     _check(t_final, "t_final", torch.float32, 2)
@@ -317,50 +328,47 @@ def composite_backward(
         raise ValueError(
             f"composite_backward is built for {supported_channel_counts()} channels, got {n_ch}"
         )
-    d_pairs = torch.zeros((gids.shape[0], 6 + n_ch), dtype=torch.float32, device=attrs.device)
+    # The kernel writes every row, those of pairs no pixel used as zeros.
+    d_rows = torch.empty((gids.shape[0], 6 + n_ch), dtype=torch.float32, device=attrs.device)
     rc = load_library().composite_backward(
-        n_ch, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(), attrs.data_ptr(), tiles_x,
-        h, w, last.data_ptr(), t_final.data_ptr(), g_channels.data_ptr(), g_t.data_ptr(),
-        d_pairs.data_ptr(), _stream(),
+        n_ch, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(), order.data_ptr(),
+        attrs.data_ptr(), tiles_x, h, w, last.data_ptr(), t_final.data_ptr(),
+        g_channels.data_ptr(), g_t.data_ptr(), d_rows.data_ptr(), _stream(),
     )
     check(rc, "composite_backward")
     launch_counts["composite_backward"] += 1
-    return d_pairs
+    return d_rows
 
 
 # -- reduce_pairs ----------------------------------------------------------------
 
 
-def reduce_pairs_reference(
-    d_pairs: torch.Tensor, gids: torch.Tensor, num_gaussians: int
-) -> torch.Tensor:
-    """Plain version of `reduce_pairs`: index_add_ of the sorted rows into
-    their Gaussians."""
-    out = torch.zeros((num_gaussians, d_pairs.shape[1]), dtype=d_pairs.dtype, device=d_pairs.device)
-    return out.index_add_(0, gids.long(), d_pairs)
+def reduce_pairs_reference(d_rows: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Plain version of `reduce_pairs`: index_add_ of each Gaussian's rows,
+    in slot order, into its row."""
+    counts = torch.diff(offsets, prepend=offsets.new_zeros(1))
+    gid = torch.repeat_interleave(torch.arange(offsets.shape[0], device=offsets.device), counts)
+    out = torch.zeros((offsets.shape[0], d_rows.shape[1]), dtype=d_rows.dtype, device=d_rows.device)
+    return out.index_add_(0, gid, d_rows)
 
 
 def reduce_pairs(
-    d_pairs: torch.Tensor,   # (P, R) float32 per-pair rows in sorted order
-    gids: torch.Tensor,      # (P,) int32 Gaussian id of each sorted pair
-    inverse: torch.Tensor,   # (P,) int64 Gaussian-major pair position -> sorted position
-    offsets: torch.Tensor,   # (G,) int64 inclusive prefix sum of pair counts
+    d_rows: torch.Tensor,    # (P, R) float32 per-pair rows, Gaussian-major
+    offsets: torch.Tensor,   # (G,) int64 inclusive prefix sum of pair counts, ending at P
 ) -> torch.Tensor:
-    """Sum each Gaussian's pair rows: (G, R). The kernel reads them in
-    Gaussian-major order through `inverse`; the plain version adds them by
-    `gids`."""
-    num_gaussians = offsets.shape[0]
-    if not _on_cuda(d_pairs, gids, inverse, offsets):
-        return reduce_pairs_reference(d_pairs, gids, num_gaussians)
-    _check(d_pairs, "d_pairs", torch.float32, 2)
-    _check(inverse, "inverse", torch.int64, 1)
+    """Sum each Gaussian's contiguous segment of pair rows: (G, R)."""
+    if not _on_cuda(d_rows, offsets):
+        return reduce_pairs_reference(d_rows, offsets)
+    _check(d_rows, "d_rows", torch.float32, 2)
     _check(offsets, "offsets", torch.int64, 1)
-    if inverse.shape[0] != d_pairs.shape[0]:
-        raise ValueError("reduce_pairs: inverse and d_pairs differ in length")
-    out = torch.empty((num_gaussians, d_pairs.shape[1]), dtype=torch.float32, device=d_pairs.device)
+    row = d_rows.shape[1]
+    if row - 6 not in supported_channel_counts():
+        raise ValueError(f"reduce_pairs is built for rows of 6 + {supported_channel_counts()}, got {row}")
+    if d_rows.data_ptr() % 8:
+        raise ValueError("reduce_pairs: d_rows must be 8-byte aligned")
+    out = torch.empty((offsets.shape[0], row), dtype=torch.float32, device=d_rows.device)
     rc = load_library().reduce_pairs(
-        num_gaussians, d_pairs.shape[1], d_pairs.data_ptr(), inverse.data_ptr(),
-        offsets.data_ptr(), out.data_ptr(), _stream(),
+        offsets.shape[0], row, d_rows.data_ptr(), offsets.data_ptr(), out.data_ptr(), _stream(),
     )
     check(rc, "reduce_pairs")
     launch_counts["reduce_pairs"] += 1

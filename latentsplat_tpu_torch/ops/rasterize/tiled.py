@@ -7,8 +7,9 @@ int64 (tile << 32 | depth bits) keys (`duplicate_with_keys` kernel), one
 stable library sort, tile ranges by searchsorted, and per-tile compositing
 (`composite_forward` kernel). The backward (`_PairComposite`, the
 counterpart of the JAX `_pair_composite` custom_vjp) replays each tile
-back to front (`composite_backward` kernel) and sums each Gaussian's pair
-rows (`reduce_pairs` kernel); like the JAX package, the cull and the sort
+back to front (`composite_backward` kernel), writing each pair's gradient
+row at its Gaussian-major position, and sums each Gaussian's contiguous
+pair rows (`reduce_pairs` kernel); like the JAX package, the cull and the sort
 carry no gradient. Channels stay float32 end to end; the JAX package's TPU
 workarounds (fast/coef mode, payload packing, rank sorts, static pair
 budgets) are not ported.
@@ -129,14 +130,12 @@ class _PairComposite(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_out, g_t):
         attrs, gids, tile_ranges, order, counts, last, t_final = ctx.saved_tensors
-        d_pairs = composite_backward(
-            gids, tile_ranges, attrs, ctx.tiles_x, ctx.image_shape, last, t_final,
+        d_rows = composite_backward(
+            gids, tile_ranges, order, attrs, ctx.tiles_x, ctx.image_shape, last, t_final,
             g_out.contiguous(), g_t.contiguous(),
         )
-        inverse = torch.empty_like(order)
-        inverse[order] = torch.arange(order.shape[0], device=order.device)
         offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
-        d_attrs = reduce_pairs(d_pairs, gids, inverse, offsets)
+        d_attrs = reduce_pairs(d_rows, offsets)
         return d_attrs, None, None, None, None, None, None
 
 

@@ -74,14 +74,16 @@ def test_composite_backward_reference_matches_composite_pairs_bwd(seed):
     theirs = np.asarray(j_d)[: attrs.shape[1], :p].T
 
     gids = torch.arange(p, dtype=torch.int32)
+    order = torch.from_numpy(rng.permutation(p))          # sorted -> Gaussian-major position
     t_ranges, t_attrs = torch.from_numpy(ranges), torch.from_numpy(attrs)
     _, t_final, last = kernels.composite_forward_reference(gids, t_ranges, t_attrs, TILES, (H, W))
     assert t_final.min() > kernels.TRANSMITTANCE_MIN
     g = torch.from_numpy(g_tiles)
-    ours = kernels.composite_backward_reference(
-        gids, t_ranges, t_attrs, TILES, (H, W), last, t_final,
+    d_rows = kernels.composite_backward_reference(
+        gids, t_ranges, order, t_attrs, TILES, (H, W), last, t_final,
         kernels.untile(g[:, :n_ch], TILES, TILES), kernels.untile(g[:, n_ch], TILES, TILES),
-    ).numpy()
+    )
+    ours = d_rows[order].numpy()                          # back to sorted order
     # JAX recovers T in log space from chunk-wide prefix sums, the port by
     # dividing by (1 - alpha) pair by pair: float32 rounding of up to 150
     # factors, 1e-4 of each gradient column's largest value.
@@ -109,17 +111,53 @@ def test_reduce_pairs_reference_matches_reduce_by_counts(seed):
     theirs = np.asarray(reduce_by_counts(jnp.asarray(stack), jnp.asarray(counts_p), CAP, interpret=True))
     theirs = theirs[:row, :g].T
 
-    order = torch.from_numpy(rng.permutation(p))          # sorted -> Gaussian-major position
-    gids_gm = torch.repeat_interleave(torch.arange(g, dtype=torch.int32), torch.from_numpy(counts).long())
-    d_sorted = torch.from_numpy(d_gm)[order]
-    gids_sorted = gids_gm[order]
-    inverse = torch.empty_like(order)
-    inverse[order] = torch.arange(p)
+    # The same Gaussian-major rows, the JAX kernel's own expanded layout.
     offsets = torch.cumsum(torch.from_numpy(counts), dim=0, dtype=torch.int64)
-    ours = kernels.reduce_pairs(d_sorted, gids_sorted, inverse, offsets).numpy()
+    ours = kernels.reduce_pairs(torch.from_numpy(d_gm), offsets).numpy()
     # Sums of <= 9 standard-normal terms in another order.
     np.testing.assert_allclose(ours, theirs, atol=1e-5)
     assert (ours[:20] == 0).all()
+
+
+def opaque_buffer(n_ch=5):
+    """Tile 0: two wide, opaque pairs (alpha 0.99) that saturate every
+    pixel, then six pairs past every pixel's `last`; tile 2: two faint pairs; tiles 1 and 3
+    empty."""
+    wide = [8.0, 8.0, 1e-6, 0.0, 1e-6, 0.999]
+    late = [8.0, 8.0, 0.05, 0.0, 0.05, 0.5]
+    faint = [8.0, 24.0, 0.05, 0.01, 0.05, 0.3]
+    rows = [wide] * 2 + [late] * 6 + [faint] * 2
+    ch = np.linspace(0.1, 0.9, len(rows) * n_ch).reshape(len(rows), n_ch)
+    attrs = np.concatenate([np.asarray(rows), ch], 1).astype(np.float32)
+    ranges = np.array([0, 8, 8, 10, 10], np.int32)
+    return attrs, ranges
+
+
+@pytest.mark.parametrize("case", ["pairs_past_last", "no_pairs"])
+def test_composite_backward_reference_writes_zero_rows(case):
+    # Pairs that no pixel composited get zero rows at their Gaussian-major
+    # positions; an image without pairs gives no rows.
+    attrs, ranges = opaque_buffer()
+    if case == "no_pairs":
+        attrs, ranges = attrs[:0], np.zeros(5, np.int32)
+    p = attrs.shape[0]
+    gids = torch.arange(p, dtype=torch.int32)
+    order = torch.from_numpy(np.random.default_rng(3).permutation(p))
+    t_ranges, t_attrs = torch.from_numpy(ranges), torch.from_numpy(attrs)
+    _, t_final, last = kernels.composite_forward_reference(gids, t_ranges, t_attrs, TILES, (H, W))
+    rng = np.random.default_rng(4)
+    g_out = torch.from_numpy(rng.standard_normal((attrs.shape[1] - 6, H, W)).astype(np.float32))
+    g_t = torch.from_numpy(rng.standard_normal((H, W)).astype(np.float32))
+    d_rows = kernels.composite_backward_reference(
+        gids, t_ranges, order, t_attrs, TILES, (H, W), last, t_final, g_out, g_t
+    )
+    assert d_rows.shape == (p, attrs.shape[1])
+    if case == "no_pairs":
+        return
+    assert int(last[:16, :16].max()) == 2                 # tile 0 saturates after 2 pairs
+    sorted_rows = d_rows[order]
+    assert (sorted_rows[2:8] == 0).all()
+    assert (sorted_rows[:2].abs().sum(dim=1) > 0).all() and (sorted_rows[8:].abs().sum(dim=1) > 0).all()
 
 
 def make_sh_scene(seed, n, d_color=4, c_feat=4, d_feat=4):

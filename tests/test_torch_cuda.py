@@ -100,10 +100,10 @@ def test_tiled_forward_matches_dense_oracle(cuda):
     torch.testing.assert_close(depth, d_depth, atol=2e-3, rtol=0)
 
 
-def backward_inputs(seed, size, device, n=20000):
+def backward_inputs(seed, size, device, n=20000, n_channels=4):
     """Sorted pairs, the forward kernel's outputs and seeded cotangents."""
     tiles = size // 16
-    sg = screen_gaussians(seed, n, size, device)
+    sg = screen_gaussians(seed, n, size, device, n_channels=n_channels)
     counts, base, nx, mask = tile_rects(sg, tiles, tiles, CAP)
     gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, tiles, CAP)
     gids, ranges, order = sort_pairs(gids, keys, tiles * tiles)
@@ -115,38 +115,85 @@ def backward_inputs(seed, size, device, n=20000):
     return tiles, counts, gids, ranges, order, attrs, last, t_final, g_out, g_t
 
 
-@pytest.mark.parametrize("size", [32, 256])
-def test_composite_backward_matches_reference(cuda, size):
-    # The kernel sums each pair's partials over the tile in warp order, the
-    # plain version in torch.sum's order: agreement to float32 rounding of
-    # ~256-term sums, 1e-4 of each gradient column's largest value.
-    tiles, _, gids, ranges, _, attrs, last, t_final, g_out, g_t = backward_inputs(size + 2, size, cuda)
+@pytest.mark.parametrize("n_channels", [4, 7])   # + depth: the 5- and 8-channel instantiations
+@pytest.mark.parametrize("size", [32, 64, 256])
+def test_composite_backward_matches_reference(cuda, size, n_channels):
+    # The kernel sums each pair's partials over the tile in its exchange
+    # order, the plain version in torch.sum's order, and takes one
+    # reciprocal where the plain version divides twice: agreement to
+    # float32 rounding, 1e-4 of each gradient column's largest value.
+    tiles, _, gids, ranges, order, attrs, last, t_final, g_out, g_t = backward_inputs(
+        size + 2, size, cuda, n_channels=n_channels
+    )
+    args = (gids, ranges, order, attrs, tiles, (size, size), last, t_final, g_out, g_t)
     before = kernels.launch_counts["composite_backward"]
-    d = kernels.composite_backward(gids, ranges, attrs, tiles, (size, size), last, t_final, g_out, g_t)
-    ref = kernels.composite_backward_reference(gids, ranges, attrs, tiles, (size, size), last, t_final, g_out, g_t)
+    d = kernels.composite_backward(*args)
+    ref = kernels.composite_backward_reference(*args)
     torch.cuda.synchronize()
     assert kernels.launch_counts["composite_backward"] == before + 1
+    assert d.shape == (gids.shape[0], 7 + n_channels)
     scale = ref.abs().amax(dim=0).clamp(min=1e-12)
     assert ((d - ref).abs() / scale).max().item() <= 1e-4
+    # Rows of pairs that no pixel composited are zero in both.
+    assert torch.equal(d[ref.abs().sum(dim=1) == 0], ref[ref.abs().sum(dim=1) == 0])
     # Same kernel, same inputs: the same bits (no atomics).
-    again = kernels.composite_backward(gids, ranges, attrs, tiles, (size, size), last, t_final, g_out, g_t)
-    assert torch.equal(d, again)
+    assert torch.equal(d, kernels.composite_backward(*args))
+
+
+def test_composite_backward_zero_rows_and_empty_tiles(cuda):
+    # Only the first 4 of 16 tiles keep their pairs, and opaque splats leave
+    # pairs past every pixel's `last`: torch.empty's contents must survive
+    # in no row.
+    size = 64
+    tiles, _, gids, ranges, order, attrs, _, _, g_out, g_t = backward_inputs(11, size, cuda, n=3000)
+    kept = int(ranges[4])
+    ranges = torch.clamp(ranges, max=kept)
+    gids = gids[:kept].contiguous()
+    order = torch.argsort(torch.argsort(order[:kept]))    # a permutation of the kept pairs
+    attrs = attrs.clone()
+    attrs[:, 5] = 0.999
+    _, t_final, last = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size))
+    args = (gids, ranges, order, attrs, tiles, (size, size), last, t_final, g_out, g_t)
+    ref = kernels.composite_backward_reference(*args)
+    zero = ref.abs().sum(dim=1) == 0
+    assert zero.any()
+    scale = ref.abs().amax(dim=0).clamp(min=1e-12)
+    for _ in range(2):
+        d = kernels.composite_backward(*args)
+        assert torch.isfinite(d).all() and (d[zero] == 0).all()
+        assert ((d - ref).abs() / scale).max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("row", [11, 14])
+def test_reduce_pairs_matches_reference_synthetic(cuda, row):
+    # Dead Gaussians and Gaussians at the cap, rows straight from a seed.
+    # The kernel adds each segment in slot order, as index_add_ on the CPU
+    # does: the same bits.
+    rng = np.random.default_rng(row)
+    counts = rng.integers(0, CAP + 1, 5000).astype(np.int32)
+    counts[:50] = 0
+    counts[50:100] = CAP
+    counts[-1] = 0
+    offsets = torch.cumsum(torch.from_numpy(counts).long(), dim=0)
+    d_rows = torch.from_numpy(rng.standard_normal((int(counts.sum()), row)).astype(np.float32))
+    out = kernels.reduce_pairs(d_rows.to(cuda), offsets.to(cuda))
+    ref = kernels.reduce_pairs_reference(d_rows, offsets)
+    assert torch.equal(out.cpu(), ref)
+    assert (out[:50] == 0).all() and (out[-1] == 0).all()
 
 
 def test_reduce_pairs_matches_reference(cuda):
-    # Both add each Gaussian's rows in tile order (the plain version on the
-    # CPU, where index_add_ runs in index order): the same bits.
+    # On the rows composite_backward writes at flagship-like density.
     tiles, counts, gids, ranges, order, attrs, last, t_final, g_out, g_t = backward_inputs(7, 256, cuda)
-    d = kernels.composite_backward(gids, ranges, attrs, tiles, (256, 256), last, t_final, g_out, g_t)
-    inverse = torch.empty_like(order)
-    inverse[order] = torch.arange(order.shape[0], device=cuda)
+    d = kernels.composite_backward(gids, ranges, order, attrs, tiles, (256, 256), last, t_final, g_out, g_t)
     offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
     before = kernels.launch_counts["reduce_pairs"]
-    out = kernels.reduce_pairs(d, gids, inverse, offsets)
-    ref = kernels.reduce_pairs_reference(d.cpu(), gids.cpu(), counts.shape[0])
+    out = kernels.reduce_pairs(d, offsets)
+    ref = kernels.reduce_pairs_reference(d.cpu(), offsets.cpu())
     torch.cuda.synchronize()
     assert kernels.launch_counts["reduce_pairs"] == before + 1
-    assert (counts == 0).any() and torch.equal(out.cpu(), ref)
+    assert (counts == 0).any() and (counts == CAP).any() and torch.equal(out.cpu(), ref)
+    assert torch.equal(out, kernels.reduce_pairs(d, offsets))
 
 
 def test_tiled_gradients_match_dense_oracle(cuda):
@@ -201,11 +248,22 @@ def test_wrappers_check_inputs(cuda):
         kernels.composite_forward(gids, ranges, attrs.t(), 2, (32, 32))
     out, t_final, last = kernels.composite_forward(gids, ranges, attrs, 2, (32, 32))
     assert np.isfinite(out.cpu().numpy()).all()
+    order = torch.arange(gids.shape[0], device=cuda)
     with pytest.raises(ValueError):   # cotangent of the wrong shape
-        kernels.composite_backward(gids, ranges, attrs, 2, (32, 32), last, t_final, out[:1], t_final)
+        kernels.composite_backward(gids, ranges, order, attrs, 2, (32, 32), last, t_final, out[:1], t_final)
     with pytest.raises(ValueError):   # a CPU tensor among CUDA ones
-        kernels.composite_backward(gids, ranges, attrs, 2, (32, 32), last, t_final.cpu(), out, t_final)
+        kernels.composite_backward(gids, ranges, order, attrs, 2, (32, 32), last, t_final.cpu(), out, t_final)
+    with pytest.raises(ValueError):   # order of the wrong length
+        kernels.composite_backward(gids, ranges, order[1:], attrs, 2, (32, 32), last, t_final, out, t_final)
+    with pytest.raises(ValueError):   # order on the CPU
+        kernels.composite_backward(gids, ranges, order.cpu(), attrs, 2, (32, 32), last, t_final, out, t_final)
+    with pytest.raises(ValueError):   # int32 order
+        kernels.composite_backward(gids, ranges, gids, attrs, 2, (32, 32), last, t_final, out, t_final)
     offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
     d = torch.zeros((gids.shape[0], attrs.shape[1]), device=cuda)
-    with pytest.raises(ValueError):   # int32 inverse
-        kernels.reduce_pairs(d, gids, gids, offsets)
+    with pytest.raises(ValueError):   # int32 offsets
+        kernels.reduce_pairs(d, offsets.int())
+    with pytest.raises(ValueError):   # offsets on the CPU
+        kernels.reduce_pairs(d, offsets.cpu())
+    with pytest.raises(ValueError):   # a row length with no instantiation
+        kernels.reduce_pairs(d[:, :9].contiguous(), offsets)
