@@ -5,18 +5,21 @@
 1. Builds the CUDA kernels from latentsplat_tpu_torch/csrc (sm_90a).
 2. Kernel phase: on the Gaussians of the flagship model's first target
    view, holds each forward kernel against its plain PyTorch version (ids,
-   keys and tile ranges exactly; channels and transmittance within 1e-5),
-   times both with CUDA events (a kernel's device time with the host
-   queued ahead) and counts on the card the (pair, pixel) work the view
-   needs, from which each kernel's bound follows.
+   keys, tile ranges and each pixel's last contributor exactly; channels
+   and transmittance within 1e-5), times both with CUDA events (a
+   kernel's device time with the host queued ahead; duplicate_with_keys'
+   launch alone with L2 flushed, and its wrapper with the host's read of
+   the pair total) and counts on the card the (pair, pixel) and (pair,
+   warp) work the view needs, from which each kernel's bound follows.
+   With --parent DIR, builds the forward kernels of the checkout DIR,
+   holds them against this tree's and times both in turns on the same
+   inputs.
 3. Backward kernel phase: on the same view, with a seeded random
    cotangent, holds composite_backward against its plain version (within
    1e-4 of each gradient column's largest value; bit-identical on a
    second launch) and reduce_pairs against its plain version run on the CPU
    (exactly), and times both; reduce_pairs with L2 flushed and warm, in
-   three rounds beside index_add_ and segment_reduce. With --parent DIR,
-   builds the backward kernels of the checkout DIR and times them in turns
-   with this tree's on the same inputs.
+   three rounds beside index_add_ and segment_reduce.
 4. Slice phase: serves one batch (1 scene, 2 context and 4 target views at
    256x256, probabilistic) through `render_full` on the flagship re10k
    model at full width with seeded random weights, checks the output and
@@ -34,7 +37,8 @@
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (device ms, plain ms, the bound and its share, the library call's
-ms, launches on the main path), and last `{"ok": true, "device": {...}}`. Any failed check raises.
+ms, launches on the main path; duplicate_with_keys also its wrapper's ms),
+and last `{"ok": true, "device": {...}}`. Any failed check raises.
 Exits non-zero without printing a result when no CUDA device is present.
 """
 
@@ -183,7 +187,7 @@ def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
 
 
 def entry(name: str, source: str, replaces: str, err: float, ms: float, plain_ms: float,
-          n_bytes: int, n_ops: int, library_ms: float | None = None) -> dict:
+          n_bytes: int, n_ops: int, library_ms: float | None = None, **extra: float) -> dict:
     """One kernel's record of the `kernels` JSON line (launches come later)."""
     bound_ms, bound_by = bound(n_bytes, n_ops)
     print(f"{name}: bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, {n_ops} operations), "
@@ -191,28 +195,49 @@ def entry(name: str, source: str, replaces: str, err: float, ms: float, plain_ms
     return {"name": name, "route": "cuda", "source": f"latentsplat_tpu_torch/csrc/{source}",
             "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **extra}
+
+
+def warp_blocks(x: torch.Tensor) -> torch.Tensor:
+    """(..., 256) row-major tile pixels -> (..., 8, 32) by composite_forward's
+    warps: pixel 16 r + c is lane 8 (r % 4) + c % 8 of warp 2 (r // 4) + c // 8."""
+    from latentsplat_tpu_torch.ops.rasterize.kernels import TILE, WARP_COLS, WARP_ROWS
+
+    x = x.reshape(*x.shape[:-1], TILE // WARP_ROWS, WARP_ROWS, TILE // WARP_COLS, WARP_COLS)
+    return x.transpose(-3, -2).reshape(*x.shape[:-4], TILE * TILE // 32, 32)
 
 
 def composite_work(view: dict) -> dict:
     """The (pair, pixel) work this view's inputs need, counted on the card:
     the forward's evaluations (each pixel up to its `last` if it
     saturated, else to its tile's end), the backward's (each pixel up to
-    its `last`), the composited (pair, pixel) combinations, the pairs some
-    pixel composited, and the backward kernel's (pair, warp) steps: all of
-    them, those below the warp's largest `last`, and those where some lane
-    of the warp composited the pair."""
+    its `last`), the composited (pair, pixel) combinations and the pairs
+    some pixel composited. Then the (pair, warp) steps of each composite
+    kernel's warps: the forward's 4x8-pixel warps (all pairs up to the
+    warp's stop, those whose footprint box meets the warp's pixels, those
+    where some lane composited) and the backward's two-row warps (all
+    pairs up to the tile's largest `last`, those below the warp's largest
+    `last`, those where some lane composited), with each kernel's median
+    and longest tile walk. Raises if a lane composited a pair whose box
+    misses its warp: the forward's cull must drop no such pair."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
     gids, ranges, attrs, tiles_x, (h, w) = (view[k] for k in ("gids", "ranges", "attrs", "tiles_x", "shape"))
     tiles_y = h // kernels.TILE
     num_tiles = tiles_x * tiles_y
+    n_warps = kernels.PIX // 32
+    device = attrs.device
     starts, stops = ranges[:-1].long(), ranges[1:].long()
     last = kernels.tile(view["last"], tiles_x, tiles_y).long()                   # (T, 256)
     saturated = kernels.tile(view["t_final"], tiles_x, tiles_y) < kernels.TRANSMITTANCE_MIN
-    px, py = kernels._tile_pixels(num_tiles, tiles_x, attrs.device)
-    pair_tile = torch.repeat_interleave(torch.arange(num_tiles, device=attrs.device), stops - starts)
-    used = used_pairs = used_steps = 0
+    forward_end = torch.where(saturated, last, stops[:, None])                   # each pixel's stop
+    warp_end = warp_blocks(forward_end).max(dim=2).values                        # (T, 8)
+    px, py = kernels._tile_pixels(num_tiles, tiles_x, device)
+    # Top-left pixel of each forward warp's 4x8 block, (T, 8).
+    warp_x0 = warp_blocks(px).amin(dim=2)
+    warp_y0 = warp_blocks(py).amin(dim=2)
+    pair_tile = torch.repeat_interleave(torch.arange(num_tiles, device=device), stops - starts)
+    used = used_pairs = used_steps = kept_steps = composited_steps = culled_composited = 0
     for lo in range(0, gids.shape[0], 1 << 15):
         hi = min(lo + (1 << 15), gids.shape[0])
         t = pair_tile[lo:hi]
@@ -220,26 +245,42 @@ def composite_work(view: dict) -> dict:
         dx, dy = px[t] - a[:, 0:1], py[t] - a[:, 1:2]
         power = -0.5 * (a[:, 2:3] * dx * dx + a[:, 4:5] * dy * dy) - a[:, 3:4] * dx * dy
         alpha = torch.clamp(a[:, 5:6] * torch.exp(power), max=kernels.ALPHA_CLAMP)
-        pos = torch.arange(lo, hi, device=attrs.device)[:, None]
+        pos = torch.arange(lo, hi, device=device)[:, None]
         use = (pos < last[t]) & (power <= 0.0) & (alpha >= kernels.ALPHA_THRESHOLD)
         used += int(use.sum())
         used_pairs += int(use.any(dim=1).sum())
-        used_steps += int(use.view(-1, kernels.PIX // 32, 32).any(dim=2).sum())
+        used_steps += int(use.view(-1, n_warps, 32).any(dim=2).sum())
+        box = kernels.footprint_box_reference(a)
+        x0, y0 = warp_x0[t], warp_y0[t]
+        kept = ((box[:, 0:1] <= x0 + (kernels.WARP_COLS - 1)) & (box[:, 1:2] >= x0)
+                & (box[:, 2:3] <= y0 + (kernels.WARP_ROWS - 1)) & (box[:, 3:4] >= y0))
+        composited = warp_blocks(use).any(dim=2)
+        kept_steps += int((kept & (pos < warp_end[t])).sum())
+        composited_steps += int(composited.sum())
+        culled_composited += int((composited & ~kept).sum())
     walk = last.max(dim=1).values - starts                 # pairs each tile's backward walks
+    forward_walk = forward_end.max(dim=1).values - starts
     work = {
-        "forward_evaluations": int((torch.where(saturated, last, stops[:, None]) - starts[:, None]).sum()),
+        "forward_evaluations": int((forward_end - starts[:, None]).sum()),
         "backward_evaluations": int((last - starts[:, None]).sum()),
         "composited": used, "composited_pairs": used_pairs,
-        "warp_steps": int(walk.sum()) * (kernels.PIX // 32),
+        "forward_warp_steps": int((warp_end - starts[:, None]).sum()),
+        "forward_warp_steps_kept": kept_steps,
+        "forward_warp_steps_composited": composited_steps,
+        "forward_tile_walk_median": int(forward_walk.median()),
+        "forward_tile_walk_max": int(forward_walk.max()),
+        "warp_steps": int(walk.sum()) * n_warps,
         "warp_steps_below_warp_last": int((last.view(num_tiles, -1, 32).max(dim=2).values - starts[:, None]).sum()),
         "warp_steps_composited": used_steps,
         "tile_walk_median": int(walk.median()), "tile_walk_max": int(walk.max()),
     }
     print("composite work (counted on the card): " + ", ".join(f"{k} {v}" for k, v in work.items()))
+    if culled_composited:
+        raise AssertionError(f"{culled_composited} composited (pair, warp) steps lie outside the footprint box")
     return work
 
 
-def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
+def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[dict, list[dict]]:
     from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.ops.rasterize.api import view_channels
     from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_screen
@@ -280,19 +321,34 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
     ref_sorted, ref_ranges, _ = sort_pairs(ref_gids, ref_keys, tiles_x * tiles_y)
     if not (torch.equal(sorted_gids, ref_sorted) and torch.equal(ranges, ref_ranges)):
         raise AssertionError("sorted pairs or tile ranges differ")
-    # The wrapper reads the pair total back to the host, so it is timed
-    # with the host's time in it.
-    dup_ms = cuda_ms(lambda: kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9), 20)
+    # The kernel's launch alone, as the wrapper makes it once the pair total
+    # is known, with L2 flushed; then the whole wrapper, whose read of the
+    # total waits on the device.
+    flush = torch.empty(FLUSH_BYTES // 4, device=depth.device)
+    offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
+    dup_args = (offsets, mask, base, nx, depth, tiles_x, torch.empty_like(gids), torch.empty_like(keys))
+    dup_ms = device_ms(lambda: kernels._launch_duplicate_with_keys(*dup_args), flush=flush)
+    dup_wrapper_ms = cuda_ms(lambda: kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9), 20)
     dup_plain_ms = cuda_ms(
         lambda: kernels.duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, 9), 5
     )
-    print(f"duplicate_with_keys: exact match; {dup_ms:.4f} ms (host time included) vs plain "
-          f"{dup_plain_ms:.4f} ms")
+    # Yardsticks: the kernel warm, a one-element fill (the least device_ms
+    # reads for any launch) and a copy reading and writing as many bytes as
+    # the kernel's bound counts, L2 flushed.
+    dup_warm_ms = device_ms(lambda: kernels._launch_duplicate_with_keys(*dup_args))
+    tiny = torch.empty(1, device=depth.device)
+    n_copy = (16 * g_count + 12 * p_count) // 8
+    copy_src, copy_dst = torch.empty(n_copy, device=depth.device), torch.empty(n_copy, device=depth.device)
+    print(f"duplicate_with_keys: exact match; {dup_ms:.4f} ms (device, L2 flushed), {dup_warm_ms:.4f} warm, "
+          f"wrapper {dup_wrapper_ms:.4f} ms (host read included: {dup_wrapper_ms - dup_ms:.4f} ms more) vs "
+          f"plain {dup_plain_ms:.4f} ms; a one-element fill {device_ms(tiny.zero_):.4f} ms, a copy of as many "
+          f"bytes {device_ms(lambda: copy_dst.copy_(copy_src), flush=flush):.4f} ms (L2 flushed)")
 
     # composite_forward
     attrs = pack_attributes(sg)
-    out = kernels.composite_forward(sorted_gids, ranges, attrs, tiles_x, (h, w))
-    ref = kernels.composite_forward_reference(sorted_gids, ranges, attrs, tiles_x, (h, w))
+    comp_args = (sorted_gids, ranges, attrs, tiles_x, (h, w))
+    out = kernels.composite_forward(*comp_args)
+    ref = kernels.composite_forward_reference(*comp_args)
     torch.cuda.synchronize()
     err_ch = (out[0] - ref[0]).abs().max().item()
     err_t = (out[1] - ref[1]).abs().max().item()
@@ -302,18 +358,27 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
           f"last-contributor mismatches {last_mismatch}, saturated pixels {saturated:.3f}")
     if not (err_ch <= KERNEL_ATOL and err_t <= KERNEL_ATOL):
         raise AssertionError(f"composite_forward disagrees with its plain version beyond {KERNEL_ATOL}")
-    comp_ms = device_ms(lambda: kernels.composite_forward(sorted_gids, ranges, attrs, tiles_x, (h, w)))
-    comp_plain_ms = cuda_ms(
-        lambda: kernels.composite_forward_reference(sorted_gids, ranges, attrs, tiles_x, (h, w)), 3
-    )
+    if last_mismatch:
+        raise AssertionError("composite_forward's last contributors differ from its plain version's")
+    comp_ms = device_ms(lambda: kernels.composite_forward(*comp_args))
+    comp_plain_ms = cuda_ms(lambda: kernels.composite_forward_reference(*comp_args), 3)
     print(f"composite_forward: {comp_ms:.4f} ms (device) vs plain {comp_plain_ms:.4f} ms")
     view = {"gids": sorted_gids, "ranges": ranges, "order": order, "counts": counts, "attrs": attrs,
             "tiles_x": tiles_x, "shape": (h, w), "t_final": out[1], "last": out[2]}
     view["work"] = work = composite_work(view)
+    print(f"composite_forward: {comp_ms * 1e6 / work['forward_tile_walk_max']:.1f} ns per pair of the "
+          f"longest tile walk")
+    variant_comparison(comp_args, out, dup_args, (gids, keys), flush)
+    if parent:
+        parent_comparison(parent, dup_args, (gids, keys), comp_args, out, flush)
     n_ch, row, plane = attrs.shape[1] - 6, attrs.shape[1], h * w
     return view, [
+        # Mask, base, nx and depth of each Gaussian, one exclusive offset per
+        # 256 Gaussians, and 12 bytes per pair written.
         entry("duplicate_with_keys", "duplicate_with_keys.cu", "latentsplat_tpu/ops/rasterize/expand.py:159",
-              float(dup_err), dup_ms, dup_plain_ms, n_bytes=5 * 4 * g_count + 12 * p_count, n_ops=0),
+              float(dup_err), dup_ms, dup_plain_ms,
+              n_bytes=16 * g_count + 8 * math.ceil(g_count / 256) + 12 * p_count, n_ops=0,
+              wrapper_ms=dup_wrapper_ms),
         entry("composite_forward", "composite_forward.cu",
               "latentsplat_tpu/ops/rasterize/pallas_kernels.py:399", max(err_ch, err_t), comp_ms,
               comp_plain_ms,
@@ -322,11 +387,59 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
     ]
 
 
-def backward_kernel_phase(view: dict, seed: int, parent: str | None = None) -> list[dict]:
+def variant_comparison(comp_args: tuple, out: tuple, dup_args: tuple, dup_out: tuple,
+                       flush: torch.Tensor) -> None:
+    """The variants of the two forward kernels, each held against the
+    shipped kernel's output (the same bits) and timed in turns with the
+    others: composite_forward 0 = one 256-thread block per tile, 1 = one
+    64-thread block per 8x8 quarter, 2 = quarters staging two pairs per
+    thread; duplicate_with_keys with 1, 2 or 4 segments of 256 Gaussians
+    per block (L2 flushed, and warm)."""
+    from latentsplat_tpu_torch.cuda_build import check, load_library
+
+    lib = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    gids, ranges, attrs, tiles_x, (h, w) = comp_args
+    c_out = tuple(torch.empty_like(x) for x in out)
+    offsets, mask, base, nx, depth, _, _, _ = dup_args
+    d_out = tuple(torch.empty_like(x) for x in dup_out)
+
+    def composite(v):
+        check(lib.composite_forward_variant(
+            v, attrs.shape[1] - 6, ranges.numel() - 1, gids.data_ptr(), ranges.data_ptr(), attrs.data_ptr(),
+            tiles_x, h, w, *(x.data_ptr() for x in c_out), stream), "composite_forward_variant")
+
+    def duplicate(k):
+        check(lib.duplicate_with_keys_variant(
+            k, offsets.shape[0], offsets.data_ptr(), mask.data_ptr(), base.data_ptr(), nx.data_ptr(),
+            depth.data_ptr(), tiles_x, *(x.data_ptr() for x in d_out), stream), "duplicate_with_keys_variant")
+
+    for v in (0, 1, 2):
+        composite(v)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(out, c_out)):
+            raise AssertionError(f"composite_forward variant {v} disagrees")
+    for k in (1, 2, 4):
+        duplicate(k)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(dup_out, d_out)):
+            raise AssertionError(f"duplicate_with_keys variant {k} disagrees")
+    print("forward kernel variants: all give the shipped kernels' bits")
+    times = {}
+    for order in ((0, 1, 2), (2, 1, 0)):
+        for v in order:
+            times.setdefault(f"composite_forward {v}", []).append(device_ms(lambda: composite(v)))
+        for k in (1, 2, 4) if order[0] == 0 else (4, 2, 1):
+            times.setdefault(f"duplicate_with_keys K={k} flushed", []).append(
+                device_ms(lambda: duplicate(k), flush=flush))
+            times.setdefault(f"duplicate_with_keys K={k} warm", []).append(device_ms(lambda: duplicate(k)))
+    print("forward kernel variants (device ms, two rounds in opposite orders): "
+          + "; ".join(f"{key} {' '.join(f'{v:.4f}' for v in vals)}" for key, vals in times.items()))
+
+
+def backward_kernel_phase(view: dict, seed: int) -> list[dict]:
     """composite_backward and reduce_pairs at the shapes of one flagship
-    view, against their plain versions, with a seeded random cotangent;
-    with `parent`, also the backward kernels of that checkout, timed in
-    turns with this tree's on the same inputs."""
+    view, against their plain versions, with a seeded random cotangent."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
     gids, ranges, order, attrs, tiles_x, shape = (
@@ -405,8 +518,6 @@ def backward_kernel_phase(view: dict, seed: int, parent: str | None = None) -> l
           f"{statistics.median(r['kernel_warm'] for r in rounds):.4f} ms; library {library_ms:.4f} ms; "
           f"no slower than the library in {wins} of {len(rounds)} rounds; plain on the card "
           f"{red_plain_ms:.4f} ms")
-    if parent:
-        parent_comparison(parent, args, d_rows, offsets, flush)
 
     work, n_ch, p_count = view["work"], attrs.shape[1] - 6, gids.shape[0]
     plane = shape[0] * shape[1]
@@ -423,83 +534,77 @@ def backward_kernel_phase(view: dict, seed: int, parent: str | None = None) -> l
     ]
 
 
-def parent_comparison(parent: str, args: tuple, d_rows: torch.Tensor, offsets: torch.Tensor,
+def parent_comparison(parent: str, dup_args: tuple, dup_out: tuple, comp_args: tuple, comp_out: tuple,
                       flush: torch.Tensor) -> None:
-    """Builds the backward kernels of the checkout `parent`, whose
-    composite_backward writes rows in sorted order into a zero-filled buffer
-    and whose reduce_pairs reads them through the inverse of the sort's
-    order, checks them against this tree's, and times both on the same
-    inputs in turns (parent, this tree, this tree, parent)."""
+    """Builds the forward kernels of the checkout `parent` (the same C
+    interfaces as this tree's), holds their outputs against this tree's
+    (ids, keys and last contributors exactly, channels and T within
+    KERNEL_ATOL) and times both on the same inputs in turns (parent, this
+    tree, this tree, parent): duplicate_with_keys' launch with L2 flushed,
+    composite_forward as the kernel phase times it."""
     import ctypes
     from pathlib import Path
 
     from latentsplat_tpu_torch import cuda_build
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
-    sources = [Path(parent) / "latentsplat_tpu_torch" / "csrc" / f for f in ("composite_backward.cu", "reduce_pairs.cu")]
+    sources = [Path(parent) / "latentsplat_tpu_torch" / "csrc" / f
+               for f in ("duplicate_with_keys.cu", "composite_forward.cu")]
     lib_path = cuda_build.BUILD_DIR.parent / "parent_kernels" / "libparent.so"
     start = time.perf_counter()
     cuda_build.compile_library(sources, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.composite_backward.argtypes = [i, i, p, p, p, i, i, i, p, p, p, p, p, p]
-    lib.reduce_pairs.argtypes = [i, i, p, p, p, p, p]
-    lib.composite_backward.restype = lib.reduce_pairs.restype = i
+    lib.duplicate_with_keys.argtypes = [i, p, p, p, p, p, i, p, p, p]
+    lib.composite_forward.argtypes = [i, i, p, p, p, i, i, i, p, p, p, p]
+    lib.duplicate_with_keys.restype = lib.composite_forward.restype = i
     print(f"parent kernels from {parent} built in {time.perf_counter() - start:.2f} s")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line:
             print("  parent ptxas:", line.strip())
 
-    gids, ranges, order, attrs, tiles_x, (h, w), last, t_final, g_out, g_t = args
-    n_ch, row = attrs.shape[1] - 6, attrs.shape[1]
     stream = torch.cuda.current_stream().cuda_stream
-    old_rows = torch.zeros((gids.shape[0], row), device=attrs.device)
+    offsets, mask, base, nx, depth, tiles_x, _, _ = dup_args
+    old_ids, old_keys = (torch.empty_like(x) for x in dup_out)
 
-    def parent_backward():
-        cuda_build.check(lib.composite_backward(
-            n_ch, ranges.numel() - 1, gids.data_ptr(), ranges.data_ptr(), attrs.data_ptr(), tiles_x, h, w,
-            last.data_ptr(), t_final.data_ptr(), g_out.data_ptr(), g_t.data_ptr(), old_rows.data_ptr(),
-            stream), "parent composite_backward")
+    def parent_duplicate():
+        cuda_build.check(lib.duplicate_with_keys(
+            offsets.shape[0], offsets.data_ptr(), mask.data_ptr(), base.data_ptr(), nx.data_ptr(),
+            depth.data_ptr(), tiles_x, old_ids.data_ptr(), old_keys.data_ptr(), stream),
+            "parent duplicate_with_keys")
 
-    sorted_rows = d_rows[order]
-    old_sums = torch.empty((offsets.shape[0], row), device=attrs.device)
+    gids, ranges, attrs, _, (h, w) = comp_args
+    old_out = tuple(torch.empty_like(x) for x in comp_out)
 
-    def parent_reduce(inverse):
-        cuda_build.check(lib.reduce_pairs(
-            offsets.shape[0], row, sorted_rows.data_ptr(), inverse.data_ptr(), offsets.data_ptr(),
-            old_sums.data_ptr(), stream), "parent reduce_pairs")
+    def parent_composite():
+        cuda_build.check(lib.composite_forward(
+            attrs.shape[1] - 6, ranges.numel() - 1, gids.data_ptr(), ranges.data_ptr(), attrs.data_ptr(),
+            tiles_x, h, w, *(x.data_ptr() for x in old_out), stream), "parent composite_forward")
 
-    def parent_reduce_route():   # the parent's path built the inverse first
-        inverse = torch.empty_like(order)
-        inverse[order] = torch.arange(order.shape[0], device=order.device)
-        parent_reduce(inverse)
-
-    inverse = torch.empty_like(order)
-    inverse[order] = torch.arange(order.shape[0], device=order.device)
-    parent_backward()
-    parent_reduce(inverse)
+    parent_duplicate()
+    parent_composite()
     torch.cuda.synchronize()
-    scale = sorted_rows.abs().amax(dim=0).clamp(min=1e-30)
-    diff = ((old_rows - sorted_rows).abs() / scale).max().item()
-    print(f"parent composite_backward vs this tree's: max difference relative to each column's largest "
-          f"value {diff:.3e}")
-    if not diff <= 2 * BACKWARD_RTOL:
-        raise AssertionError("the parent's composite_backward and this tree's disagree")
-    if not torch.equal(old_sums, kernels.reduce_pairs(d_rows, offsets)):
-        raise AssertionError("the parent's reduce_pairs and this tree's disagree")
-    timings = {"composite_backward": [], "reduce_pairs": [], "reduce_pairs route": []}
+    if not (torch.equal(old_ids, dup_out[0]) and torch.equal(old_keys, dup_out[1])):
+        raise AssertionError("the parent's duplicate_with_keys and this tree's disagree")
+    errs = [(a - b).abs().max().item() for a, b in zip(old_out[:2], comp_out[:2])]
+    same = all(torch.equal(a, b) for a, b in zip(old_out, comp_out))
+    print(f"parent vs this tree: duplicate_with_keys ids and keys equal; composite_forward max |channels "
+          f"diff| {errs[0]:.3e}, max |T diff| {errs[1]:.3e}, last equal "
+          f"{torch.equal(old_out[2], comp_out[2])}, the same bits {same}")
+    if not (max(errs) <= KERNEL_ATOL and torch.equal(old_out[2], comp_out[2])):
+        raise AssertionError("the parent's composite_forward and this tree's disagree")
+    timings = {"duplicate_with_keys": [], "composite_forward": []}
     for turn in ("parent", "this tree", "this tree", "parent"):
         if turn == "parent":
-            bwd = device_ms(parent_backward)
-            red = device_ms(lambda: parent_reduce(inverse), flush=flush)
-            route = device_ms(parent_reduce_route, flush=flush)
+            dup = device_ms(parent_duplicate, flush=flush)
+            comp = device_ms(parent_composite)
         else:
-            bwd = device_ms(lambda: kernels.composite_backward(*args))
-            red = route = device_ms(lambda: kernels.reduce_pairs(d_rows, offsets), flush=flush)
-        for key, value in zip(timings, (bwd, red, route)):
-            timings[key].append((turn, value))
+            dup = device_ms(lambda: kernels._launch_duplicate_with_keys(*dup_args), flush=flush)
+            comp = device_ms(lambda: kernels.composite_forward(*comp_args))
+        timings["duplicate_with_keys"].append((turn, dup))
+        timings["composite_forward"].append((turn, comp))
     for key, values in timings.items():
-        print(f"parent vs this tree, {key} (device ms" + (", L2 flushed" if "reduce" in key else "")
+        print(f"parent vs this tree, {key} (device ms" + (", L2 flushed" if key == "duplicate_with_keys" else "")
               + "): " + ", ".join(f"{turn} {v:.4f}" for turn, v in values))
 
 
@@ -806,7 +911,7 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", metavar="DIR", help="also profile one render_full and one train step into DIR")
     parser.add_argument("--parent", metavar="DIR",
-                        help="also time the backward kernels of the checkout DIR beside this tree's")
+                        help="also time the forward kernels of the checkout DIR beside this tree's")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -830,8 +935,8 @@ def main() -> int:
     cfg = load_config("re10k")
     model = build_model(cfg, args.seed, device)
     batch = make_batch(np.random.default_rng(args.seed), 2, 4, 256, device)
-    view, results = kernel_phase(model, batch, args.seed)
-    results += backward_kernel_phase(view, args.seed, args.parent)
+    view, results = kernel_phase(model, batch, args.seed, args.parent)
+    results += backward_kernel_phase(view, args.seed)
     del view
     serve_launches = slice_phase(model, batch, args.seed, args.profile)
     del model

@@ -2,26 +2,46 @@
 // depth-sorted pair segment.
 //
 // Replaces latentsplat_tpu/ops/rasterize/pallas_kernels.py::composite_pairs_fwd
-// (_fwd_kernel). The TPU kernel composited 512-pair chunks with log-space
-// prefix-sum matmuls on the MXU and stopped a whole tile only after a chunk
-// in which every pixel saturated. Here one block owns one tile and one
-// thread owns one pixel: each thread walks the tile's pairs in order,
-// multiplying its transmittance and accumulating channels, and stops on its
-// own as soon as T < 1e-4 (after adding that pair's contribution). The block
-// leaves once all 256 pixels are done.
+// (pallas_kernels.py:399, _fwd_kernel). The TPU kernel composited 512-pair
+// chunks with log-space prefix-sum matmuls on the MXU and stopped a whole
+// tile only after a chunk in which every pixel saturated. Here one block of
+// 256 threads owns one tile and one thread owns one pixel; warp w owns the
+// 4-row x 8-column block of the tile at rows 4 (w / 2), columns 8 (w % 2).
+// Each thread walks the tile's pairs in order, multiplying its
+// transmittance and accumulating channels, and stops on its own as soon as
+// T < 1e-4 (after adding that pair's contribution). A warp leaves the walk
+// once its 32 pixels are done, the block once all 256 are.
 //
-// Bound: per (pair, pixel) work is ~20 flops plus one expf; per pair the
-// block reads the pair's Gaussian id and 6 + NCH floats of attributes,
-// gathered through the id into shared memory in batches of 256 pairs (one
-// pair per thread), so every attribute is fetched once per tile and then
-// broadcast from shared memory to the 256 pixels. The ~0.7M pairs of a
-// flagship view make the kernel compute- and latency-bound, not bandwidth-
-// bound.
+// Bound: float operations, counted as chip_smoke.py's composite_work counts
+// them: ~14 per (pair, pixel) evaluation up to the pixel's stop and
+// 2 NCH + 3 per composited (pair, pixel). Each tile's walk is serial, so
+// what the kernel pays for is the warp instructions of that walk:
+// - The footprint cull. When a pair is staged, its footprint box (the
+//   rows and columns outside which alpha < 1/255 at every pixel, widened
+//   far beyond float rounding) is turned into one bit per warp block it
+//   meets. A warp reads 32 pairs' bits in one ballot and steps only over
+//   the pairs whose bit is set, so a pair whose footprint misses its 4 x 8
+//   pixels costs it nothing. A culled pair could not composite at any of
+//   the warp's pixels, so T, the channels and `last` are the same bits as
+//   without the cull.
+// - Two pairs per step. The quad, expf and alpha of the warp's next two
+//   kept pairs are independent, so both are computed before either is
+//   applied (in order), which overlaps their latencies; the channels are
+//   read and summed only when some lane of the warp composites.
+// - The next batch is prefetched. While the block composites batch k from
+//   one half of a double-buffered shared array, each thread holds in
+//   registers the attribute row of its pair of batch k + 1 (its Gaussian
+//   id was loaded a batch earlier still) and stores it, padded to 16
+//   floats and read back as float4, into the other half: one barrier per
+//   batch of 256 pairs.
 //
-// Arithmetic is rounded operation by operation (no FMA contraction) in the
-// same order as the plain PyTorch version, composite_forward_reference, so
-// the two agree to float rounding of the accumulation and make the same
-// alpha-threshold and early-stop decisions.
+// Every operation that decides or accumulates (power, alpha, weight,
+// channel sums, the T update and the T < 1e-4 test) is rounded explicitly
+// (no FMA contraction), in the same order as the plain PyTorch version,
+// composite_forward_reference, so the two make the same alpha-threshold
+// and early-stop decisions and `last` agrees exactly. The expected-depth
+// channel reaches tens, where contracted channel sums would eat into the
+// 1e-5 tolerance.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -29,14 +49,99 @@
 namespace {
 
 constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;
-constexpr int kBatch = 256;
+constexpr int kWarpRows = 4;   // a warp's pixel block: 4 rows x 8 columns
+constexpr int kWarpCols = 8;
+constexpr int kPad = 16;       // floats per staged row
 constexpr float kAlphaClamp = 0.99f;
 constexpr float kAlphaThreshold = static_cast<float>(1.0 / 255.0);
 constexpr float kTransmittanceMin = 1e-4f;
+// A conic with det <= kDetMin * a * c is treated as not positive definite
+// (no cull): the camera clamps |rho| <= 0.99 (det >= 0.0199 a c), and
+// nearer to degenerate the rounding of power could outgrow the box margins.
+constexpr float kDetMin = 1e-3f;
+constexpr unsigned kFull = 0xffffffffu;
 
+// The box [x0, x1] x [y0, y1] outside which the forward's alpha test fails
+// at every pixel: for a positive-definite conic (a, b, c),
+// -power >= dx^2 det / (2c) and -power >= dy^2 det / (2a), and alpha needs
+// -power <= log(255 opacity). Widened by 1e-3 relative and 0.05 px; empty
+// when opacity < 1/255 (alpha <= opacity), unbounded when the conic is not
+// positive definite. kernels.py::footprint_box_reference is the same box.
+__device__ __forceinline__ float4 footprint_box(float x, float y, float ca, float cb, float cc,
+                                                float opacity) {
+  if (!(opacity >= kAlphaThreshold)) return make_float4(INFINITY, -INFINITY, INFINITY, -INFINITY);
+  const float det = ca * cc - cb * cb;
+  if (!(ca > 0.0f && cc > 0.0f && det > kDetMin * (ca * cc))) {
+    return make_float4(-INFINITY, INFINITY, -INFINITY, INFINITY);
+  }
+  const float tau = logf(255.0f * opacity) * 1.001f + 1e-3f;
+  const float hx = sqrtf(2.0f * tau * cc / det) * 1.001f + 0.05f;
+  const float hy = sqrtf(2.0f * tau * ca / det) * 1.001f + 0.05f;
+  return make_float4(x - hx, x + hx, y - hy, y + hy);
+}
+
+// Bit w set: the pair's footprint box meets warp w's pixel block, in a
+// block of kWarpsX x kWarpsY warp blocks whose top-left pixel is (x0, y0).
+template <int kWarpsX, int kWarpsY>
+__device__ __forceinline__ uint32_t warp_bits(const float (&a)[kPad], int x0, int y0) {
+  const float4 box = footprint_box(a[0], a[1], a[2], a[3], a[4], a[5]);
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int wy = 0; wy < kWarpsY; ++wy) {
+#pragma unroll
+    for (int wx = 0; wx < kWarpsX; ++wx) {
+      const float bx = static_cast<float>(x0 + wx * kWarpCols);
+      const float by = static_cast<float>(y0 + wy * kWarpRows);
+      const bool meets = box.x <= bx + (kWarpCols - 1) && box.y >= bx &&
+                         box.z <= by + (kWarpRows - 1) && box.w >= by;
+      bits |= static_cast<uint32_t>(meets) << (wy * kWarpsX + wx);
+    }
+  }
+  return bits;
+}
+
+// The forward's alpha test of one (pair, pixel), rounded as the plain
+// version rounds it. Power > 0 or alpha < 1/255 fails.
+struct Hit {
+  float alpha;
+  bool pass;
+};
+
+__device__ __forceinline__ Hit alpha_test(const float4& q0, const float4& q1, float fx, float fy) {
+  const float dx = __fsub_rn(fx, q0.x);
+  const float dy = __fsub_rn(fy, q0.y);
+  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(q0.z, dx), dx),
+                               __fmul_rn(__fmul_rn(q1.x, dy), dy));
+  const float power = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(q0.w, dx), dy));
+  const float alpha = fminf(kAlphaClamp, __fmul_rn(q1.y, expf(power)));
+  return {alpha, power <= 0.0f && alpha >= kAlphaThreshold};
+}
+
+// Adds one pair (staged row `row`) at alpha to the pixel's channels and
+// transmittance.
 template <int NCH>
-__global__ void __launch_bounds__(kPixels) composite_forward_kernel(
+__device__ __forceinline__ void composite(const float4 (&row)[kPad / 4], float alpha, float& t,
+                                          float (&acc)[NCH]) {
+  float a[kPad];
+#pragma unroll
+  for (int i = 0; i < kPad / 4; ++i) {
+    a[4 * i] = row[i].x;
+    a[4 * i + 1] = row[i].y;
+    a[4 * i + 2] = row[i].z;
+    a[4 * i + 3] = row[i].w;
+  }
+  const float weight = __fmul_rn(alpha, t);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(a[6 + c], weight));
+  t = __fmul_rn(t, __fsub_rn(1.0f, alpha));
+}
+
+// One block composites a kWarpsX x kWarpsY arrangement of 4x8 warp blocks
+// of a tile (2 x 4: the whole tile), staging kPairs pairs per thread and
+// batch.
+template <int NCH, int kWarpsX, int kWarpsY, int kPairs>
+__global__ void __launch_bounds__(32 * kWarpsX * kWarpsY, 512 / (32 * kWarpsX * kWarpsY))
+composite_forward_kernel(
     const int32_t* __restrict__ gids,         // (P,) depth-sorted within each tile
     const int32_t* __restrict__ tile_ranges,  // (T + 1,) pair range of each tile
     const float* __restrict__ attrs,          // (G, 6 + NCH): x, y, a, b, c, opacity, channels
@@ -44,16 +149,44 @@ __global__ void __launch_bounds__(kPixels) composite_forward_kernel(
     float* __restrict__ out_channels,         // (NCH, H, W)
     float* __restrict__ out_transmittance,    // (H, W)
     int32_t* __restrict__ out_last) {         // (H, W) exclusive end of contributing pairs
+  constexpr int kThreads = 32 * kWarpsX * kWarpsY;
+  constexpr int kBatch = kThreads * kPairs;
+  constexpr int kBlockW = kWarpCols * kWarpsX;
+  constexpr int kBlockH = kWarpRows * kWarpsY;
+  constexpr int kAcross = kTile / kBlockW;
+  constexpr int kRegions = kAcross * (kTile / kBlockH);
   constexpr int kStride = 6 + NCH;
-  __shared__ float s_attr[kStride][kBatch];
+  static_assert(kStride <= kPad, "a staged row holds at most 16 floats");
+  __shared__ float4 s_row[2][kBatch][kPad / 4];
+  __shared__ uint32_t s_bits[2][kBatch];
 
-  const int tile = blockIdx.x;
-  const int px = (tile % tiles_x) * kTile + static_cast<int>(threadIdx.x) % kTile;
-  const int py = (tile / tiles_x) * kTile + static_cast<int>(threadIdx.x) / kTile;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tile = static_cast<int>(blockIdx.x) / kRegions;
+  const int region = static_cast<int>(blockIdx.x) % kRegions;
+  const int x0 = (tile % tiles_x) * kTile + (region % kAcross) * kBlockW;
+  const int y0 = (tile / tiles_x) * kTile + (region / kAcross) * kBlockH;
+  const int px = x0 + (warp % kWarpsX) * kWarpCols + lane % kWarpCols;
+  const int py = y0 + (warp / kWarpsX) * kWarpRows + lane / kWarpCols;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
   const int start = tile_ranges[tile];
   const int end = tile_ranges[tile + 1];
+
+  // Stages the row `a` of the batch's pair `slot` into half `buf`.
+  auto stage = [&](const float (&a)[kPad], int buf, int slot) {
+#pragma unroll
+    for (int i = 0; i < kPad / 4; ++i) {
+      s_row[buf][slot][i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+    }
+    s_bits[buf][slot] = warp_bits<kWarpsX, kWarpsY>(a, x0, y0);
+  };
+  auto load = [&](int gid, float (&a)[kPad]) {
+    const float* src = attrs + static_cast<int64_t>(gid) * kStride;
+#pragma unroll
+    for (int r = 0; r < kPad; ++r) a[r] = r < kStride ? __ldg(src + r) : 0.0f;
+  };
 
   float t = 1.0f;
   float acc[NCH];
@@ -61,37 +194,79 @@ __global__ void __launch_bounds__(kPixels) composite_forward_kernel(
   for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
   int last = start;
   bool done = false;
+  bool warp_done = false;
 
-  for (int batch = start; batch < end; batch += kBatch) {
-    if (__syncthreads_count(done) == kPixels) break;
-    const int idx = batch + static_cast<int>(threadIdx.x);
+  // This thread stages slots tid + k * kThreads of each batch; the ids of
+  // the next batch's are loaded a batch ahead.
+  int gid[kPairs];
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) {
+    const int idx = start + k * kThreads + tid;
     if (idx < end) {
-      const float* a = attrs + static_cast<int64_t>(gids[idx]) * kStride;
-#pragma unroll
-      for (int r = 0; r < kStride; ++r) s_attr[r][threadIdx.x] = a[r];
+      float a[kPad];
+      load(gids[idx], a);
+      stage(a, 0, k * kThreads + tid);
     }
-    __syncthreads();
+    gid[k] = idx + kBatch < end ? gids[idx + kBatch] : 0;
+  }
+  __syncthreads();
+
+  int buf = 0;
+  for (int batch = start; batch < end; batch += kBatch, buf ^= 1) {
+    // This thread's pairs of the next batch: their rows are loaded now and
+    // stored after the walk.
+    float a[kPairs][kPad];
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int next = batch + kBatch + k * kThreads + tid;
+      if (next < end) load(gid[k], a[k]);
+      if (next + kBatch < end) gid[k] = gids[next + kBatch];
+    }
+
     const int n = min(kBatch, end - batch);
-    for (int j = 0; j < n && !done; ++j) {
-      const float dx = __fsub_rn(fx, s_attr[0][j]);
-      const float dy = __fsub_rn(fy, s_attr[1][j]);
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(s_attr[2][j], dx), dx),
-                                   __fmul_rn(__fmul_rn(s_attr[4][j], dy), dy));
-      const float power =
-          __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(s_attr[3][j], dx), dy));
-      if (power > 0.0f) continue;
-      const float alpha = fminf(kAlphaClamp, __fmul_rn(s_attr[5][j], expf(power)));
-      if (alpha < kAlphaThreshold) continue;
-      const float weight = __fmul_rn(alpha, t);
-#pragma unroll
-      for (int c = 0; c < NCH; ++c) {
-        acc[c] = __fadd_rn(acc[c], __fmul_rn(s_attr[6 + c][j], weight));
+    for (int c0 = 0; c0 < n && !warp_done; c0 += 32) {
+      uint32_t kept = __ballot_sync(kFull, c0 + lane < n && ((s_bits[buf][c0 + lane] >> warp) & 1u));
+      while (kept != 0u) {
+        const int ja = c0 + __ffs(kept) - 1;
+        kept &= kept - 1u;
+        const bool has_b = kept != 0u;
+        const int jb = has_b ? c0 + __ffs(kept) - 1 : ja;
+        kept &= kept - 1u;
+        float4 ra[kPad / 4], rb[kPad / 4];
+        ra[0] = s_row[buf][ja][0];
+        ra[1] = s_row[buf][ja][1];
+        rb[0] = s_row[buf][jb][0];
+        rb[1] = s_row[buf][jb][1];
+        const Hit ha = alpha_test(ra[0], ra[1], fx, fy);
+        const Hit hb = alpha_test(rb[0], rb[1], fx, fy);
+        if (__any_sync(kFull, !done && (ha.pass || (has_b && hb.pass)))) {
+          ra[2] = s_row[buf][ja][2];
+          ra[3] = s_row[buf][ja][3];
+          rb[2] = s_row[buf][jb][2];
+          rb[3] = s_row[buf][jb][3];
+          if (!done && ha.pass) {
+            composite<NCH>(ra, ha.alpha, t, acc);
+            last = batch + ja + 1;
+            done = t < kTransmittanceMin;
+          }
+          if (!done && has_b && hb.pass) {
+            composite<NCH>(rb, hb.alpha, t, acc);
+            last = batch + jb + 1;
+            done = t < kTransmittanceMin;
+          }
+          if (__all_sync(kFull, done)) {
+            warp_done = true;
+            break;
+          }
+        }
       }
-      t = __fmul_rn(t, __fsub_rn(1.0f, alpha));
-      last = batch + j + 1;
-      if (t < kTransmittanceMin) done = true;
     }
-    __syncthreads();
+
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      if (batch + kBatch + k * kThreads + tid < end) stage(a[k], buf ^ 1, k * kThreads + tid);
+    }
+    if (__syncthreads_count(done) == kThreads) break;
   }
 
   const int pixel = py * width + px;
@@ -102,15 +277,40 @@ __global__ void __launch_bounds__(kPixels) composite_forward_kernel(
   out_last[pixel] = last;
 }
 
-template <int NCH>
+template <int NCH, int kWarpsX, int kWarpsY, int kPairs>
 void launch(int num_tiles, const void* gids, const void* tile_ranges, const void* attrs,
             int tiles_x, int height, int width, void* channels, void* transmittance,
             void* last, cudaStream_t stream) {
-  composite_forward_kernel<NCH><<<num_tiles, kPixels, 0, stream>>>(
-      static_cast<const int32_t*>(gids), static_cast<const int32_t*>(tile_ranges),
-      static_cast<const float*>(attrs), tiles_x, height, width,
-      static_cast<float*>(channels), static_cast<float*>(transmittance),
-      static_cast<int32_t*>(last));
+  constexpr int kThreads = 32 * kWarpsX * kWarpsY;
+  constexpr int kRegions = kTile * kTile / kThreads;
+  composite_forward_kernel<NCH, kWarpsX, kWarpsY, kPairs>
+      <<<num_tiles * kRegions, kThreads, 0, stream>>>(
+          static_cast<const int32_t*>(gids), static_cast<const int32_t*>(tile_ranges),
+          static_cast<const float*>(attrs), tiles_x, height, width,
+          static_cast<float*>(channels), static_cast<float*>(transmittance),
+          static_cast<int32_t*>(last));
+}
+
+template <int kWarpsX, int kWarpsY, int kPairs>
+int dispatch(int n_channels, int num_tiles, const void* gids, const void* tile_ranges,
+             const void* attrs, int tiles_x, int height, int width, void* channels,
+             void* transmittance, void* last, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (num_tiles > 0) {
+    switch (n_channels) {
+      case 5:
+        launch<5, kWarpsX, kWarpsY, kPairs>(num_tiles, gids, tile_ranges, attrs, tiles_x, height,
+                                            width, channels, transmittance, last, s);
+        break;
+      case 8:
+        launch<8, kWarpsX, kWarpsY, kPairs>(num_tiles, gids, tile_ranges, attrs, tiles_x, height,
+                                            width, channels, transmittance, last, s);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -126,20 +326,28 @@ extern "C" int composite_forward(
     int n_channels, int num_tiles, const void* gids, const void* tile_ranges,
     const void* attrs, int tiles_x, int height, int width, void* channels,
     void* transmittance, void* last, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_tiles > 0) {
-    switch (n_channels) {
-      case 5:
-        launch<5>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
-                  transmittance, last, s);
-        break;
-      case 8:
-        launch<8>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
-                  transmittance, last, s);
-        break;
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+  return dispatch<1, 2, 1>(n_channels, num_tiles, gids, tile_ranges, attrs, tiles_x, height, width,
+                           channels, transmittance, last, stream);
+}
+
+// Variants measured beside it: 0 one 256-thread block per tile, 1 one
+// 64-thread block per 8x8 quarter (shipped), 2 quarters staging two pairs
+// per thread and batch.
+extern "C" int composite_forward_variant(
+    int variant, int n_channels, int num_tiles, const void* gids, const void* tile_ranges,
+    const void* attrs, int tiles_x, int height, int width, void* channels,
+    void* transmittance, void* last, void* stream) {
+  switch (variant) {
+    case 0:
+      return dispatch<2, 4, 1>(n_channels, num_tiles, gids, tile_ranges, attrs, tiles_x, height,
+                               width, channels, transmittance, last, stream);
+    case 1:
+      return dispatch<1, 2, 1>(n_channels, num_tiles, gids, tile_ranges, attrs, tiles_x, height,
+                               width, channels, transmittance, last, stream);
+    case 2:
+      return dispatch<1, 2, 2>(n_channels, num_tiles, gids, tile_ranges, attrs, tiles_x, height,
+                               width, channels, transmittance, last, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

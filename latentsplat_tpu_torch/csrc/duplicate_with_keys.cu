@@ -9,23 +9,41 @@
 // compositor reads attributes through the id, so nothing but 12 bytes per
 // pair is written and sorted.
 //
-// Bound: memory. Per Gaussian it reads 20 bytes (offset, mask, base, nx,
-// depth) and writes 12 bytes per pair; at the flagship scale (393k
-// Gaussians, ~0.7M pairs) that is under 20 MB, i.e. a few microseconds of
-// HBM time. One thread per Gaussian walks the <= cap set bits of its
-// surviving-slot mask, so there are no atomics: the exclusive offsets come
-// from a cumsum outside the kernel, as in the JAX package.
+// Bound: memory. Per Gaussian it reads 16 bytes (mask, base, nx, depth),
+// plus one exclusive offset per block, and writes 12 bytes per pair; at
+// the flagship scale (393k Gaussians, ~0.5M pairs) that is ~12 MB, a few
+// microseconds of HBM time. The pairs of one block's 256 Gaussians are
+// contiguous in the output, so the block writes them as one range: a
+// block-wide exclusive scan of the Gaussians' pair counts (popcounts of
+// their surviving-slot masks) places each Gaussian's pairs in shared
+// memory, and the block then stores the range with 16-byte stores (ids
+// four at a time, keys two at a time; the range's unaligned ends one
+// element at a time), in place of each thread's scattered run. The
+// exclusive offsets come from a cumsum outside the kernel, as in the JAX
+// package; no atomics.
 //
 // Depth of a live Gaussian is > 0, so its float bits order like the value.
-// The caller sorts keys stably; pairs are written Gaussian-major, so equal
-// depths break ties by Gaussian index, like the JAX package's stable ranks.
+// The caller sorts keys stably; pairs are written Gaussian-major,
+// slot-ascending, so equal depths break ties by Gaussian index, like the
+// JAX package's stable ranks.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-__global__ void duplicate_with_keys_kernel(
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// Pairs staged at once: 10 per Gaussian of a 256-Gaussian segment covers
+// the default cap of 9 rect slots in one round; a block with more pairs
+// writes them in rounds.
+constexpr int kStage = 10 * kThreads;
+constexpr unsigned kFull = 0xffffffffu;
+
+// A block takes K segments of 256 Gaussians; thread tid holds Gaussian
+// tid of each, all its inputs loaded up front.
+template <int K>
+__global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
     int num_gaussians,
     const int64_t* __restrict__ offsets,  // inclusive prefix sum of pair counts
     const int32_t* __restrict__ mask,     // surviving rect slots, bit s = slot s
@@ -35,40 +53,142 @@ __global__ void duplicate_with_keys_kernel(
     int tiles_x,
     int32_t* __restrict__ gids,
     int64_t* __restrict__ keys) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= num_gaussians) return;
-  uint32_t bits = static_cast<uint32_t>(mask[g]);
-  if (bits == 0u) return;
-  int64_t out = offsets[g] - __popc(bits);
-  const int b = base[g];
-  const int w = nx[g];
-  const int64_t depth_bits = static_cast<int64_t>(__float_as_uint(depth[g]));
-  while (bits != 0u) {
-    const int slot = __ffs(bits) - 1;
-    bits &= bits - 1u;
-    const int row = slot / w;
-    const int col = slot - row * w;
-    const int64_t tile = b + row * tiles_x + col;
-    gids[out] = g;
-    keys[out] = (tile << 32) | depth_bits;
-    ++out;
+  // Output position q sits at index q - floor4(lo) of s_ids and
+  // q - floor2(lo) of s_keys (lo = the round's first position), so that
+  // aligned output chunks are aligned in shared memory too.
+  __shared__ __align__(16) int32_t s_ids[kStage + 4];
+  __shared__ __align__(16) int64_t s_keys[kStage + 2];
+  __shared__ int s_warp[K][kWarps];
+
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g0 = static_cast<int>(blockIdx.x) * K * kThreads;
+  const int64_t first = g0 == 0 ? 0 : offsets[g0 - 1];
+  uint32_t bits[K];
+  int b[K], w[K];
+  float inv_w[K];
+  int64_t depth_bits[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int g = g0 + k * kThreads + tid;
+    const bool valid = g < num_gaussians;
+    bits[k] = valid ? static_cast<uint32_t>(mask[g]) : 0u;
+    b[k] = valid ? base[g] : 0;
+    w[k] = valid ? nx[g] : 1;
+    inv_w[k] = 1.0f / static_cast<float>(w[k]);
+    depth_bits[k] = valid ? static_cast<int64_t>(__float_as_uint(depth[g])) : 0;
+  }
+
+  // Exclusive scan of the counts, segment by segment.
+  int incl[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    incl[k] = __popc(bits[k]);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl[k], d);
+      if (lane >= d) incl[k] += v;
+    }
+    if (lane == 31) s_warp[k][warp] = incl[k];
+  }
+  __syncthreads();
+  int local[K];
+  int total = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    local[k] = total + incl[k] - __popc(bits[k]);
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) {
+      local[k] += v < warp ? s_warp[k][v] : 0;
+      total += s_warp[k][v];
+    }
+  }
+
+  for (int r0 = 0; r0 < total; r0 += kStage) {
+    const int64_t lo = first + r0;
+    const int m = min(kStage, total - r0);
+    const int head4 = static_cast<int>(lo & 3);
+    const int head2 = static_cast<int>(lo & 1);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      uint32_t rest = bits[k];
+      for (int p = local[k] - r0; rest != 0u; ++p) {
+        const int slot = __ffs(rest) - 1;
+        rest &= rest - 1u;
+        if (p < 0 || p >= m) continue;
+        // slot / w, exactly: (slot + 0.5) / w lies 0.5 / w >= 1 / 64 inside
+        // its unit interval, far beyond the rounding of the product.
+        const int row = __float2int_rz((static_cast<float>(slot) + 0.5f) * inv_w[k]);
+        const int64_t tile = b[k] + row * tiles_x + (slot - row * w[k]);
+        s_ids[head4 + p] = g0 + k * kThreads + tid;
+        s_keys[head2 + p] = (tile << 32) | depth_bits[k];
+      }
+    }
+    __syncthreads();
+    const int64_t lo4 = lo - head4;
+    for (int c = tid; c < (head4 + m + 3) / 4; c += kThreads) {
+      const int64_t q = lo4 + 4 * c;
+      if (q >= lo && q + 4 <= lo + m) {
+        *reinterpret_cast<int4*>(gids + q) = *reinterpret_cast<const int4*>(s_ids + 4 * c);
+      } else {
+        for (int e = 0; e < 4; ++e) {
+          if (q + e >= lo && q + e < lo + m) gids[q + e] = s_ids[4 * c + e];
+        }
+      }
+    }
+    const int64_t lo2 = lo - head2;
+    for (int c = tid; c < (head2 + m + 1) / 2; c += kThreads) {
+      const int64_t q = lo2 + 2 * c;
+      if (q >= lo && q + 2 <= lo + m) {
+        *reinterpret_cast<longlong2*>(keys + q) = *reinterpret_cast<const longlong2*>(s_keys + 2 * c);
+      } else {
+        for (int e = 0; e < 2; ++e) {
+          if (q + e >= lo && q + e < lo + m) keys[q + e] = s_keys[2 * c + e];
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 
-}  // namespace
-
-extern "C" int duplicate_with_keys(
-    int num_gaussians, const void* offsets, const void* mask, const void* base,
-    const void* nx, const void* depth, int tiles_x, void* gids, void* keys,
-    void* stream) {
+template <int K>
+int launch(int num_gaussians, const void* offsets, const void* mask, const void* base,
+           const void* nx, const void* depth, int tiles_x, void* gids, void* keys, void* stream) {
   if (num_gaussians > 0) {
-    const int threads = 256;
-    const int blocks = (num_gaussians + threads - 1) / threads;
-    duplicate_with_keys_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const int blocks = (num_gaussians + K * kThreads - 1) / (K * kThreads);
+    duplicate_with_keys_kernel<K><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         num_gaussians, static_cast<const int64_t*>(offsets),
         static_cast<const int32_t*>(mask), static_cast<const int32_t*>(base),
         static_cast<const int32_t*>(nx), static_cast<const float*>(depth), tiles_x,
         static_cast<int32_t*>(gids), static_cast<int64_t*>(keys));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// gids and keys must be 16-byte aligned (as torch's allocations are).
+extern "C" int duplicate_with_keys(
+    int num_gaussians, const void* offsets, const void* mask, const void* base,
+    const void* nx, const void* depth, int tiles_x, void* gids, void* keys,
+    void* stream) {
+  return launch<2>(num_gaussians, offsets, mask, base, nx, depth, tiles_x, gids, keys, stream);
+}
+
+// Variants measured beside it: K = 1, 2 or 4 segments of 256 Gaussians per block.
+extern "C" int duplicate_with_keys_variant(
+    int k, int num_gaussians, const void* offsets, const void* mask, const void* base,
+    const void* nx, const void* depth, int tiles_x, void* gids, void* keys,
+    void* stream) {
+  switch (k) {
+    case 1:
+      return launch<1>(num_gaussians, offsets, mask, base, nx, depth, tiles_x, gids, keys, stream);
+    case 2:
+      return launch<2>(num_gaussians, offsets, mask, base, nx, depth, tiles_x, gids, keys, stream);
+    case 4:
+      return launch<4>(num_gaussians, offsets, mask, base, nx, depth, tiles_x, gids, keys, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

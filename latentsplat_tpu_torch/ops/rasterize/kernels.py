@@ -26,6 +26,12 @@ from .camera import ALPHA_CLAMP, ALPHA_THRESHOLD
 TILE = 16
 PIX = TILE * TILE
 TRANSMITTANCE_MIN = 1e-4
+# composite_forward's warps each own a block of 4 rows x 8 columns of a tile.
+WARP_ROWS, WARP_COLS = 4, 8
+# A conic with det <= FOOTPRINT_DET_MIN * a * c gets an unbounded footprint
+# box: the camera clamps |rho| <= 0.99 (det >= 0.0199 a c), and nearer to
+# degenerate the rounding of power could outgrow the box's margins.
+FOOTPRINT_DET_MIN = 1e-3
 
 launch_counts = {
     "duplicate_with_keys": 0, "composite_forward": 0, "composite_backward": 0, "reduce_pairs": 0,
@@ -92,17 +98,29 @@ def duplicate_with_keys(
     g = counts.shape[0]
     if not all(t.shape[0] == g for t in (mask, base, nx, depth)):
         raise ValueError("duplicate_with_keys: per-Gaussian inputs differ in length")
+    # torch.sort needs the exact pair count: the one wait on the device.
     offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
     total = int(offsets[-1]) if g else 0
     gids = torch.empty((total,), dtype=torch.int32, device=counts.device)
     keys = torch.empty((total,), dtype=torch.int64, device=counts.device)
+    _launch_duplicate_with_keys(offsets, mask, base, nx, depth, tiles_x, gids, keys)
+    return gids, keys
+
+
+def _launch_duplicate_with_keys(
+    offsets: torch.Tensor, mask: torch.Tensor, base: torch.Tensor, nx: torch.Tensor,
+    depth: torch.Tensor, tiles_x: int, gids: torch.Tensor, keys: torch.Tensor,
+) -> None:
+    """The kernel launch of `duplicate_with_keys` into buffers sized by the
+    caller (offsets int64, inclusive); does not wait on the device."""
+    if gids.data_ptr() % 16 or keys.data_ptr() % 16:
+        raise ValueError("duplicate_with_keys: gids and keys must be 16-byte aligned")
     rc = load_library().duplicate_with_keys(
-        g, offsets.data_ptr(), mask.data_ptr(), base.data_ptr(), nx.data_ptr(),
+        offsets.shape[0], offsets.data_ptr(), mask.data_ptr(), base.data_ptr(), nx.data_ptr(),
         depth.data_ptr(), tiles_x, gids.data_ptr(), keys.data_ptr(), _stream(),
     )
     check(rc, "duplicate_with_keys")
     launch_counts["duplicate_with_keys"] += 1
-    return gids, keys
 
 
 # -- composite_forward -----------------------------------------------------------
@@ -176,6 +194,27 @@ def composite_forward_reference(
         untile(t, tiles_x, tiles_y),
         untile(last.to(torch.int32), tiles_x, tiles_y),
     )
+
+
+def footprint_box_reference(attrs: torch.Tensor) -> torch.Tensor:
+    """The footprint box by which `composite_forward` culls pairs per warp:
+    (N, 4) columns x0, x1, y0, y1 of each row of `attrs` (x, y, conic a/b/c,
+    opacity, ...), outside which the forward's alpha test fails at every
+    pixel. For a positive-definite conic, -power >= dx^2 det / (2c) and
+    >= dy^2 det / (2a), and alpha >= 1/255 needs -power <= log(255 opacity);
+    the box is widened by 1e-3 relative and 0.05 px. Empty (x0 = +inf) when
+    opacity < 1/255, unbounded when det <= FOOTPRINT_DET_MIN * a * c or the
+    conic is not positive definite. The kernel computes the same box."""
+    x, y, ca, cb, cc, op = attrs[:, :6].unbind(dim=1)
+    det = ca * cc - cb * cb
+    tau = torch.log(255.0 * op) * 1.001 + 1e-3
+    hx = torch.sqrt(2.0 * tau * cc / det) * 1.001 + 0.05
+    hy = torch.sqrt(2.0 * tau * ca / det) * 1.001 + 0.05
+    box = torch.stack([x - hx, x + hx, y - hy, y + hy], dim=1)
+    inf = torch.inf
+    positive = (ca > 0.0) & (cc > 0.0) & (det > FOOTPRINT_DET_MIN * (ca * cc))
+    box = torch.where(positive[:, None], box, box.new_tensor([-inf, inf, -inf, inf]))
+    return torch.where((op >= ALPHA_THRESHOLD)[:, None], box, box.new_tensor([inf, -inf, inf, -inf]))
 
 
 @functools.cache

@@ -69,6 +69,25 @@ def test_duplicate_with_keys_matches_reference(cuda, size):
     assert torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys)
 
 
+@pytest.mark.parametrize("n", [1, 255, 5000])
+def test_duplicate_with_keys_full_masks(cuda, n):
+    # Masks of up to 32 slots: a block's pairs overflow its shared staging
+    # and are written in rounds; ragged ends at every 16-byte alignment.
+    rng = np.random.default_rng(n)
+    bits = rng.random((n, 32)) < rng.choice([0.05, 0.5, 1.0], (n, 1))
+    bits[: n // 3] = True
+    mask = torch.from_numpy((bits * (1 << np.arange(32, dtype=np.uint64))).sum(1).astype(np.uint32).view(np.int32))
+    counts = torch.from_numpy(bits.sum(1).astype(np.int32))
+    nx = torch.from_numpy(rng.integers(1, 9, n).astype(np.int32))
+    base = torch.from_numpy(rng.integers(0, 4096, n).astype(np.int32))
+    depth = torch.from_numpy(rng.uniform(0.1, 100.0, n).astype(np.float32))
+    args = [x.to(cuda) for x in (counts, mask, base, nx, depth)]
+    gids, keys = kernels.duplicate_with_keys(*args, 64, 32)
+    ref_gids, ref_keys = kernels.duplicate_with_keys_reference(*args, 64, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys)
+
+
 @pytest.mark.parametrize("size", [32, 256])
 def test_composite_forward_matches_reference(cuda, size):
     # Same operations in the same rounding order on the same device.
@@ -87,6 +106,93 @@ def test_composite_forward_matches_reference(cuda, size):
     torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=0)
     torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=0)
     assert torch.equal(out[2], ref[2])
+
+
+def conic_rows(rng, n, sigma=(0.5, 6.0), opacity=(0.3, 0.99), lo=-4.0, hi=36.0):
+    """(n, 11) attribute rows (x, y, conic a/b/c, opacity, 5 channels, the
+    last a depth of up to 30) of random Gaussians over a 32x32 image."""
+    sx, sy = rng.uniform(*sigma, n), rng.uniform(*sigma, n)
+    rho = rng.uniform(-0.9, 0.9, n)
+    det = (sx * sy) ** 2 * (1 - rho**2)
+    rows = np.column_stack([
+        rng.uniform(lo, hi, n), rng.uniform(lo, hi, n),
+        sy * sy / det, -rho * sx * sy / det, sx * sx / det, rng.uniform(*opacity, n),
+        rng.uniform(0, 1, (n, 4)), rng.uniform(1, 30, n),
+    ])
+    return rows.astype(np.float32)
+
+
+def forward_case(case):
+    """Attribute rows and the tiles left without pairs, for one edge case of
+    composite_forward on a 32x32 image (2x2 tiles)."""
+    rng = np.random.default_rng(len(case))
+    if case == "empty_tiles":
+        return conic_rows(rng, 300), {1, 2}
+    if case == "never_saturates":
+        return conic_rows(rng, 40, opacity=(0.02, 0.08)), set()
+    if case == "low_opacity":      # every other pair below 1/255: an empty box
+        rows = conic_rows(rng, 200)
+        rows[::2, 5] = rng.uniform(0.0, 0.0039, 100)
+        return rows, set()
+    if case == "non_pd_conic":     # indefinite and negative conics: no cull
+        rows = conic_rows(rng, 120, opacity=(0.05, 0.3))
+        rows[::3, 2:5] = rng.uniform(-0.05, 0.05, (40, 3))
+        rows[::3, 3] = 0.2
+        return rows, set()
+    if case == "one_block":        # each footprint meets one 4x8 warp block
+        rows = conic_rows(rng, 2048, opacity=(0.3, 0.99))
+        block = rng.integers(0, 32, 2048)         # 4 x 8 blocks of 4x8 pixels
+        rows[:, 0] = (block % 4) * 8 + 3.5 + rng.uniform(-0.4, 0.4, 2048)
+        rows[:, 1] = (block // 4) * 4 + 1.5 + rng.uniform(-0.2, 0.2, 2048)
+        rows[:, 2:5] = [8.0, 0.0, 8.0]
+        return rows, set()
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["empty_tiles", "never_saturates", "low_opacity", "non_pd_conic", "one_block"])
+def test_composite_forward_edge_cases(cuda, case):
+    # Every tile gets every pair, in row order, except the empty ones. The
+    # warps' footprint cull must leave the plain version's result: last
+    # exactly, channels and T to float rounding of the same operations.
+    rows, empty = forward_case(case)
+    g = rows.shape[0]
+    per_tile = [0 if t in empty else g for t in range(4)]
+    ranges = torch.tensor(np.concatenate([[0], np.cumsum(per_tile)]), dtype=torch.int32, device=cuda)
+    gids = torch.cat([torch.arange(n, dtype=torch.int32) for n in per_tile]).to(cuda)
+    attrs = torch.from_numpy(rows).to(cuda)
+    args = (gids, ranges, attrs, 2, (32, 32))
+    out = kernels.composite_forward(*args)
+    ref = kernels.composite_forward_reference(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=0)
+    assert torch.equal(out[2], ref[2])
+    t_tiles = kernels.tile(out[1], 2, 2)
+    if case == "empty_tiles":
+        for t in empty:
+            assert (t_tiles[t] == 1.0).all() and (kernels.tile(out[2], 2, 2)[t] == ranges[t]).all()
+        assert (t_tiles[0] < kernels.TRANSMITTANCE_MIN).any()
+    elif case == "never_saturates":
+        assert (out[1] >= kernels.TRANSMITTANCE_MIN).all() and (out[1] < 0.9).any()
+    elif case == "low_opacity":
+        # The faint pairs never contribute: the same image without them.
+        keep = torch.arange(1, g, 2, device=cuda)
+        kept_ids = torch.cat([keep.to(torch.int32) for _ in range(4)])
+        kept_ranges = torch.arange(0, 4 * keep.numel() + 1, keep.numel(), dtype=torch.int32, device=cuda)
+        alone = kernels.composite_forward(kept_ids, kept_ranges, attrs, 2, (32, 32))
+        torch.testing.assert_close(alone[0], out[0], atol=0, rtol=0)
+    elif case == "non_pd_conic":
+        # The non-positive-definite pairs do composite somewhere.
+        boxes = kernels.footprint_box_reference(attrs)
+        assert torch.isinf(boxes[::3]).all()
+        faded = attrs.clone()
+        faded[::3, 5] = 0.0
+        assert not torch.equal(kernels.composite_forward(gids, ranges, faded, 2, (32, 32))[0], out[0])
+    elif case == "one_block":
+        box = kernels.footprint_box_reference(attrs)
+        bx, by = (attrs[:, 0] // 8) * 8, (attrs[:, 1] // 4) * 4
+        assert ((box[:, 0] > bx - 1) & (box[:, 1] < bx + 8) & (box[:, 2] > by - 1) & (box[:, 3] < by + 4)).all()
+        assert (out[1] < kernels.TRANSMITTANCE_MIN).any() and (out[1] == 1.0).any()
 
 
 def test_tiled_forward_matches_dense_oracle(cuda):
