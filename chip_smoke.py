@@ -199,8 +199,9 @@ def entry(name: str, source: str, replaces: str, err: float, ms: float, plain_ms
 
 
 def warp_blocks(x: torch.Tensor) -> torch.Tensor:
-    """(..., 256) row-major tile pixels -> (..., 8, 32) by composite_forward's
-    warps: pixel 16 r + c is lane 8 (r % 4) + c % 8 of warp 2 (r // 4) + c // 8."""
+    """(..., 256) row-major tile pixels -> (..., 8, 32) by the tile's 4x8-pixel
+    blocks, which composite_forward's warps own: pixel 16 r + c is lane
+    8 (r % 4) + c % 8 of block 2 (r // 4) + c // 8."""
     from latentsplat_tpu_torch.ops.rasterize.kernels import TILE, WARP_COLS, WARP_ROWS
 
     x = x.reshape(*x.shape[:-1], TILE // WARP_ROWS, WARP_ROWS, TILE // WARP_COLS, WARP_COLS)
@@ -368,16 +369,15 @@ def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[di
     view["work"] = work = composite_work(view)
     print(f"composite_forward: {comp_ms * 1e6 / work['forward_tile_walk_max']:.1f} ns per pair of the "
           f"longest tile walk")
-    variant_comparison(comp_args, out, dup_args, (gids, keys), flush)
     if parent:
         parent_comparison(parent, dup_args, (gids, keys), comp_args, out, flush)
     n_ch, row, plane = attrs.shape[1] - 6, attrs.shape[1], h * w
     return view, [
         # Mask, base, nx and depth of each Gaussian, one exclusive offset per
-        # 256 Gaussians, and 12 bytes per pair written.
+        # block of 512 Gaussians, and 12 bytes per pair written.
         entry("duplicate_with_keys", "duplicate_with_keys.cu", "latentsplat_tpu/ops/rasterize/expand.py:159",
               float(dup_err), dup_ms, dup_plain_ms,
-              n_bytes=16 * g_count + 8 * math.ceil(g_count / 256) + 12 * p_count, n_ops=0,
+              n_bytes=16 * g_count + 8 * math.ceil(g_count / 512) + 12 * p_count, n_ops=0,
               wrapper_ms=dup_wrapper_ms),
         entry("composite_forward", "composite_forward.cu",
               "latentsplat_tpu/ops/rasterize/pallas_kernels.py:399", max(err_ch, err_t), comp_ms,
@@ -385,56 +385,6 @@ def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[di
               n_bytes=4 * p_count + 4 * ranges.numel() + 4 * row * g_count + 4 * (n_ch + 2) * plane,
               n_ops=EVAL_OPS * work["forward_evaluations"] + forward_composited_ops(n_ch) * work["composited"]),
     ]
-
-
-def variant_comparison(comp_args: tuple, out: tuple, dup_args: tuple, dup_out: tuple,
-                       flush: torch.Tensor) -> None:
-    """The variants of the two forward kernels, each held against the
-    shipped kernel's output (the same bits) and timed in turns with the
-    others: composite_forward 0 = one 256-thread block per tile, 1 = one
-    64-thread block per 8x8 quarter, 2 = quarters staging two pairs per
-    thread; duplicate_with_keys with 1, 2 or 4 segments of 256 Gaussians
-    per block (L2 flushed, and warm)."""
-    from latentsplat_tpu_torch.cuda_build import check, load_library
-
-    lib = load_library()
-    stream = torch.cuda.current_stream().cuda_stream
-    gids, ranges, attrs, tiles_x, (h, w) = comp_args
-    c_out = tuple(torch.empty_like(x) for x in out)
-    offsets, mask, base, nx, depth, _, _, _ = dup_args
-    d_out = tuple(torch.empty_like(x) for x in dup_out)
-
-    def composite(v):
-        check(lib.composite_forward_variant(
-            v, attrs.shape[1] - 6, ranges.numel() - 1, gids.data_ptr(), ranges.data_ptr(), attrs.data_ptr(),
-            tiles_x, h, w, *(x.data_ptr() for x in c_out), stream), "composite_forward_variant")
-
-    def duplicate(k):
-        check(lib.duplicate_with_keys_variant(
-            k, offsets.shape[0], offsets.data_ptr(), mask.data_ptr(), base.data_ptr(), nx.data_ptr(),
-            depth.data_ptr(), tiles_x, *(x.data_ptr() for x in d_out), stream), "duplicate_with_keys_variant")
-
-    for v in (0, 1, 2):
-        composite(v)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(out, c_out)):
-            raise AssertionError(f"composite_forward variant {v} disagrees")
-    for k in (1, 2, 4):
-        duplicate(k)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(dup_out, d_out)):
-            raise AssertionError(f"duplicate_with_keys variant {k} disagrees")
-    print("forward kernel variants: all give the shipped kernels' bits")
-    times = {}
-    for order in ((0, 1, 2), (2, 1, 0)):
-        for v in order:
-            times.setdefault(f"composite_forward {v}", []).append(device_ms(lambda: composite(v)))
-        for k in (1, 2, 4) if order[0] == 0 else (4, 2, 1):
-            times.setdefault(f"duplicate_with_keys K={k} flushed", []).append(
-                device_ms(lambda: duplicate(k), flush=flush))
-            times.setdefault(f"duplicate_with_keys K={k} warm", []).append(device_ms(lambda: duplicate(k)))
-    print("forward kernel variants (device ms, two rounds in opposite orders): "
-          + "; ".join(f"{key} {' '.join(f'{v:.4f}' for v in vals)}" for key, vals in times.items()))
 
 
 def backward_kernel_phase(view: dict, seed: int) -> list[dict]:

@@ -5,12 +5,14 @@
 // (pallas_kernels.py:399, _fwd_kernel). The TPU kernel composited 512-pair
 // chunks with log-space prefix-sum matmuls on the MXU and stopped a whole
 // tile only after a chunk in which every pixel saturated. Here one block of
-// 256 threads owns one tile and one thread owns one pixel; warp w owns the
-// 4-row x 8-column block of the tile at rows 4 (w / 2), columns 8 (w % 2).
+// 64 threads owns one 8x8 quarter of a tile and one thread owns one pixel;
+// warp w owns the 4-row x 8-column block at rows 4w..4w+3 of the quarter.
 // Each thread walks the tile's pairs in order, multiplying its
 // transmittance and accumulating channels, and stops on its own as soon as
 // T < 1e-4 (after adding that pair's contribution). A warp leaves the walk
-// once its 32 pixels are done, the block once all 256 are.
+// once its 32 pixels are done, the block once its 64 are. The four quarters
+// of a tile each stage all of its pairs, but stop on their own and spread a
+// heavy tile over four SMs; one 256-thread block per tile measured slower.
 //
 // Bound: float operations, counted as chip_smoke.py's composite_work counts
 // them: ~14 per (pair, pixel) evaluation up to the pixel's stop and
@@ -33,7 +35,7 @@
 //   registers the attribute row of its pair of batch k + 1 (its Gaussian
 //   id was loaded a batch earlier still) and stores it, padded to 16
 //   floats and read back as float4, into the other half: one barrier per
-//   batch of 256 pairs.
+//   batch of 64 pairs.
 //
 // Every operation that decides or accumulates (power, alpha, weight,
 // channel sums, the T update and the T < 1e-4 test) is rounded explicitly
@@ -49,8 +51,11 @@
 namespace {
 
 constexpr int kTile = 16;
-constexpr int kWarpRows = 4;   // a warp's pixel block: 4 rows x 8 columns
-constexpr int kWarpCols = 8;
+constexpr int kQuarter = 8;    // a block's pixels: one 8x8 quarter of a tile
+constexpr int kWarpRows = 4;   // a warp's pixels: 4 rows x 8 columns
+constexpr int kWarps = kQuarter / kWarpRows;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBatch = kThreads;  // pairs staged per batch, one per thread
 constexpr int kPad = 16;       // floats per staged row
 constexpr float kAlphaClamp = 0.99f;
 constexpr float kAlphaThreshold = static_cast<float>(1.0 / 255.0);
@@ -80,22 +85,17 @@ __device__ __forceinline__ float4 footprint_box(float x, float y, float ca, floa
   return make_float4(x - hx, x + hx, y - hy, y + hy);
 }
 
-// Bit w set: the pair's footprint box meets warp w's pixel block, in a
-// block of kWarpsX x kWarpsY warp blocks whose top-left pixel is (x0, y0).
-template <int kWarpsX, int kWarpsY>
+// Bit w set: the pair's footprint box meets warp w's pixels, rows
+// y0 + 4w .. y0 + 4w + 3 and columns x0 .. x0 + 7 of a quarter.
 __device__ __forceinline__ uint32_t warp_bits(const float (&a)[kPad], int x0, int y0) {
   const float4 box = footprint_box(a[0], a[1], a[2], a[3], a[4], a[5]);
+  const float fx0 = static_cast<float>(x0);
+  if (!(box.x <= fx0 + (kQuarter - 1) && box.y >= fx0)) return 0u;
   uint32_t bits = 0u;
 #pragma unroll
-  for (int wy = 0; wy < kWarpsY; ++wy) {
-#pragma unroll
-    for (int wx = 0; wx < kWarpsX; ++wx) {
-      const float bx = static_cast<float>(x0 + wx * kWarpCols);
-      const float by = static_cast<float>(y0 + wy * kWarpRows);
-      const bool meets = box.x <= bx + (kWarpCols - 1) && box.y >= bx &&
-                         box.z <= by + (kWarpRows - 1) && box.w >= by;
-      bits |= static_cast<uint32_t>(meets) << (wy * kWarpsX + wx);
-    }
+  for (int w = 0; w < kWarps; ++w) {
+    const float by = static_cast<float>(y0 + w * kWarpRows);
+    bits |= static_cast<uint32_t>(box.z <= by + (kWarpRows - 1) && box.w >= by) << w;
   }
   return bits;
 }
@@ -136,12 +136,8 @@ __device__ __forceinline__ void composite(const float4 (&row)[kPad / 4], float a
   t = __fmul_rn(t, __fsub_rn(1.0f, alpha));
 }
 
-// One block composites a kWarpsX x kWarpsY arrangement of 4x8 warp blocks
-// of a tile (2 x 4: the whole tile), staging kPairs pairs per thread and
-// batch.
-template <int NCH, int kWarpsX, int kWarpsY, int kPairs>
-__global__ void __launch_bounds__(32 * kWarpsX * kWarpsY, 512 / (32 * kWarpsX * kWarpsY))
-composite_forward_kernel(
+template <int NCH>
+__global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_kernel(
     const int32_t* __restrict__ gids,         // (P,) depth-sorted within each tile
     const int32_t* __restrict__ tile_ranges,  // (T + 1,) pair range of each tile
     const float* __restrict__ attrs,          // (G, 6 + NCH): x, y, a, b, c, opacity, channels
@@ -149,13 +145,8 @@ composite_forward_kernel(
     float* __restrict__ out_channels,         // (NCH, H, W)
     float* __restrict__ out_transmittance,    // (H, W)
     int32_t* __restrict__ out_last) {         // (H, W) exclusive end of contributing pairs
-  constexpr int kThreads = 32 * kWarpsX * kWarpsY;
-  constexpr int kBatch = kThreads * kPairs;
-  constexpr int kBlockW = kWarpCols * kWarpsX;
-  constexpr int kBlockH = kWarpRows * kWarpsY;
-  constexpr int kAcross = kTile / kBlockW;
-  constexpr int kRegions = kAcross * (kTile / kBlockH);
   constexpr int kStride = 6 + NCH;
+  constexpr int kAcross = kTile / kQuarter;
   static_assert(kStride <= kPad, "a staged row holds at most 16 floats");
   __shared__ float4 s_row[2][kBatch][kPad / 4];
   __shared__ uint32_t s_bits[2][kBatch];
@@ -163,24 +154,24 @@ composite_forward_kernel(
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int tile = static_cast<int>(blockIdx.x) / kRegions;
-  const int region = static_cast<int>(blockIdx.x) % kRegions;
-  const int x0 = (tile % tiles_x) * kTile + (region % kAcross) * kBlockW;
-  const int y0 = (tile / tiles_x) * kTile + (region / kAcross) * kBlockH;
-  const int px = x0 + (warp % kWarpsX) * kWarpCols + lane % kWarpCols;
-  const int py = y0 + (warp / kWarpsX) * kWarpRows + lane / kWarpCols;
+  const int tile = static_cast<int>(blockIdx.x) / (kAcross * kAcross);
+  const int quarter = static_cast<int>(blockIdx.x) % (kAcross * kAcross);
+  const int x0 = (tile % tiles_x) * kTile + (quarter % kAcross) * kQuarter;
+  const int y0 = (tile / tiles_x) * kTile + (quarter / kAcross) * kQuarter;
+  const int px = x0 + lane % kQuarter;
+  const int py = y0 + warp * kWarpRows + lane / kQuarter;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
   const int start = tile_ranges[tile];
   const int end = tile_ranges[tile + 1];
 
-  // Stages the row `a` of the batch's pair `slot` into half `buf`.
-  auto stage = [&](const float (&a)[kPad], int buf, int slot) {
+  // Stages the row `a` of pair `batch + tid` into half `buf`.
+  auto stage = [&](const float (&a)[kPad], int buf) {
 #pragma unroll
     for (int i = 0; i < kPad / 4; ++i) {
-      s_row[buf][slot][i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+      s_row[buf][tid][i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
     }
-    s_bits[buf][slot] = warp_bits<kWarpsX, kWarpsY>(a, x0, y0);
+    s_bits[buf][tid] = warp_bits(a, x0, y0);
   };
   auto load = [&](int gid, float (&a)[kPad]) {
     const float* src = attrs + static_cast<int64_t>(gid) * kStride;
@@ -196,32 +187,22 @@ composite_forward_kernel(
   bool done = false;
   bool warp_done = false;
 
-  // This thread stages slots tid + k * kThreads of each batch; the ids of
-  // the next batch's are loaded a batch ahead.
-  int gid[kPairs];
-#pragma unroll
-  for (int k = 0; k < kPairs; ++k) {
-    const int idx = start + k * kThreads + tid;
-    if (idx < end) {
-      float a[kPad];
-      load(gids[idx], a);
-      stage(a, 0, k * kThreads + tid);
-    }
-    gid[k] = idx + kBatch < end ? gids[idx + kBatch] : 0;
+  if (start + tid < end) {
+    float a[kPad];
+    load(gids[start + tid], a);
+    stage(a, 0);
   }
+  int gid = start + kBatch + tid < end ? gids[start + kBatch + tid] : 0;
   __syncthreads();
 
   int buf = 0;
   for (int batch = start; batch < end; batch += kBatch, buf ^= 1) {
-    // This thread's pairs of the next batch: their rows are loaded now and
-    // stored after the walk.
-    float a[kPairs][kPad];
-#pragma unroll
-    for (int k = 0; k < kPairs; ++k) {
-      const int next = batch + kBatch + k * kThreads + tid;
-      if (next < end) load(gid[k], a[k]);
-      if (next + kBatch < end) gid[k] = gids[next + kBatch];
-    }
+    // This thread's pair of the next batch: its row is loaded now and
+    // stored after the walk; the id after it is loaded a batch ahead.
+    const int next = batch + kBatch + tid;
+    float a[kPad];
+    if (next < end) load(gid, a);
+    if (next + kBatch < end) gid = gids[next + kBatch];
 
     const int n = min(kBatch, end - batch);
     for (int c0 = 0; c0 < n && !warp_done; c0 += 32) {
@@ -262,10 +243,7 @@ composite_forward_kernel(
       }
     }
 
-#pragma unroll
-    for (int k = 0; k < kPairs; ++k) {
-      if (batch + kBatch + k * kThreads + tid < end) stage(a[k], buf ^ 1, k * kThreads + tid);
-    }
+    if (next < end) stage(a, buf ^ 1);
     if (__syncthreads_count(done) == kThreads) break;
   }
 
@@ -277,40 +255,16 @@ composite_forward_kernel(
   out_last[pixel] = last;
 }
 
-template <int NCH, int kWarpsX, int kWarpsY, int kPairs>
+template <int NCH>
 void launch(int num_tiles, const void* gids, const void* tile_ranges, const void* attrs,
             int tiles_x, int height, int width, void* channels, void* transmittance,
             void* last, cudaStream_t stream) {
-  constexpr int kThreads = 32 * kWarpsX * kWarpsY;
-  constexpr int kRegions = kTile * kTile / kThreads;
-  composite_forward_kernel<NCH, kWarpsX, kWarpsY, kPairs>
-      <<<num_tiles * kRegions, kThreads, 0, stream>>>(
-          static_cast<const int32_t*>(gids), static_cast<const int32_t*>(tile_ranges),
-          static_cast<const float*>(attrs), tiles_x, height, width,
-          static_cast<float*>(channels), static_cast<float*>(transmittance),
-          static_cast<int32_t*>(last));
-}
-
-template <int kWarpsX, int kWarpsY, int kPairs>
-int dispatch(int n_channels, int num_tiles, const void* gids, const void* tile_ranges,
-             const void* attrs, int tiles_x, int height, int width, void* channels,
-             void* transmittance, void* last, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_tiles > 0) {
-    switch (n_channels) {
-      case 5:
-        launch<5, kWarpsX, kWarpsY, kPairs>(num_tiles, gids, tile_ranges, attrs, tiles_x, height,
-                                            width, channels, transmittance, last, s);
-        break;
-      case 8:
-        launch<8, kWarpsX, kWarpsY, kPairs>(num_tiles, gids, tile_ranges, attrs, tiles_x, height,
-                                            width, channels, transmittance, last, s);
-        break;
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  constexpr int kQuarters = (kTile / kQuarter) * (kTile / kQuarter);
+  composite_forward_kernel<NCH><<<num_tiles * kQuarters, kThreads, 0, stream>>>(
+      static_cast<const int32_t*>(gids), static_cast<const int32_t*>(tile_ranges),
+      static_cast<const float*>(attrs), tiles_x, height, width,
+      static_cast<float*>(channels), static_cast<float*>(transmittance),
+      static_cast<int32_t*>(last));
 }
 
 }  // namespace
@@ -326,28 +280,20 @@ extern "C" int composite_forward(
     int n_channels, int num_tiles, const void* gids, const void* tile_ranges,
     const void* attrs, int tiles_x, int height, int width, void* channels,
     void* transmittance, void* last, void* stream) {
-  return dispatch<1, 2, 1>(n_channels, num_tiles, gids, tile_ranges, attrs, tiles_x, height, width,
-                           channels, transmittance, last, stream);
-}
-
-// Variants measured beside it: 0 one 256-thread block per tile, 1 one
-// 64-thread block per 8x8 quarter (shipped), 2 quarters staging two pairs
-// per thread and batch.
-extern "C" int composite_forward_variant(
-    int variant, int n_channels, int num_tiles, const void* gids, const void* tile_ranges,
-    const void* attrs, int tiles_x, int height, int width, void* channels,
-    void* transmittance, void* last, void* stream) {
-  switch (variant) {
-    case 0:
-      return dispatch<2, 4, 1>(n_channels, num_tiles, gids, tile_ranges, attrs, tiles_x, height,
-                               width, channels, transmittance, last, stream);
-    case 1:
-      return dispatch<1, 2, 1>(n_channels, num_tiles, gids, tile_ranges, attrs, tiles_x, height,
-                               width, channels, transmittance, last, stream);
-    case 2:
-      return dispatch<1, 2, 2>(n_channels, num_tiles, gids, tile_ranges, attrs, tiles_x, height,
-                               width, channels, transmittance, last, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (num_tiles > 0) {
+    switch (n_channels) {
+      case 5:
+        launch<5>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+                  transmittance, last, s);
+        break;
+      case 8:
+        launch<8>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+                  transmittance, last, s);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -12,15 +12,17 @@
 // Bound: memory. Per Gaussian it reads 16 bytes (mask, base, nx, depth),
 // plus one exclusive offset per block, and writes 12 bytes per pair; at
 // the flagship scale (393k Gaussians, ~0.5M pairs) that is ~12 MB, a few
-// microseconds of HBM time. The pairs of one block's 256 Gaussians are
+// microseconds of HBM time. The pairs of one block's 512 Gaussians are
 // contiguous in the output, so the block writes them as one range: a
 // block-wide exclusive scan of the Gaussians' pair counts (popcounts of
 // their surviving-slot masks) places each Gaussian's pairs in shared
 // memory, and the block then stores the range with 16-byte stores (ids
 // four at a time, keys two at a time; the range's unaligned ends one
-// element at a time), in place of each thread's scattered run. The
-// exclusive offsets come from a cumsum outside the kernel, as in the JAX
-// package; no atomics.
+// element at a time), in place of each thread's scattered run. Each
+// thread holds two Gaussians, all of whose inputs it loads up front, so
+// the grid is one wave of blocks and each block waits on one round of
+// loads. The exclusive offsets come from a cumsum outside the kernel, as
+// in the JAX package; no atomics.
 //
 // Depth of a live Gaussian is > 0, so its float bits order like the value.
 // The caller sorts keys stably; pairs are written Gaussian-major,
@@ -34,15 +36,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Pairs staged at once: 10 per Gaussian of a 256-Gaussian segment covers
-// the default cap of 9 rect slots in one round; a block with more pairs
-// writes them in rounds.
-constexpr int kStage = 10 * kThreads;
+// A block takes kSegments segments of 256 Gaussians; thread tid holds
+// Gaussian tid of each.
+constexpr int kSegments = 2;
+// Pairs staged at once, five per Gaussian (a flagship view averages 1.3);
+// a block with more pairs writes them in rounds.
+constexpr int kStage = 5 * kSegments * kThreads;
 constexpr unsigned kFull = 0xffffffffu;
 
-// A block takes K segments of 256 Gaussians; thread tid holds Gaussian
-// tid of each, all its inputs loaded up front.
-template <int K>
 __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
     int num_gaussians,
     const int64_t* __restrict__ offsets,  // inclusive prefix sum of pair counts
@@ -58,19 +59,19 @@ __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
   // aligned output chunks are aligned in shared memory too.
   __shared__ __align__(16) int32_t s_ids[kStage + 4];
   __shared__ __align__(16) int64_t s_keys[kStage + 2];
-  __shared__ int s_warp[K][kWarps];
+  __shared__ int s_warp[kSegments][kWarps];
 
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g0 = static_cast<int>(blockIdx.x) * K * kThreads;
+  const int g0 = static_cast<int>(blockIdx.x) * kSegments * kThreads;
   const int64_t first = g0 == 0 ? 0 : offsets[g0 - 1];
-  uint32_t bits[K];
-  int b[K], w[K];
-  float inv_w[K];
-  int64_t depth_bits[K];
+  uint32_t bits[kSegments];
+  int b[kSegments], w[kSegments];
+  float inv_w[kSegments];
+  int64_t depth_bits[kSegments];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
+  for (int k = 0; k < kSegments; ++k) {
     const int g = g0 + k * kThreads + tid;
     const bool valid = g < num_gaussians;
     bits[k] = valid ? static_cast<uint32_t>(mask[g]) : 0u;
@@ -81,9 +82,9 @@ __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
   }
 
   // Exclusive scan of the counts, segment by segment.
-  int incl[K];
+  int incl[kSegments];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
+  for (int k = 0; k < kSegments; ++k) {
     incl[k] = __popc(bits[k]);
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
@@ -93,10 +94,10 @@ __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
     if (lane == 31) s_warp[k][warp] = incl[k];
   }
   __syncthreads();
-  int local[K];
+  int local[kSegments];
   int total = 0;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
+  for (int k = 0; k < kSegments; ++k) {
     local[k] = total + incl[k] - __popc(bits[k]);
 #pragma unroll
     for (int v = 0; v < kWarps; ++v) {
@@ -111,14 +112,14 @@ __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
     const int head4 = static_cast<int>(lo & 3);
     const int head2 = static_cast<int>(lo & 1);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
+    for (int k = 0; k < kSegments; ++k) {
       uint32_t rest = bits[k];
       for (int p = local[k] - r0; rest != 0u; ++p) {
         const int slot = __ffs(rest) - 1;
         rest &= rest - 1u;
         if (p < 0 || p >= m) continue;
-        // slot / w, exactly: (slot + 0.5) / w lies 0.5 / w >= 1 / 64 inside
-        // its unit interval, far beyond the rounding of the product.
+        // slot / w, exactly: (slot + 0.5) / w lies 0.5 / w inside its unit
+        // interval (w is a width in tiles), far beyond the product's rounding.
         const int row = __float2int_rz((static_cast<float>(slot) + 0.5f) * inv_w[k]);
         const int64_t tile = b[k] + row * tiles_x + (slot - row * w[k]);
         s_ids[head4 + p] = g0 + k * kThreads + tid;
@@ -152,20 +153,6 @@ __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
   }
 }
 
-template <int K>
-int launch(int num_gaussians, const void* offsets, const void* mask, const void* base,
-           const void* nx, const void* depth, int tiles_x, void* gids, void* keys, void* stream) {
-  if (num_gaussians > 0) {
-    const int blocks = (num_gaussians + K * kThreads - 1) / (K * kThreads);
-    duplicate_with_keys_kernel<K><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        num_gaussians, static_cast<const int64_t*>(offsets),
-        static_cast<const int32_t*>(mask), static_cast<const int32_t*>(base),
-        static_cast<const int32_t*>(nx), static_cast<const float*>(depth), tiles_x,
-        static_cast<int32_t*>(gids), static_cast<int64_t*>(keys));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // gids and keys must be 16-byte aligned (as torch's allocations are).
@@ -173,22 +160,13 @@ extern "C" int duplicate_with_keys(
     int num_gaussians, const void* offsets, const void* mask, const void* base,
     const void* nx, const void* depth, int tiles_x, void* gids, void* keys,
     void* stream) {
-  return launch<2>(num_gaussians, offsets, mask, base, nx, depth, tiles_x, gids, keys, stream);
-}
-
-// Variants measured beside it: K = 1, 2 or 4 segments of 256 Gaussians per block.
-extern "C" int duplicate_with_keys_variant(
-    int k, int num_gaussians, const void* offsets, const void* mask, const void* base,
-    const void* nx, const void* depth, int tiles_x, void* gids, void* keys,
-    void* stream) {
-  switch (k) {
-    case 1:
-      return launch<1>(num_gaussians, offsets, mask, base, nx, depth, tiles_x, gids, keys, stream);
-    case 2:
-      return launch<2>(num_gaussians, offsets, mask, base, nx, depth, tiles_x, gids, keys, stream);
-    case 4:
-      return launch<4>(num_gaussians, offsets, mask, base, nx, depth, tiles_x, gids, keys, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (num_gaussians > 0) {
+    const int blocks = (num_gaussians + kSegments * kThreads - 1) / (kSegments * kThreads);
+    duplicate_with_keys_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        num_gaussians, static_cast<const int64_t*>(offsets),
+        static_cast<const int32_t*>(mask), static_cast<const int32_t*>(base),
+        static_cast<const int32_t*>(nx), static_cast<const float*>(depth), tiles_x,
+        static_cast<int32_t*>(gids), static_cast<int64_t*>(keys));
   }
+  return static_cast<int>(cudaGetLastError());
 }
