@@ -31,27 +31,38 @@
    gradient norms, the adaptive weight in [0, 1], changed parameters of
    both nets and that all four kernels ran; prints seconds per step, a
    stage split and the peak memory.
-6. Small-input checks: the tiled (kernel) render of a narrow model against
+6. Trainer phase: the program's entry point, `latentsplat_tpu_torch.main.main`,
+   on the flagship model at full width and the synthetic dataset at
+   256x256: train from step 0 (2 steps, a validation, the 48-view test),
+   a resume at step 125000 (2 steps with every loss live, its test), and
+   test mode with an evaluation index. Checks the logs, checkpoints, PNGs,
+   benchmark.json and that all four kernels ran; prints the benchmark.json
+   means, steps/s and peak memory.
+7. Small-input checks: the tiled (kernel) render of a narrow model against
    the dense oracle render, and the narrow model's train-step gradients
    through the tiled kernels against those through the dense oracle.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (device ms, plain ms, the bound and its share, the library call's
-ms, launches on the main path; duplicate_with_keys also its wrapper's ms),
-and last `{"ok": true, "device": {...}}`. Any failed check raises.
+ms, launches on the main path and in the trainer phase; duplicate_with_keys
+also its wrapper's ms), and last `{"ok": true, "device": {...}}`. Any
+failed check raises.
 Exits non-zero without printing a result when no CUDA device is present.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -115,23 +126,34 @@ def make_batch(rng: np.random.Generator, n_context: int, n_target: int, size: in
     }
 
 
+def card() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def like_trained(model, peaked_depth: bool = True):
+    """Random weights that look like trained ones where it matters: the
+    zero-initialized leaves get random values too, so nothing rides on a
+    zero, and (with `peaked_depth`) the depth head is scaled so that each
+    pixel's depth pdf is peaked, as a trained one is: the scene is mostly
+    opaque and the compositor's early stop is exercised."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("cls_token", "pos_embed")) or "skip_conv" in name:
+                p.normal_(0.0, 0.02)
+        if peaked_depth:
+            model.encoder.depth_predictor.projection.weight.mul_(50.0)
+    return model
+
+
 def build_model(cfg, seed: int, device, peaked_depth: bool = True):
     from latentsplat_tpu_torch.model.latentsplat import LatentSplat
 
     torch.manual_seed(seed)
-    model = LatentSplat(cfg.model).to(device).eval()
-    with torch.no_grad():
-        # Zero-initialized leaves get random values too, so nothing rides on
-        # a zero.
-        for name, p in model.named_parameters():
-            if name.endswith(("cls_token", "pos_embed")) or "skip_conv" in name:
-                p.normal_(0.0, 0.02)
-        # A trained depth head puts most of each pixel's mass in one
-        # bucket; scale the random one so the scene is mostly opaque and the
-        # compositor's early stop is exercised.
-        if peaked_depth:
-            model.encoder.depth_predictor.projection.weight.mul_(50.0)
-    return model
+    return like_trained(LatentSplat(cfg.model).to(device).eval(), peaked_depth)
 
 
 def cuda_ms(fn, repeats: int) -> float:
@@ -493,7 +515,6 @@ def parent_comparison(parent: str, dup_args: tuple, dup_out: tuple, comp_args: t
     tree, this tree, parent): duplicate_with_keys' launch with L2 flushed,
     composite_forward as the kernel phase times it."""
     import ctypes
-    from pathlib import Path
 
     from latentsplat_tpu_torch import cuda_build
     from latentsplat_tpu_torch.ops.rasterize import kernels
@@ -667,7 +688,6 @@ def profile_once(label: str, fn, out_dir: str) -> None:
     writes an operator table, the per-stage breakdown and (if small) a
     gzipped Chrome trace to `out_dir`; prints the breakdown."""
     import gzip
-    from pathlib import Path
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -693,27 +713,21 @@ def profile_once(label: str, fn, out_dir: str) -> None:
         print(f"  {line}")
 
 
-def build_trainer(cfg, seed: int, device, effective_batch_size: int, peaked_depth: bool = True):
-    """Generator, PatchGAN discriminator, LPIPS (random, seeded) and their
-    optimizers, with the preset's losses; returns (state, losses, train_step)."""
-    from latentsplat_tpu_torch.loss.losses import LossGroup
-    from latentsplat_tpu_torch.loss.lpips import LPIPS
-    from latentsplat_tpu_torch.model.discriminator.patch_gan import DiscriminatorPatchGan
-    from latentsplat_tpu_torch.training.optim import build_optimizers
-    from latentsplat_tpu_torch.training.step import GROUP_NAMES, TrainState, make_train_step
+def build_trainer(cfg, seed: int, device, peaked_depth: bool = True):
+    """The train state that `Trainer.init_state` builds for `cfg` with
+    `seed` (generator, PatchGAN discriminator and LPIPS with random weights,
+    their optimizers, the preset's losses), the generator as `like_trained`
+    leaves it; returns (state, losses, train_step)."""
+    from latentsplat_tpu_torch.training.step import make_train_step
+    from latentsplat_tpu_torch.training.trainer import Trainer
 
-    model = build_model(cfg, seed, device, peaked_depth).train()
-    torch.manual_seed(seed + 1)
-    disc = DiscriminatorPatchGan(cfg.model.discriminator).to(device)
-    lpips = LPIPS().to(device).requires_grad_(False)
-    opt_gen, opt_disc = build_optimizers(model, disc, cfg.optimizer, effective_batch_size, cfg.freeze)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        trainer = Trainer(dataclasses.replace(cfg, seed=seed), tmp, device)
+        state = trainer.init_state()
+        trainer.logger.close()
+    like_trained(state.model.train(), peaked_depth)
     g = cfg.optimizer.generator
-    state = TrainState(model, disc, lpips, opt_gen, opt_disc)
-    if g.skip_loss_spike_factor is not None:
-        state.gen_loss_ema = torch.zeros((), device=device)
-        state.spike_skip_count = torch.zeros((), dtype=torch.int32, device=device)
-    losses = {name: LossGroup(name, getattr(cfg.loss, name)) for name in GROUP_NAMES}
-    return state, losses, make_train_step(losses, g.skip_loss_spike_factor, g.skip_loss_spike_patience)
+    return state, trainer.losses, make_train_step(trainer.losses, g.skip_loss_spike_factor, g.skip_loss_spike_patience)
 
 
 def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: int = 256) -> dict:
@@ -722,7 +736,7 @@ def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: in
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
     scenes = 2
-    state, _, train_step = build_trainer(cfg, seed, device, effective_batch_size=scenes)
+    state, _, train_step = build_trainer(cfg, seed, device)
     # As in a run resumed at this step: the optimizers have counted as many
     # updates (their moments start at zero), so the warm-up is over.
     for opt in (state.opt_gen, state.opt_disc):
@@ -792,6 +806,155 @@ def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: in
     return launches
 
 
+def read_records(run: Path) -> list[dict]:
+    return [json.loads(line) for line in (run / "local" / "metrics.jsonl").read_text().splitlines()]
+
+
+def check_test_output(root: Path, n_views: int) -> dict:
+    """One 256x256 RGB PNG per target view and benchmark.json with the three
+    tags; returns the tags' mean seconds."""
+    from latentsplat_tpu_torch.misc.image_io import load_image
+
+    pngs = sorted(root.rglob("color/*.png"))
+    if len(pngs) != n_views:
+        raise AssertionError(f"{root}: {len(pngs)} color PNGs, expected {n_views}")
+    bad = [p for p in pngs if load_image(p).shape != (256, 256, 3)]
+    if bad:
+        raise AssertionError(f"PNGs of the wrong shape: {bad[:3]}")
+    bench = json.loads((root / "benchmark.json").read_text())
+    if set(bench) != {"encoder", "decoder", "autoencoder_decoder"}:
+        raise AssertionError(f"benchmark.json tags: {sorted(bench)}")
+    means = {tag: statistics.mean(v) for tag, v in bench.items()}
+    print(f"  {root.name}: {len(pngs)} PNGs of 256x256x3; benchmark.json means (s): "
+          + ", ".join(f"{k} {v:.4f} (median {statistics.median(bench[k]):.4f}, {len(bench[k])} entries)"
+                      for k, v in means.items())
+          + f"; peak_memory.json {json.loads((root / 'peak_memory.json').read_text())}")
+    return means
+
+
+def trainer_phase(seed: int, device) -> tuple[dict, dict]:
+    """The entry point, `latentsplat_tpu_torch.main.main`, on the flagship
+    re10k model at full width and the synthetic dataset at 256x256 (4
+    scenes of 48 frames, so the preset's bounded gaps fit at steps 0 and
+    125000; train batch 2): (a) mode=train from step 0 for 2 steps with a
+    validation and a checkpoint at step 2, then the test that train mode
+    runs (the bounded sampler's test stage: 48 target views a scene); (b) a
+    resume from a checkpoint at step 125000, where every re10k loss is live,
+    for 2 steps, then its test; (c) mode=test from (a)'s checkpoint with an
+    evaluation index of 2 context and 3 target views a scene. The weights
+    are random from `seed`, the generator's as `like_trained` leaves them
+    (loaded into (a) as its `checkpointing.load`). Checkpoints go to a
+    temporary directory that is deleted. Returns the kernels' launch counts
+    over (a)+(b) and over (c)."""
+    from latentsplat_tpu_torch.config import load_config
+    from latentsplat_tpu_torch.main import main as run_main
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+    from latentsplat_tpu_torch.training.checkpointing import latest_checkpoint, save_checkpoint
+    from latentsplat_tpu_torch.training.trainer import Trainer
+
+    print(f"trainer phase on {card()}")
+    sampler = dataclasses.asdict(load_config("re10k").dataset.view_sampler)
+    data = {"name": "synthetic", "num_scenes": 4, "num_frames": 48, "image_shape": [256, 256],
+            "view_sampler": sampler}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+        tmp = Path(tmp)
+        common = [f"seed={seed}", f"dataset={json.dumps(data)}", "trainer.log_every_n_steps=1",
+                  "checkpointing.every_n_train_steps=2"]
+
+        def call(name: str, *extra: str) -> Path:
+            args = ["+experiment=re10k", *common, f"output_dir={tmp / name}", f"test.output_path={tmp / name / 'test'}",
+                    *extra]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            start = time.perf_counter()
+            run = run_main(args, device=device)
+            print(f"trainer phase ({name}): main(... {' '.join(extra)}) took {time.perf_counter() - start:.2f} s")
+            return run
+
+        def state_of(*extra: str):
+            trainer = Trainer(load_config("re10k", common + list(extra)), tmp / "prep", device)
+            return trainer, trainer.init_state()
+
+        # The starting generator, saved the way every checkpoint is saved.
+        trainer, state = state_of()
+        like_trained(state.model)
+        init = save_checkpoint(state, tmp / "prep", 0)
+        trainer.logger.close()
+        del trainer, state
+
+        for key in kernels.launch_counts:
+            kernels.launch_counts[key] = 0
+        run_a = call("a", "mode=train", f"checkpointing.load={init}", "trainer.max_steps=2",
+                     "trainer.val_check_interval=2")
+        init.unlink()    # ~1.9 GB each at full width
+        ckpt_a = latest_checkpoint(run_a / "checkpoints")
+        if ckpt_a is None or ckpt_a.name != "step_00000002":
+            raise AssertionError(f"(a) wrote no checkpoint at step 2: {ckpt_a}")
+        records = read_records(run_a)
+        val = [r for r in records if "val/psnr_deterministic" in r]
+        if len(val) != 1 or not all(math.isfinite(val[0][k]) for k in ("val/psnr_probabilistic", "val/psnr_deterministic")):
+            raise AssertionError(f"(a) validation: {val}")
+        if not (run_a / "local" / "comparison" / "000002.png").exists():
+            raise AssertionError("(a) wrote no comparison grid")
+        train_a = [r for r in records if "generator/total" in r]
+        print(f"  (a) validation at step 2: " + ", ".join(f"{k} {v:.4f}" for k, v in val[0].items() if k.startswith("val/")))
+        means_a = check_test_output(tmp / "a" / "test" / "latentsplat_tpu", 4 * 48)
+
+        # As a run resumed at step 125000 would have it: (a)'s state with the
+        # step and both optimizers' counts at 125000 (the moments as they are).
+        trainer, state = state_of(f"checkpointing.load={ckpt_a}", "checkpointing.resume=true")
+        if trainer.step != 2:
+            raise AssertionError(f"(a)'s checkpoint resumed at step {trainer.step}")
+        for opt in (state.opt_gen, state.opt_disc):
+            for group in opt.state.values():
+                group["count"].fill_(TRAIN_STEP)
+        resume = save_checkpoint(state, tmp / "prep", TRAIN_STEP)
+        trainer.logger.close()
+        del trainer, state
+        run_b = call("b", "mode=train", f"checkpointing.load={resume}", "checkpointing.resume=true",
+                     f"trainer.max_steps={TRAIN_STEP + 2}")
+        fit_launches = dict(kernels.launch_counts)
+        resume.unlink()
+        train_b = read_records(run_b)
+        if [r["step"] for r in train_b] != [TRAIN_STEP + 1, TRAIN_STEP + 2]:
+            raise AssertionError(f"(b) logged steps {[r['step'] for r in train_b]}")
+        if latest_checkpoint(run_b / "checkpoints").name != f"step_{TRAIN_STEP + 2:08d}":
+            raise AssertionError("(b) did not end at step 125002")
+        live = ("target_render_image/mse", "target_render_image/lpips", "target_combined/l1",
+                "target_combined/lpips", "target_combined/generator", "discriminator/total")
+        if not all(k in r for r in train_b for k in live):
+            raise AssertionError(f"(b): not every re10k loss is live: {sorted(train_b[0])}")
+        for label, rows in (("a", train_a), ("b", train_b)):
+            bad = [r["step"] for r in rows if not math.isfinite(r["generator/total"])]
+            if bad or not rows:
+                raise AssertionError(f"({label}) non-finite generator/total at steps {bad}")
+            for r in rows:
+                print(f"  ({label}) step {r['step']}: steps_per_sec {r['steps_per_sec']:.4f}, "
+                      + ", ".join(f"{k} {r[k]:.5g}" for k in ("generator/total", "discriminator/total",
+                                                             "target_combined/adaptive_weight") if k in r))
+        means_b = check_test_output(tmp / "b" / "test" / "latentsplat_tpu", 4 * 48)
+
+        index = tmp / "evaluation_index.json"
+        index.write_text(json.dumps({f"synthetic_{i:04d}": {"context": [2, 40], "target": [9, 21, 33]}
+                                     for i in range(4)}))
+        for key in kernels.launch_counts:
+            kernels.launch_counts[key] = 0
+        call("c", "mode=test", f"checkpointing.load={ckpt_a}", "wandb.name=evaluation",
+             f"dataset.view_sampler={{name: evaluation, index_path: {index}}}")
+        test_launches = dict(kernels.launch_counts)
+        means_c = check_test_output(tmp / "c" / "test" / "evaluation", 4 * 3)
+
+    print(f"trainer phase launches: (a)+(b) {fit_launches}, (c) {test_launches}")
+    if min(fit_launches.values()) < 1:
+        raise AssertionError(f"a kernel did not run in the trainer's fit: {fit_launches}")
+    if min(test_launches[k] for k in FORWARD_KERNELS) < 1:
+        raise AssertionError(f"a forward kernel did not run in the trainer's test: {test_launches}")
+    print("trainer phase benchmark.json means per scene (encoder) and per view: "
+          + "; ".join(f"({n}) " + ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+                      for n, m in (("a", means_a), ("b", means_b), ("c", means_c))))
+    return fit_launches, test_launches
+
+
 def small_gradient_check(seed: int, device) -> None:
     """The narrow model's train-step gradients through the tiled kernels
     against those through the dense oracle, same weights and noise;
@@ -805,7 +968,7 @@ def small_gradient_check(seed: int, device) -> None:
     from latentsplat_tpu_torch.training.step import generator_grads, make_step_flags
 
     cfg = load_config("re10k", SMALL_OVERRIDES)
-    state, losses, _ = build_trainer(cfg, seed, device, effective_batch_size=1, peaked_depth=False)
+    state, losses, _ = build_trainer(cfg, seed, device, peaked_depth=False)
     batch = state.model.data_shim(make_batch(np.random.default_rng(seed), 2, 2, 32, device))
     gen = torch.Generator(device=device).manual_seed(seed)
     gpp = cfg.model.encoder.gaussians_per_pixel
@@ -891,19 +1054,19 @@ def main() -> int:
     serve_launches = slice_phase(model, batch, args.seed, args.profile)
     del model
     train_launches = train_phase(cfg, args.seed, device, args.profile)
+    fit_launches, test_launches = trainer_phase(args.seed, device)
     # Each kernel's count comes from the path it serves: the forward kernels
-    # from serving, the backward kernels from training.
+    # from serving, the backward kernels from training; beside them, the
+    # counts of the trainer's fit (a)+(b) and of its test mode (c).
     for entry in results:
         path = serve_launches if entry["name"] in FORWARD_KERNELS else train_launches
         entry["launches"] = path[entry["name"]]
+        entry["trainer_fit_launches"] = fit_launches[entry["name"]]
+        entry["trainer_test_launches"] = test_launches[entry["name"]]
     small_input_check(args.seed, device)
     small_gradient_check(args.seed, device)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    print(smi)
+    print(card())
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
-"""Typed configuration for the port: the `model`, `dataset`, `loss`,
-`optimizer`, `freeze` and `train` sections of the preset YAML files
-(counterpart of latentsplat_tpu/config/__init__.py and config/loader.py).
+"""Typed configuration for the port: the root config tree of the preset
+YAML files, `RootCfg` (counterpart of latentsplat_tpu/config/__init__.py
+and config/loader.py). The dataset and view sampler configs live in
+`dataset/types.py` and `dataset/view_samplers.py`, as in the JAX package.
 
 The presets are read from the JAX package's directory, not copied. PyYAML is
 not a dependency of the port, so a small reader below covers the subset the
@@ -15,9 +16,11 @@ import re
 import typing
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, List, Optional, Union
+from typing import Any, List, Literal, Optional, Union
 
+from .dataset.types import DataLoaderCfg, DatasetCfg
 from .loss.losses import LossesCfg
+from .model.autoencoder.identity import AutoencoderIdCfg
 from .model.autoencoder.kl import AutoencoderKLCfg
 from .model.decoder.splatting import DecoderSplattingCfg
 from .model.encoder.backbone import BackboneDinoCfg
@@ -222,9 +225,12 @@ class DiscriminatorPatchGanCfg:
     pretrained: bool = True
 
 
+AutoencoderCfg = Union[AutoencoderKLCfg, AutoencoderIdCfg]
+
+
 @dataclass
 class ModelCfg:
-    autoencoder: AutoencoderKLCfg
+    autoencoder: AutoencoderCfg
     encoder: EncoderEpipolarCfg
     decoder: DecoderSplattingCfg
     discriminator: Optional[DiscriminatorPatchGanCfg] = None
@@ -234,84 +240,6 @@ class ModelCfg:
     remat: bool = False
     remat_policy: str = "nothing"
     compute_dtype: str = "float32"
-
-
-@dataclass
-class ViewSamplerBoundedCfg:
-    name: str = "bounded"
-    num_context_views: int = 2
-    num_target_views: int = 1
-    min_distance_between_context_views: int = 2
-    max_distance_between_context_views: int = 6
-    max_distance_to_context_views: int = 0
-    context_gap_warm_up_steps: int = 0
-    target_gap_warm_up_steps: int = 0
-    initial_min_distance_between_context_views: int = 2
-    initial_max_distance_between_context_views: int = 6
-    initial_max_distance_to_context_views: int = 0
-
-
-@dataclass
-class ViewSamplerArbitraryCfg:
-    name: str = "arbitrary"
-    num_context_views: int = 2
-    num_target_views: int = 1
-    context_views: Optional[List[int]] = None
-    target_views: Optional[List[int]] = None
-
-
-@dataclass
-class ViewSamplerEvaluationCfg:
-    name: str = "evaluation"
-    index_path: str = ""
-    num_context_views: int = 2
-
-
-@dataclass
-class ViewSamplerAllCfg:
-    name: str = "all"
-
-
-ViewSamplerCfg = Union[
-    ViewSamplerBoundedCfg, ViewSamplerArbitraryCfg, ViewSamplerEvaluationCfg, ViewSamplerAllCfg
-]
-
-
-@dataclass
-class DatasetRE10kCfg:
-    image_shape: List[int] = field(default_factory=lambda: [256, 256])
-    background_color: List[float] = field(default_factory=lambda: [0.0, 0.0, 0.0])
-    cameras_are_circular: bool = False
-    overfit_to_scene: Optional[str] = None
-    view_sampler: ViewSamplerCfg = field(default_factory=ViewSamplerBoundedCfg)
-    name: str = "re10k"
-    roots: List[str] = field(default_factory=lambda: ["datasets/re10k"])
-    baseline_epsilon: float = 1e-3
-    max_fov: float = 100.0
-    make_baseline_1: bool = True
-    augment: bool = True
-
-
-@dataclass
-class DatasetCO3DCfg:
-    image_shape: List[int] = field(default_factory=lambda: [256, 256])
-    background_color: List[float] = field(default_factory=lambda: [0.0, 0.0, 0.0])
-    cameras_are_circular: bool = False
-    overfit_to_scene: Optional[str] = None
-    view_sampler: ViewSamplerCfg = field(default_factory=ViewSamplerBoundedCfg)
-    name: str = "co3d"
-    roots: List[str] = field(default_factory=lambda: ["datasets/"])
-    scene: str = "hydrant"
-    planes: Optional[List[float]] = None
-    train_split_json: str = "assets/dataset_splits/co3d_hydrant_train.json"
-    eval_split_json: str = "assets/dataset_splits/co3d_hydrant_eval.json"
-    make_baseline_1: bool = True
-    augment: bool = True
-    baseline_epsilon: float = 1e-3
-    max_fov: float = 100.0
-
-
-DatasetCfg = Union[DatasetRE10kCfg, DatasetCO3DCfg]
 
 
 @dataclass
@@ -366,15 +294,52 @@ class TrainCfg:
 
 
 @dataclass
-class PortCfg:
-    """The sections of the root config that the port reads."""
+class CheckpointingCfg:
+    load: Optional[str] = None
+    resume: bool = False
+    every_n_train_steps: int = 2500
+    save_top_k: int = -1
 
-    model: ModelCfg
+
+@dataclass
+class TrainerCfg:
+    max_steps: int = 200_001
+    val_check_interval: int = 250
+    log_every_n_steps: int = 50
+    num_devices: Optional[int] = None
+
+
+@dataclass
+class TestCfg:
+    output_path: str = "outputs/test"
+
+
+@dataclass
+class WandbCfg:
+    project: str = "latentsplat_tpu"
+    entity: str = ""
+    name: str = "run"
+    mode: str = "disabled"
+    activated: bool = False
+    tags: List[str] = field(default_factory=list)
+
+
+@dataclass
+class RootCfg:
+    mode: Literal["train", "val", "test"]
     dataset: DatasetCfg
-    loss: LossesCfg = field(default_factory=LossesCfg)
-    optimizer: OptimizerCfg = field(default_factory=OptimizerCfg)
-    freeze: FreezeCfg = field(default_factory=FreezeCfg)
-    train: TrainCfg = field(default_factory=TrainCfg)
+    data_loader: DataLoaderCfg
+    model: ModelCfg
+    optimizer: OptimizerCfg
+    checkpointing: CheckpointingCfg
+    trainer: TrainerCfg
+    loss: LossesCfg
+    test: TestCfg
+    train: TrainCfg
+    freeze: FreezeCfg
+    seed: int
+    wandb: WandbCfg = field(default_factory=WandbCfg)
+    output_dir: str = "outputs"
 
 
 def _is_dataclass_type(tp) -> bool:
@@ -438,20 +403,16 @@ def load_config(
     overrides: Optional[list[str]] = None,
     base: str = "main",
     preset_dir: Path = PRESET_DIR,
-) -> PortCfg:
+) -> RootCfg:
     """presets/<base>.yaml, overlaid with presets/experiment/<experiment>.yaml
-    and `a.b.c=value` overrides; returns the sections of `PortCfg`."""
+    and `a.b.c=value` overrides, as a `RootCfg`."""
     cfg = load_yaml(preset_dir / f"{base}.yaml")
     if experiment is not None:
         cfg = deep_merge(cfg, load_yaml(preset_dir / "experiment" / f"{experiment}.yaml"))
     for item in overrides or []:
         key, _, value = item.partition("=")
         set_dotted(cfg, key.strip(), parse_yaml(value))
-    sections = {f.name: f for f in dataclasses.fields(PortCfg)}
-    hints = typing.get_type_hints(PortCfg)
-    return PortCfg(**{
-        name: from_dict(hints[name], cfg[name]) for name in sections if cfg.get(name) is not None
-    })
+    return from_dict(RootCfg, cfg)
 
 
-__all__ = ["BackboneDinoCfg", "ModelCfg", "OptimizerCfg", "PortCfg", "load_config", "parse_yaml"]
+__all__ = ["BackboneDinoCfg", "ModelCfg", "OptimizerCfg", "RootCfg", "load_config", "parse_yaml"]

@@ -1,9 +1,34 @@
-"""Patch and bounds shims on device tensors (counterpart of the device-side
-half of latentsplat_tpu/dataset/shims.py). Images are NHWC."""
+"""Data shims (counterpart of latentsplat_tpu/dataset/shims.py): the
+augmentation shim on host numpy examples, the patch and bounds shims on
+device tensors. Images are NHWC. The crop shim (a LANCZOS resize) waits for
+the re10k and co3d datasets.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def _reflect_views(views: dict) -> dict:
+    reflect = np.eye(4, dtype=np.float32)
+    reflect[0, 0] = -1.0
+    return {
+        **views,
+        "image": views["image"][..., ::-1, :].copy(),
+        "extrinsics": reflect @ views["extrinsics"] @ reflect,
+    }
+
+
+def apply_augmentation_shim(example: dict, rng: np.random.Generator) -> dict:
+    """A horizontal flip, with the extrinsics reflected, for half the examples."""
+    if rng.random() < 0.5:
+        return example
+    return {
+        **example,
+        "context": _reflect_views(example["context"]),
+        "target": _reflect_views(example["target"]),
+    }
 
 
 def apply_patch_shim(batch: dict, patch_size: int) -> dict:

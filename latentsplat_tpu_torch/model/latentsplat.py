@@ -4,7 +4,7 @@ latentsplat_tpu/model/latentsplat.py plus the test-mode render path
 `Trainer._render_full` in latentsplat_tpu/training/trainer.py).
 
 `render_full` takes a batch dict in the JAX layout (NHWC images, (b, v, ...)
-cameras) and returns {"image", "render", "depth"}:
+cameras) and returns {"image", "render", "depth", ...}:
 data shims -> encoder -> Gaussian sample -> splatting decoder -> feature
 posterior sample -> 1/supersampling antialiased resize -> VAE decode with
 skip connections.
@@ -21,6 +21,7 @@ from torch import nn
 
 from ..dataset.shims import apply_bounds_shim, apply_patch_shim
 from ..ops.resize import resize_antialias
+from .autoencoder.identity import AutoencoderId
 from .autoencoder.kl import AutoencoderKL
 from .decoder.splatting import DecoderSplatting
 from .encoder.backbone import get_integer
@@ -34,11 +35,14 @@ class LatentSplat(nn.Module):
     def __init__(self, cfg, background_color=(0.0, 0.0, 0.0)):
         super().__init__()
         if cfg.encode_latents:
-            raise NotImplementedError("encode_latents needs the VAE encoder, not ported yet")
-        if cfg.autoencoder.name != "kl":
-            raise NotImplementedError(f"autoencoder {cfg.autoencoder.name!r} is not ported")
+            raise NotImplementedError("encode_latents needs the VAE encoder, not ported yet (ROADMAP queue 1 item 5)")
         self.cfg = cfg
-        self.autoencoder = AutoencoderKL(cfg.autoencoder, d_in=3, d_skip_extra=3)
+        if cfg.autoencoder.name == "kl":
+            self.autoencoder = AutoencoderKL(cfg.autoencoder, d_in=3, d_skip_extra=3)
+        elif cfg.autoencoder.name == "id":
+            self.autoencoder = AutoencoderId(cfg.autoencoder, d_in=3)
+        else:
+            raise NotImplementedError(f"autoencoder {cfg.autoencoder.name!r} is not ported")
         self.encoder = EncoderEpipolar(
             cfg.encoder,
             d_in=3,
@@ -66,7 +70,10 @@ class LatentSplat(nn.Module):
         return resize_antialias(x, LatentSplat.scaled_size(scale, x.shape[-3:-1]))
 
     def last_layer(self) -> nn.Parameter:
-        """The adaptive GAN weight's anchor: the VAE decoder's conv_out weight."""
+        """The adaptive GAN weight's anchor: the VAE decoder's conv_out weight,
+        or the encoder's to_gaussians weight when the autoencoder has none."""
+        if isinstance(self.autoencoder, AutoencoderId):
+            return self.encoder.to_gaussians.weight
         return self.autoencoder.decoder.conv_out.weight
 
     def data_shim(self, batch: dict) -> dict:
@@ -94,7 +101,8 @@ def render_full(
     timer=None,
 ) -> dict:
     """Serve one batch: {"context": views, "target": views} ->
-    {"image" (b, v, H, W, 3), "render" (b, v, h, w, 3), "depth" (b, v, h, w)}.
+    {"image" (b, v, H, W, 3), "render" (b, v, h, w, 3), "depth" (b, v, h, w),
+    "num_pairs", "target_shim" (the target images after the data shims)}.
 
     In probabilistic mode randomness comes from `generator`, or from
     `noise` = {"depth": uniform (b, v, r, srf, spp), "gaussians": normal like
@@ -148,5 +156,6 @@ def render_full(
         "render": rendered.color,
         "depth": rendered.depth,
         "num_pairs": rendered.num_pairs,
+        "target_shim": target["image"],
     }
 

@@ -8,7 +8,8 @@ The JAX package builds optax chains; this module reproduces them by hand:
   * clip_by_global_norm -> scale_by_adam (eps 1e-8, eps_root 0, bias
     correction at count + 1) -> scale by the learning rate, where the
     generator's rate warms up linearly over the group's own update count;
-  * a frozen group gets zero updates and has no state;
+  * a frozen group gets zero updates and has no state, and so does a group
+    with no parameters (the autoencoder's, when it is the identity);
   * `step(grads, ok)` with ok false leaves parameters and state, count
     included, exactly as they were. `ok` stays on the device: the update is
     selected with torch.where, so no step waits on the host.
@@ -58,7 +59,7 @@ class ChainedAdam:
         self.groups = groups
         self.state = {}
         for label, (params, cfg) in groups.items():
-            if cfg is None:
+            if cfg is None or not params:
                 continue
             device = next(iter(params.values())).device
             self.state[label] = {
@@ -78,10 +79,8 @@ class ChainedAdam:
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor], ok: torch.Tensor) -> None:
         """Apply one update from `grads` (by parameter name) where `ok`."""
-        for label, (params, cfg) in self.groups.items():
-            if cfg is None:
-                continue
-            state = self.state[label]
+        for label, state in self.state.items():
+            params, cfg = self.groups[label]
             g = [grads[n] for n in params]
             norm = global_norm(g)
             b1, b2 = cfg.betas

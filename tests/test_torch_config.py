@@ -13,6 +13,8 @@ from latentsplat_tpu.config import PRESET_DIR as JAX_PRESET_DIR
 from latentsplat_tpu.config import load_config as jax_load_config
 from latentsplat_tpu_torch.config import PRESET_DIR, load_config, parse_yaml
 
+from tests.test_trainer import TINY_OVERRIDES
+
 PRESETS = sorted(Path(JAX_PRESET_DIR).rglob("*.yaml"))
 EXPERIMENTS = [None] + sorted(p.stem for p in (Path(JAX_PRESET_DIR) / "experiment").glob("*.yaml"))
 SMALL_OVERRIDES = [
@@ -49,6 +51,7 @@ def test_yaml_scalars_and_flows_match_pyyaml(text):
 
 
 TRAINING_SECTIONS = ("loss", "optimizer", "freeze", "train")
+ROOT_SECTIONS = ("mode", "seed", "output_dir", "data_loader", "checkpointing", "trainer", "test", "wandb")
 
 
 @pytest.mark.parametrize("experiment", EXPERIMENTS)
@@ -66,6 +69,26 @@ def test_training_sections_match_jax(experiment, section):
     ours = getattr(load_config(experiment), section)
     theirs = getattr(jax_load_config(experiment), section)
     assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+
+
+@pytest.mark.parametrize("experiment", EXPERIMENTS)
+@pytest.mark.parametrize("section", ROOT_SECTIONS)
+def test_root_sections_match_jax(experiment, section):
+    ours = getattr(load_config(experiment), section)
+    theirs = getattr(jax_load_config(experiment), section)
+    if dataclasses.is_dataclass(theirs):
+        assert type(ours).__name__ == type(theirs).__name__
+        ours, theirs = dataclasses.asdict(ours), dataclasses.asdict(theirs)
+    assert ours == theirs and type(ours) is type(theirs)
+
+
+def test_whole_tree_matches_jax_with_trainer_overrides():
+    # The tiny trainer's overrides replace the dataset with the synthetic one
+    # and the autoencoder with the identity.
+    ours, theirs = load_config(None, TINY_OVERRIDES), jax_load_config(None, TINY_OVERRIDES)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert type(ours.dataset).__name__ == "DatasetSyntheticCfg"
+    assert type(ours.model.autoencoder).__name__ == "AutoencoderIdCfg"
 
 
 def test_re10k_training_config():
@@ -88,11 +111,15 @@ def test_overrides_match_jax():
 
 
 def test_port_imports_no_jax():
+    # Nor PIL: the card machine has none, and the entry point's path runs there.
+    modules = (
+        "model.latentsplat", "config", "weights", "ops.rasterize.kernels", "main", "training.trainer", "dataset",
+        "dataset.synthetic", "dataset.loader", "misc.image_io",
+    )
     code = (
         "import sys\n"
-        "import latentsplat_tpu_torch.model.latentsplat, latentsplat_tpu_torch.config, "
-        "latentsplat_tpu_torch.weights, latentsplat_tpu_torch.ops.rasterize.kernels\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'latentsplat_tpu'))\n"
+        f"import {', '.join('latentsplat_tpu_torch.' + m for m in modules)}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'latentsplat_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
     )
     root = Path(__file__).resolve().parent.parent
