@@ -24,29 +24,43 @@
    256x256, probabilistic) through `render_full` on the flagship re10k
    model at full width with seeded random weights, checks the output and
    that both forward kernels ran on that path.
-5. Train phase: 3 VAE-GAN train steps of the flagship re10k model at full
+5. Depth phase: on the slice's Gaussians, composite_forward at 4 channels
+   (render_depth's payload) against its plain version and timed at view 0;
+   the splatting decoder in each depth mode (depth, disparity,
+   relative_disparity, log) over the 4 target views, with finite depths,
+   the 4-channel launches, each mode's time per view and the invariant
+   depth x disparity >= mask^2.
+6. Train phase: 3 VAE-GAN train steps of the flagship re10k model at full
    width (random weights for the generator, the PatchGAN discriminator and
    LPIPS) on one batch of 2 scenes, 2 context + 4 target views at 256x256,
    at step 125000, where every re10k loss is live. Checks finite losses and
    gradient norms, the adaptive weight in [0, 1], changed parameters of
    both nets and that all four kernels ran; prints seconds per step, a
    stage split and the peak memory.
-6. Trainer phase: the program's entry point, `latentsplat_tpu_torch.main.main`,
+7. Trainer phase: the program's entry point, `latentsplat_tpu_torch.main.main`,
    on the flagship model at full width and the synthetic dataset at
-   256x256: train from step 0 (2 steps, a validation, the 48-view test),
-   a resume at step 125000 (2 steps with every loss live, its test), and
-   test mode with an evaluation index. Checks the logs, checkpoints, PNGs,
-   benchmark.json and that all four kernels ran; prints the benchmark.json
-   means, steps/s and peak memory.
-7. Small-input checks: the tiled (kernel) render of a narrow model against
-   the dense oracle render, and the narrow model's train-step gradients
-   through the tiled kernels against those through the dense oracle.
+   256x256: train from step 0 (2 steps, a validation with the wobble and
+   interpolation videos, the 48-view test), a resume at step 125000 (2
+   steps with every loss live, its test), an evaluation index written by
+   scripts.generate_evaluation_index, test mode over it, then
+   scripts.compute_metrics, the MetricComputer with LPIPS and DISTS on the
+   card and scripts.generate_benchmark_table over that test's output.
+   Checks the logs, checkpoints, videos, PNGs, benchmark.json, the index,
+   the scores and that all four kernels ran as often as the runs need;
+   prints the benchmark.json means, steps/s, peak memory and the metric
+   passes' seconds per image.
+8. Small-input checks: the tiled (kernel) render of a narrow model against
+   the dense oracle render, composite_backward and reduce_pairs at 4
+   channels against their plain versions, and the narrow model's
+   train-step gradients through the tiled kernels against those through
+   the dense oracle.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (device ms, plain ms, the bound and its share, the library call's
 ms, launches on the main path and in the trainer phase; duplicate_with_keys
-also its wrapper's ms), and last `{"ok": true, "device": {...}}`. Any
-failed check raises.
+also its wrapper's ms; composite_forward once at the flagship's 8 channels
+and once at render_depth's 4), and last `{"ok": true, "device": {...}}`.
+Any failed check raises.
 Exits non-zero without printing a result when no CUDA device is present.
 """
 
@@ -303,29 +317,50 @@ def composite_work(view: dict) -> dict:
     return work
 
 
-def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[dict, list[dict]]:
-    from latentsplat_tpu_torch.ops.rasterize import kernels
-    from latentsplat_tpu_torch.ops.rasterize.api import view_channels
-    from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_screen
-    from latentsplat_tpu_torch.ops.rasterize.tiled import pack_attributes, sort_pairs, tile_rects
-
+def slice_gaussians(model, batch, seed: int):
+    """The slice batch after the data shims and its Gaussians, sampled with
+    a generator seeded with `seed`."""
     gen = torch.Generator(device=batch["target"]["image"].device).manual_seed(seed)
     with torch.no_grad():
         shimmed = model.data_shim(batch)
-        gaussians = model.encoder(shimmed["context"], 0, generator=gen).sample(gen)
-        target = shimmed["target"]
-        ext, intr, near = target["extrinsics"][0, 0], target["intrinsics"][0, 0], target["near"][0, 0]
-        h, w = target["image"].shape[2:4]
-        channels = view_channels(
-            gaussians.means[0], gaussians.color_harmonics[0], gaussians.feature_harmonics[0], ext[:3, 3]
-        )
+        return shimmed, model.encoder(shimmed["context"], 0, generator=gen).sample(gen)
+
+
+def first_view(model, batch, seed: int, depth_payload: bool = False):
+    """The screen Gaussians of the slice's first target view, as `render`
+    gives them to the compositor: the SH colors and features towards the
+    camera, or (`depth_payload`) each Gaussian's camera-space z as the
+    3-channel DC color of `render_depth`; then (sg, (h, w))."""
+    from latentsplat_tpu_torch.geometry.projection import homogenize_points, invert_se3
+    from latentsplat_tpu_torch.ops.rasterize.api import view_channels
+    from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_screen
+
+    shimmed, gaussians = slice_gaussians(model, batch, seed)
+    target = shimmed["target"]
+    ext, intr, near = target["extrinsics"][0, 0], target["intrinsics"][0, 0], target["near"][0, 0]
+    h, w = target["image"].shape[2:4]
+    means = gaussians.means[0]
+    with torch.no_grad():
+        if depth_payload:
+            z = torch.einsum("ij,gj->gi", invert_se3(ext), homogenize_points(means))[:, 2]
+            channels = view_channels(means, z[:, None, None].expand(-1, 3, 1), None, ext[:3, 3], use_sh=False)
+        else:
+            channels = view_channels(means, gaussians.color_harmonics[0], gaussians.feature_harmonics[0], ext[:3, 3])
         s = 1.0 / near
         ext_s = ext.clone()
         ext_s[:3, 3] *= s
         sg = project_gaussians_to_screen(
-            gaussians.means[0] * s, gaussians.covariances[0] * (s * s), gaussians.opacities[0],
-            channels, ext_s, intr, (h, w),
+            means * s, gaussians.covariances[0] * (s * s), gaussians.opacities[0], channels, ext_s, intr, (h, w),
         )
+    return sg, (h, w)
+
+
+def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[dict, list[dict]]:
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+    from latentsplat_tpu_torch.ops.rasterize.tiled import pack_attributes, sort_pairs, tile_rects
+
+    sg, (h, w) = first_view(model, batch, seed)
+    channels = sg.channels
     tiles_x, tiles_y = w // 16, h // 16
     counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y)
     depth = sg.depth.contiguous()
@@ -393,7 +428,6 @@ def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[di
           f"longest tile walk")
     if parent:
         parent_comparison(parent, dup_args, (gids, keys), comp_args, out, flush)
-    n_ch, row, plane = attrs.shape[1] - 6, attrs.shape[1], h * w
     return view, [
         # Mask, base, nx and depth of each Gaussian, one exclusive offset per
         # block of 512 Gaussians, and 12 bytes per pair written.
@@ -401,12 +435,139 @@ def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[di
               float(dup_err), dup_ms, dup_plain_ms,
               n_bytes=16 * g_count + 8 * math.ceil(g_count / 512) + 12 * p_count, n_ops=0,
               wrapper_ms=dup_wrapper_ms),
-        entry("composite_forward", "composite_forward.cu",
-              "latentsplat_tpu/ops/rasterize/pallas_kernels.py:399", max(err_ch, err_t), comp_ms,
-              comp_plain_ms,
-              n_bytes=4 * p_count + 4 * ranges.numel() + 4 * row * g_count + 4 * (n_ch + 2) * plane,
-              n_ops=EVAL_OPS * work["forward_evaluations"] + forward_composited_ops(n_ch) * work["composited"]),
+        forward_entry(max(err_ch, err_t), comp_ms, comp_plain_ms, view),
     ]
+
+
+def forward_entry(err: float, ms: float, plain_ms: float, view: dict) -> dict:
+    """composite_forward's record: the pairs' ids, the tile ranges and every
+    Gaussian's attribute row read once, the channels, T and `last` written;
+    operations as counted by `composite_work`."""
+    attrs, ranges, work = view["attrs"], view["ranges"], view["work"]
+    p_count, (g_count, row) = view["gids"].shape[0], attrs.shape
+    n_ch, plane = row - 6, view["shape"][0] * view["shape"][1]
+    return entry("composite_forward", "composite_forward.cu", "latentsplat_tpu/ops/rasterize/pallas_kernels.py:399",
+                 err, ms, plain_ms,
+                 n_bytes=4 * p_count + 4 * ranges.numel() + 4 * row * g_count + 4 * (n_ch + 2) * plane,
+                 n_ops=EVAL_OPS * work["forward_evaluations"] + forward_composited_ops(n_ch) * work["composited"],
+                 channels=n_ch)
+
+
+DEPTH_MODES = ("depth", "disparity", "relative_disparity", "log")
+
+
+def depth_view(sg, shape: tuple[int, int]) -> dict:
+    """Pairs and attribute rows of the screen Gaussians `sg`, duplicated and
+    sorted by the kernels (ids, keys and tile ranges held exactly against
+    the plain versions), with composite_forward's outputs."""
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+    from latentsplat_tpu_torch.ops.rasterize.tiled import pack_attributes, sort_pairs, tile_rects
+
+    h, w = shape
+    tiles_x, tiles_y = w // 16, h // 16
+    counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y)
+    depth = sg.depth.contiguous()
+    gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9)
+    ref_gids, ref_keys = kernels.duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, 9)
+    sorted_gids, ranges, order = sort_pairs(gids, keys, tiles_x * tiles_y)
+    ref_sorted, ref_ranges, _ = sort_pairs(ref_gids, ref_keys, tiles_x * tiles_y)
+    if not (torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys) and torch.equal(sorted_gids, ref_sorted)
+            and torch.equal(ranges, ref_ranges)):
+        raise AssertionError("duplicate_with_keys or the sort disagrees with its plain version")
+    attrs = pack_attributes(sg)
+    _, t_final, last = kernels.composite_forward(sorted_gids, ranges, attrs, tiles_x, shape)
+    return {"gids": sorted_gids, "ranges": ranges, "order": order, "counts": counts, "attrs": attrs,
+            "tiles_x": tiles_x, "shape": shape, "t_final": t_final, "last": last}
+
+
+def check_forward(view: dict, label: str) -> float:
+    """composite_forward against its plain version on `view`: `last`
+    exactly, T within KERNEL_ATOL and each channel within KERNEL_ATOL of
+    its largest value (render_depth's channels carry depths, up to ~100).
+    Returns the largest of those errors."""
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+
+    args = (view["gids"], view["ranges"], view["attrs"], view["tiles_x"], view["shape"])
+    out = kernels.composite_forward(*args)
+    ref = kernels.composite_forward_reference(*args)
+    torch.cuda.synchronize()
+    scale = ref[0].abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    err_ch = ((out[0] - ref[0]).abs().amax(dim=(1, 2)) / scale).max().item()
+    err_t = (out[1] - ref[1]).abs().max().item()
+    last_mismatch = int((out[2] != ref[2]).sum())
+    print(f"{label}: composite_forward at {view['attrs'].shape[1] - 6} channels, max channel error relative to "
+          f"its largest value {err_ch:.3e}, max |T err| {err_t:.3e}, last-contributor mismatches {last_mismatch}")
+    if not (err_ch <= KERNEL_ATOL and err_t <= KERNEL_ATOL) or last_mismatch:
+        raise AssertionError(f"{label}: composite_forward disagrees with its plain version")
+    return max(err_ch, err_t)
+
+
+def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
+    """render_depth on the slice's Gaussians: composite_forward at 4
+    channels (render_depth's 3-channel payload + the expected depth) held
+    against its plain version and timed at view 0; then `DecoderSplatting`
+    in each depth mode over the 4 target views (the counted run), finite
+    depths, each mode's render_depth time per view, and the invariant
+    depth x disparity >= mask^2 (Cauchy-Schwarz over the same composite
+    weights). Returns the 4-channel composite_forward's record and the
+    launches of the counted run ({kernel: n} and composite_forward's by
+    channel count)."""
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+    from latentsplat_tpu_torch.ops.rasterize.api import render_depth
+
+    sg, shape = first_view(model, batch, seed, depth_payload=True)
+    view = depth_view(sg, shape)
+    err = check_forward(view, "depth phase, view 0")
+    args = (view["gids"], view["ranges"], view["attrs"], view["tiles_x"], shape)
+    ms = device_ms(lambda: kernels.composite_forward(*args))
+    plain_ms = cuda_ms(lambda: kernels.composite_forward_reference(*args), 3)
+    view["work"] = composite_work(view)
+    print(f"depth phase: composite_forward at 4 channels {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms; "
+          f"{view['gids'].shape[0]} pairs")
+    record = forward_entry(err, ms, plain_ms, view)
+    del view
+
+    shimmed, gaussians = slice_gaussians(model, batch, seed)
+    target = shimmed["target"]
+    cams = (target["extrinsics"], target["intrinsics"], target["near"], target["far"])
+    n_views = cams[0].shape[1]
+    size = model.scaled_size(model.scale_factor, target["image"].shape[2:4])
+    for key in kernels.launch_counts:
+        kernels.launch_counts[key] = 0
+    kernels.composite_forward_launches.clear()
+    outs, seconds = {}, {}
+    with torch.no_grad():
+        for mode in DEPTH_MODES:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            outs[mode] = model.decoder(gaussians, *cams, size, depth_mode=mode)
+            torch.cuda.synchronize()
+            seconds[mode] = time.perf_counter() - start
+    launches = dict(kernels.launch_counts)
+    launches["composite_forward_by_channels"] = dict(kernels.composite_forward_launches)
+    print(f"depth phase launches (4 modes x {n_views} views): {launches}")
+    if launches["composite_forward_by_channels"].get(4) != (len(DEPTH_MODES) - 1) * n_views:
+        raise AssertionError("render_depth did not composite each view once at 4 channels in each special mode")
+    with torch.no_grad():
+        for mode, out in outs.items():
+            d = out.depth
+            if d.shape != (1, n_views, *size) or not torch.isfinite(d).all():
+                raise AssertionError(f"depth mode {mode}: shape {tuple(d.shape)} or non-finite values")
+            per_view = cuda_ms(lambda: render_depth(*cams, size, gaussians.means, gaussians.covariances,
+                                                    gaussians.opacities, mode=mode), 3) / n_views
+            print(f"depth mode {mode}: decoder {seconds[mode]:.4f} s for {n_views} views (host clock, synchronized); "
+                  f"render_depth {per_view:.4f} ms per view (CUDA events, host included); depth min "
+                  f"{d.min().item():.4g}, mean {d.mean().item():.4g}, max {d.max().item():.4g}")
+        gaussian_args = (gaussians.means, gaussians.covariances, gaussians.opacities)
+        depth = render_depth(*cams, size, *gaussian_args, mode="depth")
+        disparity = render_depth(*cams, size, *gaussian_args, mode="disparity")
+        mask = outs["depth"].mask
+        worst = (depth * disparity - mask**2 * (1 - 1e-4)).min().item()
+    print(f"depth phase: min of depth x disparity - mask^2 (1 - 1e-4) = {worst:.4e} (must be >= 0); "
+          f"mask mean {mask.mean().item():.4f}")
+    if worst < 0:
+        raise AssertionError("depth x disparity < mask^2: the depth renders do not share their weights")
+    return record, launches
 
 
 def backward_kernel_phase(view: dict, seed: int) -> list[dict]:
@@ -837,18 +998,22 @@ def trainer_phase(seed: int, device) -> tuple[dict, dict]:
     re10k model at full width and the synthetic dataset at 256x256 (4
     scenes of 48 frames, so the preset's bounded gaps fit at steps 0 and
     125000; train batch 2): (a) mode=train from step 0 for 2 steps with a
-    validation and a checkpoint at step 2, then the test that train mode
-    runs (the bounded sampler's test stage: 48 target views a scene); (b) a
-    resume from a checkpoint at step 125000, where every re10k loss is live,
-    for 2 steps, then its test; (c) mode=test from (a)'s checkpoint with an
-    evaluation index of 2 context and 3 target views a scene. The weights
-    are random from `seed`, the generator's as `like_trained` leaves them
+    validation, its wobble and interpolation videos (30 views each, looped
+    back to 58 frames) and a checkpoint at step 2, then the test that train
+    mode runs (the bounded sampler's test stage: 48 target views a scene);
+    (b) a resume from a checkpoint at step 125000, where every re10k loss is
+    live, for 2 steps, then its test; then the evaluation path: an index
+    written by `scripts.generate_evaluation_index`, (c) mode=test from
+    (a)'s checkpoint over that index (2 context and 3 target views a
+    scene), and `evaluation_phase` over (c)'s output. The weights are
+    random from `seed`, the generator's as `like_trained` leaves them
     (loaded into (a) as its `checkpointing.load`). Checkpoints go to a
     temporary directory that is deleted. Returns the kernels' launch counts
-    over (a)+(b) and over (c)."""
+    over (a)+(b) and over (c), composite_forward's also by channel count."""
     from latentsplat_tpu_torch.config import load_config
     from latentsplat_tpu_torch.main import main as run_main
     from latentsplat_tpu_torch.ops.rasterize import kernels
+    from latentsplat_tpu_torch.scripts import generate_evaluation_index
     from latentsplat_tpu_torch.training.checkpointing import latest_checkpoint, save_checkpoint
     from latentsplat_tpu_torch.training.trainer import Trainer
 
@@ -884,8 +1049,12 @@ def trainer_phase(seed: int, device) -> tuple[dict, dict]:
 
         for key in kernels.launch_counts:
             kernels.launch_counts[key] = 0
-        run_a = call("a", "mode=train", f"checkpointing.load={init}", "trainer.max_steps=2",
-                     "trainer.val_check_interval=2")
+        kernels.composite_forward_launches.clear()
+        videos = []
+        with watch_videos(videos):
+            run_a = call("a", "mode=train", f"checkpointing.load={init}", "trainer.max_steps=2",
+                         "trainer.val_check_interval=2", "train.video_wobble=true", "train.video_interpolation=true")
+        check_videos(videos, run_a)
         init.unlink()    # ~1.9 GB each at full width
         ckpt_a = latest_checkpoint(run_a / "checkpoints")
         if ckpt_a is None or ckpt_a.name != "step_00000002":
@@ -914,6 +1083,7 @@ def trainer_phase(seed: int, device) -> tuple[dict, dict]:
         run_b = call("b", "mode=train", f"checkpointing.load={resume}", "checkpointing.resume=true",
                      f"trainer.max_steps={TRAIN_STEP + 2}")
         fit_launches = dict(kernels.launch_counts)
+        fit_launches["composite_forward_by_channels"] = dict(kernels.composite_forward_launches)
         resume.unlink()
         train_b = read_records(run_b)
         if [r["step"] for r in train_b] != [TRAIN_STEP + 1, TRAIN_STEP + 2]:
@@ -934,25 +1104,167 @@ def trainer_phase(seed: int, device) -> tuple[dict, dict]:
                                                              "target_combined/adaptive_weight") if k in r))
         means_b = check_test_output(tmp / "b" / "test" / "latentsplat_tpu", 4 * 48)
 
-        index = tmp / "evaluation_index.json"
-        index.write_text(json.dumps({f"synthetic_{i:04d}": {"context": [2, 40], "target": [9, 21, 33]}
-                                     for i in range(4)}))
+        # The evaluation index of the synthetic scenes, with the JAX script's
+        # defaults: context pairs 45 or more frames apart whose rays overlap
+        # by at least 60%, 3 target views between them.
+        start = time.perf_counter()
+        index = generate_evaluation_index.main(
+            ["+experiment=re10k", f"dataset={json.dumps(dict(data, view_sampler={'name': 'all'}))}",
+             f"index_generator.output_path={tmp / 'index'}"], device=device)
+        entries = json.loads(index.read_text())
+        print(f"  evaluation index in {time.perf_counter() - start:.2f} s: {entries}")
+        if sorted(entries) != [f"synthetic_{i:04d}" for i in range(4)] or not all(
+                len(v) == 1 and len(v[0]["target"]) == 3 for v in entries.values()):
+            raise AssertionError("the evaluation index does not hold one entry of 3 targets for each scene")
         for key in kernels.launch_counts:
             kernels.launch_counts[key] = 0
+        kernels.composite_forward_launches.clear()
+        evaluation = {"name": "evaluation", "index_path": str(index)}
         call("c", "mode=test", f"checkpointing.load={ckpt_a}", "wandb.name=evaluation",
-             f"dataset.view_sampler={{name: evaluation, index_path: {index}}}")
+             f"dataset.view_sampler={json.dumps(evaluation)}")
         test_launches = dict(kernels.launch_counts)
+        test_launches["composite_forward_by_channels"] = dict(kernels.composite_forward_launches)
         means_c = check_test_output(tmp / "c" / "test" / "evaluation", 4 * 3)
+        evaluation_phase(seed, device, dict(data, view_sampler=evaluation), tmp / "c" / "test" / "evaluation", tmp)
 
     print(f"trainer phase launches: (a)+(b) {fit_launches}, (c) {test_launches}")
-    if min(fit_launches.values()) < 1:
+    if min(fit_launches[k] for k in kernels.launch_counts) < 1:
         raise AssertionError(f"a kernel did not run in the trainer's fit: {fit_launches}")
+    # 4 train steps of 2 scenes x 4 target views, the validation's two passes
+    # over 4 views, two videos of 30 views and two tests of 4 x 48 views.
+    expected = 4 * 2 * 4 + 2 * 4 + 2 * 30 + 2 * 4 * 48
+    if any(fit_launches[k] != expected for k in FORWARD_KERNELS):
+        raise AssertionError(f"the trainer's fit launched the forward kernels {fit_launches}, not {expected} times")
     if min(test_launches[k] for k in FORWARD_KERNELS) < 1:
         raise AssertionError(f"a forward kernel did not run in the trainer's test: {test_launches}")
     print("trainer phase benchmark.json means per scene (encoder) and per view: "
           + "; ".join(f"({n}) " + ", ".join(f"{k} {v:.4f}" for k, v in m.items())
                       for n, m in (("a", means_a), ("b", means_b), ("c", means_c))))
     return fit_launches, test_launches
+
+
+@contextmanager
+def watch_videos(videos: list):
+    """While open, every `Trainer.render_video` call appends its mode, its
+    frames, seconds, kernel launches and the peak memory since the
+    enclosing call's start to `videos`."""
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+    from latentsplat_tpu_torch.training.trainer import Trainer
+
+    original = Trainer.render_video
+
+    def render_video(self, params_gen, batch, mode, step, **kwargs):
+        logged = {}
+        log_video = self.logger.log_video
+        self.logger.log_video = lambda key, frames, step_: logged.update(frames=frames) or log_video(key, frames, step_)
+        before = dict(kernels.launch_counts)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        try:
+            original(self, params_gen, batch, mode, step, **kwargs)
+        finally:
+            self.logger.log_video = log_video
+        torch.cuda.synchronize()
+        videos.append({"mode": mode, "step": step, "frames": logged.get("frames", []),
+                       "seconds": time.perf_counter() - start, "peak": torch.cuda.max_memory_allocated(),
+                       "launches": {k: v - before[k] for k, v in kernels.launch_counts.items()}})
+
+    Trainer.render_video = render_video
+    try:
+        yield
+    finally:
+        Trainer.render_video = original
+
+
+def check_videos(videos: list, run: Path, size: int = 256) -> None:
+    """Both videos of (a)'s validation: 58 finite frames (the size x size
+    image over its depth in color, 2 pixels apart), each view through both forward
+    kernels once, and the file the logger wrote (an mp4 with ffmpeg, else
+    the frames as PNGs)."""
+    if [v["mode"] for v in videos] != ["wobble", "interpolation"]:
+        raise AssertionError(f"(a) rendered the videos {[v['mode'] for v in videos]}")
+    for v in videos:
+        frames = v["frames"]
+        if len(frames) != 58 or any(f.shape != (2 * size + 2, size, 3) or not np.isfinite(f).all() for f in frames):
+            raise AssertionError(f"video {v['mode']}: {len(frames)} frames, shapes {sorted({f.shape for f in frames})}")
+        if any(v["launches"][k] != 30 for k in FORWARD_KERNELS):
+            raise AssertionError(f"video {v['mode']}: launches {v['launches']}, not 30 of each forward kernel")
+        mp4 = run / "local" / "video" / v["mode"] / f"{v['step']:0>6}.mp4"
+        pngs = sorted(mp4.with_suffix("").glob("*.png"))
+        if not (mp4.exists() or len(pngs) == 58):
+            raise AssertionError(f"video {v['mode']}: neither {mp4} nor 58 PNG frames")
+        print(f"  (a) video/{v['mode']}: 58 frames of {frames[0].shape}, "
+              + (f"mp4 of {mp4.stat().st_size} bytes" if mp4.exists() else "58 PNGs (no ffmpeg)")
+              + f", {v['seconds']:.2f} s, launches {v['launches']}, peak memory since (a)'s start "
+              f"{v['peak'] / 1e9:.2f} GB")
+
+
+def evaluation_phase(seed: int, device, data: dict, rendered: Path, tmp: Path, n_scenes: int = 4) -> None:
+    """What follows a test run, on (c)'s PNGs: `scripts.compute_metrics`
+    (PSNR and SSIM of every indexed view, per scene and their means); the
+    `MetricComputer` once more with the port's LPIPS and DISTSNet (seeded
+    random weights) as its networks, and DISTS of each image against itself;
+    `scripts.generate_benchmark_table` over (c)'s benchmark.json. Prints the
+    seconds per image of both metric passes."""
+    from latentsplat_tpu_torch.config import load_config
+    from latentsplat_tpu_torch.dataset import get_dataset
+    from latentsplat_tpu_torch.dataset.view_samplers import get_view_sampler
+    from latentsplat_tpu_torch.evaluation.metric_computer import EvaluationCfg, MethodCfg, MetricComputer
+    from latentsplat_tpu_torch.evaluation.metrics import DISTSNet
+    from latentsplat_tpu_torch.loss.lpips import LPIPS
+    from latentsplat_tpu_torch.scripts import compute_metrics, generate_benchmark_table
+    from latentsplat_tpu_torch.training.step_tracker import StepTracker
+
+    n_images = len(list(rendered.rglob("color/*.png")))
+    dataset_arg = f"dataset={json.dumps(data)}"
+    method = f"{{name: latentSplat, key: ours, path: {rendered}}}"
+    start = time.perf_counter()
+    computer = compute_metrics.main(
+        ["+experiment=re10k", dataset_arg, f"evaluation.methods=[{method}]",
+         f"evaluation.output_metrics_path={tmp / 'metrics' / 'scores.json'}"], device=device)
+    metrics_s = time.perf_counter() - start
+    means = json.loads((tmp / "metrics" / "scores.mean.json").read_text())
+    scores = computer.scores
+    if len(scores["psnr"]) != n_scenes or len(scores["ssim"]) != n_scenes:
+        raise AssertionError(f"compute_metrics scored {sorted(scores['psnr'])}")
+    values = [v["ours"] for m in ("psnr", "ssim") for v in scores[m].values()]
+    if not all(math.isfinite(x) for x in values) or not all(-1.0 <= v["ours"] <= 1.0 for v in scores["ssim"].values()):
+        raise AssertionError(f"compute_metrics: {scores}")
+    print(f"evaluation: compute_metrics over {n_images} images of {n_scenes} scenes in {metrics_s:.2f} s "
+          f"({metrics_s / n_images:.4f} s per image, the ground truth's numpy rendering included); means {means}")
+
+    torch.manual_seed(seed)
+    lpips, dists = LPIPS().to(device).eval(), DISTSNet().to(device).eval()
+    computer = MetricComputer(EvaluationCfg([MethodCfg("latentSplat", "ours", rendered)]), lpips_fn=lpips,
+                              dists_fn=dists, device=device)
+    cfg = load_config("re10k", [dataset_arg])
+    sampler = get_view_sampler(cfg.dataset.view_sampler, "test", False, False, StepTracker())
+    self_dists, step_s = [], 0.0
+    for example in get_dataset(cfg.dataset, "test", sampler):
+        batch = {"scene": example["scene"], "context": {"index": example["context"]["index"]},
+                 "target": {"index": example["target"]["index"], "image": example["target"]["image"][None]}}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        computer.step(batch, verbose=False)
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - start
+        with torch.no_grad():
+            gt = torch.from_numpy(example["target"]["image"]).to(device)
+            self_dists.append(dists(gt, gt).abs().max().item())
+    scores = computer.mean_scores()
+    print(f"evaluation: MetricComputer with LPIPS and DISTS (random weights) on the card, means {scores}; "
+          f"{step_s / n_images:.4f} s per image (host clock, synchronized, PNG reads included); "
+          f"largest |DISTS(x, x)| {max(self_dists):.3e}")
+    if set(scores) != {"psnr", "lpips", "dists", "ssim"} or not all(
+            math.isfinite(v["ours"]) for v in scores.values()):
+        raise AssertionError(f"MetricComputer with LPIPS and DISTS: {scores}")
+    if max(self_dists) > 1e-5:
+        raise AssertionError("DISTS of an image against itself is not 0")
+
+    table = generate_benchmark_table.main(
+        [f"methods=[{{name: latentSplat, path: {rendered}}}]", f"output_path={tmp / 'benchmark_table.tex'}"])
+    if not all(f"{tag} (ms)" in table for tag in ("encoder", "decoder", "autoencoder decoder")):
+        raise AssertionError("the benchmark table lacks a tag")
 
 
 def small_gradient_check(seed: int, device) -> None:
@@ -1019,6 +1331,36 @@ def small_input_check(seed: int, device) -> None:
         raise AssertionError(f"tiled render disagrees with the dense oracle: {errs}")
 
 
+def small_depth_backward_check(seed: int, device) -> None:
+    """composite_backward at 4 channels (render_depth's payload) against its
+    plain version on the narrow model's first view at 32x32, with a seeded
+    random cotangent: 1e-4 of each gradient column's largest value, the
+    same bits on a second launch; reduce_pairs over its rows (10 floats)
+    exactly against its plain version on the CPU."""
+    from latentsplat_tpu_torch.config import load_config
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+
+    model = build_model(load_config("re10k", SMALL_OVERRIDES), seed, device)
+    sg, shape = first_view(model, make_batch(np.random.default_rng(seed), 2, 2, 32, device), seed, depth_payload=True)
+    view = depth_view(sg, shape)
+    check_forward(view, "small input")
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    args = (view["gids"], view["ranges"], view["order"], view["attrs"], view["tiles_x"], shape, view["last"],
+            view["t_final"], torch.randn((4, *shape), generator=gen, device=device),
+            torch.randn(shape, generator=gen, device=device))
+    d_rows = kernels.composite_backward(*args)
+    ref = kernels.composite_backward_reference(*args)
+    torch.cuda.synchronize()
+    err = ((d_rows - ref).abs() / ref.abs().amax(dim=0).clamp(min=1e-30)).max().item()
+    offsets = torch.cumsum(view["counts"], dim=0, dtype=torch.int64)
+    rows = kernels.reduce_pairs(d_rows, offsets)
+    exact = torch.equal(rows.cpu(), kernels.reduce_pairs_reference(d_rows.cpu(), offsets.cpu()))
+    print(f"small input, composite_backward at 4 channels: {d_rows.shape[0]} pair rows, max error relative to each "
+          f"column's largest value {err:.3e} (tolerance {BACKWARD_RTOL}); reduce_pairs exact {exact}")
+    if not (err <= BACKWARD_RTOL and torch.equal(d_rows, kernels.composite_backward(*args)) and exact):
+        raise AssertionError("composite_backward or reduce_pairs at 4 channels disagrees with its plain version")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1052,18 +1394,25 @@ def main() -> int:
     results += backward_kernel_phase(view, args.seed)
     del view
     serve_launches = slice_phase(model, batch, args.seed, args.profile)
+    depth_record, depth_launches = depth_phase(model, batch, args.seed)
     del model
     train_launches = train_phase(cfg, args.seed, device, args.profile)
     fit_launches, test_launches = trainer_phase(args.seed, device)
     # Each kernel's count comes from the path it serves: the forward kernels
-    # from serving, the backward kernels from training; beside them, the
-    # counts of the trainer's fit (a)+(b) and of its test mode (c).
+    # from serving, the backward kernels from training, the 4-channel
+    # composite_forward from the depth modes; beside them, the counts of the
+    # trainer's fit (a)+(b) and of its test mode (c).
     for entry in results:
         path = serve_launches if entry["name"] in FORWARD_KERNELS else train_launches
         entry["launches"] = path[entry["name"]]
         entry["trainer_fit_launches"] = fit_launches[entry["name"]]
         entry["trainer_test_launches"] = test_launches[entry["name"]]
+    depth_record["launches"] = depth_launches["composite_forward_by_channels"][4]
+    for key, launches in (("trainer_fit_launches", fit_launches), ("trainer_test_launches", test_launches)):
+        depth_record[key] = launches["composite_forward_by_channels"].get(4, 0)
+    results.append(depth_record)
     small_input_check(args.seed, device)
+    small_depth_backward_check(args.seed, device)
     small_gradient_check(args.seed, device)
 
     print(card())

@@ -322,7 +322,7 @@ cudaError_t launch(int num_tiles, const void* gids, const void* tile_ranges, con
 
 }  // namespace
 
-// Instantiated for the channel counts of composite_forward (5 and 8).
+// Instantiated for the channel counts of composite_forward (4, 5 and 8).
 extern "C" int composite_backward(
     int n_channels, int num_tiles, const void* gids, const void* tile_ranges, const void* order,
     const void* attrs, int tiles_x, int height, int width, const void* last, const void* t_final,
@@ -331,6 +331,10 @@ extern "C" int composite_backward(
   cudaError_t err = cudaSuccess;
   if (num_tiles > 0) {
     switch (n_channels) {
+      case 4:
+        err = launch<4>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,
+                        t_final, g_channels, g_t, d_rows, s);
+        break;
       case 5:
         err = launch<5>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,
                         t_final, g_channels, g_t, d_rows, s);

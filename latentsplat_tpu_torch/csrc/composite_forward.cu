@@ -270,9 +270,10 @@ void launch(int num_tiles, const void* gids, const void* tile_ranges, const void
 }  // namespace
 
 // Channel counts the kernel is instantiated for (payload + expected depth):
-// 8 = 3 color + 4 latent features + depth (the flagship), 5 = 4 + depth.
+// 8 = 3 color + 4 latent features + depth (the flagship), 5 = 4 + depth,
+// 4 = the 3-channel depth payload of render_depth + depth.
 extern "C" int composite_forward_channels(int index) {
-  constexpr int kChannels[] = {5, 8};
+  constexpr int kChannels[] = {4, 5, 8};
   return index < static_cast<int>(sizeof(kChannels) / sizeof(int)) ? kChannels[index] : -1;
 }
 
@@ -283,6 +284,10 @@ extern "C" int composite_forward(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (num_tiles > 0) {
     switch (n_channels) {
+      case 4:
+        launch<4>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+                  transmittance, last, s);
+        break;
       case 5:
         launch<5>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
                   transmittance, last, s);

@@ -80,12 +80,15 @@ void launch(int num_gaussians, const void* d_rows, const void* offsets, void* ou
 
 }  // namespace
 
-// Instantiated for the row lengths of composite_backward (6 + 5 and 6 + 8).
+// Instantiated for the row lengths of composite_backward (6 + 4, 6 + 5 and 6 + 8).
 extern "C" int reduce_pairs(int num_gaussians, int row, const void* d_rows, const void* offsets,
                             void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (num_gaussians > 0) {
     switch (row) {
+      case 10:
+        launch<10>(num_gaussians, d_rows, offsets, out, s);
+        break;
       case 11:
         launch<11>(num_gaussians, d_rows, offsets, out, s);
         break;

@@ -3,7 +3,8 @@ latentsplat_tpu/model/decoder/splatting.py).
 
 When the render is not variational, the feature posterior's logvar is
 log(1 - mask), so empty pixels have unit variance around the zero
-background."""
+background. A `depth_mode` other than "depth" replaces the render's own
+(normalized) depth with `render_depth` in that mode."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Optional
 import torch
 
 from ...ops.distributions import DiagonalGaussian
-from ...ops.rasterize.api import render
+from ...ops.rasterize.api import DepthRenderingMode, render, render_depth
 from ..types import Gaussians
 
 
@@ -48,13 +49,16 @@ class DecoderSplatting:
     def __call__(
         self, gaussians: Gaussians, extrinsics: torch.Tensor, intrinsics: torch.Tensor,
         near: torch.Tensor, far: torch.Tensor, image_shape: tuple[int, int],
+        depth_mode: Optional[DepthRenderingMode] = None, return_colors: bool = True,
+        return_features: bool = True,
     ) -> DecoderOutput:
         b = extrinsics.shape[0]
         background = torch.tensor(self.background_color, device=extrinsics.device)
         out = render(
             extrinsics, intrinsics, near, far, image_shape, background.expand(b, 3),
             gaussians.means, gaussians.covariances, gaussians.opacities,
-            gaussians.color_harmonics, gaussians.feature_harmonics,
+            gaussians.color_harmonics if return_colors else None,
+            gaussians.feature_harmonics if return_features else None,
             backend=self.cfg.backend, max_tiles_per_gaussian=self.cfg.max_tiles_per_gaussian,
         )
         color = out.color.permute(0, 1, 3, 4, 2) if out.color is not None else None
@@ -66,4 +70,18 @@ class DecoderSplatting:
             else:
                 logvar = torch.log1p(-out.mask.detach())[..., None].expand(features.shape)
                 posterior = DiagonalGaussian(features, logvar)
-        return DecoderOutput(color, posterior, out.mask, out.depth, out.num_pairs)
+        depth = out.depth
+        if depth_mode is not None and depth_mode != "depth":
+            depth = self.render_special_depth(gaussians, extrinsics, intrinsics, near, far, image_shape, depth_mode)
+        return DecoderOutput(color, posterior, out.mask, depth, out.num_pairs)
+
+    def render_special_depth(
+        self, gaussians: Gaussians, extrinsics: torch.Tensor, intrinsics: torch.Tensor,
+        near: torch.Tensor, far: torch.Tensor, image_shape: tuple[int, int],
+        mode: DepthRenderingMode = "depth",
+    ) -> torch.Tensor:
+        return render_depth(
+            extrinsics, intrinsics, near, far, image_shape,
+            gaussians.means, gaussians.covariances, gaussians.opacities,
+            mode=mode, backend=self.cfg.backend,
+        )

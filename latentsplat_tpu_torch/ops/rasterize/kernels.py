@@ -11,7 +11,8 @@
 
 A wrapper given CPU tensors runs the `*_reference` version; given CUDA
 tensors it launches the kernel or raises. `launch_counts` counts kernel
-launches (not reference calls).
+launches (not reference calls); `composite_forward_launches` splits the
+forward compositor's by channel count.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ FOOTPRINT_DET_MIN = 1e-3
 launch_counts = {
     "duplicate_with_keys": 0, "composite_forward": 0, "composite_backward": 0, "reduce_pairs": 0,
 }
+composite_forward_launches: dict[int, int] = {}
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -264,6 +266,7 @@ def composite_forward(
     )
     check(rc, "composite_forward")
     launch_counts["composite_forward"] += 1
+    composite_forward_launches[n_ch] = composite_forward_launches.get(n_ch, 0) + 1
     return channels, transmittance, last
 
 

@@ -4,15 +4,17 @@ latentsplat_tpu/training/trainer.py).
   * `fit` - the fused generator + discriminator step (`training.step`) over
     the train loader, logs, validation and checkpoints;
   * `validate` - a probabilistic and a deterministic pass, PSNR and a
-    labelled comparison grid;
+    labelled comparison grid, and the wobble and interpolation videos
+    (`render_video`) when `train.video_wobble` / `train.video_interpolation`
+    are set;
   * `test` - every test scene rendered to PNGs, with benchmark.json (the
     stages' times under the tags encoder, decoder and autoencoder_decoder)
     and peak_memory.json.
 
 Randomness comes from `torch.Generator`s seeded in the JAX trainer's roles:
 `seed` for the weights, `seed + 1` for training, `seed + 2` for validation,
-`seed + 3` for test. Batches arrive as numpy from the loader and move to
-the device here, on the calling thread.
+`seed + 3` for test, `seed + 4` for the videos. Batches arrive as numpy
+from the loader and move to the device here, on the calling thread.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ from ..misc.image_io import save_image
 from ..model.discriminator.patch_gan import DiscriminatorPatchGan
 from ..model.latentsplat import LatentSplat, render_full
 from ..visualization.annotation import add_label
+from ..visualization.camera_trajectory import generate_wobble, interpolate_extrinsics, interpolate_intrinsics
+from ..visualization.color_map import apply_depth_color_map
 from ..visualization.layout import add_border, hcat, vcat
 from .checkpointing import load_checkpoint, load_generator_weights, resolve_checkpoint_uri, save_checkpoint
 from .logger import get_logger
@@ -253,14 +257,55 @@ class Trainer:
             self.logger.log_scalars(out, step)
             print("  val:", {k: round(v, 3) for k, v in out.items()})
         if cfg.train.video_wobble or cfg.train.video_interpolation:
-            self.render_video(params_gen, None, "wobble" if cfg.train.video_wobble else "interpolation", step)
+            batch = strip_batch(next(self._loader("val", 1, repeat=False)))
+            if cfg.train.video_wobble:
+                self.render_video(params_gen, batch, "wobble", step)
+            if cfg.train.video_interpolation:
+                self.render_video(params_gen, batch, "interpolation", step)
         return out
 
-    def render_video(self, params_gen, batch: dict, mode: str, step: int) -> None:
-        raise NotImplementedError(
-            "validation videos need visualization.camera_trajectory and color_map, not ported yet "
-            "(ROADMAP queue 1 item 11); set train.video_wobble and train.video_interpolation to false"
-        )
+    def render_video(
+        self, params_gen, batch: dict, mode: str, step: int, num_frames: int = 30, loop_reverse: bool = True,
+    ) -> None:
+        """A video along a camera trajectory from the first to the last
+        context view of a stripped numpy batch of size 1: a wobble of a
+        quarter of their baseline about the first, or an interpolation
+        between the two, with cosine-eased times. The views are rendered
+        by the probabilistic `render_full` in one batch; each frame is the
+        image over its depth in color, and the frames, looped back with
+        `loop_reverse`, go to the logger as video/<mode>."""
+        ctx = batch["context"]
+        t = np.linspace(0, 1, num_frames, dtype=np.float32)
+        t = (np.cos(np.pi * (t + 1)) + 1) / 2
+        e0, e1 = ctx["extrinsics"][0, 0], ctx["extrinsics"][0, -1]
+        i0, i1 = ctx["intrinsics"][0, 0], ctx["intrinsics"][0, -1]
+        if mode == "wobble":
+            delta = np.linalg.norm(e0[:3, 3] - e1[:3, 3])
+            extrinsics = generate_wobble(e0, np.asarray(delta * 0.25), t)
+            intrinsics = np.tile(i0[None], (num_frames, 1, 1))
+        elif mode == "interpolation":
+            extrinsics = interpolate_extrinsics(e0, e1, t)
+            intrinsics = interpolate_intrinsics(i0, i1, t)
+        else:
+            raise ValueError(f"unknown video mode {mode!r}")
+        video_batch = {
+            "context": ctx,
+            "target": {
+                "extrinsics": extrinsics[None],
+                "intrinsics": intrinsics[None],
+                "image": np.zeros((1, num_frames, *ctx["image"].shape[2:]), np.float32),
+                "near": np.tile(ctx["near"][:, :1], (1, num_frames)),
+                "far": np.tile(ctx["far"][:, :1], (1, num_frames)),
+            },
+        }
+        generator = torch.Generator(self.device).manual_seed(self.cfg.seed + 4)
+        out = self._render_full(params_gen, to_device(video_batch, self.device), generator, False)
+        images = out["image"][0].cpu().numpy()
+        depths = out["depth"][0].cpu().numpy()
+        frames = [vcat(images[v], apply_depth_color_map(depths[v]), gap=2) for v in range(num_frames)]
+        if loop_reverse:
+            frames = frames + frames[-2:0:-1]
+        self.logger.log_video(f"video/{mode}", frames, step)
 
     # -- test -------------------------------------------------------------------
     def test(self, state_or_params, name: str = "latentsplat_tpu") -> None:

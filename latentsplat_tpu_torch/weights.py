@@ -11,7 +11,8 @@ one layout rule per torch module type:
                    spatially flipped (flax does not flip the kernel)
   LayerNorm, GroupNorm, BatchNorm2d  scale -> weight
 Subtrees of modules the port does not have yet (`UNPORTED`) are dropped.
-The same walk maps the generator, discriminator and LPIPS trees, and any
+The same walk maps the generator, discriminator, LPIPS and DISTS trees
+(DISTS' `alpha` and `beta` are raw parameters of the root module), and any
 tree laid out like them, such as optax's Adam moments (`adam_state_from_jax`).
 """
 

@@ -114,7 +114,10 @@ def test_port_imports_no_jax():
     # Nor PIL: the card machine has none, and the entry point's path runs there.
     modules = (
         "model.latentsplat", "config", "weights", "ops.rasterize.kernels", "main", "training.trainer", "dataset",
-        "dataset.synthetic", "dataset.loader", "misc.image_io",
+        "dataset.synthetic", "dataset.loader", "misc.image_io", "ops.rasterize.api", "model.decoder.splatting",
+        "visualization.color_map", "visualization.camera_trajectory", "evaluation.types", "evaluation.metrics",
+        "evaluation.metric_computer", "evaluation.evaluation_index_generator", "scripts.compute_metrics",
+        "scripts.generate_evaluation_index", "scripts.generate_benchmark_table",
     )
     code = (
         "import sys\n"

@@ -108,6 +108,54 @@ def test_composite_forward_matches_reference(cuda, size):
     assert torch.equal(out[2], ref[2])
 
 
+def test_composite_forward_four_channels_matches_reference(cuda):
+    # render_depth's payload: 3 equal depth channels + the expected depth,
+    # values up to ~6 (camera-space z).
+    size, tiles = 64, 4
+    sg = screen_gaussians(size + 3, 20000, size, cuda, n_channels=3)
+    sg.channels = sg.depth[:, None].expand(-1, 3).contiguous()
+    counts, base, nx, mask = tile_rects(sg, tiles, tiles, CAP)
+    gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, tiles, CAP)
+    gids, ranges, _ = sort_pairs(gids, keys, tiles * tiles)
+    attrs = pack_attributes(sg)
+    assert attrs.shape[1] == 6 + 4
+    before = kernels.composite_forward_launches.get(4, 0)
+    out = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size))
+    ref = kernels.composite_forward_reference(gids, ranges, attrs, tiles, (size, size))
+    torch.cuda.synchronize()
+    assert kernels.composite_forward_launches[4] == before + 1
+    scale = ref[0].abs().amax(dim=(1, 2), keepdim=True)
+    assert ((out[0] - ref[0]).abs() / scale).max().item() <= 1e-5
+    torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=0)
+    assert torch.equal(out[2], ref[2])
+
+
+@pytest.mark.parametrize("mode", ["depth", "disparity", "relative_disparity", "log"])
+def test_render_depth_tiled_matches_dense(cuda, mode):
+    # The depth tolerance of tests/test_rasterize.py, relative to the
+    # largest value; the tiled path launches the 4-channel compositor.
+    from latentsplat_tpu_torch.ops.rasterize.api import render_depth
+
+    g = torch.Generator().manual_seed(9)
+    n = 3000
+    z = torch.rand(n, generator=g) * 4 + 2
+    means = torch.cat([(torch.rand(n, 2, generator=g) * 1.2 - 0.6) * z[:, None], z[:, None]], dim=1)
+    covs = build_covariance(torch.rand(n, 3, generator=g) * 0.1 + 0.02,
+                            torch.nn.functional.normalize(torch.randn(n, 4, generator=g), dim=-1))
+    opacities = torch.rand(n, generator=g) * 0.65 + 0.3
+    ext = torch.eye(4).expand(1, 2, 4, 4).clone()
+    ext[0, 1, :3, 3] = torch.tensor([0.2, -0.1, 0.3])
+    intr = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]]).expand(1, 2, 3, 3)
+    args = [x.to(cuda) for x in (ext, intr, torch.ones(1, 2), torch.full((1, 2), 100.0))]
+    gaussians = [x[None].to(cuda) for x in (means, covs, opacities)]
+    before = kernels.composite_forward_launches.get(4, 0)
+    tiled = render_depth(*args, (64, 64), *gaussians, mode=mode)
+    assert kernels.composite_forward_launches[4] == before + 2
+    dense = render_depth(*args, (64, 64), *gaussians, mode=mode, backend="dense")
+    assert torch.isfinite(tiled).all()
+    assert ((tiled - dense).abs().max() / dense.abs().max()).item() <= 2e-3
+
+
 def conic_rows(rng, n, sigma=(0.5, 6.0), opacity=(0.3, 0.99), lo=-4.0, hi=36.0):
     """(n, 11) attribute rows (x, y, conic a/b/c, opacity, 5 channels, the
     last a depth of up to 30) of random Gaussians over a 32x32 image."""
@@ -221,7 +269,7 @@ def backward_inputs(seed, size, device, n=20000, n_channels=4):
     return tiles, counts, gids, ranges, order, attrs, last, t_final, g_out, g_t
 
 
-@pytest.mark.parametrize("n_channels", [4, 7])   # + depth: the 5- and 8-channel instantiations
+@pytest.mark.parametrize("n_channels", [4, 7, 3])   # + depth: the 5-, 8- and 4-channel instantiations
 @pytest.mark.parametrize("size", [32, 64, 256])
 def test_composite_backward_matches_reference(cuda, size, n_channels):
     # The kernel sums each pair's partials over the tile in its exchange
@@ -270,7 +318,7 @@ def test_composite_backward_zero_rows_and_empty_tiles(cuda):
         assert ((d - ref).abs() / scale).max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("row", [11, 14])
+@pytest.mark.parametrize("row", [11, 14, 10])
 def test_reduce_pairs_matches_reference_synthetic(cuda, row):
     # Dead Gaussians and Gaussians at the cap, rows straight from a seed.
     # The kernel adds each segment in slot order, as index_add_ on the CPU
