@@ -49,7 +49,20 @@
    the scores and that all four kernels ran as often as the runs need;
    prints the benchmark.json means, steps/s, peak memory and the metric
    passes' seconds per image.
-8. Small-input checks: the tiled (kernel) render of a narrow model against
+8. Data phase: the real-data input path. Builds the host C library (JPEG
+   decoder, LANCZOS resampler), decodes and crop-shims every committed
+   fixture (tests/torch_fixtures/jpeg) and holds each against its
+   manifest's sha256 (PIL's bits), and checks that the progressive one
+   raises; times decode and crop shim per 640x360 frame and the RE10k
+   train loader with 0 and 4 workers; writes an RE10k root and a CO3D tree
+   of fixture frames and drives `main` at full width over them through
+   forkserver loader workers: re10k train (2 steps, a validation, its test),
+   scripts.generate_evaluation_index, test over it; co3d_hydrant train (2
+   steps, its test), scripts.generate_co3d_evaluation_index, test over it,
+   scripts.generate_gt_image_directory. Checks losses, checkpoints, PNGs,
+   the indexes, the first train batch against the parent's own decode and
+   the kernels' launches in each run.
+9. Small-input checks: the tiled (kernel) render of a narrow model against
    the dense oracle render, composite_backward and reduce_pairs at 4
    channels against their plain versions, and the narrow model's
    train-step gradients through the tiled kernels against those through
@@ -57,7 +70,8 @@
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (device ms, plain ms, the bound and its share, the library call's
-ms, launches on the main path and in the trainer phase; duplicate_with_keys
+ms, launches on the main path, in the trainer phase and in each run of the
+data phase; duplicate_with_keys
 also its wrapper's ms; composite_forward once at the flagship's 8 channels
 and once at render_depth's 4), and last `{"ok": true, "device": {...}}`.
 Any failed check raises.
@@ -70,6 +84,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -106,6 +121,7 @@ def backward_composited_ops(n_ch: int) -> int:
     return 3 * n_ch + 29 + (6 + n_ch)
 TRAIN_STEP = 125000
 FORWARD_KERNELS = ("duplicate_with_keys", "composite_forward")
+ALL_KERNELS = (*FORWARD_KERNELS, "composite_backward", "reduce_pairs")
 SMALL_OVERRIDES = [
     "model.encoder.backbone.model=dino_vits8",
     "model.encoder.d_feature=32",
@@ -1267,6 +1283,301 @@ def evaluation_phase(seed: int, device, data: dict, rendered: Path, tmp: Path, n
         raise AssertionError("the benchmark table lacks a tag")
 
 
+def reset_launches() -> None:
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+
+    for key in kernels.launch_counts:
+        kernels.launch_counts[key] = 0
+    kernels.composite_forward_launches.clear()
+
+
+def read_launches() -> dict:
+    """Each kernel's launches, and composite_forward's by channel count."""
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+
+    return {**kernels.launch_counts, "composite_forward_by_channels": dict(kernels.composite_forward_launches)}
+
+
+def jpeg_tools():
+    """tests/torch_jpeg_tools.py (fixture paths, hashes and the fixture-data
+    writers), loaded by its path: a machine may have an installed package
+    named `tests` that would shadow the repository's directory."""
+    import importlib.util
+
+    name = "torch_jpeg_tools"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, Path(__file__).resolve().parent / "tests" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def check_host_library() -> None:
+    """(i) Build the host C library and hold every fixture's decode and crop
+    shim (256x256) against the sha256 in its manifest, which PIL's decode
+    matched where the fixtures were made; the progressive fixture must raise."""
+    from latentsplat_tpu_torch import host_build
+    from latentsplat_tpu_torch.dataset.jpeg import decode_jpeg
+    tools = jpeg_tools()
+
+    start = time.perf_counter()
+    host_build.load_library()
+    print(f"data phase: host library {host_build.library_path().name} ready in {time.perf_counter() - start:.2f} s "
+          f"(cc {' '.join(host_build.CFLAGS)})")
+    manifest = json.loads((tools.FIXTURE_DIR / "manifest.json").read_text())
+    for name, entry in manifest.items():
+        data = (tools.FIXTURE_DIR / name).read_bytes()
+        if "error" in entry:
+            try:
+                decode_jpeg(data)
+            except ValueError as e:
+                if entry["error"] not in str(e):
+                    raise AssertionError(f"{name}: raised {e!r}, which does not name {entry['error']}") from e
+                continue
+            raise AssertionError(f"{name}: decoded, but must raise naming {entry['error']}")
+        rgb = decode_jpeg(data)
+        if tools.sha256(rgb) != entry["port_sha256"] or entry["port_sha256"] != entry["pil_sha256"]:
+            raise AssertionError(f"{name} ({entry['mode']}): the decode's sha256 differs from the manifest's")
+        if tools.crop_shim_hash(rgb) != entry["crop_sha256"]:
+            raise AssertionError(f"{name} ({entry['mode']}): the crop shim's sha256 differs from the manifest's")
+    print(f"data phase: {len(manifest)} fixtures decoded and cropped with the manifest's sha256 "
+          "(PIL's bits); the progressive one raised")
+
+
+def time_input_path(root: Path) -> dict:
+    """(ii) The host input path on this machine's CPU: decode and crop-shim
+    milliseconds per 640x360 frame (medians), and the RE10k train loader's
+    examples/s with 0 and 4 worker processes, beside the 2 examples a train
+    step takes."""
+    from latentsplat_tpu_torch.config import load_config
+    from latentsplat_tpu_torch.dataset import get_dataset
+    from latentsplat_tpu_torch.dataset.jpeg import decode_jpeg
+    from latentsplat_tpu_torch.dataset.loader import make_loader
+    from latentsplat_tpu_torch.dataset.shims import rescale_and_crop
+    from latentsplat_tpu_torch.dataset.view_samplers import get_view_sampler
+    from latentsplat_tpu_torch.training.step_tracker import StepTracker
+    tools = jpeg_tools()
+
+    frames = [tools.fixture_bytes(name) for name in sorted(tools.RE10K_FRAMES)]
+    decode_ms, crop_ms = [], []
+    intrinsics = np.eye(3, dtype=np.float32)[None]
+    for _ in range(5):
+        for data in frames:
+            start = time.perf_counter()
+            rgb = decode_jpeg(data)
+            decode_ms.append((time.perf_counter() - start) * 1e3)
+            start = time.perf_counter()
+            rescale_and_crop(rgb[None], intrinsics, (256, 256))
+            crop_ms.append((time.perf_counter() - start) * 1e3)
+    out = {"decode_ms": statistics.median(decode_ms), "crop_ms": statistics.median(crop_ms)}
+
+    cfg = load_config("re10k", [f"dataset.roots=[{root}]"])
+    for workers, n_batches in ((0, 12), (4, 24)):
+        sampler = get_view_sampler(cfg.dataset.view_sampler, "train", False, False, StepTracker())
+        loader = make_loader(get_dataset(cfg.dataset, "train", sampler), 2, repeat=True, num_workers=workers,
+                             seed=1234)
+        try:
+            start = time.perf_counter()
+            next(loader)
+            first_s = time.perf_counter() - start
+            start = time.perf_counter()
+            for _ in range(n_batches):
+                next(loader)
+            rate = 2 * n_batches / (time.perf_counter() - start)
+        finally:
+            if workers:
+                loader.close()
+        out[f"examples_per_s_{workers}_workers"] = rate
+        out[f"first_batch_s_{workers}_workers"] = first_s
+    print(f"data phase on {card()} (host CPU: {os.cpu_count()} cores): decode {out['decode_ms']:.3f} ms and crop "
+          f"shim {out['crop_ms']:.3f} ms per 640x360 frame (medians of 30); RE10k train loader "
+          f"{out['examples_per_s_0_workers']:.2f} examples/s with 0 workers (first batch "
+          f"{out['first_batch_s_0_workers']:.2f} s), {out['examples_per_s_4_workers']:.2f} with 4 (first batch "
+          f"{out['first_batch_s_4_workers']:.2f} s), against 2 examples a train step")
+    return out
+
+
+@contextmanager
+def first_train_batch(store: list):
+    """While open, the first batch that the trainer's fit takes from its
+    loader (before `strip_batch` drops its scenes and indices) goes to `store`."""
+    from latentsplat_tpu_torch.training import trainer
+
+    original = trainer.strip_batch
+
+    def strip_batch(batch):
+        if not store:
+            store.append(batch)
+        return original(batch)
+
+    trainer.strip_batch = strip_batch
+    try:
+        yield
+    finally:
+        trainer.strip_batch = original
+
+
+def check_first_batch(batch: dict, chunk_path: Path, size: int) -> str:
+    """The first train batch's context images, which worker processes
+    decoded and cropped, against the same frames decoded and cropped here:
+    equal bit for bit, as decoded or mirrored before the crop (the
+    augmentation flips before the crop shim, whose window is off-center by
+    a column when the margin is odd)."""
+    from latentsplat_tpu_torch.dataset.jpeg import decode_jpeg
+    from latentsplat_tpu_torch.dataset.shims import rescale_and_crop
+
+    chunk = {scene["key"]: scene for scene in torch.load(chunk_path, weights_only=True)}
+    kinds = []
+    for b, scene in enumerate(batch["scene"]):
+        indices = batch["context"]["index"][b]
+        rgb = np.stack([decode_jpeg(chunk[scene]["images"][int(i)].numpy().tobytes()) for i in indices])
+        intrinsics = np.tile(np.eye(3, dtype=np.float32), (len(indices), 1, 1))
+        got = batch["context"]["image"][b]
+        if np.array_equal(got, rescale_and_crop(rgb, intrinsics, (size, size))[0]):
+            kinds.append(f"{scene} {indices.tolist()} as decoded")
+        elif np.array_equal(got, rescale_and_crop(rgb[..., ::-1, :].copy(), intrinsics, (size, size))[0]):
+            kinds.append(f"{scene} {indices.tolist()} flipped")
+        else:
+            raise AssertionError(f"first train batch, {scene} {indices.tolist()}: the workers' context images "
+                                 "differ from the parent's decode")
+    return "; ".join(kinds)
+
+
+def check_run(run: Path, label: str, steps: int = 2) -> list[float]:
+    """Finite generator losses at steps 1..steps, and the checkpoint of the last step."""
+    from latentsplat_tpu_torch.training.checkpointing import latest_checkpoint
+
+    records = [r for r in read_records(run) if "generator/total" in r]
+    losses = [r["generator/total"] for r in records]
+    if [r["step"] for r in records] != list(range(1, steps + 1)) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"({label}) logged {[(r['step'], r['generator/total']) for r in records]}")
+    ckpt = latest_checkpoint(run / "checkpoints")
+    if ckpt is None or ckpt.name != f"step_{steps:08d}":
+        raise AssertionError(f"({label}) wrote no checkpoint at step {steps}: {ckpt}")
+    return losses
+
+
+def data_phase(seed: int, device, model_overrides: tuple = (), size: int = 256) -> dict:
+    """The real-data input path: (i) the host library and the fixtures'
+    hashes, (ii) its times, (iii) an RE10k root (2 scenes of 48 frames, the
+    640x360 fixtures' JPEG bytes, the synthetic dataset's cameras) and a CO3D
+    tree (2 sequences of 48 frames from the CO3D-like fixtures, one frame of
+    each at a larger size) in a temporary directory, and (iv) the entry
+    point on both at full width (256x256), through forkserver loader workers
+    (4 for train, 2 for val and test):
+      (d) +experiment=re10k mode=train, 2 steps, a validation, its test (the
+          bounded sampler's 48 target views a scene); the evaluation index
+          over the test stage (scripts.generate_evaluation_index); (e) mode=test
+          over it (3 target views a scene);
+      (f) +experiment=co3d_hydrant mode=train, 2 steps, its test (48 target
+          views a sequence: max_distance_to_context_views cut from 100 to 11);
+          scripts.generate_co3d_evaluation_index; (g) mode=test over it;
+          scripts.generate_gt_image_directory over that index.
+    (v) Checks finite losses, checkpoints, one PNG per target view, the
+    ground-truth PNGs and the first train batch of (d) against the parent's
+    decode. Returns the times and each run's kernel launches. (`model_overrides`
+    and `size` shrink the model and the images for a rehearsal on the CPU.)"""
+    from latentsplat_tpu_torch.main import main as run_main
+    from latentsplat_tpu_torch.misc.image_io import load_image
+    from latentsplat_tpu_torch.scripts import (
+        generate_co3d_evaluation_index,
+        generate_evaluation_index,
+        generate_gt_image_directory,
+    )
+    from latentsplat_tpu_torch.training.checkpointing import latest_checkpoint
+    tools = jpeg_tools()
+
+    check_host_library()
+    out = {"launches": {}, "seconds": {}, "peak_gb": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        tmp = Path(tmp)
+        re10k, co3d = tmp / "re10k", tmp / "co3d"
+        scenes = tools.write_re10k_root(re10k, scenes=2, frames=48)
+        split = tools.write_co3d_tree(co3d, sequences=2, frames=48)
+        out.update(time_input_path(re10k))
+        workers = ["data_loader.train.num_workers=4", "data_loader.val.num_workers=2",
+                   "data_loader.test.num_workers=2"]
+        common = [f"seed={seed}", "trainer.log_every_n_steps=1", "checkpointing.every_n_train_steps=2",
+                  f"dataset.image_shape=[{size}, {size}]", *workers, *model_overrides]
+
+        def call(name: str, experiment: str, *extra: str) -> Path:
+            args = [f"+experiment={experiment}", *common, f"output_dir={tmp / name}",
+                    f"test.output_path={tmp / name / 'test'}", *extra]
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            start = time.perf_counter()
+            run = run_main(args, device=device)
+            out["seconds"][name] = time.perf_counter() - start
+            out["launches"][name] = read_launches()
+            out["peak_gb"][name] = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+            print(f"data phase ({name}): main(+experiment={experiment} ... {' '.join(extra)}) took "
+                  f"{out['seconds'][name]:.2f} s, peak memory {out['peak_gb'][name]} GB, "
+                  f"launches {out['launches'][name]}")
+            return run
+
+        def count_pngs(root: Path, n: int, pattern: str = "color/*.png") -> None:
+            pngs = sorted(root.rglob(pattern))
+            if len(pngs) != n or any(load_image(p).shape != (size, size, 3) for p in pngs):
+                raise AssertionError(f"{root}: {len(pngs)} PNGs ({pattern}), expected {n} of {size}x{size}")
+
+        # RE10k: train, the index, test over it.
+        first = []
+        with first_train_batch(first):
+            run_d = call("d", "re10k", f"dataset.roots=[{re10k}]", "mode=train", "trainer.max_steps=2",
+                         "trainer.val_check_interval=2")
+        losses = check_run(run_d, "d")
+        print(f"  (d) generator/total {losses}; first train batch: {check_first_batch(first[0], re10k / 'train' / '000000.torch', size)}")
+        count_pngs(tmp / "d" / "test" / "latentsplat_tpu", 2 * 48)
+        if len([r for r in read_records(run_d) if "val/psnr_deterministic" in r]) != 1:
+            raise AssertionError("(d) ran no validation")
+        index = generate_evaluation_index.main(
+            ["+experiment=re10k", f"dataset.roots=[{re10k}]", f"dataset.image_shape=[{size}, {size}]",
+             "dataset.view_sampler={name: all}",
+             f"index_generator.output_path={tmp / 'index_re10k'}"], device=device)
+        entries = json.loads(index.read_text())
+        print(f"  RE10k evaluation index: {entries}")
+        if sorted(entries) != scenes or not all(len(v) == 1 and len(v[0]["target"]) == 3 for v in entries.values()):
+            raise AssertionError("the RE10k evaluation index does not hold one entry of 3 targets for each scene")
+        call("e", "re10k", f"dataset.roots=[{re10k}]", "mode=test", f"checkpointing.load={latest_checkpoint(run_d / 'checkpoints')}",
+             "wandb.name=evaluation", f"dataset.view_sampler={{name: evaluation, index_path: {index}}}")
+        count_pngs(tmp / "e" / "test" / "evaluation", 2 * 3)
+
+        # CO3D: train, the index, test over it, the ground truth.
+        co3d_data = [f"dataset.roots=[{co3d}]", f"dataset.train_split_json={split}", f"dataset.eval_split_json={split}",
+                     f"dataset.image_shape=[{size}, {size}]"]
+        run_f = call("f", "co3d_hydrant", *co3d_data, "mode=train", "trainer.max_steps=2",
+                     "dataset.view_sampler.max_distance_to_context_views=11")
+        losses = check_run(run_f, "f")
+        print(f"  (f) generator/total {losses}")
+        count_pngs(tmp / "f" / "test" / "latentsplat_tpu", 2 * 48)
+        index = generate_co3d_evaluation_index.main(
+            ["+experiment=co3d_hydrant", *co3d_data, "dataset.view_sampler={name: all}",
+             f"index_generator.output_path={tmp / 'index_co3d'}"])
+        entries = json.loads(index.read_text())
+        print(f"  CO3D evaluation index: {entries}")
+        if len(entries) != 2 or not all(len(v) == 1 and len(v[0]["target"]) == 3 for v in entries.values()):
+            raise AssertionError("the CO3D evaluation index does not hold one entry of 3 targets for each sequence")
+        evaluation = f"dataset.view_sampler={{name: evaluation, index_path: {index}}}"
+        call("g", "co3d_hydrant", *co3d_data, "mode=test", f"checkpointing.load={latest_checkpoint(run_f / 'checkpoints')}",
+             "wandb.name=evaluation", evaluation)
+        count_pngs(tmp / "g" / "test" / "evaluation", 2 * 3)
+        start = time.perf_counter()
+        generate_gt_image_directory.main(["+experiment=co3d_hydrant", *co3d_data, evaluation, f"output_path={tmp / 'gt'}"])
+        count_pngs(tmp / "gt", 2 * 3)
+        count_pngs(tmp / "gt", 2 * 2, "context/*.png")
+        print(f"  ground truth: {2 * 5} PNGs in {time.perf_counter() - start:.2f} s")
+
+    if device.type == "cuda":
+        for name, launches in out["launches"].items():
+            kernel_names = ALL_KERNELS if name in ("d", "f") else FORWARD_KERNELS
+            if min(launches[k] for k in kernel_names) < 1:
+                raise AssertionError(f"({name}): a kernel of {kernel_names} did not run: {launches}")
+    return out
+
+
 def small_gradient_check(seed: int, device) -> None:
     """The narrow model's train-step gradients through the tiled kernels
     against those through the dense oracle, same weights and noise;
@@ -1398,6 +1709,7 @@ def main() -> int:
     del model
     train_launches = train_phase(cfg, args.seed, device, args.profile)
     fit_launches, test_launches = trainer_phase(args.seed, device)
+    data = data_phase(args.seed, device)
     # Each kernel's count comes from the path it serves: the forward kernels
     # from serving, the backward kernels from training, the 4-channel
     # composite_forward from the depth modes; beside them, the counts of the
@@ -1407,7 +1719,10 @@ def main() -> int:
         entry["launches"] = path[entry["name"]]
         entry["trainer_fit_launches"] = fit_launches[entry["name"]]
         entry["trainer_test_launches"] = test_launches[entry["name"]]
+        entry["data_launches"] = {run: launches[entry["name"]] for run, launches in data["launches"].items()}
     depth_record["launches"] = depth_launches["composite_forward_by_channels"][4]
+    depth_record["data_launches"] = {run: launches["composite_forward_by_channels"].get(4, 0)
+                                     for run, launches in data["launches"].items()}
     for key, launches in (("trainer_fit_launches", fit_launches), ("trainer_test_launches", test_launches)):
         depth_record[key] = launches["composite_forward_by_channels"].get(4, 0)
     results.append(depth_record)
@@ -1415,6 +1730,7 @@ def main() -> int:
     small_depth_backward_check(args.seed, device)
     small_gradient_check(args.seed, device)
 
+    print(f"data phase summary on {card()}: " + json.dumps({k: v for k, v in data.items() if k != "launches"}))
     print(card())
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

@@ -4,16 +4,14 @@ from .types import DataLoaderCfg, DataLoaderStageCfg, DatasetCfg, DatasetCfgComm
 def get_dataset(cfg, stage, view_sampler):
     """The dataset named by `cfg.name` (counterpart of
     latentsplat_tpu/dataset/__init__.py::get_dataset)."""
-    if cfg.name == "synthetic":
-        from .synthetic import DatasetSynthetic
+    from .co3d import DatasetCO3D
+    from .re10k import DatasetRE10k
+    from .synthetic import DatasetSynthetic
 
-        return DatasetSynthetic(cfg, stage, view_sampler)
-    if cfg.name in ("re10k", "co3d"):
-        raise NotImplementedError(
-            f"the {cfg.name} dataset is not ported yet (ROADMAP queue 1 item 9: it needs a JPEG "
-            "decoder and a crop shim that do not use PIL); use dataset.name=synthetic"
-        )
-    raise ValueError(f"unknown dataset {cfg.name!r}")
+    datasets = {"re10k": DatasetRE10k, "co3d": DatasetCO3D, "synthetic": DatasetSynthetic}
+    if cfg.name not in datasets:
+        raise ValueError(f"unknown dataset {cfg.name!r}")
+    return datasets[cfg.name](cfg, stage, view_sampler)
 
 
 __all__ = ["DataLoaderCfg", "DataLoaderStageCfg", "DatasetCfg", "DatasetCfgCommon", "get_dataset"]

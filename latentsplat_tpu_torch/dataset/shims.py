@@ -1,13 +1,69 @@
-"""Data shims (counterpart of latentsplat_tpu/dataset/shims.py): the
-augmentation shim on host numpy examples, the patch and bounds shims on
-device tensors. Images are NHWC. The crop shim (a LANCZOS resize) waits for
-the re10k and co3d datasets.
+"""Data shims (counterpart of latentsplat_tpu/dataset/shims.py): the crop
+and augmentation shims on host numpy examples, the patch and bounds shims
+on device tensors. Images are NHWC.
+
+The crop shim resizes with the port's C LANCZOS resampler
+(`csrc_host/resample.c`, Pillow's arithmetic) on uint8 images, straight
+from the JPEG decoder, and returns float32 in [0, 1]. The JAX package
+resizes float images through uint8 and back (clip(x * 255) -> uint8 ->
+resize -> / 255); for x = k / 255 that round trip gives k back for every
+level k, so both yield the same floats.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .. import host_build
+
+
+def _rescale_image(image: np.ndarray, shape: tuple[int, int],
+                   window: tuple[int, int, int, int] | None = None) -> np.ndarray:
+    """uint8 (h, w, c) -> uint8 LANCZOS resize to `shape` (h, w); with
+    `window` (row, col, h, w), only that part of the resized image."""
+    if image.dtype != np.uint8 or image.ndim != 3:
+        raise ValueError(f"_rescale_image takes uint8 (h, w, c) images, not {image.dtype} {image.shape}")
+    h, w = shape
+    row, col, win_h, win_w = window if window is not None else (0, 0, h, w)
+    image = np.ascontiguousarray(image)
+    out = np.empty((win_h, win_w, image.shape[2]), np.uint8)
+    rc = host_build.load_library().lanczos_resize(
+        image.ctypes.data, image.shape[0], image.shape[1], image.shape[2], out.ctypes.data, h, w,
+        row, col, win_h, win_w,
+    )
+    if rc != 0:
+        raise ValueError(f"lanczos_resize: {image.shape} -> {shape}, window {window}")
+    return out
+
+
+def rescale_and_crop(images: np.ndarray, intrinsics: np.ndarray, shape: tuple[int, int]):
+    """uint8 (v, h, w, 3) + (v, 3, 3) -> float32 images in [0, 1] with the
+    shorter side resized to `shape` and the center cropped to it, and the
+    intrinsics' focal lengths scaled by the crop."""
+    v, h_in, w_in, _ = images.shape
+    h_out, w_out = shape
+    assert h_out <= h_in and w_out <= w_in
+    scale_factor = max(h_out / h_in, w_out / w_in)
+    h_scaled = round(h_in * scale_factor)
+    w_scaled = round(w_in * scale_factor)
+    assert h_scaled == h_out or w_scaled == w_out
+    # The center crop is the resize's window: only the kept samples are computed.
+    window = ((h_scaled - h_out) // 2, (w_scaled - w_out) // 2, h_out, w_out)
+    images = np.stack([_rescale_image(im, (h_scaled, w_scaled), window) for im in images])
+    intrinsics = intrinsics.copy()
+    intrinsics[..., 0, 0] *= w_scaled / w_out
+    intrinsics[..., 1, 1] *= h_scaled / h_out
+    return images.astype(np.float32) / 255.0, intrinsics
+
+
+def apply_crop_shim(example: dict, shape: tuple[int, int]) -> dict:
+    out = dict(example)
+    for key in ("context", "target"):
+        views = dict(example[key])
+        views["image"], views["intrinsics"] = rescale_and_crop(views["image"], views["intrinsics"], shape)
+        out[key] = views
+    return out
 
 
 def _reflect_views(views: dict) -> dict:

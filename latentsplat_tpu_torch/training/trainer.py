@@ -58,6 +58,18 @@ def strip_batch(batch: dict) -> dict:
     return {"context": _device_keys(batch["context"]), "target": _device_keys(batch["target"])}
 
 
+@contextmanager
+def _closing(loader: Iterator):
+    """Stops the loader's worker processes (or ends its generator) on leaving,
+    where it has a close(); the thread prefetcher's daemon thread stays."""
+    try:
+        yield loader
+    finally:
+        close = getattr(loader, "close", None)
+        if close is not None:
+            close()
+
+
 def to_device(batch: dict, device: torch.device) -> dict:
     """A stripped numpy batch -> the same dict of tensors on `device`."""
     return {
@@ -159,7 +171,11 @@ class Trainer:
     def fit(self, max_steps: Optional[int] = None) -> TrainState:
         cfg = self.cfg
         max_steps = max_steps if max_steps is not None else cfg.trainer.max_steps
-        loader = self._loader("train", cfg.data_loader.train.batch_size, repeat=True)
+        with _closing(self._loader("train", cfg.data_loader.train.batch_size, repeat=True)) as loader:
+            return self._fit(loader, max_steps)
+
+    def _fit(self, loader: Iterator, max_steps: int) -> TrainState:
+        cfg = self.cfg
         batch = strip_batch(next(loader))
         state = self.init_state()
         g = cfg.optimizer.generator
@@ -230,11 +246,10 @@ class Trainer:
 
     def validate_params(self, params_gen, step: int = 0, num_batches: int = 1) -> Dict[str, float]:
         cfg = self.cfg
-        loader = self._loader("val", cfg.data_loader.val.batch_size, repeat=False)
         metrics: Dict[str, list] = {}
-        for i, batch in enumerate(loader):
-            if i >= num_batches:
-                break
+        with _closing(self._loader("val", cfg.data_loader.val.batch_size, repeat=False)) as loader:
+            batches = [batch for _, batch in zip(range(num_batches), loader)]
+        for batch in batches:
             batch = to_device(strip_batch(batch), self.device)
             outs = {}
             for name, det in (("probabilistic", False), ("deterministic", True)):
@@ -257,7 +272,8 @@ class Trainer:
             self.logger.log_scalars(out, step)
             print("  val:", {k: round(v, 3) for k, v in out.items()})
         if cfg.train.video_wobble or cfg.train.video_interpolation:
-            batch = strip_batch(next(self._loader("val", 1, repeat=False)))
+            with _closing(self._loader("val", 1, repeat=False)) as loader:
+                batch = strip_batch(next(loader))
             if cfg.train.video_wobble:
                 self.render_video(params_gen, batch, "wobble", step)
             if cfg.train.video_interpolation:
@@ -315,15 +331,16 @@ class Trainer:
         cfg = self.cfg
         model = self._generator(state_or_params)
         out_root = Path(cfg.test.output_path) / name
-        for batch in self._loader("test", 1, repeat=False):
-            scene = batch["scene"][0] if isinstance(batch["scene"], list) else batch["scene"]
-            generator = torch.Generator(self.device).manual_seed(cfg.seed + 3)
-            out = self._render_full_timed(
-                model, to_device(strip_batch(batch), self.device), generator, False, self.benchmarker
-            )
-            images = out["image"][0].cpu().numpy()
-            ctx_str = "_".join(str(int(i)) for i in np.sort(batch["context"]["index"][0]))
-            for v, index in enumerate(batch["target"]["index"][0]):
-                save_image(images[v], out_root / scene / ctx_str / "color" / f"{int(index):0>6}.png")
+        with _closing(self._loader("test", 1, repeat=False)) as loader:
+            for batch in loader:
+                scene = batch["scene"][0] if isinstance(batch["scene"], list) else batch["scene"]
+                generator = torch.Generator(self.device).manual_seed(cfg.seed + 3)
+                out = self._render_full_timed(
+                    model, to_device(strip_batch(batch), self.device), generator, False, self.benchmarker
+                )
+                images = out["image"][0].cpu().numpy()
+                ctx_str = "_".join(str(int(i)) for i in np.sort(batch["context"]["index"][0]))
+                for v, index in enumerate(batch["target"]["index"][0]):
+                    save_image(images[v], out_root / scene / ctx_str / "color" / f"{int(index):0>6}.png")
         self.benchmarker.dump(out_root / "benchmark.json")
         self.benchmarker.dump_memory(out_root / "peak_memory.json")

@@ -117,13 +117,17 @@ def test_port_imports_no_jax():
         "dataset.synthetic", "dataset.loader", "misc.image_io", "ops.rasterize.api", "model.decoder.splatting",
         "visualization.color_map", "visualization.camera_trajectory", "evaluation.types", "evaluation.metrics",
         "evaluation.metric_computer", "evaluation.evaluation_index_generator", "scripts.compute_metrics",
-        "scripts.generate_evaluation_index", "scripts.generate_benchmark_table",
+        "scripts.generate_evaluation_index", "scripts.generate_benchmark_table", "dataset.re10k", "dataset.co3d",
+        "dataset.jpeg", "dataset.shims", "host_build", "scripts.generate_co3d_evaluation_index",
+        "scripts.generate_gt_image_directory",
     )
     code = (
         "import sys\n"
         f"import {', '.join('latentsplat_tpu_torch.' + m for m in modules)}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'latentsplat_tpu', 'PIL'))\n"
         "assert not bad, bad\n"
+        # The host C library builds and loads at the first decode, never at import.
+        "assert latentsplat_tpu_torch.host_build._library is None\n"
     )
     root = Path(__file__).resolve().parent.parent
     subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)

@@ -33,6 +33,7 @@ from latentsplat_tpu_torch.training.trainer import Trainer, strip_batch, to_devi
 
 from tests.test_loader import CurriculumDataset, DyingDataset, RangeDataset
 from tests.test_trainer import TINY_OVERRIDES
+from tests.torch_jpeg_tools import write_co3d_tree, write_re10k_root
 
 # The tiny trainer configuration on one device: the port trains on one card.
 TINY = [o for o in TINY_OVERRIDES if not o.startswith("trainer.num_devices")] + ["trainer.num_devices=1"]
@@ -162,10 +163,24 @@ def test_synthetic_augmentation_flips():
     np.testing.assert_array_equal(flipped["target"]["extrinsics"], reflect @ example["target"]["extrinsics"] @ reflect)
 
 
-def test_get_dataset_names_what_is_not_ported():
-    cfg = load_config("re10k").dataset
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_dataset(cfg, "train", None)
+@pytest.mark.parametrize("name", ["re10k", "co3d", "synthetic", "unknown"])
+def test_get_dataset_builds_each_dataset(name, tmp_path):
+    split = write_co3d_tree(tmp_path, sequences=1, frames=2)
+    write_re10k_root(tmp_path, scenes=1, frames=2)
+    overrides = {"re10k": [f"dataset.roots=[{tmp_path}]"],
+                 "co3d": [f"dataset.roots=[{tmp_path}]", f"dataset.train_split_json={split}"],
+                 "synthetic": ["dataset={name: synthetic}"], "unknown": []}[name]
+    cfg = load_config("co3d_hydrant" if name == "co3d" else "re10k", overrides).dataset
+    sampler = vs.get_view_sampler(cfg.view_sampler, "train", False, False, StepTracker())
+    if name == "unknown":
+        cfg = dataclasses.replace(cfg, name="unknown")
+        with pytest.raises(ValueError, match="unknown dataset"):
+            get_dataset(cfg, "train", sampler)
+        return
+    dataset = get_dataset(cfg, "train", sampler)
+    assert type(dataset).__name__ == {"re10k": "DatasetRE10k", "co3d": "DatasetCO3D",
+                                      "synthetic": "DatasetSynthetic"}[name]
+    assert len(dataset) == 1 if name != "synthetic" else len(dataset) == cfg.num_scenes
 
 
 @pytest.mark.parametrize("stage", ["train", "test"])
