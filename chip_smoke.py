@@ -1318,7 +1318,7 @@ def check_host_library() -> None:
     shim (256x256) against the sha256 in its manifest, which PIL's decode
     matched where the fixtures were made; the progressive fixture must raise."""
     from latentsplat_tpu_torch import host_build
-    from latentsplat_tpu_torch.dataset.jpeg import decode_jpeg
+    from latentsplat_tpu_torch.dataset.jpeg import CorruptJPEGError, decode_jpeg
     tools = jpeg_tools()
 
     start = time.perf_counter()
@@ -1332,7 +1332,7 @@ def check_host_library() -> None:
             try:
                 decode_jpeg(data)
             except ValueError as e:
-                if entry["error"] not in str(e):
+                if entry["error"] not in str(e) or isinstance(e, CorruptJPEGError):
                     raise AssertionError(f"{name}: raised {e!r}, which does not name {entry['error']}") from e
                 continue
             raise AssertionError(f"{name}: decoded, but must raise naming {entry['error']}")

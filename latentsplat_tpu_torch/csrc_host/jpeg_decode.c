@@ -22,8 +22,10 @@
  *                   int *components, char *err, int err_size);
  *   int jpeg_decode(const uint8_t *data, long size, uint8_t *rgb, int width,
  *                   int height, char *err, int err_size);
- * Both return 0 on success, else write a message into `err` and return -1.
- * `rgb` holds height * width * 3 bytes.
+ * Both return 0 on success, else write a message into `err` and return -1
+ * for a damaged file (truncated, corrupt tables or data, not a JPEG) or -2
+ * for a valid file of a mode the decoder does not take. `rgb` holds
+ * height * width * 3 bytes.
  */
 
 #include <stdarg.h>
@@ -65,6 +67,7 @@ typedef struct {
   int hmax, vmax, mcux, mcuy;
   int restart_interval;
   int saw_frame, saw_jfif, adobe_transform; /* -1: no Adobe segment */
+  int unsupported;     /* the failure is a mode not taken, not damage */
   int16_t qt[4][64];   /* natural order, as libjpeg's ISLOW_MULT_TYPE */
   int qt_defined[4];
   huff_t dc[4], ac[4];
@@ -87,6 +90,16 @@ static int fail(dec_t *d, const char *fmt, ...) {
   va_start(ap, fmt);
   if (d->err && d->err_size > 0) vsnprintf(d->err, (size_t)d->err_size, fmt, ap);
   va_end(ap);
+  return -1;
+}
+
+/* As fail, for a valid file of a mode the decoder does not take. */
+static int refuse(dec_t *d, const char *fmt, ...) {
+  va_list ap;
+  va_start(ap, fmt);
+  if (d->err && d->err_size > 0) vsnprintf(d->err, (size_t)d->err_size, fmt, ap);
+  va_end(ap);
+  d->unsupported = 1;
   return -1;
 }
 
@@ -118,6 +131,9 @@ static int build_huff(dec_t *d, huff_t *t, const uint8_t *counts, const uint8_t 
   memcpy(t->huffval, vals, (size_t)nvals);
   for (int len = 1; len <= 16; len++) {
     t->valoffset[len] = k - code;
+    /* No code may be all ones (jdhuff.c's JERR_BAD_HUFF_TABLE); checked
+     * before the fill, which indexes `fast` by code. */
+    if (code + counts[len - 1] >= (1 << len)) return fail(d, "DHT: bad code lengths");
     if (counts[len - 1]) {
       for (int i = 0; i < counts[len - 1]; i++, k++, code++) {
         if (len <= LOOKAHEAD) {
@@ -130,7 +146,6 @@ static int build_huff(dec_t *d, huff_t *t, const uint8_t *counts, const uint8_t 
     } else {
       t->maxcode[len] = -1;
     }
-    if (code > (1 << len)) return fail(d, "DHT: bad code lengths");
     code <<= 1;
   }
   t->maxcode[17] = 0x7fffffff;
@@ -351,14 +366,14 @@ static void idct_islow(const int16_t *coef, const int16_t *q, uint8_t *out, int 
 static int read_sof(dec_t *d, const uint8_t *p, int len) {
   if (d->saw_frame) return fail(d, "a second frame header (SOF)");
   if (len < 6) return fail(d, "SOF: truncated segment");
-  if (p[0] != 8) return fail(d, "SOF: %d-bit samples are not supported (8-bit only)", p[0]);
+  if (p[0] != 8) return refuse(d, "SOF: %d-bit samples are not supported (8-bit only)", p[0]);
   d->height = read_u16(p + 1);
   d->width = read_u16(p + 3);
   d->ncomp = p[5];
-  if (d->height == 0) return fail(d, "SOF: height 0 (a DNL marker) is not supported");
+  if (d->height == 0) return refuse(d, "SOF: height 0 (a DNL marker) is not supported");
   if (d->width == 0) return fail(d, "SOF: width 0");
-  if (d->ncomp == 4) return fail(d, "SOF: 4 components (CMYK / YCCK) are not supported");
-  if (d->ncomp != 1 && d->ncomp != 3) return fail(d, "SOF: %d components are not supported", d->ncomp);
+  if (d->ncomp == 4) return refuse(d, "SOF: 4 components (CMYK / YCCK) are not supported");
+  if (d->ncomp != 1 && d->ncomp != 3) return refuse(d, "SOF: %d components are not supported", d->ncomp);
   if (len < 6 + 3 * d->ncomp) return fail(d, "SOF: truncated segment");
   d->hmax = d->vmax = 1;
   for (int i = 0; i < d->ncomp; i++) {
@@ -368,7 +383,7 @@ static int read_sof(dec_t *d, const uint8_t *p, int len) {
     c->v = p[7 + 3 * i] & 15;
     c->tq = p[8 + 3 * i];
     if (c->h < 1 || c->h > 2 || c->v < 1 || c->v > 2)
-      return fail(d, "SOF: sampling factors %dx%d (1 or 2 per axis only)", c->h, c->v);
+      return refuse(d, "SOF: sampling factors %dx%d (1 or 2 per axis only)", c->h, c->v);
     if (c->tq > 3) return fail(d, "SOF: quantization table %d", c->tq);
     if (c->h > d->hmax) d->hmax = c->h;
     if (c->v > d->vmax) d->vmax = c->v;
@@ -437,6 +452,7 @@ static int read_scan(dec_t *d, const uint8_t *p, int len, const uint8_t *end, co
   int16_t blk[64];
 
   if (!d->saw_frame) return fail(d, "SOS before a frame header");
+  if (len < 1) return fail(d, "SOS: truncated segment");
   ns = p[0];
   if (ns < 1 || ns > d->ncomp || len < 4 + 2 * ns) return fail(d, "SOS: %d components", ns);
   for (int i = 0; i < ns; i++) {
@@ -660,9 +676,9 @@ static int run(dec_t *d, const uint8_t *data, long size, uint8_t *rgb) {
       if (!rgb) return 0;
       if (alloc_planes(d)) return -1;
     } else if (sof_name(marker)) {
-      return fail(d, "%s is not supported (baseline and extended sequential Huffman only)", sof_name(marker));
+      return refuse(d, "%s is not supported (baseline and extended sequential Huffman only)", sof_name(marker));
     } else if (marker == 0xCC) {
-      return fail(d, "DAC (arithmetic coding) is not supported");
+      return refuse(d, "DAC (arithmetic coding) is not supported");
     } else if (marker == 0xC4) {
       if (read_dht(d, p, len)) return -1;
     } else if (marker == 0xDB) {
@@ -676,10 +692,10 @@ static int run(dec_t *d, const uint8_t *data, long size, uint8_t *rgb) {
       if (d->ncomp == 3) {
         /* libjpeg's choice of color space (jdapimin.c default_decompress_parms) */
         if (!d->saw_jfif && d->adobe_transform == 0)
-          return fail(d, "APP14 (Adobe) transform 0: RGB-coded JPEG is not supported");
+          return refuse(d, "APP14 (Adobe) transform 0: RGB-coded JPEG is not supported");
         if (!d->saw_jfif && d->adobe_transform < 0 && d->comp[0].id == 'R' && d->comp[1].id == 'G' &&
             d->comp[2].id == 'B')
-          return fail(d, "SOF: components R, G, B (RGB-coded JPEG) are not supported");
+          return refuse(d, "SOF: components R, G, B (RGB-coded JPEG) are not supported");
       }
       if (read_scan(d, p, len, end, &after)) return -1;
       p = after;
@@ -689,7 +705,7 @@ static int run(dec_t *d, const uint8_t *data, long size, uint8_t *rgb) {
     } else if (marker == 0xEE) {
       if (len >= 12 && memcmp(p, "Adobe", 5) == 0) d->adobe_transform = p[11];
     } else if (marker == 0xDC) {
-      return fail(d, "DNL is not supported");
+      return refuse(d, "DNL is not supported");
     }
     /* other APPn, COM: skipped */
     p += len;
@@ -713,6 +729,7 @@ int jpeg_header(const uint8_t *data, long size, int *width, int *height, int *co
   int rc;
   init(&d, err, err_size);
   rc = run(&d, data, size, NULL);
+  if (rc && d.unsupported) rc = -2;
   if (rc == 0) {
     *width = d.width;
     *height = d.height;
@@ -729,6 +746,7 @@ int jpeg_decode(const uint8_t *data, long size, uint8_t *rgb, int width, int hei
   rc = run(&d, data, size, rgb);
   if (rc == 0 && (d.width != width || d.height != height))
     rc = fail(&d, "image is %dx%d, the buffer %dx%d", d.width, d.height, width, height);
+  if (rc && d.unsupported) rc = -2;
   for (int i = 0; i < 3; i++) free(d.comp[i].plane);
   return rc;
 }

@@ -4,8 +4,8 @@ the same sequences, frames, cameras, random draws and examples).
 Reads one category's gzipped `frame_annotations.jgz` (JSON) and the split
 JSON of the stage (lists of [sequence_name, frame_number, image_path]),
 converts each frame's PyTorch3D NDC camera to OpenCV extrinsics and
-normalized intrinsics, skips examples with det(R) != 1, undersized or
-missing images, resizes a sequence's frames to its smallest size and
+normalized intrinsics, skips examples with det(R) != 1, undersized,
+missing or damaged images, resizes a sequence's frames to its smallest size and
 applies the augmentation and crop shims. Frames are decoded by the port's C
 decoder (`dataset.jpeg`), not PIL.
 """
@@ -19,7 +19,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from .jpeg import decode_jpeg
+from .jpeg import CorruptJPEGError, decode_jpeg
 from .shims import _rescale_image, apply_augmentation_shim, apply_crop_shim
 from .types import DatasetCO3DCfg, Stage
 from .view_samplers import ViewSampler, ViewSamplerEvaluation
@@ -128,13 +128,13 @@ class DatasetCO3D:
         )
 
     def _load_image(self, rel_path: str) -> Optional[np.ndarray]:
-        """uint8 (h, w, 3), or None when the file cannot be read; a file that
-        is not a JPEG the decoder takes raises."""
+        """uint8 (h, w, 3), or None when the file is missing or damaged (as
+        the JAX reader returns None on PIL's OSError); a valid JPEG of a mode
+        the decoder does not take raises."""
         try:
-            data = (self.path / rel_path).read_bytes()
-        except OSError:
+            return decode_jpeg((self.path / rel_path).read_bytes())
+        except (OSError, CorruptJPEGError):
             return None
-        return decode_jpeg(data)
 
     def _near_far(self, extrinsics: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """The camera radius +- 8 (near at least 0.5), or the configured planes."""

@@ -2,7 +2,9 @@
 (`csrc_host/jpeg_decode.c`): baseline and extended sequential Huffman
 files, 8-bit, grayscale or YCbCr with 1 or 2 sampling per axis, with the
 same output bits as libjpeg-turbo's default decode (and so PIL's).
-Anything else raises ValueError naming the marker.
+Any other mode raises ValueError naming the marker; a damaged file
+(truncated, corrupt tables or data, not a JPEG) raises CorruptJPEGError,
+a ValueError too.
 """
 
 from __future__ import annotations
@@ -14,11 +16,17 @@ import numpy as np
 from .. import host_build
 
 _ERR_SIZE = 256
+_DAMAGED = -1   # the C functions' return codes; -2: a mode not taken
+
+
+class CorruptJPEGError(ValueError):
+    """The file is damaged, where PIL raises OSError."""
 
 
 def _check(rc: int, err: ctypes.Array) -> None:
     if rc != 0:
-        raise ValueError(f"JPEG: {err.value.decode(errors='replace')}")
+        message = f"JPEG: {err.value.decode(errors='replace')}"
+        raise CorruptJPEGError(message) if rc == _DAMAGED else ValueError(message)
 
 
 def jpeg_size(data: bytes) -> tuple[int, int, int]:

@@ -22,6 +22,7 @@ from latentsplat_tpu.scripts import generate_gt_image_directory as jax_gt_direct
 from latentsplat_tpu.training.step_tracker import StepTracker as JaxStepTracker
 from latentsplat_tpu_torch.dataset import view_samplers as vs
 from latentsplat_tpu_torch.dataset.co3d import DatasetCO3D
+from latentsplat_tpu_torch.dataset.jpeg import CorruptJPEGError
 from latentsplat_tpu_torch.dataset.re10k import DatasetRE10k
 from latentsplat_tpu_torch.dataset.types import DatasetCO3DCfg, DatasetRE10kCfg
 from latentsplat_tpu_torch.main import main
@@ -198,6 +199,41 @@ def test_co3d_skips_what_jax_skips(co3d_tree):
     # seq_b holds a reflection and seq_c a missing image: only seq_a is left,
     # its larger frame resized to 48x64 before the crop.
     assert [e["scene"] for e in ours] == ["seq_a"]
+
+
+def _small_tree(root, damage):
+    """Two sequences of 6 frames; `damage(path)` rewrites seq_b's frame 2."""
+    frames = [_frame(seq, i, 48, 64, seed=i + 10 * k) for k, seq in enumerate(("seq_a", "seq_b")) for i in range(6)]
+    split = _write_tree(root, frames)
+    damage(root / "hydrant" / "images" / "seq_b_2.jpg")
+    return dict(roots=[str(root)], train_split_json=str(split), eval_split_json=str(split), image_shape=[32, 32])
+
+
+@pytest.mark.parametrize("damage", ["truncated", "not-jpeg"])
+def test_co3d_skips_damaged_frames_as_jax_does(tmp_path, damage):
+    # PIL raises OSError on these, and the JAX reader skips the example.
+    def rewrite(path):
+        path.write_bytes(path.read_bytes()[:300] if damage == "truncated" else b"GIF89a")
+
+    cfg = _small_tree(tmp_path, rewrite)
+    ours, theirs = _pair(DatasetCO3D, JaxDatasetCO3D, DatasetCO3DCfg, JaxCO3DCfg, "test", SAMPLERS["all"], **cfg)
+    a, b = list(ours), list(theirs)
+    assert [e["scene"] for e in a] == ["seq_a"]
+    assert_examples_equal(a, b)
+
+
+def test_co3d_raises_on_a_jpeg_mode_the_decoder_does_not_take(tmp_path):
+    # A valid progressive frame is no damage: the port names its marker
+    # rather than skip it (PIL decodes it for the JAX reader).
+    def progressive(path):
+        Image.open(path).convert("RGB").save(path, "JPEG", progressive=True)
+
+    cfg = _small_tree(tmp_path, progressive)
+    ours, theirs = _pair(DatasetCO3D, JaxDatasetCO3D, DatasetCO3DCfg, JaxCO3DCfg, "test", SAMPLERS["all"], **cfg)
+    assert [e["scene"] for e in theirs] == ["seq_a", "seq_b"]
+    with pytest.raises(ValueError, match="SOF2") as raised:
+        list(ours)
+    assert not isinstance(raised.value, CorruptJPEGError)
 
 
 # -- the scripts ------------------------------------------------------------------------

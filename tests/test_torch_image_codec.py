@@ -15,7 +15,7 @@ from PIL import Image
 
 from latentsplat_tpu.dataset.shims import rescale_and_crop as jax_rescale_and_crop
 from latentsplat_tpu_torch import host_build
-from latentsplat_tpu_torch.dataset.jpeg import decode_jpeg, jpeg_size
+from latentsplat_tpu_torch.dataset.jpeg import CorruptJPEGError, decode_jpeg, jpeg_size
 from latentsplat_tpu_torch.dataset.shims import _rescale_image, rescale_and_crop
 
 from tests.torch_jpeg_tools import (
@@ -117,19 +117,42 @@ def _sof(marker: int, precision: int = 8, components: int = 3) -> bytes:
     return b"\xff\xd8" + _segment(marker, body) + b"\xff\xd9"
 
 
-@pytest.mark.parametrize("data, message", [
-    (lambda: fixture_bytes(PROGRESSIVE), "SOF2"),
-    (lambda: _sof(0xC9), "SOF9"),
-    (lambda: _sof(0xC3), "SOF3"),
-    (lambda: b"\xff\xd8" + _segment(0xCC, b"\x00\x10") + _sof(0xC0)[2:], "DAC"),
-    (lambda: _sof(0xC0, precision=12), "12-bit"),
-    (lambda: _sof(0xC0, components=4), "CMYK"),
-    (lambda: pil_encode(smooth_frame(32, 48, 1), quality=90, gray=False, subsampling=0)[:100], "truncated"),
-    (lambda: b"GIF89a", "SOI"),
-], ids=["progressive", "arithmetic", "lossless", "DAC", "12-bit", "CMYK", "truncated", "not-jpeg"])
-def test_unsupported_input_raises_naming_the_marker(data, message):
-    with pytest.raises(ValueError, match=message):
+def _dht(counts: list) -> bytes:
+    """A file whose one DC table has these code counts per length."""
+    counts = counts + [0] * (16 - len(counts))
+    return b"\xff\xd8" + _segment(0xC4, bytes([0x00, *counts]) + bytes(sum(counts))) + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("data, message, damaged", [
+    (lambda: fixture_bytes(PROGRESSIVE), "SOF2", False),
+    (lambda: _sof(0xC9), "SOF9", False),
+    (lambda: _sof(0xC3), "SOF3", False),
+    (lambda: b"\xff\xd8" + _segment(0xCC, b"\x00\x10") + _sof(0xC0)[2:], "DAC", False),
+    (lambda: _sof(0xC0, precision=12), "12-bit", False),
+    (lambda: _sof(0xC0, components=4), "CMYK", False),
+    (lambda: pil_encode(smooth_frame(32, 48, 1), quality=90, gray=False, subsampling=0)[:100], "truncated", True),
+    (lambda: b"GIF89a", "SOI", True),
+    # More codes of a length than it has: the table must be refused before
+    # it is filled (255 codes of 1 bit would index far past it).
+    (lambda: _dht([3]), "DHT", True),
+    (lambda: _dht([255, 1]), "DHT", True),
+    (lambda: _dht([1, 1, 2]), "DHT", True),   # an all-ones code (111), as libjpeg refuses
+    (lambda: _sof(0xC0)[:-2] + b"\xff\xda\x00\x02", "SOS", True),   # an empty scan header
+], ids=["progressive", "arithmetic", "lossless", "DAC", "12-bit", "CMYK", "truncated", "not-jpeg",
+        "dht-overfull", "dht-far-overfull", "dht-all-ones", "sos-empty"])
+def test_unsupported_input_raises_naming_the_marker(data, message, damaged):
+    # A damaged file (PIL raises OSError) raises CorruptJPEGError, which the
+    # CO3D reader skips; a valid file of another mode raises ValueError.
+    with pytest.raises(ValueError, match=message) as raised:
         decode_jpeg(data())
+    assert isinstance(raised.value, CorruptJPEGError) == damaged
+
+
+def test_valid_dht_is_taken():
+    # The fullest valid table of each length up to 16 bits: one code short
+    # of all ones, as the JPEG standard's tables are built.
+    with pytest.raises(CorruptJPEGError, match="no frame header"):
+        decode_jpeg(_dht([1] * 16))
 
 
 def test_adobe_rgb_and_cmyk_from_pil_raise():
