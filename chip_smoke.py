@@ -62,7 +62,26 @@
    scripts.generate_gt_image_directory. Checks losses, checkpoints, PNGs,
    the indexes, the first train batch against the parent's own decode and
    the kernels' launches in each run.
-9. Small-input checks: the tiled (kernel) render of a narrow model against
+9. Switches phase: the model's remaining switches on the flagship at full
+   width, step 125000, 2 scenes x (2 + 4) views at 256x256. (s1) the
+   context, target_autoencoder (l1 + lpips + generator + hinge) and
+   target_render_latent (mse) loss sites, all live (without the VAE's skip
+   connections, which those sites' decodes cannot feed; 1 scene if 2 do
+   not fit); (s2) encode_latents with the ResNet-50 backbone: a serving
+   batch, 2 train steps and `main` in test mode, whose benchmark.json holds
+   autoencoder_encoder; (s3) variational=latents: composite_forward and
+   composite_backward at 12 channels and reduce_pairs at rows of 18 against
+   their plain versions and timed at view 0, then 2 train steps; (s4)
+   model.remat with decoder.remat under the policies nothing, dots and
+   vae:off,lpips:off against the plain step on the same batch and noise
+   (generator/total within 1e-6 relative, each gradient leaf within 1e-6
+   of its largest value or 4x the plain step's own repeat difference; 8 + 8
+   forward launches a step); (s5) compute_dtype bfloat16 and
+   vae/lpips/disc:bfloat16 (generator/total within 5% of float32, float32
+   master parameters); (s6) the vit (dino_vitb8) backbone and an ensemble
+   of dino + resnet50. Prints step seconds, stage splits, peaks and
+   launches of every run.
+10. Small-input checks: the tiled (kernel) render of a narrow model against
    the dense oracle render, composite_backward and reduce_pairs at 4
    channels against their plain versions, and the narrow model's
    train-step gradients through the tiled kernels against those through
@@ -72,8 +91,10 @@ Prints the card's name and power limit, one JSON line describing the
 kernels (device ms, plain ms, the bound and its share, the library call's
 ms, launches on the main path, in the trainer phase and in each run of the
 data phase; duplicate_with_keys
-also its wrapper's ms; composite_forward once at the flagship's 8 channels
-and once at render_depth's 4), and last `{"ok": true, "device": {...}}`.
+also its wrapper's ms; composite_forward once at the flagship's 8 channels,
+once at render_depth's 4 and once at variational=latents' 12, and
+composite_backward and reduce_pairs also at 12 channels), and last
+`{"ok": true, "device": {...}}`.
 Any failed check raises.
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -333,16 +354,18 @@ def composite_work(view: dict) -> dict:
     return work
 
 
-def slice_gaussians(model, batch, seed: int):
+def slice_gaussians(model, batch, seed: int, flatten: bool = False):
     """The slice batch after the data shims and its Gaussians, sampled with
-    a generator seeded with `seed`."""
+    a generator seeded with `seed` (or, with `flatten`, their feature
+    posteriors' mean and logvar packed, as `variational: latents` renders)."""
     gen = torch.Generator(device=batch["target"]["image"].device).manual_seed(seed)
     with torch.no_grad():
         shimmed = model.data_shim(batch)
-        return shimmed, model.encoder(shimmed["context"], 0, generator=gen).sample(gen)
+        gaussians = model.encoder(shimmed["context"], 0, generator=gen)
+        return shimmed, gaussians.flatten() if flatten else gaussians.sample(gen)
 
 
-def first_view(model, batch, seed: int, depth_payload: bool = False):
+def first_view(model, batch, seed: int, depth_payload: bool = False, flatten: bool = False):
     """The screen Gaussians of the slice's first target view, as `render`
     gives them to the compositor: the SH colors and features towards the
     camera, or (`depth_payload`) each Gaussian's camera-space z as the
@@ -351,7 +374,7 @@ def first_view(model, batch, seed: int, depth_payload: bool = False):
     from latentsplat_tpu_torch.ops.rasterize.api import view_channels
     from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_screen
 
-    shimmed, gaussians = slice_gaussians(model, batch, seed)
+    shimmed, gaussians = slice_gaussians(model, batch, seed, flatten)
     target = shimmed["target"]
     ext, intr, near = target["extrinsics"][0, 0], target["intrinsics"][0, 0], target["near"][0, 0]
     h, w = target["image"].shape[2:4]
@@ -913,12 +936,7 @@ def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: in
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
     scenes = 2
-    state, _, train_step = build_trainer(cfg, seed, device)
-    # As in a run resumed at this step: the optimizers have counted as many
-    # updates (their moments start at zero), so the warm-up is over.
-    for opt in (state.opt_gen, state.opt_disc):
-        for group in opt.state.values():
-            group["count"].fill_(TRAIN_STEP)
+    state, _, train_step = switch_state(cfg, seed, device)
     batch = state.model.data_shim(make_batch(np.random.default_rng(seed + 2), 2, 4, size, device, scenes))
     n_gen = sum(p.numel() for p in state.model.parameters())
     n_disc = sum(p.numel() for p in state.discriminator.parameters())
@@ -1578,6 +1596,390 @@ def data_phase(seed: int, device, model_overrides: tuple = (), size: int = 256) 
     return out
 
 
+# -- switches phase ------------------------------------------------------------
+
+SITE_LOSSES = [
+    # context and target_autoencoder: l1 + lpips + generator 0.5 + hinge
+    # discriminator; target_render_latent: mse. The two autoencoder sites
+    # decode without a skip tensor, so the VAE runs without skip connections.
+    "model.autoencoder.skip_connections=false",
+    *(f"loss.{site}={{nll: [{{name: l1}}, {{name: lpips}}], generator: {{name: generator, weight: 0.5}}, "
+      f"discriminator: {{name: discriminator, loss: hinge}}}}" for site in ("context", "target_autoencoder")),
+    "loss.target_render_latent={nll: [{name: mse}]}",
+]
+RESNET50 = "model.encoder.backbone={name: resnet, model: resnet50}"
+
+
+def switch_state(cfg, seed: int, device):
+    """build_trainer's state as in a run resumed at TRAIN_STEP: both
+    optimizers have counted as many updates (their moments start at zero),
+    so the warm-up is over."""
+    state, losses, train_step = build_trainer(cfg, seed, device)
+    for opt in (state.opt_gen, state.opt_disc):
+        for group in opt.state.values():
+            group["count"].fill_(TRAIN_STEP)
+    return state, losses, train_step
+
+
+def timed_steps(label: str, state, train_step, batch, seed: int, n: int):
+    """`n` train steps at TRAIN_STEP: prints each step's seconds, the stage
+    split and the peak, checks finite logs; returns (state, logs of each
+    step, seconds of each step, peak bytes, launches over the steps)."""
+    stage_s: dict[str, list[float]] = {}
+
+    @contextmanager
+    def timer(name):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        stage_s.setdefault(name, []).append(time.perf_counter() - start)
+
+    gen = torch.Generator(device=batch["target"]["image"].device).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    seconds, all_logs = [], []
+    for _ in range(n):
+        start = time.perf_counter()
+        state, logs = train_step(state, batch, TRAIN_STEP, generator=gen, timer=timer)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+        all_logs.append({k: float(v) for k, v in logs.items()})
+    launches, peak = read_launches(), torch.cuda.max_memory_allocated()
+    bad = sorted({k for logs in all_logs for k, v in logs.items() if not math.isfinite(v)})
+    if bad:
+        raise AssertionError(f"{label}: non-finite logs {bad}")
+    print(f"{label}: seconds per step {[round(x, 4) for x in seconds]}; stages (last step) "
+          + ", ".join(f"{k} {v[-1]:.4f}" for k, v in stage_s.items())
+          + f"; peak {peak / 2**30:.3f} GiB; launches {launches}")
+    return state, all_logs, seconds, peak, launches
+
+
+def flagship_noise(model, batch, seed: int) -> dict:
+    """Explicit noise for one flagship step (depth uniforms, Gaussian and
+    latent normals), so two runs take the same random numbers."""
+    ctx, tgt = batch["context"], batch["target"]
+    gen = torch.Generator(device=ctx["image"].device).manual_seed(seed)
+    shape = model.depth_noise_shape(ctx)
+    enc = model.cfg.encoder
+    n_gaussians = shape[1] * shape[2] * shape[3] * shape[4]
+    d_sh = (enc.gaussian_adapter.feature_sh_degree + 1) ** 2
+    c = model.autoencoder.d_latent
+    size = model.scaled_size(model.scale_factor, tgt["image"].shape[2:4])
+    return {
+        "depth": torch.rand(shape, generator=gen, device=gen.device),
+        "gaussians": torch.randn((shape[0], n_gaussians, c, d_sh), generator=gen, device=gen.device),
+        "latent": torch.randn((shape[0], tgt["image"].shape[1], *size, c), generator=gen, device=gen.device),
+    }
+
+
+def switch_sites(seed: int, device, size: int = 256) -> None:
+    """(s1) The context, target_autoencoder and target_render_latent loss
+    sites, all live, on the flagship at full width: 2 scenes, or 1 if 2 do
+    not fit the card (said so)."""
+    from latentsplat_tpu_torch.config import load_config
+
+    cfg = load_config("re10k", SITE_LOSSES)
+    state, _, train_step = switch_state(cfg, seed, device)
+    for scenes in (2, 1):
+        batch = state.model.data_shim(make_batch(np.random.default_rng(seed + 2), 2, 4, size, device, scenes))
+        try:
+            state, all_logs, _, _, launches = timed_steps(
+                f"switches (s1) loss sites, {scenes} scenes", state, train_step, batch, seed + 3, 3)
+            break
+        except torch.cuda.OutOfMemoryError:
+            del batch
+            torch.cuda.empty_cache()
+            print(f"switches (s1): {scenes} scenes do not fit the card; 1 scene")
+    logs = all_logs[-1]
+    for site in ("context", "target_autoencoder", "target_combined"):
+        keys = (f"{site}/generator", f"{site}/discriminator/fake", f"{site}/discriminator/real",
+                f"{site}/adaptive_weight")
+        missing = [k for k in keys if k not in logs]
+        if missing:
+            raise AssertionError(f"(s1): the {site} GAN site logged no {missing}")
+        print(f"switches (s1) {site}: -mean fake logits {logs[keys[0]]:.5g}, discriminator fake {logs[keys[1]]:.5g}, "
+              f"real {logs[keys[2]]:.5g}, adaptive weight {logs[keys[3]]:.5g}")
+    for key in ("train/context/psnr", "train/target_autoencoder/psnr", "target_render_latent/mse",
+                "context/l1", "context/lpips", "target_autoencoder/l1", "target_autoencoder/lpips"):
+        if key not in logs:
+            raise AssertionError(f"(s1): no {key} in the logs")
+    print("switches (s1) last step: " + ", ".join(f"{k} {v:.5g}" for k, v in sorted(logs.items())
+                                                 if k.startswith(("train/", "target_render_latent", "context/",
+                                                                  "target_autoencoder/", "generator/"))))
+    if min(launches[k] for k in ALL_KERNELS) < 1:
+        raise AssertionError(f"(s1): a kernel did not run: {launches}")
+
+
+def switch_encode_latents(seed: int, device, size: int = 256) -> None:
+    """(s2) encode_latents with the ResNet-50 backbone: one serving batch,
+    2 train steps and `main` in test mode, whose benchmark.json must hold
+    autoencoder_encoder."""
+    from latentsplat_tpu_torch.config import load_config
+    from latentsplat_tpu_torch.main import main as run_main
+    from latentsplat_tpu_torch.model.latentsplat import render_full
+    from latentsplat_tpu_torch.training.checkpointing import save_checkpoint
+
+    overrides = ["model.encode_latents=true", RESNET50]
+    cfg = load_config("re10k", overrides)
+    state, _, train_step = switch_state(cfg, seed, device)
+    model = state.model
+    batch = make_batch(np.random.default_rng(seed), 2, 4, size, device)
+    stage_s: dict[str, float] = {}
+
+    @contextmanager
+    def timer(name):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        stage_s[name] = time.perf_counter() - start
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        shimmed = model.data_shim(batch)
+        latents = model.autoencoder.encode(shimmed["context"]["image"]).mode()
+        gaussians = model.encoder(shimmed["context"], 0, generator=gen, features=latents)
+    n_gaussians = gaussians.means.shape[1]
+    del gaussians
+    model.eval()
+    render_full(model, batch, generator=gen.manual_seed(seed))
+    reset_launches()
+    out = render_full(model, batch, generator=gen.manual_seed(seed), timer=timer)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    model.train()
+    if not torch.isfinite(out["image"]).all() or tuple(out["image"].shape) != (1, 4, size, size, 3):
+        raise AssertionError("(s2): the served image is not finite or has the wrong shape")
+    print(f"switches (s2) encode_latents, resnet50: latents {tuple(latents.shape)}, {n_gaussians} Gaussians "
+          f"a scene; serving stages (s) " + ", ".join(f"{k} {v:.4f}" for k, v in stage_s.items())
+          + f"; launches {launches}")
+    if n_gaussians != 2 * size * size * cfg.model.encoder.gaussians_per_pixel:
+        raise AssertionError(f"(s2): {n_gaussians} Gaussians a scene")
+    if min(launches[k] for k in FORWARD_KERNELS) < 1 or "autoencoder_encoder" not in stage_s:
+        raise AssertionError("(s2): the serving path skipped the VAE encoder or a kernel")
+    batch = model.data_shim(make_batch(np.random.default_rng(seed + 2), 2, 4, size, device, 2))
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith("autoencoder.encoder.")}
+    _, _, _, _, launches = timed_steps("switches (s2) encode_latents train", state, train_step, batch, seed + 3, 2)
+    moved = sum(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters() if n in before)
+    print(f"switches (s2): VAE encoder tensors changed by the steps {moved} of {len(before)}")
+    if moved == 0 or min(launches[k] for k in ALL_KERNELS) < 1:
+        raise AssertionError("(s2): the VAE encoder did not train or a kernel did not run")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_latents_") as tmp:
+        tmp = Path(tmp)
+        ckpt = save_checkpoint(state, tmp / "checkpoints", 2)
+        del state, model, train_step, batch, before
+        torch.cuda.empty_cache()
+        index = tmp / "index.json"
+        entry = {"context": [0, 45], "target": [10, 22, 35]}
+        index.write_text(json.dumps({f"synthetic_{i:04d}": [entry] for i in range(2)}))
+        data = {"name": "synthetic", "num_scenes": 2, "num_frames": 48, "image_shape": [size, size],
+                "view_sampler": {"name": "evaluation", "index_path": str(index)}}
+        reset_launches()
+        start = time.perf_counter()
+        run_main(["+experiment=re10k", *overrides, "mode=test", f"seed={seed}", f"dataset={json.dumps(data)}",
+                  f"checkpointing.load={ckpt}", "wandb.name=latents", f"output_dir={tmp / 'run'}",
+                  f"test.output_path={tmp / 'test'}"], device=device)
+        launches = read_launches()
+        root = tmp / "test" / "latents"
+        bench = json.loads((root / "benchmark.json").read_text())
+        pngs = sorted(root.rglob("color/*.png"))
+    print(f"switches (s2) main test mode: {time.perf_counter() - start:.2f} s, {len(pngs)} PNGs, benchmark.json "
+          + ", ".join(f"{k} mean {statistics.mean(v):.4f} s ({len(v)} entries)" for k, v in bench.items())
+          + f"; launches {launches}")
+    if set(bench) != {"autoencoder_encoder", "encoder", "decoder", "autoencoder_decoder"} or len(pngs) != 6:
+        raise AssertionError(f"(s2) test mode: tags {sorted(bench)}, {len(pngs)} PNGs")
+    if launches["composite_forward"] != 6:
+        raise AssertionError(f"(s2) test mode: composite_forward ran {launches['composite_forward']} times, not 6")
+
+
+def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict]:
+    """(s3) variational=latents: at view 0 composite_forward and
+    composite_backward at 12 channels and reduce_pairs at rows of 18 against
+    their plain versions, timed beside their bounds; then 2 train steps.
+    Returns the three records and the steps' launches."""
+    from latentsplat_tpu_torch.config import load_config
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+
+    cfg = load_config("re10k", ["model.variational=latents"])
+    state, _, train_step = switch_state(cfg, seed, device)
+    model = state.model.eval()
+    sg, shape = first_view(model, make_batch(np.random.default_rng(seed), 2, 4, size, device), seed, flatten=True)
+    view = depth_view(sg, shape)
+    if view["attrs"].shape[1] != 18:
+        raise AssertionError(f"(s3): rows of {view['attrs'].shape[1]}, not 6 + 12")
+    err = check_forward(view, "switches (s3) view 0")
+    args = (view["gids"], view["ranges"], view["attrs"], view["tiles_x"], shape)
+    ms = device_ms(lambda: kernels.composite_forward(*args))
+    plain_ms = cuda_ms(lambda: kernels.composite_forward_reference(*args), 3)
+    view["work"] = composite_work(view)
+    print(f"switches (s3): composite_forward at 12 channels {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms; "
+          f"{view['gids'].shape[0]} pairs")
+    records = [forward_entry(err, ms, plain_ms, view)]
+    records += backward_kernel_phase(view, seed)
+    records[1]["channels"] = 12
+    records[2]["row"] = 18
+    del view, sg
+    model.train()
+    batch = model.data_shim(make_batch(np.random.default_rng(seed + 2), 2, 4, size, device, 2))
+    _, _, _, _, launches = timed_steps("switches (s3) variational=latents train", state, train_step, batch,
+                                       seed + 3, 2)
+    by_channels = launches["composite_forward_by_channels"]
+    if by_channels.get(12) != 2 * 8 or launches["composite_backward"] != 2 * 8 or launches["reduce_pairs"] != 2 * 8:
+        raise AssertionError(f"(s3): the 12-channel kernels ran {launches}, not 8 times a step")
+    return records, launches
+
+
+def leaf_errors(a: dict, b: dict) -> tuple[float, str]:
+    """The largest |a - b| of any leaf relative to that leaf's largest |b|,
+    and its name. A leaf whose gradient is zero but for rounding (a conv
+    bias right before a GroupNorm) is normalised by 1e-4 of the largest
+    gradient of all."""
+    floor = 1e-4 * max(g.abs().max() for g in b.values())
+    return max((((a[n] - g).abs().max() / g.abs().max().clamp(min=floor)).item(), n) for n, g in b.items())
+
+
+def switch_remat_bf16(seed: int, device, size: int = 256) -> None:
+    """(s4) model.remat with decoder.remat under three policies against the
+    plain step, and (s5) bfloat16 compute against float32, on one flagship
+    state, one batch of 2 scenes and the same noise tensors."""
+    from latentsplat_tpu_torch.config import load_config
+    from latentsplat_tpu_torch.training.step import generator_grads, make_step_flags
+
+    cfg = load_config("re10k")
+    state, losses, train_step = switch_state(cfg, seed, device)
+    model = state.model
+    mcfg = model.cfg
+    batch = model.data_shim(make_batch(np.random.default_rng(seed + 2), 2, 4, size, device, 2))
+    noise = flagship_noise(model, batch, seed + 5)
+    flags = make_step_flags(losses, TRAIN_STEP)
+
+    def grads_of(label: str):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start = time.perf_counter()
+        grads, total, _, _ = generator_grads(state, losses, flags, batch, TRAIN_STEP, noise=noise)
+        torch.cuda.synchronize()
+        seconds, peak, launches = time.perf_counter() - start, torch.cuda.max_memory_allocated(), read_launches()
+        print(f"switches {label}: generator/total {float(total)!r}, forward + backward {seconds:.4f} s, "
+              f"peak {peak / 2**30:.3f} GiB, launches {launches}")
+        return grads, float(total), launches
+
+    # The comparisons run with cuDNN's deterministic algorithms, so that the
+    # plain step repeats itself as closely as the card allows.
+    torch.backends.cudnn.deterministic = True
+    plain, plain_total, _ = grads_of("(s4) plain")
+    again, again_total, _ = grads_of("(s4) plain, again")
+    floor_err, floor_leaf = leaf_errors(again, plain)
+    print(f"switches (s4): plain vs plain, generator/total equal {again_total == plain_total}; largest leaf "
+          f"difference {floor_err:.3e} of its largest value ({floor_leaf}): the card's nondeterministic "
+          f"backward kernels (atomic adds)")
+    del again
+    mcfg.remat = True
+    model.decoder.cfg.remat = True
+    for policy in ("nothing", "dots", "vae:off,lpips:off"):
+        mcfg.remat_policy = policy
+        grads, total, launches = grads_of(f"(s4) remat {policy}")
+        err, leaf = leaf_errors(grads, plain)
+        print(f"switches (s4) remat {policy}: generator/total equal to plain {total == plain_total} "
+              f"({abs(total - plain_total) / abs(plain_total):.3e} relative); largest leaf difference {err:.3e} "
+              f"of its largest value ({leaf}); bit-identical {all(torch.equal(grads[n], plain[n]) for n in plain)}")
+        if abs(total - plain_total) > 1e-6 * abs(plain_total) or err > max(1e-6, 4 * floor_err):
+            raise AssertionError(f"(s4) remat {policy} differs from the plain step")
+        if launches["composite_forward"] != 16 or launches["duplicate_with_keys"] != 16:
+            raise AssertionError(f"(s4) remat {policy}: {launches['composite_forward']} forward launches, not 8 + 8")
+        del grads
+    mcfg.remat, mcfg.remat_policy = False, "nothing"
+    model.decoder.cfg.remat = False
+    torch.backends.cudnn.deterministic = False
+
+    for dtype in ("bfloat16", "vae:bfloat16,lpips:bfloat16,disc:bfloat16"):
+        mcfg.compute_dtype = dtype
+        grads, total, _ = grads_of(f"(s5) compute_dtype={dtype}")
+        rel = abs(total - plain_total) / abs(plain_total)
+        err, leaf = leaf_errors(grads, plain)
+        print(f"switches (s5) {dtype}: generator/total {total:.6g} vs float32 {plain_total:.6g}, {rel:.3e} relative "
+              f"(tolerance 0.05); largest leaf difference {err:.3e} of its largest value ({leaf})")
+        if not rel <= 0.05:
+            raise AssertionError(f"(s5) {dtype}: generator/total {rel:.3e} relative from float32")
+        del grads
+    del plain
+    for dtype in ("float32", "bfloat16", "vae:bfloat16,lpips:bfloat16,disc:bfloat16"):
+        mcfg.compute_dtype = dtype
+        state, _, seconds, peak, _ = timed_steps(f"switches (s5) compute_dtype={dtype} train", state, train_step,
+                                                 batch, seed + 3, 3)
+        print(f"switches (s5) {dtype}: median step after the first {statistics.median(seconds[1:]):.4f} s, "
+              f"peak {peak / 2**30:.3f} GiB")
+        wrong = {p.dtype for p in model.parameters()} | {p.dtype for p in state.discriminator.parameters()}
+        if wrong != {torch.float32}:
+            raise AssertionError(f"(s5) {dtype}: master parameters of {wrong}")
+    mcfg.remat, model.decoder.cfg.remat = True, True
+    for policy in ("nothing", "dots", "vae:off,lpips:off"):
+        mcfg.remat_policy = policy
+        mcfg.compute_dtype = "float32"
+        state, _, seconds, peak, _ = timed_steps(f"switches (s4) remat {policy} train", state, train_step, batch,
+                                                 seed + 3, 2)
+        print(f"switches (s4) remat {policy}: step {seconds[-1]:.4f} s, peak {peak / 2**30:.3f} GiB")
+
+
+def switch_backbones(seed: int, device, size: int = 256) -> None:
+    """(s6) The vit (dino_vitb8) backbone and an ensemble of dino + resnet50:
+    one serving batch and one train step each."""
+    from latentsplat_tpu_torch.config import load_config
+    from latentsplat_tpu_torch.model.latentsplat import render_full
+
+    for label, override in (
+        ("vit dino_vitb8", "model.encoder.backbone={name: vit, model: dino_vitb8}"),
+        ("ensemble dino + resnet50", "model.encoder.backbone=[{name: dino, model: dino_vitb8}, "
+                                     "{name: resnet, model: resnet50}]"),
+    ):
+        cfg = load_config("re10k", [override])
+        state, _, train_step = switch_state(cfg, seed, device)
+        model = state.model.eval()
+        batch = make_batch(np.random.default_rng(seed), 2, 4, size, device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        reset_launches()
+        out = render_full(model, batch, generator=gen)
+        torch.cuda.synchronize()
+        serve_s, launches = time.perf_counter() - start, read_launches()
+        if not torch.isfinite(out["image"]).all():
+            raise AssertionError(f"(s6) {label}: non-finite image")
+        n_params = sum(p.numel() for p in model.encoder.backbone.parameters())
+        print(f"switches (s6) {label}: backbone {n_params} parameters, serving batch {serve_s:.4f} s (first call), "
+              f"launches {launches}")
+        model.train()
+        batch = model.data_shim(make_batch(np.random.default_rng(seed + 2), 2, 4, size, device, 2))
+        timed_steps(f"switches (s6) {label} train", state, train_step, batch, seed + 3, 1)
+        del state, model, train_step, batch, out
+        torch.cuda.empty_cache()
+
+
+def switches_phase(seed: int, device) -> list[dict]:
+    """(s1)-(s6); returns the 12-channel composite kernels' and the row-18
+    reduce_pairs' records."""
+    print(f"switches phase on {card()}")
+    start = time.perf_counter()
+    switch_sites(seed, device)
+    torch.cuda.empty_cache()
+    switch_encode_latents(seed, device)
+    torch.cuda.empty_cache()
+    records, launches = switch_latents(seed, device)
+    for record in records:
+        record["launches"] = (launches["composite_forward_by_channels"][12] if record["name"] == "composite_forward"
+                              else launches[record["name"]])
+    torch.cuda.empty_cache()
+    switch_remat_bf16(seed, device)
+    torch.cuda.empty_cache()
+    switch_backbones(seed, device)
+    print(f"switches phase: {time.perf_counter() - start:.1f} s")
+    return records
+
+
 def small_gradient_check(seed: int, device) -> None:
     """The narrow model's train-step gradients through the tiled kernels
     against those through the dense oracle, same weights and noise;
@@ -1726,6 +2128,7 @@ def main() -> int:
     for key, launches in (("trainer_fit_launches", fit_launches), ("trainer_test_launches", test_launches)):
         depth_record[key] = launches["composite_forward_by_channels"].get(4, 0)
     results.append(depth_record)
+    results += switches_phase(args.seed, device)
     small_input_check(args.seed, device)
     small_depth_backward_check(args.seed, device)
     small_gradient_check(args.seed, device)

@@ -362,6 +362,10 @@ def from_dict(tp, value: Any):
                     return from_dict(member, value)
             if "name" in value:
                 raise NotImplementedError(f"{value['name']!r} is not ported")
+        if isinstance(value, list):
+            for member in members:
+                if typing.get_origin(member) in (list, List):
+                    return from_dict(member, value)
         return value
     if origin in (list, List):
         (item_tp,) = typing.get_args(tp) or (Any,)

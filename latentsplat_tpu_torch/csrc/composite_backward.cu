@@ -9,7 +9,9 @@
 // tile and one thread owns one pixel; warp w owns the tile's rows 2w and
 // 2w + 1. The block walks its tile's pairs from the tile's largest
 // per-pixel `last` down to the tile start, staging batches of 64 pairs'
-// attributes in shared memory (one 16-float row per pair, read as float4).
+// attributes in shared memory (one 16-float row per pair, 20 for the
+// 12-channel payload of `variational: latents`, read as float4; the row's
+// last two floats hold the pair's footprint rows).
 // A pixel takes part only for pairs below its own `last`, which are
 // exactly the pairs its forward composited (the forward stops each pixel
 // on its own).
@@ -26,13 +28,15 @@
 // That value path is left to the compiler's contractions (FMA): it decides
 // nothing, and its rounding is inside the gradient tolerance.
 //
-// A warp steps over two pairs at a time, so that their alpha tests
-// overlap, and sums both pairs' 6 + NCH partials (each padded to 16) over
-// its 32 pixels by recursive halving: at each of five steps a lane keeps
-// half of its values and adds its partner's copy of that half, so lane l
-// ends with the warp sum of value l after 31 shuffles (a shuffle tree per
-// value takes 70 per pair), and the lanes store the 2 x 16 sums in one
-// instruction. A warp skips the alpha tests of a pair whose footprint (the
+// Where a pair's 6 + NCH partials fit 16 slots (NCH <= 10), a warp steps
+// over two pairs at a time, so that their alpha tests overlap, and sums
+// both pairs' partials (each padded to 16) over its 32 pixels by recursive
+// halving: at each of five steps a lane keeps half of its values and adds
+// its partner's copy of that half, so lane l ends with the warp sum of
+// value l after 31 shuffles (a shuffle tree per value takes 70 per pair),
+// and the lanes store the 2 x 16 sums in one instruction. The 18 partials
+// of the 12-channel payload take all 32 slots of one pair, so that
+// instantiation steps over one pair at a time with the same exchange. A warp skips the alpha tests of a pair whose footprint (the
 // rows where alpha can reach 1/255, widened by a margin far above float
 // rounding) misses its two rows, and of pairs above its own largest
 // `last`; it stores zeros when none of its lanes composited either pair.
@@ -57,11 +61,25 @@ constexpr int kTile = 16;
 constexpr int kPixels = kTile * kTile;
 constexpr int kWarps = kPixels / 32;
 constexpr int kBatch = 64;
-constexpr int kPad = 16;         // floats per staged row and partials per pair
-constexpr int kFootprint = 14;   // row slots of the footprint's first and last row
 constexpr float kAlphaClamp = 0.99f;
 constexpr float kAlphaThreshold = static_cast<float>(1.0 / 255.0);
 constexpr unsigned kFull = 0xffffffffu;
+
+// The layout of one instantiation: a pair's attribute row (kStride floats)
+// staged as kRow floats whose last two hold its footprint rows, kPart
+// exchange slots per pair (so 32 / kPart pairs per warp step), and kSlots
+// floats per pair and warp in the shared partial sums.
+template <int NCH>
+struct Layout {
+  static constexpr int kStride = 6 + NCH;
+  static constexpr int kRow = kStride + 2 <= 16 ? 16 : (kStride + 2 + 3) / 4 * 4;
+  static constexpr int kFootprint = kRow - 2;
+  static constexpr int kPart = kStride <= 16 ? 16 : 32;
+  static constexpr int kPairs = 32 / kPart;
+  static constexpr int kSlots = kPart == 16 ? 16 : kStride;
+  static_assert(kStride <= 32, "a pair's partials fit one warp exchange");
+  static_assert(kFootprint % 4 == 2, "the footprint rows are a float4's z and w");
+};
 
 // One halving step over N values: the lane whose bit kOffset is set keeps
 // values kHalf..2 kHalf-1, its partner 0..kHalf-1, and each adds the
@@ -79,8 +97,7 @@ __device__ __forceinline__ void halve(float (&v)[N], int lane) {
 
 // Sums v[0..31] over the warp in 31 shuffles; lane l returns the sum of
 // value l.
-__device__ __forceinline__ float warp_sum32(float (&v)[2 * kPad], int lane) {
-  static_assert(kPad == 16, "five halving steps over 32 lanes");
+__device__ __forceinline__ float warp_sum32(float (&v)[32], int lane) {
   halve<16, 16>(v, lane);
   halve<8, 8>(v, lane);
   halve<4, 4>(v, lane);
@@ -94,7 +111,8 @@ __device__ __forceinline__ float warp_sum32(float (&v)[2 * kPad], int lane) {
 // needs -power <= log(255 opacity). Widened by 1e-3 relative and 0.05 px;
 // empty when opacity < 1/255, unbounded when the conic is not positive
 // definite.
-__device__ __forceinline__ float2 footprint_rows(const float (&a)[kPad]) {
+template <int N>
+__device__ __forceinline__ float2 footprint_rows(const float (&a)[N]) {
   const float ca = a[2], cb = a[3], cc = a[4], opacity = a[5];
   if (!(opacity * 255.0f >= 1.0f)) return make_float2(INFINITY, -INFINITY);
   const float det = ca * cc - cb * cb;
@@ -128,17 +146,18 @@ __device__ __forceinline__ Hit alpha_test(const float4& q0, const float4& q1, fl
   return h;
 }
 
-// One (pair, pixel)'s 6 + NCH partials into part[0..15], stepping the
-// pixel's transmittance t and suffix back over the pair. Branch-free: a
+// One (pair, pixel)'s 6 + NCH partials into part[0..kPart-1], stepping
+// the pixel's transmittance t and suffix back over the pair. Branch-free: a
 // lane that failed the alpha test takes alpha = 0, so t and suffix keep
 // their values and every partial is zero.
 template <int NCH>
-__device__ __forceinline__ void partials(const float4 (&row)[kPad / 4], const Hit& h,
+__device__ __forceinline__ void partials(const float4 (&row)[Layout<NCH>::kRow / 4], const Hit& h,
                                          const float (&g)[NCH], float& t, float& suffix,
                                          float* part) {
-  float a[kPad];
+  constexpr int kRow = Layout<NCH>::kRow;
+  float a[kRow];
 #pragma unroll
-  for (int i = 0; i < kPad / 4; ++i) {
+  for (int i = 0; i < kRow / 4; ++i) {
     a[4 * i] = row[i].x;
     a[4 * i + 1] = row[i].y;
     a[4 * i + 2] = row[i].z;
@@ -165,7 +184,7 @@ __device__ __forceinline__ void partials(const float4 (&row)[kPad / 4], const Hi
   part[4] = -0.5f * dy * dy * d_pow;
   part[5] = d_alpha * h.e;
 #pragma unroll
-  for (int r = 6 + NCH; r < kPad; ++r) part[r] = 0.0f;
+  for (int r = 6 + NCH; r < Layout<NCH>::kPart; ++r) part[r] = 0.0f;
   suffix += w * cg_dot;
   t = t_before;
 }
@@ -173,10 +192,11 @@ __device__ __forceinline__ void partials(const float4 (&row)[kPad / 4], const Hi
 // Shared memory of one block: the batch's attribute rows and destinations,
 // and the warps' partial sums, both double-buffered across batches so
 // that one barrier per batch suffices.
+template <int NCH>
 struct Shared {
-  float4 attr[kBatch][kPad / 4];
+  float4 attr[kBatch][Layout<NCH>::kRow / 4];
   int64_t dst[2][kBatch];
-  float part[2][kWarps][kBatch][kPad];
+  float part[2][kWarps][kBatch][Layout<NCH>::kSlots];
   int end[kWarps];
 };
 
@@ -192,10 +212,12 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
     const float* __restrict__ g_channels,     // (NCH, H, W) cotangent of the channels
     const float* __restrict__ g_t,            // (H, W) cotangent of T_final
     float* __restrict__ d_rows) {             // (P, 6 + NCH) Gaussian-major
-  constexpr int kStride = 6 + NCH;
-  static_assert(kStride <= kFootprint, "the staged row has no room for the footprint");
+  using L = Layout<NCH>;
+  constexpr int kStride = L::kStride;
+  constexpr int kRow = L::kRow;
+  constexpr int kFootprint = L::kFootprint;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Shared& sm = *reinterpret_cast<Shared*>(smem_raw);
+  Shared<NCH>& sm = *reinterpret_cast<Shared<NCH>*>(smem_raw);
 
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31;
@@ -242,52 +264,77 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
     const int n = hi - lo;
     if (tid < n) {
       const float* src = attrs + static_cast<int64_t>(gids[lo + tid]) * kStride;
-      float a[kPad];
+      float a[kRow];
 #pragma unroll
-      for (int r = 0; r < kPad; ++r) a[r] = r < kStride ? src[r] : 0.0f;
+      for (int r = 0; r < kRow; ++r) a[r] = r < kStride ? src[r] : 0.0f;
       const float2 rows = footprint_rows(a);
       a[kFootprint] = rows.x;
       a[kFootprint + 1] = rows.y;
 #pragma unroll
-      for (int i = 0; i < kPad / 4; ++i) {
+      for (int i = 0; i < kRow / 4; ++i) {
         sm.attr[tid][i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
       }
       sm.dst[buf][tid] = order[lo + tid];
     }
     __syncthreads();
-    // Two pairs per step, a = k and b = k - 1 (back to front). Lane l
-    // ends with value l & 15 of pair a (l < 16) or b, and stores it.
-    for (int k = n - 1; k >= 0; k -= 2) {
-      const bool has_b = k >= 1;
-      const int kb = has_b ? k - 1 : k;
-      float sum = 0.0f;
-      if (lo + kb < warp_last) {
-        // Footprint rows (z, w) against the warp's rows y0 and y0 + 1.
-        const float4 fa = sm.attr[k][kFootprint / 4];
-        const float4 fb = sm.attr[kb][kFootprint / 4];
-        const bool near_a = fa.z <= warp_y0 + 1.0f && fa.w >= warp_y0;
-        const bool near_b = has_b && fb.z <= warp_y0 + 1.0f && fb.w >= warp_y0;
-        if (near_a || near_b) {
-          float4 ra[kPad / 4], rb[kPad / 4];
-          ra[0] = sm.attr[k][0];
-          ra[1] = sm.attr[k][1];
-          rb[0] = sm.attr[kb][0];
-          rb[1] = sm.attr[kb][1];
-          const Hit ha = alpha_test(ra[0], ra[1], fx, fy, near_a && lo + k < my_last);
-          const Hit hb = alpha_test(rb[0], rb[1], fx, fy, near_b && lo + kb < my_last);
-          if (__any_sync(kFull, ha.pass || hb.pass)) {
-            ra[2] = sm.attr[k][2];
-            ra[3] = sm.attr[k][3];
-            rb[2] = sm.attr[kb][2];
-            rb[3] = sm.attr[kb][3];
-            float part[2 * kPad];
-            partials<NCH>(ra, ha, g, t, suffix, part);
-            partials<NCH>(rb, hb, g, t, suffix, part + kPad);
-            sum = warp_sum32(part, lane);
+    if constexpr (L::kPairs == 2) {
+      // Two pairs per step, a = k and b = k - 1 (back to front). Lane l
+      // ends with value l & 15 of pair a (l < 16) or b, and stores it.
+      for (int k = n - 1; k >= 0; k -= 2) {
+        const bool has_b = k >= 1;
+        const int kb = has_b ? k - 1 : k;
+        float sum = 0.0f;
+        if (lo + kb < warp_last) {
+          // Footprint rows (z, w) against the warp's rows y0 and y0 + 1.
+          const float4 fa = sm.attr[k][kFootprint / 4];
+          const float4 fb = sm.attr[kb][kFootprint / 4];
+          const bool near_a = fa.z <= warp_y0 + 1.0f && fa.w >= warp_y0;
+          const bool near_b = has_b && fb.z <= warp_y0 + 1.0f && fb.w >= warp_y0;
+          if (near_a || near_b) {
+            float4 ra[kRow / 4], rb[kRow / 4];
+            ra[0] = sm.attr[k][0];
+            ra[1] = sm.attr[k][1];
+            rb[0] = sm.attr[kb][0];
+            rb[1] = sm.attr[kb][1];
+            const Hit ha = alpha_test(ra[0], ra[1], fx, fy, near_a && lo + k < my_last);
+            const Hit hb = alpha_test(rb[0], rb[1], fx, fy, near_b && lo + kb < my_last);
+            if (__any_sync(kFull, ha.pass || hb.pass)) {
+#pragma unroll
+              for (int i = 2; i < kRow / 4; ++i) {
+                ra[i] = sm.attr[k][i];
+                rb[i] = sm.attr[kb][i];
+              }
+              float part[32];
+              partials<NCH>(ra, ha, g, t, suffix, part);
+              partials<NCH>(rb, hb, g, t, suffix, part + 16);
+              sum = warp_sum32(part, lane);
+            }
           }
         }
+        if (mine && (lane < 16 || has_b)) sm.part[buf][warp][lane < 16 ? k : kb][lane & 15] = sum;
       }
-      if (mine && (lane < 16 || has_b)) sm.part[buf][warp][lane < 16 ? k : kb][lane & 15] = sum;
+    } else {
+      // One pair per step; lane l ends with value l of the pair.
+      for (int k = n - 1; k >= 0; --k) {
+        float sum = 0.0f;
+        if (lo + k < warp_last) {
+          const float4 fa = sm.attr[k][kFootprint / 4];
+          if (fa.z <= warp_y0 + 1.0f && fa.w >= warp_y0) {
+            float4 ra[kRow / 4];
+            ra[0] = sm.attr[k][0];
+            ra[1] = sm.attr[k][1];
+            const Hit ha = alpha_test(ra[0], ra[1], fx, fy, lo + k < my_last);
+            if (__any_sync(kFull, ha.pass)) {
+#pragma unroll
+              for (int i = 2; i < kRow / 4; ++i) ra[i] = sm.attr[k][i];
+              float part[32];
+              partials<NCH>(ra, ha, g, t, suffix, part);
+              sum = warp_sum32(part, lane);
+            }
+          }
+        }
+        if (lane < kStride) sm.part[buf][warp][k][lane] = sum;
+      }
     }
     __syncthreads();
     for (int idx = tid; idx < n * kStride; idx += kPixels) {
@@ -307,7 +354,7 @@ cudaError_t launch(int num_tiles, const void* gids, const void* tile_ranges, con
                    const void* t_final, const void* g_channels, const void* g_t, void* d_rows,
                    cudaStream_t stream) {
   auto kernel = composite_backward_kernel<NCH>;
-  constexpr int kBytes = static_cast<int>(sizeof(Shared));
+  constexpr int kBytes = static_cast<int>(sizeof(Shared<NCH>));
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return err;
@@ -322,7 +369,7 @@ cudaError_t launch(int num_tiles, const void* gids, const void* tile_ranges, con
 
 }  // namespace
 
-// Instantiated for the channel counts of composite_forward (4, 5 and 8).
+// Instantiated for the channel counts of composite_forward (4, 5, 8 and 12).
 extern "C" int composite_backward(
     int n_channels, int num_tiles, const void* gids, const void* tile_ranges, const void* order,
     const void* attrs, int tiles_x, int height, int width, const void* last, const void* t_final,
@@ -342,6 +389,10 @@ extern "C" int composite_backward(
       case 8:
         err = launch<8>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,
                         t_final, g_channels, g_t, d_rows, s);
+        break;
+      case 12:
+        err = launch<12>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,
+                         t_final, g_channels, g_t, d_rows, s);
         break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);

@@ -34,8 +34,9 @@
 //   one half of a double-buffered shared array, each thread holds in
 //   registers the attribute row of its pair of batch k + 1 (its Gaussian
 //   id was loaded a batch earlier still) and stores it, padded to 16
-//   floats and read back as float4, into the other half: one barrier per
-//   batch of 64 pairs.
+//   floats (20 for the 12-channel payload of `variational: latents`) and
+//   read back as float4, into the other half: one barrier per batch of 64
+//   pairs.
 //
 // Every operation that decides or accumulates (power, alpha, weight,
 // channel sums, the T update and the T < 1e-4 test) is rounded explicitly
@@ -56,7 +57,6 @@ constexpr int kWarpRows = 4;   // a warp's pixels: 4 rows x 8 columns
 constexpr int kWarps = kQuarter / kWarpRows;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kBatch = kThreads;  // pairs staged per batch, one per thread
-constexpr int kPad = 16;       // floats per staged row
 constexpr float kAlphaClamp = 0.99f;
 constexpr float kAlphaThreshold = static_cast<float>(1.0 / 255.0);
 constexpr float kTransmittanceMin = 1e-4f;
@@ -65,6 +65,10 @@ constexpr float kTransmittanceMin = 1e-4f;
 // nearer to degenerate the rounding of power could outgrow the box margins.
 constexpr float kDetMin = 1e-3f;
 constexpr unsigned kFull = 0xffffffffu;
+
+// Floats per staged row: 16, or the row rounded up to whole float4s.
+template <int NCH>
+constexpr int kRow = 6 + NCH <= 16 ? 16 : (6 + NCH + 3) / 4 * 4;
 
 // The box [x0, x1] x [y0, y1] outside which the forward's alpha test fails
 // at every pixel: for a positive-definite conic (a, b, c),
@@ -87,7 +91,8 @@ __device__ __forceinline__ float4 footprint_box(float x, float y, float ca, floa
 
 // Bit w set: the pair's footprint box meets warp w's pixels, rows
 // y0 + 4w .. y0 + 4w + 3 and columns x0 .. x0 + 7 of a quarter.
-__device__ __forceinline__ uint32_t warp_bits(const float (&a)[kPad], int x0, int y0) {
+template <int N>
+__device__ __forceinline__ uint32_t warp_bits(const float (&a)[N], int x0, int y0) {
   const float4 box = footprint_box(a[0], a[1], a[2], a[3], a[4], a[5]);
   const float fx0 = static_cast<float>(x0);
   if (!(box.x <= fx0 + (kQuarter - 1) && box.y >= fx0)) return 0u;
@@ -120,11 +125,11 @@ __device__ __forceinline__ Hit alpha_test(const float4& q0, const float4& q1, fl
 // Adds one pair (staged row `row`) at alpha to the pixel's channels and
 // transmittance.
 template <int NCH>
-__device__ __forceinline__ void composite(const float4 (&row)[kPad / 4], float alpha, float& t,
+__device__ __forceinline__ void composite(const float4 (&row)[kRow<NCH> / 4], float alpha, float& t,
                                           float (&acc)[NCH]) {
-  float a[kPad];
+  float a[kRow<NCH>];
 #pragma unroll
-  for (int i = 0; i < kPad / 4; ++i) {
+  for (int i = 0; i < kRow<NCH> / 4; ++i) {
     a[4 * i] = row[i].x;
     a[4 * i + 1] = row[i].y;
     a[4 * i + 2] = row[i].z;
@@ -146,8 +151,9 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_ke
     float* __restrict__ out_transmittance,    // (H, W)
     int32_t* __restrict__ out_last) {         // (H, W) exclusive end of contributing pairs
   constexpr int kStride = 6 + NCH;
+  constexpr int kPad = kRow<NCH>;
   constexpr int kAcross = kTile / kQuarter;
-  static_assert(kStride <= kPad, "a staged row holds at most 16 floats");
+  static_assert(kStride <= kPad, "a staged row holds the whole attribute row");
   __shared__ float4 s_row[2][kBatch][kPad / 4];
   __shared__ uint32_t s_bits[2][kBatch];
 
@@ -221,10 +227,11 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_ke
         const Hit ha = alpha_test(ra[0], ra[1], fx, fy);
         const Hit hb = alpha_test(rb[0], rb[1], fx, fy);
         if (__any_sync(kFull, !done && (ha.pass || (has_b && hb.pass)))) {
-          ra[2] = s_row[buf][ja][2];
-          ra[3] = s_row[buf][ja][3];
-          rb[2] = s_row[buf][jb][2];
-          rb[3] = s_row[buf][jb][3];
+#pragma unroll
+          for (int i = 2; i < kPad / 4; ++i) {
+            ra[i] = s_row[buf][ja][i];
+            rb[i] = s_row[buf][jb][i];
+          }
           if (!done && ha.pass) {
             composite<NCH>(ra, ha.alpha, t, acc);
             last = batch + ja + 1;
@@ -270,10 +277,11 @@ void launch(int num_tiles, const void* gids, const void* tile_ranges, const void
 }  // namespace
 
 // Channel counts the kernel is instantiated for (payload + expected depth):
-// 8 = 3 color + 4 latent features + depth (the flagship), 5 = 4 + depth,
-// 4 = the 3-channel depth payload of render_depth + depth.
+// 12 = 3 color + 4 latent means + 4 latent logvars + depth (`variational:
+// latents`), 8 = 3 color + 4 latent features + depth (the flagship),
+// 5 = 4 + depth, 4 = the 3-channel depth payload of render_depth + depth.
 extern "C" int composite_forward_channels(int index) {
-  constexpr int kChannels[] = {4, 5, 8};
+  constexpr int kChannels[] = {4, 5, 8, 12};
   return index < static_cast<int>(sizeof(kChannels) / sizeof(int)) ? kChannels[index] : -1;
 }
 
@@ -295,6 +303,10 @@ extern "C" int composite_forward(
       case 8:
         launch<8>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
                   transmittance, last, s);
+        break;
+      case 12:
+        launch<12>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+                   transmittance, last, s);
         break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);

@@ -80,7 +80,8 @@ void launch(int num_gaussians, const void* d_rows, const void* offsets, void* ou
 
 }  // namespace
 
-// Instantiated for the row lengths of composite_backward (6 + 4, 6 + 5 and 6 + 8).
+// Instantiated for the row lengths of composite_backward (6 + 4, 6 + 5, 6 + 8
+// and 6 + 12).
 extern "C" int reduce_pairs(int num_gaussians, int row, const void* d_rows, const void* offsets,
                             void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -94,6 +95,9 @@ extern "C" int reduce_pairs(int num_gaussians, int row, const void* d_rows, cons
         break;
       case 14:
         launch<14>(num_gaussians, d_rows, offsets, out, s);
+        break;
+      case 18:
+        launch<18>(num_gaussians, d_rows, offsets, out, s);
         break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);

@@ -1,9 +1,12 @@
-"""KL-regularized f8 VAE, decoder side (counterpart of
+"""KL-regularized f8 VAE (counterpart of
 latentsplat_tpu/model/autoencoder/kl.py). NHWC at the public methods.
 
+`encode` maps [0, 1] images to a diagonal Gaussian over the latents (the
+encoder's moments through the 1x1 quant_conv); `decode` maps latents back.
 The decoder carries latentSplat's per-up-block 1x1 skip convolutions, fed
 with the skip tensor (rendered color + latent sample) resized bilinearly
-with align_corners=True. `encode` is not ported yet. Submodule names follow
+with align_corners=True. Both halves are always built, as in the JAX
+package, so a JAX parameter tree carries over whole. Submodule names follow
 the JAX parameter tree.
 """
 
@@ -17,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...ops.distributions import DiagonalGaussian
 from ..transformer import attention
 
 GROUP_NORM_EPS = 1e-6
@@ -79,6 +83,17 @@ class AttnBlock(nn.Module):
         return x + y
 
 
+class Downsample(nn.Module):
+    """Pad (0, 1) at the bottom and right, then a stride-2 valid 3x3 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class Upsample(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
@@ -86,6 +101,39 @@ class Upsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3))
+
+
+class VaeEncoder(nn.Module):
+    """NCHW image in [-1, 1] -> NCHW moments (2 x latent channels)."""
+
+    def __init__(self, cfg: AutoencoderKLCfg, d_in: int):
+        super().__init__()
+        self.cfg = cfg
+        chans = cfg.block_out_channels
+        self.conv_in = nn.Conv2d(d_in, chans[0], 3, padding=1)
+        prev = chans[0]
+        for i, ch in enumerate(chans):
+            for j in range(cfg.layers_per_block):
+                setattr(self, f"down_{i}_resnet_{j}", ResnetBlock(prev, ch))
+                prev = ch
+            if i < len(chans) - 1:
+                setattr(self, f"down_{i}_downsample", Downsample(ch))
+        self.mid_resnet_0 = ResnetBlock(prev, prev)
+        self.mid_attn = AttnBlock(prev)
+        self.mid_resnet_1 = ResnetBlock(prev, prev)
+        self.conv_norm_out = _group_norm(prev)
+        self.conv_out = nn.Conv2d(prev, 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n_blocks = len(self.cfg.block_out_channels)
+        h = self.conv_in(x)
+        for i in range(n_blocks):
+            for j in range(self.cfg.layers_per_block):
+                h = getattr(self, f"down_{i}_resnet_{j}")(h)
+            if i < n_blocks - 1:
+                h = getattr(self, f"down_{i}_downsample")(h)
+        h = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(h)))
+        return self.conv_out(F.silu(self.conv_norm_out(h)))
 
 
 class VaeDecoder(nn.Module):
@@ -134,6 +182,8 @@ class AutoencoderKL(nn.Module):
         super().__init__()
         self.cfg = cfg
         d_skip = cfg.latent_channels + (d_skip_extra if cfg.skip_extra else 0)
+        self.encoder = VaeEncoder(cfg, d_in)
+        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
         self.decoder = VaeDecoder(cfg, d_in, d_skip)
 
@@ -152,6 +202,16 @@ class AutoencoderKL(nn.Module):
     @property
     def expects_skip_extra(self) -> bool:
         return self.cfg.skip_extra
+
+    def encode(self, images: torch.Tensor) -> DiagonalGaussian:
+        """[0, 1] images (..., h, w, c) -> the latent posterior over
+        (..., h', w', z)."""
+        batch_dims = images.shape[:-3]
+        x = (2.0 * images - 1.0).reshape(-1, *images.shape[-3:]).permute(0, 3, 1, 2)
+        moments = self.quant_conv(self.encoder(x)).permute(0, 2, 3, 1)
+        moments = moments.reshape(*batch_dims, *moments.shape[1:])
+        mean, logvar = torch.chunk(moments, 2, dim=-1)
+        return DiagonalGaussian(mean, logvar)
 
     def decode(self, z: torch.Tensor, skip_z: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Latents (..., h', w', z) [+ skip (..., H, W, d_skip)] -> [0, 1] images."""

@@ -3,7 +3,9 @@ latentsplat_tpu/model/decoder/splatting.py).
 
 When the render is not variational, the feature posterior's logvar is
 log(1 - mask), so empty pixels have unit variance around the zero
-background. A `depth_mode` other than "depth" replaces the render's own
+background; when it is (`variational: latents`), the rendered channels are
+the posterior's mean and logvar. `remat` checkpoints each view's render.
+A `depth_mode` other than "depth" replaces the render's own
 (normalized) depth with `render_depth` in that mode."""
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ class DecoderSplatting:
             gaussians.color_harmonics if return_colors else None,
             gaussians.feature_harmonics if return_features else None,
             backend=self.cfg.backend, max_tiles_per_gaussian=self.cfg.max_tiles_per_gaussian,
+            remat=self.cfg.remat,
         )
         color = out.color.permute(0, 1, 3, 4, 2) if out.color is not None else None
         posterior = None

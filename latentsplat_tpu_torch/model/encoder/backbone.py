@@ -1,16 +1,17 @@
-"""DINO ViT and ResNet backbones (counterparts of BackboneDino and
-BackboneResnet in latentsplat_tpu/model/encoder/backbone.py). NHWC in, NHWC
-out.
+"""DINO ViT, ViT, ResNet and ensemble backbones (counterparts of
+BackboneDino, BackboneVit, BackboneResnet and BackboneEnsemble in
+latentsplat_tpu/model/encoder/backbone.py). NHWC in, NHWC out.
 
 Submodule names follow the JAX parameter tree (block_i, LayerNorm_0,
-MultiHeadDotProductAttention_0, Dense_i, BasicBlock_i, Conv_i, ...). The
-ViT and ensemble backbones are not ported yet.
+MultiHeadDotProductAttention_0, Dense_i, BasicBlock_i, Conv_i,
+component_i, ...). A list of backbone configs is an ensemble.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from fractions import Fraction
+from typing import List, Union
 
 import torch
 import torch.nn.functional as F
@@ -44,11 +45,33 @@ class BackboneDinoCfg:
 
 
 @dataclass
+class BackboneVitCfg:
+    """The DINO trunk with 768-wide token MLPs and `interpolate` upscaling
+    by default."""
+
+    name: str = "vit"
+    model: str = "dino_vitb8"
+    upscale_mode: str = "interpolate"
+
+
+@dataclass
 class BackboneResnetCfg:
     name: str = "resnet"
     model: str = "resnet50"
     num_layers: int = 4
     use_first_pool: bool = False
+
+
+SingleBackboneCfg = Union[BackboneResnetCfg, BackboneDinoCfg, BackboneVitCfg]
+
+
+@dataclass
+class BackboneEnsembleCfg:
+    name: str = "ensemble"
+    components: List[SingleBackboneCfg] = field(default_factory=list)
+
+
+BackboneCfg = Union[SingleBackboneCfg, BackboneEnsembleCfg, List[SingleBackboneCfg]]
 
 
 def get_integer(value) -> int:
@@ -132,9 +155,14 @@ class DinoViT(nn.Module):
 
 class BackboneDino(nn.Module):
     """(B, H, W, 3) -> (B, H*sf, W*sf, d_out): local token MLP upscaled and
-    added to the global (cls) token MLP."""
+    added to the global (cls) token MLP. The trunk is registered as `dino`
+    (`vit` for BackboneVit) and the MLPs are `mlp_width` wide (None: the
+    trunk's width)."""
 
-    def __init__(self, cfg: BackboneDinoCfg, d_in: int, d_out: int, scale_factor: Fraction):
+    trunk_name = "dino"
+    mlp_width = None
+
+    def __init__(self, cfg, d_in: int, d_out: int, scale_factor: Fraction):
         super().__init__()
         assert d_in == 3
         patch, dim, depth, heads = _VIT_SPECS[cfg.model]
@@ -142,17 +170,18 @@ class BackboneDino(nn.Module):
         self.patch = patch
         self.d_out = d_out
         self.scale_factor = scale_factor
-        self.dino = DinoViT(patch, dim, depth, heads)
+        setattr(self, self.trunk_name, DinoViT(patch, dim, depth, heads))
+        hidden = self.mlp_width or dim
         # global_mlp = Dense_0 -> relu -> Dense_1; local_mlp = Dense_2 -> relu -> Dense_3.
-        self.Dense_0 = nn.Linear(dim, dim)
-        self.Dense_1 = nn.Linear(dim, d_out)
-        self.Dense_2 = nn.Linear(dim, dim)
-        self.Dense_3 = nn.Linear(dim, d_out)
+        self.Dense_0 = nn.Linear(dim, hidden)
+        self.Dense_1 = nn.Linear(hidden, d_out)
+        self.Dense_2 = nn.Linear(dim, hidden)
+        self.Dense_3 = nn.Linear(hidden, d_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = x.shape
         assert h % self.patch == 0 and w % self.patch == 0
-        tokens = self.dino(x)
+        tokens = getattr(self, self.trunk_name)(x)
         global_token = self.Dense_1(F.relu(self.Dense_0(tokens[:, 0])))
         local = self.Dense_3(F.relu(self.Dense_2(tokens[:, 1:])))
         local = local.reshape(b, h // self.patch, w // self.patch, self.d_out)
@@ -167,6 +196,14 @@ class BackboneDino(nn.Module):
         else:
             raise ValueError(f"unknown upscale_mode {self.cfg.upscale_mode}")
         return local + global_token[:, None, None, :]
+
+
+class BackboneVit(BackboneDino):
+    """The same trunk, registered as `vit`, with 768-wide token MLPs
+    whatever the model's width (as the JAX package and its reference)."""
+
+    trunk_name = "vit"
+    mlp_width = 768
 
 
 def _instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -253,9 +290,28 @@ class BackboneResnet(nn.Module):
         return total.permute(0, 2, 3, 1)
 
 
-def get_backbone(cfg, d_in: int, d_out: int, scale_factor: Fraction) -> nn.Module:
-    if cfg.name == "dino":
-        return BackboneDino(cfg, d_in, d_out, scale_factor)
-    if cfg.name == "resnet":
-        return BackboneResnet(cfg, d_in, d_out, scale_factor)
-    raise NotImplementedError(f"backbone {cfg.name!r} is not ported yet")
+class BackboneEnsemble(nn.Module):
+    """The sum of its components' outputs."""
+
+    def __init__(self, cfg: BackboneEnsembleCfg, d_in: int, d_out: int, scale_factor: Fraction):
+        super().__init__()
+        self.components = len(cfg.components)
+        for i, sub in enumerate(cfg.components):
+            setattr(self, f"component_{i}", get_backbone(sub, d_in, d_out, scale_factor))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return sum(getattr(self, f"component_{i}")(x) for i in range(self.components))
+
+
+_BACKBONES = {
+    "resnet": BackboneResnet,
+    "dino": BackboneDino,
+    "vit": BackboneVit,
+    "ensemble": BackboneEnsemble,
+}
+
+
+def get_backbone(cfg: BackboneCfg, d_in: int, d_out: int, scale_factor: Fraction) -> nn.Module:
+    if isinstance(cfg, list):
+        cfg = BackboneEnsembleCfg(components=cfg)
+    return _BACKBONES[cfg.name](cfg, d_in, d_out, scale_factor)

@@ -2,14 +2,16 @@
 (counterpart of latentsplat_tpu/model/encoder/encoder_epipolar.py).
 
 Context dict layout (NHWC): image (b, v, h, w, 3), extrinsics (b, v, 4, 4),
-normalized intrinsics (b, v, 3, 3), near/far (b, v).
+normalized intrinsics (b, v, 3, 3), near/far (b, v). With `features` (the
+VAE latents of the context images under `encode_latents`) the backbone
+consumes those instead of the images.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from fractions import Fraction
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -18,7 +20,7 @@ from torch import nn
 from ...geometry import sample_image_grid
 from ...ops.distributions import DiagonalGaussian
 from ..types import VariationalGaussians
-from .backbone import BackboneDinoCfg, BackboneResnetCfg, get_backbone
+from .backbone import BackboneCfg, get_backbone
 from .depth_predictor import DepthPredictorMonocular
 from .epipolar_transformer import EpipolarTransformer, EpipolarTransformerCfg
 from .gaussian_adapter import GaussianAdapter, GaussianAdapterCfg
@@ -39,7 +41,7 @@ class EncoderEpipolarCfg:
     num_monocular_samples: int
     num_surfaces: int
     predict_opacity: bool
-    backbone: Union[BackboneDinoCfg, BackboneResnetCfg]
+    backbone: BackboneCfg
     near_disparity: float
     gaussian_adapter: GaussianAdapterCfg
     apply_bounds_shim: bool
@@ -51,9 +53,14 @@ class EncoderEpipolarCfg:
 
 
 class EncoderEpipolar(nn.Module):
+    """`input_downscale` is the image grid over the grid of the backbone's
+    input: 1 for images, the autoencoder's downscale for its latents. The
+    high-resolution skip (a 7x7 conv of the context images) exists only
+    where the feature grid can equal the image grid."""
+
     def __init__(
         self, cfg: EncoderEpipolarCfg, d_in: int, n_feature_channels: int,
-        scale_factor: Fraction, variational: bool,
+        scale_factor: Fraction, variational: bool, input_downscale: int = 1,
     ):
         super().__init__()
         self.cfg = cfg
@@ -69,8 +76,8 @@ class EncoderEpipolar(nn.Module):
             self.epipolar_transformer = EpipolarTransformer(
                 cfg.epipolar_transformer, cfg.d_feature
             )
-        if scale_factor == 1:
-            self.high_resolution_skip = nn.Conv2d(d_in, cfg.d_feature, 7, padding=3)
+        if scale_factor == 1 and input_downscale == 1:
+            self.high_resolution_skip = nn.Conv2d(3, cfg.d_feature, 7, padding=3)
         self.depth_predictor = DepthPredictorMonocular(
             cfg.d_feature, cfg.num_monocular_samples, cfg.num_surfaces, cfg.use_transmittance
         )
@@ -95,12 +102,17 @@ class EncoderEpipolar(nn.Module):
         deterministic: bool = False,
         generator: Optional[torch.Generator] = None,
         depth_noise: Optional[torch.Tensor] = None,
+        features: Optional[torch.Tensor] = None,
     ) -> VariationalGaussians:
+        """`features`: latents (b, v, h', w', c) or (b * v, h', w', c) to
+        encode in place of the images."""
         cfg = self.cfg
         image = context["image"]
         b, v = image.shape[:2]
 
-        features = self.backbone(image.reshape(b * v, *image.shape[2:]))
+        if features is None:
+            features = image
+        features = self.backbone(features.reshape(b * v, *features.shape[-3:]))
         h, w = features.shape[1:3]
         features = self.backbone_projection(F.relu(features))
         features = features.reshape(b, v, h, w, cfg.d_feature)
@@ -111,7 +123,7 @@ class EncoderEpipolar(nn.Module):
                 context["near"], context["far"],
             )
 
-        if self.scale_factor == 1 and (h, w) == tuple(image.shape[2:4]):
+        if hasattr(self, "high_resolution_skip") and (h, w) == tuple(image.shape[2:4]):
             skip = self.high_resolution_skip(
                 image.reshape(b * v, h, w, -1).permute(0, 3, 1, 2)
             )

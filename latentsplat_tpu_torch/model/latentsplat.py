@@ -5,9 +5,10 @@ latentsplat_tpu/model/latentsplat.py plus the test-mode render path
 
 `render_full` takes a batch dict in the JAX layout (NHWC images, (b, v, ...)
 cameras) and returns {"image", "render", "depth", ...}:
-data shims -> encoder -> Gaussian sample -> splatting decoder -> feature
-posterior sample -> 1/supersampling antialiased resize -> VAE decode with
-skip connections.
+data shims -> (with `encode_latents`, the VAE encoder's latents of the
+context images) -> encoder -> Gaussian sample -> splatting decoder ->
+feature posterior sample -> 1/supersampling antialiased resize -> VAE
+decode with skip connections.
 """
 
 from __future__ import annotations
@@ -34,8 +35,6 @@ class LatentSplat(nn.Module):
 
     def __init__(self, cfg, background_color=(0.0, 0.0, 0.0)):
         super().__init__()
-        if cfg.encode_latents:
-            raise NotImplementedError("encode_latents needs the VAE encoder, not ported yet (ROADMAP queue 1 item 5)")
         self.cfg = cfg
         if cfg.autoencoder.name == "kl":
             self.autoencoder = AutoencoderKL(cfg.autoencoder, d_in=3, d_skip_extra=3)
@@ -43,12 +42,16 @@ class LatentSplat(nn.Module):
             self.autoencoder = AutoencoderId(cfg.autoencoder, d_in=3)
         else:
             raise NotImplementedError(f"autoencoder {cfg.autoencoder.name!r} is not ported")
+        # Under encode_latents the encoder consumes the VAE's latents, at
+        # 1 / downscale of the image grid.
+        downscale = self.autoencoder.downscale_factor if cfg.encode_latents else 1
         self.encoder = EncoderEpipolar(
             cfg.encoder,
-            d_in=3,
+            d_in=self.autoencoder.d_latent if cfg.encode_latents else 3,
             n_feature_channels=self.autoencoder.d_latent,
-            scale_factor=self.scale_factor,
+            scale_factor=Fraction(cfg.supersampling_factor, 1 if cfg.encode_latents else self.autoencoder.downscale_factor),
             variational=cfg.variational != "none",
+            input_downscale=downscale,
         )
         self.decoder = DecoderSplatting(cfg.decoder, background_color, cfg.variational == "latents")
         enc = cfg.encoder
@@ -75,6 +78,15 @@ class LatentSplat(nn.Module):
         if isinstance(self.autoencoder, AutoencoderId):
             return self.encoder.to_gaussians.weight
         return self.autoencoder.decoder.conv_out.weight
+
+    def depth_noise_shape(self, context: dict, features: Optional[torch.Tensor] = None) -> tuple[int, ...]:
+        """Shape of the encoder's depth-sample uniforms, (b, v, rays,
+        surfaces, gaussians per pixel), for images or latents `features`."""
+        b, v = context["image"].shape[:2]
+        grid = (context["image"] if features is None else features).shape[-3:-1]
+        h, w = self.scaled_size(self.encoder.scale_factor, grid)
+        enc = self.cfg.encoder
+        return (b, v, h * w, enc.num_surfaces, enc.gaussians_per_pixel)
 
     def data_shim(self, batch: dict) -> dict:
         """Patch + bounds shims (near disparity scaled to pixels)."""
@@ -106,9 +118,11 @@ def render_full(
 
     In probabilistic mode randomness comes from `generator`, or from
     `noise` = {"depth": uniform (b, v, r, srf, spp), "gaussians": normal like
-    the feature-SH mean, "latent": normal (b, v, h, w, c)}. `timer`, if
-    given, is a context-manager factory called with the stage name
-    ("encoder", "decoder", "autoencoder_decoder").
+    the feature-SH mean, "latent": normal (b, v, h, w, c), "context_latent":
+    normal like the context latents (`encode_latents`)}. `timer`, if given,
+    is a context-manager factory called with the stage name
+    ("autoencoder_encoder" under `encode_latents`, "encoder", "decoder",
+    "autoencoder_decoder").
     """
     noise = noise or {}
 
@@ -118,10 +132,18 @@ def render_full(
     with torch.no_grad():
         batch = model.data_shim(batch)
         target = batch["target"]
+        features = None
+        if model.cfg.encode_latents:
+            with stage("autoencoder_encoder"):
+                posterior = model.autoencoder.encode(batch["context"]["image"])
+                features = (
+                    posterior.mode() if deterministic
+                    else posterior.sample(generator, noise.get("context_latent"))
+                )
         with stage("encoder"):
             gaussians = model.encoder(
                 batch["context"], 0, deterministic=deterministic, generator=generator,
-                depth_noise=noise.get("depth"),
+                depth_noise=noise.get("depth"), features=features,
             )
             lowered = (
                 gaussians.mode() if deterministic

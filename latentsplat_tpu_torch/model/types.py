@@ -37,6 +37,11 @@ class VariationalGaussians:
             feature_harmonics,
         )
 
+    def flatten(self) -> Gaussians:
+        """Mean and logvar packed along the channel axis: the payload of a
+        `variational: latents` render."""
+        return self._with_features(self.feature_harmonics.params(dim=-2))
+
     def mode(self) -> Gaussians:
         return self._with_features(self.feature_harmonics.mode())
 
@@ -45,7 +50,6 @@ class VariationalGaussians:
         noise: Optional[torch.Tensor] = None,
     ) -> Gaussians:
         return self._with_features(self.feature_harmonics.sample(generator, noise))
-
 
 
 @dataclass

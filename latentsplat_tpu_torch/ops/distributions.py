@@ -54,6 +54,11 @@ class DiagonalGaussian:
         mean, logvar = torch.chunk(params, 2, dim=dim)
         return cls(mean, logvar)
 
+    def params(self, dim: int = 0) -> torch.Tensor:
+        """Mean and logvar concatenated along `dim` (from_params' inverse)."""
+        assert self.logvar is not None
+        return torch.cat([self.mean, self.logvar], dim=dim)
+
     @property
     def std(self):
         return 0.0 if self.logvar is None else torch.exp(0.5 * self.logvar)

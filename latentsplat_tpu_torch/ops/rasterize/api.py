@@ -5,7 +5,9 @@ Per view: SH colors (+0.5, clamped at 0) and SH features (+0.5, no clamp)
 evaluated towards the camera, or their DC coefficients as they are with
 `use_sh=False`; the scene pre-normalized by 1/near when `scale_invariant`;
 EWA projection, then the tiled (CUDA) or dense (oracle) compositor. Views
-and scenes run in a Python loop and share the Gaussians. `render_depth`
+and scenes run in a Python loop and share the Gaussians. With `remat` each
+view's render is checkpointed (non-reentrant): the backward renders the
+view again, the kernels included, instead of keeping its pair buffers. `render_depth`
 composites each view's camera-space depth (or its disparity, relative
 disparity or log) as a 3-channel color. `render_orthographic` is not
 ported yet.
@@ -17,6 +19,7 @@ from math import isqrt
 from typing import Literal, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ...geometry.conversions import depth_to_relative_disparity
 from ...geometry.projection import homogenize_points, invert_se3
@@ -65,6 +68,7 @@ def render(
     use_sh: bool = True,
     backend: str = "tiled",
     max_tiles_per_gaussian: int = 9,
+    remat: bool = False,
 ) -> RenderOutput:
     """Returns color (B, V, 3, H, W), feature (B, V, C, H, W), mask and
     depth (B, V, H, W). With `scale_invariant` the depth stays in the
@@ -73,36 +77,40 @@ def render(
     if not use_sh:
         assert all(sh is None or sh.shape[-1] == 1 for sh in (gaussian_color_sh, gaussian_feature_sh))
     n_color = 3 if gaussian_color_sh is not None else 0
+
+    def render_view(means, covs, opacities, color_sh, feature_sh, ext, intr, near_ij, background_color):
+        channels = view_channels(means, color_sh, feature_sh, ext[:3, 3], use_sh)
+        background = torch.zeros(channels.shape[-1], device=channels.device)
+        background[:n_color] = background_color[:n_color]
+        if scale_invariant:
+            s = 1.0 / near_ij
+            ext_s = ext.clone()
+            ext_s[:3, 3] = ext[:3, 3] * s
+            means_s, covs_s = means * s, covs * (s * s)
+        else:
+            ext_s, means_s, covs_s = ext, means, covs
+        sg = project_gaussians_to_screen(means_s, covs_s, opacities, channels, ext_s, intr, image_shape)
+        if backend == "dense":
+            return (*composite_dense(sg, image_shape, background), 0)
+        if backend == "tiled":
+            return composite_tiled(sg, image_shape, background, max_tiles_per_gaussian)
+        raise ValueError(f"unknown backend {backend!r}")
+
+    if remat and torch.is_grad_enabled():
+        def body(*args):
+            return checkpoint(render_view, *args, use_reentrant=False)
+    else:
+        body = render_view
     b, v = extrinsics.shape[:2]
     images, masks, depths, pairs = [], [], [], []
     for i in range(b):
         color_sh = gaussian_color_sh[i] if n_color else None
         feature_sh = gaussian_feature_sh[i] if gaussian_feature_sh is not None else None
-        means, covs = gaussian_means[i], gaussian_covariances[i]
         for j in range(v):
-            ext = extrinsics[i, j]
-            channels = view_channels(means, color_sh, feature_sh, ext[:3, 3], use_sh)
-            background = torch.zeros(channels.shape[-1], device=channels.device)
-            background[:n_color] = background_color[i, :n_color]
-            if scale_invariant:
-                s = 1.0 / near[i, j]
-                ext_s = ext.clone()
-                ext_s[:3, 3] = ext[:3, 3] * s
-                means_s, covs_s = means * s, covs * (s * s)
-            else:
-                ext_s, means_s, covs_s = ext, means, covs
-            sg = project_gaussians_to_screen(
-                means_s, covs_s, gaussian_opacities[i], channels, ext_s, intrinsics[i, j], image_shape,
+            image, mask, depth, num_pairs = body(
+                gaussian_means[i], gaussian_covariances[i], gaussian_opacities[i], color_sh, feature_sh,
+                extrinsics[i, j], intrinsics[i, j], near[i, j], background_color[i],
             )
-            if backend == "dense":
-                image, mask, depth = composite_dense(sg, image_shape, background)
-                num_pairs = 0
-            elif backend == "tiled":
-                image, mask, depth, num_pairs = composite_tiled(
-                    sg, image_shape, background, max_tiles_per_gaussian
-                )
-            else:
-                raise ValueError(f"unknown backend {backend!r}")
             images.append(image)
             masks.append(mask)
             depths.append(depth)

@@ -8,7 +8,10 @@ state_dicts, both optimizers' states (each group's count, mu and nu), the
 loss-spike guard's EMA and skip count. `latest` names the newest file.
 Both are written to a temporary name and renamed, so a reader never sees a
 half-written file. Loading with `resume` restores all of it; loading
-without takes only the generator's weights.
+without takes only the generator's weights. A checkpoint written before the
+VAE encoder was ported (no `autoencoder.encoder.*` or
+`autoencoder.quant_conv.*` keys) still loads: those weights keep their
+seeded values and their Adam moments start at zero, and a line says so.
 """
 
 from __future__ import annotations
@@ -61,11 +64,26 @@ def latest_checkpoint(directory: Path) -> Optional[Path]:
 
 
 def _copy_into(target: dict, source: dict) -> None:
+    """Copy `source`'s tensors into `target` in place; a key `source` lacks
+    keeps its value."""
     for key, value in source.items():
         if isinstance(value, dict):
             _copy_into(target[key], value)
         else:
             target[key] = value.to(target[key].device)
+
+
+# Generator keys that checkpoints written before the VAE encoder was ported lack.
+_VAE_ENCODER = ("autoencoder.encoder.", "autoencoder.quant_conv.")
+
+
+def load_generator_state(model: torch.nn.Module, saved: dict) -> None:
+    """Strict, but for the VAE encoder's keys when the checkpoint has none."""
+    missing = [k for k in model.state_dict() if k not in saved]
+    if missing and all(k.startswith(_VAE_ENCODER) for k in missing):
+        print(f"checkpoint has no VAE encoder: its {len(missing)} tensors keep their seeded values")
+        saved = {**model.state_dict(), **saved}
+    model.load_state_dict(saved)
 
 
 def load_checkpoint(path: Path, target=None, device=None) -> dict:
@@ -75,7 +93,7 @@ def load_checkpoint(path: Path, target=None, device=None) -> dict:
     and the spike guard's."""
     restored = torch.load(Path(path), map_location=device, weights_only=True)
     if target is not None:
-        target.model.load_state_dict(restored["generator"])
+        load_generator_state(target.model, restored["generator"])
         target.lpips.load_state_dict(restored["lpips"])
         if target.discriminator is not None:
             target.discriminator.load_state_dict(restored["discriminator"])

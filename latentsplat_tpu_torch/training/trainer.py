@@ -8,8 +8,8 @@ latentsplat_tpu/training/trainer.py).
     (`render_video`) when `train.video_wobble` / `train.video_interpolation`
     are set;
   * `test` - every test scene rendered to PNGs, with benchmark.json (the
-    stages' times under the tags encoder, decoder and autoencoder_decoder)
-    and peak_memory.json.
+    stages' times under the tags encoder, decoder and autoencoder_decoder,
+    and autoencoder_encoder under `encode_latents`) and peak_memory.json.
 
 Randomness comes from `torch.Generator`s seeded in the JAX trainer's roles:
 `seed` for the weights, `seed + 1` for training, `seed + 2` for validation,
@@ -42,7 +42,13 @@ from ..visualization.annotation import add_label
 from ..visualization.camera_trajectory import generate_wobble, interpolate_extrinsics, interpolate_intrinsics
 from ..visualization.color_map import apply_depth_color_map
 from ..visualization.layout import add_border, hcat, vcat
-from .checkpointing import load_checkpoint, load_generator_weights, resolve_checkpoint_uri, save_checkpoint
+from .checkpointing import (
+    load_checkpoint,
+    load_generator_state,
+    load_generator_weights,
+    resolve_checkpoint_uri,
+    save_checkpoint,
+)
 from .logger import get_logger
 from .optim import build_optimizers
 from .step import GROUP_NAMES, TrainState, make_train_step
@@ -131,7 +137,7 @@ class Trainer:
             return params_gen.model
         if isinstance(params_gen, nn.Module):
             return params_gen
-        self.model.load_state_dict(params_gen)
+        load_generator_state(self.model, params_gen)
         return self.model
 
     # -- state ------------------------------------------------------------------
@@ -213,16 +219,20 @@ class Trainer:
 
     # -- forward passes for evaluation ------------------------------------------
     def _render_full(self, params_gen, batch: dict, generator: torch.Generator, deterministic: bool) -> dict:
-        """encoder -> splat -> VAE decode on a device batch (the data shims
-        are applied once, inside `render_full`)."""
+        """(VAE encode under `encode_latents`: the posterior's mode when
+        deterministic, else a sample) -> encoder -> splat -> VAE decode on a
+        device batch (the data shims are applied once, inside
+        `render_full`)."""
         return render_full(self._generator(params_gen), batch, deterministic=deterministic, generator=generator)
 
     def _render_full_timed(
         self, params_gen, batch: dict, generator: torch.Generator, deterministic: bool, benchmarker: Benchmarker,
     ) -> dict:
-        """`_render_full` with its three stages timed under the tags
+        """`_render_full` with its stages timed under the tags
+        autoencoder_encoder (under `encode_latents`, per context view),
         encoder (per scene), decoder and autoencoder_decoder (per target
-        view: `num_calls` = views), each waiting for the device at its ends."""
+        view), each waiting for the device at its ends."""
+        calls = {"encoder": 1, "autoencoder_encoder": batch["context"]["image"].shape[1]}
         v = batch["target"]["image"].shape[1]
         on_cuda = self.device.type == "cuda"
 
@@ -230,7 +240,7 @@ class Trainer:
         def timer(name):
             if on_cuda:
                 torch.cuda.synchronize(self.device)
-            with benchmarker.time(name, num_calls=1 if name == "encoder" else v):
+            with benchmarker.time(name, num_calls=calls.get(name, v)):
                 yield
                 if on_cuda:
                     torch.cuda.synchronize(self.device)

@@ -10,7 +10,8 @@ one layout rule per torch module type:
   ConvTranspose2d  kernel (kh, kw, in, out) -> weight (in, out, kh, kw),
                    spatially flipped (flax does not flip the kernel)
   LayerNorm, GroupNorm, BatchNorm2d  scale -> weight
-Subtrees of modules the port does not have yet (`UNPORTED`) are dropped.
+Subtrees of modules the port does not have (`UNPORTED`, now none) are
+dropped.
 The same walk maps the generator, discriminator, LPIPS and DISTS trees
 (DISTS' `alpha` and `beta` are raw parameters of the root module), and any
 tree laid out like them, such as optax's Adam moments (`adam_state_from_jax`).
@@ -24,9 +25,9 @@ import numpy as np
 import torch
 from torch import nn
 
-# The VAE encoder side: `encode` is not ported (encode_latents is false for
-# every preset that the port serves).
-UNPORTED = ("autoencoder.encoder", "autoencoder.quant_conv")
+# Subtrees of the JAX trees that the port has no module for: none, since
+# the VAE encoder was ported.
+UNPORTED: tuple[str, ...] = ()
 
 
 def _linear(module: nn.Linear, name: str, value: np.ndarray) -> tuple[str, np.ndarray]:

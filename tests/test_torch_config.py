@@ -119,7 +119,7 @@ def test_port_imports_no_jax():
         "evaluation.metric_computer", "evaluation.evaluation_index_generator", "scripts.compute_metrics",
         "scripts.generate_evaluation_index", "scripts.generate_benchmark_table", "dataset.re10k", "dataset.co3d",
         "dataset.jpeg", "dataset.shims", "host_build", "scripts.generate_co3d_evaluation_index",
-        "scripts.generate_gt_image_directory",
+        "scripts.generate_gt_image_directory", "training.step",
     )
     code = (
         "import sys\n"

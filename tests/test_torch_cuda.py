@@ -269,7 +269,7 @@ def backward_inputs(seed, size, device, n=20000, n_channels=4):
     return tiles, counts, gids, ranges, order, attrs, last, t_final, g_out, g_t
 
 
-@pytest.mark.parametrize("n_channels", [4, 7, 3])   # + depth: the 5-, 8- and 4-channel instantiations
+@pytest.mark.parametrize("n_channels", [4, 7, 3, 11])   # + depth: the 5-, 8-, 4- and 12-channel instantiations
 @pytest.mark.parametrize("size", [32, 64, 256])
 def test_composite_backward_matches_reference(cuda, size, n_channels):
     # The kernel sums each pair's partials over the tile in its exchange
@@ -318,7 +318,7 @@ def test_composite_backward_zero_rows_and_empty_tiles(cuda):
         assert ((d - ref).abs() / scale).max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("row", [11, 14, 10])
+@pytest.mark.parametrize("row", [11, 14, 10, 18])
 def test_reduce_pairs_matches_reference_synthetic(cuda, row):
     # Dead Gaussians and Gaussians at the cap, rows straight from a seed.
     # The kernel adds each segment in slot order, as index_add_ on the CPU

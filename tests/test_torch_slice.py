@@ -123,7 +123,6 @@ def test_params_from_jax_maps_every_leaf(setup):
     flat = {
         ".".join(p.key for p in path): np.asarray(leaf)
         for path, leaf in jax.tree_util.tree_leaves_with_path(params)
-        if not ".".join(p.key for p in path).startswith(("autoencoder.encoder", "autoencoder.quant_conv"))
     }
     assert len(flat) == len(state)
     sums = sorted(round(float(v.astype(np.float64).sum()), 3) for v in flat.values())

@@ -295,8 +295,6 @@ def test_command_line_without_cuda_exits_with_a_message():
 def test_unported_options_name_their_roadmap_item(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         Trainer(tiny_cfg(tmp_path, ["trainer.num_devices=2"]), tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        Trainer(tiny_cfg(tmp_path, ["model.encode_latents=true"]), tmp_path, device="cpu")
 
 
 
