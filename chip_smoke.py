@@ -81,7 +81,20 @@
    master parameters); (s6) the vit (dino_vitb8) backbone and an ensemble
    of dino + resnet50. Prints step seconds, stage splits, peaks and
    launches of every run.
-10. Small-input checks: the tiled (kernel) render of a narrow model against
+10. Inspection phase (run between the data and switches phases): what a
+   user does with a released model, on the flagship at full width. (i) The seeded
+   generator and PatchGAN written in the released checkpoint's layout,
+   converted by scripts.convert_checkpoint (every tensor mapped, none left
+   seeded) and served by `main` mode=test over 2 synthetic scenes: the
+   same PNGs, bit for bit, as the model's own checkpoint; (ii)
+   render_projections at 256x256 of a scene's 393,216 Gaussians through
+   the tiled kernels (each axis's largest rect, pairs, ms, 3 launches of
+   composite_forward<4>), duplicate_with_keys at its inputs with int32 and
+   int64 masks against its plain version, a 128x128 projection of 32,768
+   Gaussians against the dense plain version within 2e-4; (iii) the
+   encoder panels and the PLY export, read back exactly; (iv)
+   scripts.render_uncertainty and scripts.visualize_epipolar_lines.
+11. Small-input checks: the tiled (kernel) render of a narrow model against
    the dense oracle render, composite_backward and reduce_pairs at 4
    channels against their plain versions, and the narrow model's
    train-step gradients through the tiled kernels against those through
@@ -89,8 +102,8 @@
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (device ms, plain ms, the bound and its share, the library call's
-ms, launches on the main path, in the trainer phase and in each run of the
-data phase; duplicate_with_keys
+ms, launches on the main path, in the trainer phase, in each run of the
+data phase and in each step of the inspection phase; duplicate_with_keys
 also its wrapper's ms; composite_forward once at the flagship's 8 channels,
 once at render_depth's 4 and once at variational=latents' 12, and
 composite_backward and reduce_pairs also at 12 channels), and last
@@ -1301,6 +1314,369 @@ def evaluation_phase(seed: int, device, data: dict, rendered: Path, tmp: Path, n
         raise AssertionError("the benchmark table lacks a tag")
 
 
+# -- the released checkpoint's layout (inspection phase) ------------------------
+#
+# The reference's module paths for the port's, as the released latentSplat
+# .ckpt names them: the inverse of training/pretrained.py's key maps, kept
+# here so that the converters are held against a map written apart from
+# them. Each rule is (port pattern, reference template); every rule whose
+# pattern matches the whole name rewrites it, in order.
+_REFERENCE_RULES = [
+    # DINO trunk (facebookresearch/dino); the query/key/value Linears are
+    # fused into qkv below.
+    (r"encoder\.backbone\.dino\.patch_embed\.(weight|bias)", r"encoder.backbone.dino.patch_embed.proj.\1"),
+    (r"encoder\.backbone\.dino\.block_(\d+)\.LayerNorm_0\.(.*)", r"encoder.backbone.dino.blocks.\1.norm1.\2"),
+    (r"encoder\.backbone\.dino\.block_(\d+)\.LayerNorm_1\.(.*)", r"encoder.backbone.dino.blocks.\1.norm2.\2"),
+    (r"encoder\.backbone\.dino\.block_(\d+)\.MultiHeadDotProductAttention_0\.out\.(.*)",
+     r"encoder.backbone.dino.blocks.\1.attn.proj.\2"),
+    (r"encoder\.backbone\.dino\.block_(\d+)\.Dense_0\.(.*)", r"encoder.backbone.dino.blocks.\1.mlp.fc1.\2"),
+    (r"encoder\.backbone\.dino\.block_(\d+)\.Dense_1\.(.*)", r"encoder.backbone.dino.blocks.\1.mlp.fc2.\2"),
+    (r"encoder\.backbone\.dino\.LayerNorm_0\.(.*)", r"encoder.backbone.dino.norm.\1"),
+    (r"encoder\.backbone\.dino\.(cls_token|pos_embed)", r"encoder.backbone.dino.\1"),
+    (r"encoder\.backbone\.Dense_0\.(.*)", r"encoder.backbone.global_token_mlp.0.\1"),
+    (r"encoder\.backbone\.Dense_1\.(.*)", r"encoder.backbone.global_token_mlp.2.\1"),
+    (r"encoder\.backbone\.Dense_2\.(.*)", r"encoder.backbone.local_token_mlp.0.\1"),
+    (r"encoder\.backbone\.Dense_3\.(.*)", r"encoder.backbone.local_token_mlp.2.\1"),
+    (r"encoder\.backbone_projection\.(.*)", r"encoder.backbone_projection.1.\1"),
+    # Epipolar transformer and the SRT transformers inside it: attention in
+    # layers.{i}.0, the feed-forward in layers.{i}.1 (an MLP net =
+    # Sequential(Linear, GELU, Dropout, Linear, Dropout), or ConvFeedForward
+    # with its convolutions at layers.0 and layers.3).
+    (r"(.*)\.refine_0\.(.*)", r"\1.upscale_refinement.0.\2"),
+    (r"(.*)\.refine_1\.(.*)", r"\1.upscale_refinement.2.\2"),
+    (r"(.*)\.depth_encoding\.(.*)", r"\1.depth_encoding.1.\2"),
+    (r"(.*)\.pe_proj\.(.*)", r"\1.positional_encoding.1.\2"),
+    (r"(.*)\.self_attention\.patch_embed\.(.*)", r"\1.self_attention.patch_embedder.0.\2"),
+    (r"(.*)\.norm_attn_(\d+)\.(.*)", r"\1.layers.\2.0.norm.\3"),
+    (r"(.*)\.attn_(\d+)\.to_out\.(.*)", r"\1.layers.\2.0.fn.to_out.0.\3"),
+    (r"(.*)\.attn_(\d+)\.(to_q|to_kv|to_qkv)\.(.*)", r"\1.layers.\2.0.fn.\3.\4"),
+    (r"(.*)\.norm_ff_(\d+)\.(.*)", r"\1.layers.\2.1.norm.\3"),
+    (r"(.*)\.ff_(\d+)\.Dense_0\.(.*)", r"\1.layers.\2.1.fn.net.0.\3"),
+    (r"(.*)\.ff_(\d+)\.Dense_1\.(.*)", r"\1.layers.\2.1.fn.net.3.\3"),
+    (r"(.*)\.ConvFeedForward_(\d+)\.Conv_0\.(.*)", r"\1.layers.\2.1.fn.layers.0.\3"),
+    (r"(.*)\.ConvFeedForward_(\d+)\.Conv_1\.(.*)", r"\1.layers.\2.1.fn.layers.3.\3"),
+    (r"(.*)\.ConvFeedForward_(\d+)\.self_attention\.(.*)", r"\1.layers.\2.1.fn.self_attention.\3"),
+    (r"encoder\.high_resolution_skip\.(.*)", r"encoder.high_resolution_skip.0.\1"),
+    (r"encoder\.to_gaussians\.(.*)", r"encoder.to_gaussians.1.\1"),
+    (r"encoder\.depth_predictor\.projection\.(.*)", r"encoder.depth_predictor.projection.1.\1"),
+    # The VAE (diffusers AutoencoderKL under autoencoder.model) and
+    # latentSplat's skip convolutions beside it.
+    (r"autoencoder\.decoder\.skip_conv_(\d+)\.(.*)", r"autoencoder.skip_convs.\1.\2"),
+    (r"autoencoder\.encoder\.down_(\d+)_resnet_(\d+)\.(.*)", r"autoencoder.model.encoder.down_blocks.\1.resnets.\2.\3"),
+    (r"autoencoder\.encoder\.down_(\d+)_downsample\.(.*)", r"autoencoder.model.encoder.down_blocks.\1.downsamplers.0.\2"),
+    (r"autoencoder\.decoder\.up_(\d+)_resnet_(\d+)\.(.*)", r"autoencoder.model.decoder.up_blocks.\1.resnets.\2.\3"),
+    (r"autoencoder\.decoder\.up_(\d+)_upsample\.(.*)", r"autoencoder.model.decoder.up_blocks.\1.upsamplers.0.\2"),
+    (r"autoencoder\.(encoder|decoder)\.mid_resnet_(\d+)\.(.*)", r"autoencoder.model.\1.mid_block.resnets.\2.\3"),
+    (r"autoencoder\.(encoder|decoder)\.mid_attn\.to_out\.(.*)", r"autoencoder.model.\1.mid_block.attentions.0.to_out.0.\2"),
+    (r"autoencoder\.(encoder|decoder)\.mid_attn\.(.*)", r"autoencoder.model.\1.mid_block.attentions.0.\2"),
+    (r"autoencoder\.(?!model\.|skip_convs\.)(.*)", r"autoencoder.model.\1"),
+    (r"(encoder\..*)", r"\1"),
+]
+
+
+def reference_state_dict(generator: dict, discriminator: dict | None, n_layers: int = 3) -> dict:
+    """The port's generator (and PatchGAN) state dicts in the released
+    checkpoint's layout: fused DINO qkv projections, taming's
+    NLayerDiscriminator `main.{i}` Sequential with BatchNorm running
+    statistics (which the port's train-mode BatchNorm does not keep)."""
+    import re
+
+    out = {}
+    qkv = {}
+    for key, value in generator.items():
+        m = re.fullmatch(r"encoder\.backbone\.dino\.block_(\d+)\.MultiHeadDotProductAttention_0\."
+                         r"(query|key|value)\.(weight|bias)", key)
+        if m:
+            qkv.setdefault((m[1], m[3]), {})[m[2]] = value
+            continue
+        name, matched = key, False
+        for pattern, template in _REFERENCE_RULES:
+            if re.fullmatch(pattern, name):
+                name, matched = re.sub(pattern, template, name), True
+        if not matched:
+            raise KeyError(f"no reference name for {key}")
+        out[name] = value
+    for (block, part), values in qkv.items():
+        out[f"encoder.backbone.dino.blocks.{block}.attn.qkv.{part}"] = torch.cat(
+            [values["query"], values["key"], values["value"]])
+    if discriminator is not None:
+        # [Conv, LeakyReLU], n_layers x [Conv, BatchNorm, LeakyReLU], Conv.
+        def index(name):
+            kind, n = name.split("_")
+            if n == "out":
+                return 3 * n_layers + 2
+            return 0 if n == "0" else 3 * int(n) - (kind == "conv")
+
+        for key, value in discriminator.items():
+            name, part = key.rsplit(".", 1)
+            kind = name.split("_")[0]
+            out[f"discriminator.main.{index(name)}.{part}"] = value
+            if kind == "bn":
+                out[f"discriminator.main.{index(name)}.running_mean"] = torch.zeros_like(value)
+                out[f"discriminator.main.{index(name)}.running_var"] = torch.ones_like(value)
+                out[f"discriminator.main.{index(name)}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+    return out
+
+
+def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int = 256) -> dict:
+    """What a user does with a released model, on the flagship re10k model
+    at full width (seeded weights as `like_trained` leaves them):
+      (i) convert and serve: the generator and PatchGAN written in the
+          released checkpoint's layout (`reference_state_dict`), converted by
+          scripts.convert_checkpoint, then `main` mode=test over 2 synthetic
+          scenes (3 target views each, from an evaluation index) from the
+          converted file and from the model's own checkpoint: every
+          reference tensor mapped, no generator tensor left seeded, the PNGs
+          bit for bit the same, 6 launches of each forward kernel a run;
+      (ii) `render_projections` at 256x256 of one scene's 393,216 Gaussians:
+          each axis's largest tile rect (its cap), pairs, ms, and 3
+          composite_forward<4> launches; a 128x128
+          projection of a 32,768-Gaussian subset against the dense plain
+          version within 2e-4; duplicate_with_keys at the widest
+          projection's inputs with its cap and with 64 slots (int64 masks)
+          against its plain version (exactly) and timed;
+      (iii) the encoder panels (capture_attention on the epipolar
+          transformer) and export_gaussians_ply of the 393,216 Gaussians,
+          read back exactly by load_ply;
+      (iv) scripts.render_uncertainty on (i)'s converted checkpoint and
+          scripts.visualize_epipolar_lines on an RE10k root written from the
+          fixtures: finite images of the expected shapes.
+    Returns the launches of (i)'s converted run, (ii) and (iv)'s
+    render_uncertainty, and the phase's numbers. (`model_overrides` and
+    `size` shrink the model and the images for a rehearsal on the CPU.)"""
+    import functools
+
+    from latentsplat_tpu_torch.config import load_config
+    from latentsplat_tpu_torch.main import main as run_main
+    from latentsplat_tpu_torch.misc.image_io import load_image
+    from latentsplat_tpu_torch.model.discriminator.patch_gan import DiscriminatorPatchGan
+    from latentsplat_tpu_torch.model.encoder import visualization as encvis
+    from latentsplat_tpu_torch.model.latentsplat import LatentSplat
+    from latentsplat_tpu_torch.model.ply_export import load_ply
+    from latentsplat_tpu_torch.model.types import Gaussians
+    from latentsplat_tpu_torch.ops.rasterize import api, kernels
+    from latentsplat_tpu_torch.ops.rasterize.tiled import MAX_TILES_PER_GAUSSIAN, tile_rects
+    from latentsplat_tpu_torch.scripts import convert_checkpoint, render_uncertainty, visualize_epipolar_lines
+    from latentsplat_tpu_torch.visualization import validation_in_3d
+
+    on_card = device.type == "cuda"   # the kernels launch (and count) only there
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    print(f"inspection phase on {card() if device.type == 'cuda' else device}")
+    phase_start = time.perf_counter()
+    out: dict = {"launches": {}, "seconds": {}}
+    cfg = load_config("re10k", [f"seed={seed}", *model_overrides])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_inspection_") as tmp:
+        tmp = Path(tmp)
+        # (i) convert and serve
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = like_trained(LatentSplat(cfg.model, tuple(cfg.dataset.background_color)))
+            torch.manual_seed(seed)
+            discriminator = DiscriminatorPatchGan(cfg.model.discriminator)
+        own = tmp / "own.ckpt"
+        torch.save({"step": 0, "generator": model.state_dict(), "discriminator": discriminator.state_dict()}, own)
+        released = tmp / "re10k.ckpt"
+        torch.save({"state_dict": reference_state_dict(model.state_dict(), discriminator.state_dict(),
+                                                       cfg.model.discriminator.n_layers),
+                    "global_step": 0}, released)
+        del discriminator
+        start = time.perf_counter()
+        counts = convert_checkpoint.main([str(released), str(tmp / "converted.ckpt"), "+experiment=re10k", f"seed={seed}",
+                                          *model_overrides])
+        out["seconds"]["convert"] = time.perf_counter() - start
+        released.unlink()
+        if counts["unmapped"] or counts["seeded"] or counts["mapped"] + counts["batch_norm_statistics"] != counts["read"]:
+            raise AssertionError(f"(i) the conversion left tensors unmapped or seeded: {counts}")
+        index = tmp / "index.json"
+        index.write_text(json.dumps({f"synthetic_{i:04d}": {"context": [0, 45], "target": [10, 22, 35]}
+                                     for i in range(2)}))
+        data = {"name": "synthetic", "num_scenes": 2, "num_frames": 48, "image_shape": [size, size],
+                "view_sampler": {"name": "evaluation", "index_path": str(index)}}
+        common = ["+experiment=re10k", f"seed={seed}", f"dataset={json.dumps(data)}", *model_overrides]
+
+        def serve(name: str, checkpoint: Path) -> tuple[dict, dict]:
+            reset_launches()
+            start = time.perf_counter()
+            run_main([*common, "mode=test", f"output_dir={tmp / name}", f"test.output_path={tmp / name / 'test'}",
+                      f"checkpointing.load={checkpoint}"], device=device)
+            out["seconds"][f"serve_{name}"] = time.perf_counter() - start
+            pngs = {p.relative_to(tmp / name / "test"): p.read_bytes() for p in (tmp / name / "test").rglob("*.png")}
+            return read_launches(), pngs
+
+        _, own_pngs = serve("own", own)
+        own.unlink()
+        launches, converted_pngs = serve("converted", tmp / "converted.ckpt")
+        out["launches"]["serve_converted"] = launches
+        if len(own_pngs) != 6 or own_pngs != converted_pngs:
+            raise AssertionError(f"(i) the converted checkpoint served other PNGs ({len(converted_pngs)} "
+                                 f"against {len(own_pngs)}, {sum(own_pngs.get(k) != v for k, v in converted_pngs.items())} differ)")
+        if on_card and any(launches[k] != 6 for k in FORWARD_KERNELS):
+            raise AssertionError(f"(i) forward kernel launches {launches}, not 6 each")
+        print(f"  (i) convert_checkpoint: {counts}; serving the converted file: 6 PNGs bit for bit those of the "
+              f"model's own checkpoint, launches {launches}")
+
+        # (ii) projections
+        model = model.to(device).eval()
+        batch = make_batch(np.random.default_rng(seed), 2, 4, size, device)
+        shimmed, gaussians = slice_gaussians(model, batch, seed)
+        records = []
+        composite_tiled = api.composite_tiled
+        render_orthographic = validation_in_3d.render_orthographic
+
+        def spy_composite(sg, shape, background, cap):
+            result = composite_tiled(sg, shape, background, cap)
+            records.append({"cap": cap, "pairs": result[3], "sg": sg})
+            return result
+
+        def timed_orthographic(*args, **kwargs):
+            sync()
+            start = time.perf_counter()
+            result = render_orthographic(*args, **kwargs)
+            sync()
+            records[-1]["ms"] = 1e3 * (time.perf_counter() - start)
+            return result
+
+        api.composite_tiled = spy_composite
+        validation_in_3d.render_orthographic = timed_orthographic
+        try:
+            validation_in_3d.render_projections(gaussians, size)          # warm-up
+            records.clear()
+            reset_launches()
+            images = validation_in_3d.render_projections(gaussians, size)
+            launches = read_launches()
+        finally:
+            api.composite_tiled = composite_tiled
+            validation_in_3d.render_orthographic = render_orthographic
+        out["launches"]["projections"] = launches
+        if images.shape[:2] != (1, 3) or not np.isfinite(images).all():
+            raise AssertionError(f"(ii) projections {images.shape}, finite {np.isfinite(images).all()}")
+        if on_card and (launches["composite_forward_by_channels"] != {4: 3} or launches["duplicate_with_keys"] != 3):
+            raise AssertionError(f"(ii) projection launches {launches}, not 3 of composite_forward<4>")
+        out["projections"] = [{k: r[k] for k in ("cap", "pairs", "ms")} for r in records]
+        print(f"  (ii) projections at {size}x{size} of {gaussians.means.shape[1]} Gaussians, per axis (largest rect in "
+              f"tiles = cap, pairs, ms): {out['projections']}; launches {launches}")
+        # duplicate_with_keys at the widest projection's inputs, with its
+        # covering cap and with the most slots an int64 mask holds (the
+        # 64-bit instantiation): both exact against the plain version, the
+        # same pairs (the covering cap keeps every slot), and timed.
+        widest = max(records, key=lambda r: r["cap"])
+        sg, cap = widest["sg"], widest["cap"]
+        depth = sg.depth.contiguous()
+        flush = torch.empty(FLUSH_BYTES // 4, device=device) if on_card else None
+        pairs, out["duplicate_ms"] = [], {}
+        for slots in (cap, MAX_TILES_PER_GAUSSIAN):
+            counts_, base, nx, mask = tile_rects(sg, size // 16, size // 16, slots)
+            ids, keys = kernels.duplicate_with_keys(counts_, mask, base, nx, depth, size // 16, slots)
+            ref_ids, ref_keys = kernels.duplicate_with_keys_reference(counts_, mask, base, nx, depth, size // 16, slots)
+            if not (torch.equal(ids, ref_ids) and torch.equal(keys, ref_keys)):
+                raise AssertionError(f"(ii) duplicate_with_keys ({mask.dtype} mask, cap {slots}) differs from its plain version")
+            pairs.append((ids, keys))
+            if on_card:
+                args = (torch.cumsum(counts_, dim=0, dtype=torch.int64), mask, base, nx, depth, size // 16,
+                        torch.empty_like(ids), torch.empty_like(keys))
+                out["duplicate_ms"][f"{mask.dtype}, cap {slots}"] = device_ms(
+                    lambda: kernels._launch_duplicate_with_keys(*args), flush=flush)
+        if not all(torch.equal(a, b) for a, b in zip(*pairs)):
+            raise AssertionError("(ii) the covering cap dropped pairs that the widest mask keeps")
+        del records, sg, widest, pairs, flush
+        subset = torch.randperm(gaussians.means.shape[1], generator=torch.Generator().manual_seed(seed))[:32768]
+        subset = subset.to(device)
+        small = Gaussians(gaussians.means[:, subset], gaussians.covariances[:, subset], gaussians.opacities[:, subset],
+                          gaussians.color_harmonics[:, subset])
+        tiled = validation_in_3d.render_projections(small, size // 2, draw_label=False)
+        validation_in_3d.render_orthographic = functools.partial(render_orthographic, backend="dense")
+        try:
+            dense = validation_in_3d.render_projections(small, size // 2, draw_label=False)
+        finally:
+            validation_in_3d.render_orthographic = render_orthographic
+        err = float(np.abs(tiled - dense).max())
+        out["projection_vs_dense"] = err
+        print(f"  (ii) duplicate_with_keys at the widest projection, covering cap {cap} and cap "
+              f"{MAX_TILES_PER_GAUSSIAN}: exact, the same pairs; launch ms (L2 flushed) {out['duplicate_ms']}; "
+              f"{size // 2}x{size // 2} projections of 32,768 Gaussians, tiled vs dense plain: max |diff| {err:.3g}")
+        if err > 2e-4:
+            raise AssertionError(f"(ii) tiled projection vs dense: {err} > 2e-4")
+
+        # (iii) encoder panels and PLY
+        sync()
+        start = time.perf_counter()
+        context = shimmed["context"]
+        captured = encvis.capture_attention(model.encoder, context, prefix="epipolar_transformer.transformer.attn")
+        sampling, det = captured["sampling"], captured["gaussians"]
+        b, v = context["image"].shape[:2]
+        rays, s = sampling.xy_sample.shape[3:5]
+        layers = []
+        for name in sorted(captured["attention"]):
+            weights = captured["attention"][name]                  # (b v r, heads, 1, ov s)
+            heads = weights.shape[1]
+            layers.append(weights.reshape(b, v, rays, heads, v - 1, s)[0, 0, :, :, 0].permute(1, 0, 2))
+        attention = torch.stack(layers)                            # (layer, head, ray, sample)
+        pdf = attention[-1].mean(dim=0)[None, None]
+        panels = {
+            "epipolar_samples": encvis.visualize_epipolar_samples(context, sampling),
+            "depth": encvis.visualize_depth(context, det, 1),
+            "overlaps": encvis.visualize_overlaps(context, sampling, downscale=cfg.model.encoder.epipolar_transformer.downscale),
+            "gaussians": encvis.visualize_gaussians(context, det, 1),
+            "probabilities": encvis.visualize_probabilities(context, sampling, pdf),
+            "attention_maps": encvis.visualize_attention_maps(context, sampling, attention),
+            "epipolar_color_samples": encvis.visualize_epipolar_color_samples(context),
+        }
+        out["seconds"]["panels"] = time.perf_counter() - start
+        for name, panel in panels.items():
+            if panel.ndim != 3 or panel.shape[-1] != 3 or not np.isfinite(panel).all():
+                raise AssertionError(f"(iii) panel {name}: {panel.shape}, finite {np.isfinite(panel).all()}")
+        start = time.perf_counter()
+        ply = tmp / "scene.ply"
+        encvis.export_gaussians_ply(gaussians, context, ply)
+        out["seconds"]["ply"] = time.perf_counter() - start
+        columns = load_ply(ply)
+        written = ply.read_bytes().split(b"end_header\n", 1)[1]
+        n = gaussians.means.shape[1]
+        if len(columns) != 17 or any(c.shape != (n,) for c in columns.values()) or \
+                np.stack(list(columns.values()), axis=1).tobytes() != written or \
+                not all(np.isfinite(c).all() for c in columns.values()):
+            raise AssertionError("(iii) load_ply does not read back what export_ply wrote")
+        out["ply_bytes"] = ply.stat().st_size
+        print(f"  (iii) panels {{{', '.join(f'{k}: {p.shape}' for k, p in panels.items())}}} in "
+              f"{out['seconds']['panels']:.2f} s; PLY of {n} Gaussians: {out['ply_bytes']} bytes in "
+              f"{out['seconds']['ply']:.2f} s, read back exactly")
+        del model, gaussians, det, captured, small, shimmed
+
+        # (iv) the scripts
+        reset_launches()
+        start = time.perf_counter()
+        render_uncertainty.main([*common, f"checkpointing.load={tmp / 'converted.ckpt'}",
+                                 f"output_dir={tmp / 'uncertainty_run'}", f"output_path={tmp / 'uncertainty'}"],
+                                device=device)
+        out["seconds"]["render_uncertainty"] = time.perf_counter() - start
+        out["launches"]["render_uncertainty"] = launches = read_launches()
+        pngs = sorted((tmp / "uncertainty").rglob("*.png"))
+        images = [load_image(p) for p in pngs]
+        if len(pngs) != 6 or any(i.shape != (size, 3 * size + 16, 3) for i in images):
+            raise AssertionError(f"(iv) render_uncertainty wrote {[i.shape for i in images]}")
+        if on_card and any(launches[k] != 6 for k in FORWARD_KERNELS):
+            raise AssertionError(f"(iv) render_uncertainty launches {launches}, not 6 each")
+        root = tmp / "re10k"
+        jpeg_tools().write_re10k_root(root, scenes=2, frames=48)
+        start = time.perf_counter()
+        visualize_epipolar_lines.main(["+experiment=re10k", f"dataset.roots=[{root}]", f"dataset.image_shape=[{size}, {size}]",
+                                       f"output_path={tmp / 'epipolar'}"], device=device)
+        out["seconds"]["visualize_epipolar_lines"] = time.perf_counter() - start
+        lines = [load_image(p) for p in sorted((tmp / "epipolar").glob("*.png"))]
+        if len(lines) != 2 or any(i.shape != (size, 2 * size + 8, 3) for i in lines):
+            raise AssertionError(f"(iv) visualize_epipolar_lines wrote {[i.shape for i in lines]}")
+        print(f"  (iv) render_uncertainty: {len(pngs)} PNGs of {images[0].shape} in "
+              f"{out['seconds']['render_uncertainty']:.2f} s, launches {launches}; visualize_epipolar_lines: "
+              f"{len(lines)} PNGs of {lines[0].shape} in {out['seconds']['visualize_epipolar_lines']:.2f} s")
+    out["seconds"]["phase"] = time.perf_counter() - phase_start
+    print(f"inspection phase seconds: " + json.dumps({k: round(v, 4) for k, v in out["seconds"].items()}))
+    return out
+
+
 def reset_launches() -> None:
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
@@ -2112,6 +2488,7 @@ def main() -> int:
     train_launches = train_phase(cfg, args.seed, device, args.profile)
     fit_launches, test_launches = trainer_phase(args.seed, device)
     data = data_phase(args.seed, device)
+    inspection = inspection_phase(args.seed, device)
     # Each kernel's count comes from the path it serves: the forward kernels
     # from serving, the backward kernels from training, the 4-channel
     # composite_forward from the depth modes; beside them, the counts of the
@@ -2122,11 +2499,15 @@ def main() -> int:
         entry["trainer_fit_launches"] = fit_launches[entry["name"]]
         entry["trainer_test_launches"] = test_launches[entry["name"]]
         entry["data_launches"] = {run: launches[entry["name"]] for run, launches in data["launches"].items()}
+        entry["inspection_launches"] = {step: launches[entry["name"]]
+                                        for step, launches in inspection["launches"].items()}
     depth_record["launches"] = depth_launches["composite_forward_by_channels"][4]
     depth_record["data_launches"] = {run: launches["composite_forward_by_channels"].get(4, 0)
                                      for run, launches in data["launches"].items()}
     for key, launches in (("trainer_fit_launches", fit_launches), ("trainer_test_launches", test_launches)):
         depth_record[key] = launches["composite_forward_by_channels"].get(4, 0)
+    depth_record["inspection_launches"] = {step: launches["composite_forward_by_channels"].get(4, 0)
+                                           for step, launches in inspection["launches"].items()}
     results.append(depth_record)
     results += switches_phase(args.seed, device)
     small_input_check(args.seed, device)
@@ -2134,6 +2515,8 @@ def main() -> int:
     small_gradient_check(args.seed, device)
 
     print(f"data phase summary on {card()}: " + json.dumps({k: v for k, v in data.items() if k != "launches"}))
+    print(f"inspection phase summary on {card()}: "
+          + json.dumps({k: v for k, v in inspection.items() if k != "launches"}))
     print(card())
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

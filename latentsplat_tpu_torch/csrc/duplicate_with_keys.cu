@@ -24,6 +24,10 @@
 // loads. The exclusive offsets come from a cumsum outside the kernel, as
 // in the JAX package; no atomics.
 //
+// The slot mask is 32 bits wide on the main path (caps up to 32 slots) and
+// 64 bits wide for callers that need a larger cap, such as the whole-scene
+// orthographic projections; one template serves both.
+//
 // Depth of a live Gaussian is > 0, so its float bits order like the value.
 // The caller sorts keys stably; pairs are written Gaussian-major,
 // slot-ascending, so equal depths break ties by Gaussian index, like the
@@ -44,10 +48,19 @@ constexpr int kSegments = 2;
 constexpr int kStage = 5 * kSegments * kThreads;
 constexpr unsigned kFull = 0xffffffffu;
 
+__device__ __forceinline__ int popcount(uint32_t x) { return __popc(x); }
+__device__ __forceinline__ int popcount(uint64_t x) { return __popcll(x); }
+__device__ __forceinline__ int lowest_bit(uint32_t x) { return __ffs(static_cast<int>(x)) - 1; }
+__device__ __forceinline__ int lowest_bit(uint64_t x) {
+  return __ffsll(static_cast<long long>(x)) - 1;
+}
+
+// Mask: uint32_t or uint64_t, one bit per rect slot.
+template <typename Mask>
 __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
     int num_gaussians,
     const int64_t* __restrict__ offsets,  // inclusive prefix sum of pair counts
-    const int32_t* __restrict__ mask,     // surviving rect slots, bit s = slot s
+    const Mask* __restrict__ mask,        // surviving rect slots, bit s = slot s
     const int32_t* __restrict__ base,     // tile id of the rect's top-left slot
     const int32_t* __restrict__ nx,       // rect width in tiles
     const float* __restrict__ depth,
@@ -66,7 +79,7 @@ __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
   const int warp = tid >> 5;
   const int g0 = static_cast<int>(blockIdx.x) * kSegments * kThreads;
   const int64_t first = g0 == 0 ? 0 : offsets[g0 - 1];
-  uint32_t bits[kSegments];
+  Mask bits[kSegments];
   int b[kSegments], w[kSegments];
   float inv_w[kSegments];
   int64_t depth_bits[kSegments];
@@ -74,7 +87,7 @@ __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
   for (int k = 0; k < kSegments; ++k) {
     const int g = g0 + k * kThreads + tid;
     const bool valid = g < num_gaussians;
-    bits[k] = valid ? static_cast<uint32_t>(mask[g]) : 0u;
+    bits[k] = valid ? mask[g] : Mask(0);
     b[k] = valid ? base[g] : 0;
     w[k] = valid ? nx[g] : 1;
     inv_w[k] = 1.0f / static_cast<float>(w[k]);
@@ -85,7 +98,7 @@ __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
   int incl[kSegments];
 #pragma unroll
   for (int k = 0; k < kSegments; ++k) {
-    incl[k] = __popc(bits[k]);
+    incl[k] = popcount(bits[k]);
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int v = __shfl_up_sync(kFull, incl[k], d);
@@ -98,7 +111,7 @@ __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
   int total = 0;
 #pragma unroll
   for (int k = 0; k < kSegments; ++k) {
-    local[k] = total + incl[k] - __popc(bits[k]);
+    local[k] = total + incl[k] - popcount(bits[k]);
 #pragma unroll
     for (int v = 0; v < kWarps; ++v) {
       local[k] += v < warp ? s_warp[k][v] : 0;
@@ -113,10 +126,10 @@ __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
     const int head2 = static_cast<int>(lo & 1);
 #pragma unroll
     for (int k = 0; k < kSegments; ++k) {
-      uint32_t rest = bits[k];
-      for (int p = local[k] - r0; rest != 0u; ++p) {
-        const int slot = __ffs(rest) - 1;
-        rest &= rest - 1u;
+      Mask rest = bits[k];
+      for (int p = local[k] - r0; rest != Mask(0); ++p) {
+        const int slot = lowest_bit(rest);
+        rest &= rest - Mask(1);
         if (p < 0 || p >= m) continue;
         // slot / w, exactly: (slot + 0.5) / w lies 0.5 / w inside its unit
         // interval (w is a width in tiles), far beyond the product's rounding.
@@ -153,20 +166,36 @@ __global__ void __launch_bounds__(kThreads) duplicate_with_keys_kernel(
   }
 }
 
+template <typename Mask>
+int launch(int num_gaussians, const void* offsets, const void* mask, const void* base,
+           const void* nx, const void* depth, int tiles_x, void* gids, void* keys,
+           void* stream) {
+  if (num_gaussians > 0) {
+    const int blocks = (num_gaussians + kSegments * kThreads - 1) / (kSegments * kThreads);
+    duplicate_with_keys_kernel<Mask><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        num_gaussians, static_cast<const int64_t*>(offsets), static_cast<const Mask*>(mask),
+        static_cast<const int32_t*>(base), static_cast<const int32_t*>(nx),
+        static_cast<const float*>(depth), tiles_x, static_cast<int32_t*>(gids),
+        static_cast<int64_t*>(keys));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // gids and keys must be 16-byte aligned (as torch's allocations are).
+// mask: int32 per Gaussian (caps up to 32 slots).
 extern "C" int duplicate_with_keys(
     int num_gaussians, const void* offsets, const void* mask, const void* base,
     const void* nx, const void* depth, int tiles_x, void* gids, void* keys,
     void* stream) {
-  if (num_gaussians > 0) {
-    const int blocks = (num_gaussians + kSegments * kThreads - 1) / (kSegments * kThreads);
-    duplicate_with_keys_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        num_gaussians, static_cast<const int64_t*>(offsets),
-        static_cast<const int32_t*>(mask), static_cast<const int32_t*>(base),
-        static_cast<const int32_t*>(nx), static_cast<const float*>(depth), tiles_x,
-        static_cast<int32_t*>(gids), static_cast<int64_t*>(keys));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<uint32_t>(num_gaussians, offsets, mask, base, nx, depth, tiles_x, gids, keys, stream);
+}
+
+// The same with an int64 mask per Gaussian (caps up to 64 slots).
+extern "C" int duplicate_with_keys64(
+    int num_gaussians, const void* offsets, const void* mask, const void* base,
+    const void* nx, const void* depth, int tiles_x, void* gids, void* keys,
+    void* stream) {
+  return launch<uint64_t>(num_gaussians, offsets, mask, base, nx, depth, tiles_x, gids, keys, stream);
 }

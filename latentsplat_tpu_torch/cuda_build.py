@@ -30,6 +30,7 @@ _I = ctypes.c_int
 # C signature of each exported function: (argument types, result type).
 _SIGNATURES = {
     "duplicate_with_keys": ([_I, _P, _P, _P, _P, _P, _I, _P, _P, _P], _I),
+    "duplicate_with_keys64": ([_I, _P, _P, _P, _P, _P, _I, _P, _P, _P], _I),
     "composite_forward": ([_I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
     "composite_forward_channels": ([_I], _I),
     "composite_backward": ([_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),

@@ -88,6 +88,7 @@ class MultiHeadDotProductAttention(nn.Module):
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
+        self.attend = nn.Softmax(dim=-1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, d = x.shape
@@ -96,7 +97,7 @@ class MultiHeadDotProductAttention(nn.Module):
             return t.reshape(b, n, self.heads, d // self.heads).transpose(1, 2)
 
         y = attention(split_heads(self.query(x)), split_heads(self.key(x)),
-                      split_heads(self.value(x)))
+                      split_heads(self.value(x)), self.attend)
         return self.out(y.transpose(1, 2).reshape(b, n, d))
 
 

@@ -27,6 +27,8 @@ class EpipolarSampling(NamedTuple):
     valid: torch.Tensor           # (b, v, ov, ray) bool
     xy_ray: torch.Tensor          # (b, v, ray, 2)
     xy_sample: torch.Tensor       # (b, v, ov, ray, sample, 2)
+    xy_sample_near: torch.Tensor  # (b, v, ov, ray, sample, 2) each sample's segment start
+    xy_sample_far: torch.Tensor   # (b, v, ov, ray, sample, 2) and end
     origins: torch.Tensor         # (b, v, ray, 3)
     directions: torch.Tensor      # (b, v, ray, 3)
 
@@ -82,11 +84,14 @@ def sample_epipolar_features(
     sampled = sampled[:, :, 0].transpose(1, 2).reshape(b, v, v - 1, h * w, s, c)
     sampled = sampled[:, t_v, t_ov] * overlaps[..., None, None]
 
+    half_span = 0.5 / s
     return EpipolarSampling(
         features=sampled,
         valid=overlaps,
         xy_ray=xy_flat[None, None].expand(b, v, h * w, 2),
         xy_sample=xy_sample,
+        xy_sample_near=xy_min + (sample_depth - half_span) * (xy_max - xy_min),
+        xy_sample_far=xy_min + (sample_depth + half_span) * (xy_max - xy_min),
         origins=origins,
         directions=directions,
     )

@@ -18,10 +18,15 @@ from torch import nn
 LAYER_NORM_EPS = 1e-6
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(b, h, n, d) x (b, h, m, d) x (b, h, m, e) -> (b, h, n, e)."""
+def attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, attend: Optional[nn.Module] = None
+) -> torch.Tensor:
+    """(b, h, n, d) x (b, h, m, d) x (b, h, m, e) -> (b, h, n, e). `attend`
+    is the module that takes the softmax over the keys (a hook on it sees
+    the attention weights), or None."""
     dots = torch.einsum("bhid,bhjd->bhij", q, k) * q.shape[-1] ** -0.5
-    return torch.einsum("bhij,bhjd->bhid", dots.softmax(dim=-1), v)
+    weights = attend(dots) if attend is not None else dots.softmax(dim=-1)
+    return torch.einsum("bhij,bhjd->bhid", weights, v)
 
 
 class Attention(nn.Module):
@@ -38,6 +43,7 @@ class Attention(nn.Module):
         self.project_out = not (heads == 1 and dim_head == dim)
         if self.project_out:
             self.to_out = nn.Linear(inner, dim)
+        self.attend = nn.Softmax(dim=-1)
 
     def forward(self, x: torch.Tensor, z: Optional[torch.Tensor] = None) -> torch.Tensor:
         if z is None:
@@ -50,7 +56,7 @@ class Attention(nn.Module):
             b, n, _ = t.shape
             return t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
 
-        out = attention(split_heads(q), split_heads(k), split_heads(v))
+        out = attention(split_heads(q), split_heads(k), split_heads(v), self.attend)
         out = out.transpose(1, 2).reshape(x.shape[0], x.shape[1], -1)
         return self.to_out(out) if self.project_out else out
 

@@ -9,12 +9,15 @@ and scenes run in a Python loop and share the Gaussians. With `remat` each
 view's render is checkpointed (non-reentrant): the backward renders the
 view again, the kernels included, instead of keeping its pair buffers. `render_depth`
 composites each view's camera-space depth (or its disparity, relative
-disparity or log) as a 3-channel color. `render_orthographic` is not
-ported yet.
+disparity or log) as a 3-channel color. `render_orthographic` pulls a
+camera far back along its look axis and renders through the tiled kernels,
+each Gaussian's rect spanning its whole above-threshold footprint, so that
+no pair the dense render draws is dropped.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from math import isqrt
 from typing import Literal, Optional
 
@@ -26,7 +29,7 @@ from ...geometry.projection import homogenize_points, invert_se3
 from ..sh import eval_sh
 from .camera import project_gaussians_to_screen
 from .dense import composite_dense
-from .tiled import composite_tiled
+from .tiled import composite_tiled, covering_cap, dense_extent
 from .types import RenderOutput
 
 DepthRenderingMode = Literal["depth", "disparity", "relative_disparity", "log"]
@@ -67,12 +70,15 @@ def render(
     scale_invariant: bool = True,
     use_sh: bool = True,
     backend: str = "tiled",
-    max_tiles_per_gaussian: int = 9,
+    max_tiles_per_gaussian: Optional[int] = 9,
     remat: bool = False,
 ) -> RenderOutput:
     """Returns color (B, V, 3, H, W), feature (B, V, C, H, W), mask and
     depth (B, V, H, W). With `scale_invariant` the depth stays in the
-    1/near-normalized space."""
+    1/near-normalized space. With `max_tiles_per_gaussian` None the tiled
+    backend keeps every pair the dense one draws: each Gaussian's rect
+    spans its whole above-threshold footprint (`dense_extent`, not clipped
+    at 3 sigma) and each view's cap is its largest rect (`covering_cap`)."""
     assert gaussian_color_sh is not None or gaussian_feature_sh is not None
     if not use_sh:
         assert all(sh is None or sh.shape[-1] == 1 for sh in (gaussian_color_sh, gaussian_feature_sh))
@@ -93,7 +99,11 @@ def render(
         if backend == "dense":
             return (*composite_dense(sg, image_shape, background), 0)
         if backend == "tiled":
-            return composite_tiled(sg, image_shape, background, max_tiles_per_gaussian)
+            cap = max_tiles_per_gaussian
+            if cap is None:
+                sg = dataclasses.replace(sg, extent=dense_extent(sg))
+                cap = covering_cap(sg, image_shape)
+            return composite_tiled(sg, image_shape, background, cap)
         raise ValueError(f"unknown backend {backend!r}")
 
     if remat and torch.is_grad_enabled():
@@ -176,3 +186,51 @@ def render_depth(
             ).color[0, 0])                                         # (3, H, W)
     h, w = image_shape
     return torch.stack(views).mean(dim=1).reshape(b, v, h, w)
+
+
+def render_orthographic(
+    extrinsics: torch.Tensor,            # (B, 4, 4) camera-to-world
+    width: torch.Tensor,                 # (B,) world-space view width
+    height: torch.Tensor,                # (B,) world-space view height
+    near: torch.Tensor,                  # (B,)
+    far: torch.Tensor,                   # (B,)
+    image_shape: tuple[int, int],
+    background_color: torch.Tensor,      # (B, 3)
+    gaussian_means: torch.Tensor,        # (B, G, 3)
+    gaussian_covariances: torch.Tensor,  # (B, G, 3, 3)
+    gaussian_opacities: torch.Tensor,    # (B, G)
+    gaussian_color_sh: Optional[torch.Tensor] = None,
+    gaussian_feature_sh: Optional[torch.Tensor] = None,
+    fov_degrees: float = 0.1,
+    use_sh: bool = True,
+    backend: str = "tiled",
+) -> RenderOutput:
+    """A nearly orthographic render for visualization: the camera moves back
+    along its look axis until `width` subtends `fov_degrees`, and the view
+    is rendered scale-invariantly with near and far pushed back as far.
+    The tiled backend keeps every pair the dense render (the JAX package's
+    backend here) draws: each rect spans the Gaussian's whole
+    above-threshold footprint and the cap is sized per view; a rect beyond
+    what the slot mask holds raises."""
+    fov_x = torch.deg2rad(torch.tensor(fov_degrees, dtype=torch.float32, device=width.device))
+    distance_to_near = (0.5 * width) / torch.tan(0.5 * fov_x)
+
+    look = extrinsics[..., :3, 2]
+    ext = extrinsics.clone()
+    ext[..., :3, 3] = extrinsics[..., :3, 3] - look * distance_to_near[..., None]
+
+    b = extrinsics.shape[0]
+    intr = torch.zeros((b, 3, 3), dtype=torch.float32, device=extrinsics.device)
+    intr[:, 0, 0] = distance_to_near / width
+    intr[:, 1, 1] = distance_to_near / height
+    intr[:, 0, 2] = 0.5
+    intr[:, 1, 2] = 0.5
+    intr[:, 2, 2] = 1.0
+
+    return render(
+        ext[:, None], intr[:, None],
+        (near + distance_to_near)[:, None], (far + distance_to_near)[:, None],
+        image_shape, background_color, gaussian_means, gaussian_covariances, gaussian_opacities,
+        gaussian_color_sh, gaussian_feature_sh, scale_invariant=True, use_sh=use_sh,
+        backend=backend, max_tiles_per_gaussian=None,
+    )

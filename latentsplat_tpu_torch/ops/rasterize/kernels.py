@@ -64,6 +64,12 @@ def _stream() -> int:
 # -- duplicate_with_keys ---------------------------------------------------------
 
 
+def mask_bits(dtype: torch.dtype) -> int:
+    """Rect slots a surviving-slot mask of `dtype` holds: int32 on the main
+    path, int64 for larger caps."""
+    return {torch.int32: 32, torch.int64: 64}[dtype]
+
+
 def duplicate_with_keys_reference(
     counts: torch.Tensor, mask: torch.Tensor, base: torch.Tensor, nx: torch.Tensor,
     depth: torch.Tensor, tiles_x: int, cap: int,
@@ -83,7 +89,7 @@ def duplicate_with_keys_reference(
 
 def duplicate_with_keys(
     counts: torch.Tensor,   # (G,) int32 pairs per Gaussian (popcount of mask)
-    mask: torch.Tensor,     # (G,) int32 surviving rect slots
+    mask: torch.Tensor,     # (G,) int32 (cap <= 32) or int64 (cap <= 64) surviving rect slots
     base: torch.Tensor,     # (G,) int32 tile id of the rect origin
     nx: torch.Tensor,       # (G,) int32 rect width in tiles
     depth: torch.Tensor,    # (G,) float32 camera-space depth (> 0 where counts > 0)
@@ -94,8 +100,11 @@ def duplicate_with_keys(
     tile, Gaussian-major. The pair buffer is sized exactly (one host read)."""
     if not _on_cuda(counts, mask, base, nx, depth):
         return duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, cap)
-    for t, name in ((counts, "counts"), (mask, "mask"), (base, "base"), (nx, "nx")):
+    for t, name in ((counts, "counts"), (base, "base"), (nx, "nx")):
         _check(t, name, torch.int32, 1)
+    _check(mask, "mask", torch.int64 if mask.dtype == torch.int64 else torch.int32, 1)
+    if cap > mask_bits(mask.dtype):
+        raise ValueError(f"duplicate_with_keys: a {mask.dtype} mask holds {mask_bits(mask.dtype)} slots, cap is {cap}")
     _check(depth, "depth", torch.float32, 1)
     g = counts.shape[0]
     if not all(t.shape[0] == g for t in (mask, base, nx, depth)):
@@ -114,10 +123,13 @@ def _launch_duplicate_with_keys(
     depth: torch.Tensor, tiles_x: int, gids: torch.Tensor, keys: torch.Tensor,
 ) -> None:
     """The kernel launch of `duplicate_with_keys` into buffers sized by the
-    caller (offsets int64, inclusive); does not wait on the device."""
+    caller (offsets int64, inclusive); does not wait on the device. An int64
+    `mask` launches the 64-bit instantiation."""
     if gids.data_ptr() % 16 or keys.data_ptr() % 16:
         raise ValueError("duplicate_with_keys: gids and keys must be 16-byte aligned")
-    rc = load_library().duplicate_with_keys(
+    lib = load_library()
+    launch = lib.duplicate_with_keys64 if mask.dtype == torch.int64 else lib.duplicate_with_keys
+    rc = launch(
         offsets.shape[0], offsets.data_ptr(), mask.data_ptr(), base.data_ptr(), nx.data_ptr(),
         depth.data_ptr(), tiles_x, gids.data_ptr(), keys.data_ptr(), _stream(),
     )

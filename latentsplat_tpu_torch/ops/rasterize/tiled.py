@@ -19,29 +19,18 @@ from __future__ import annotations
 
 import torch
 
-from .kernels import TILE, composite_backward, composite_forward, duplicate_with_keys, reduce_pairs
+from .kernels import TILE, composite_backward, composite_forward, duplicate_with_keys, mask_bits, reduce_pairs
 from .types import ScreenGaussians
 
 DEFAULT_MAX_TILES_PER_GAUSSIAN = 9
+# The most rect slots a surviving-slot mask holds (int64); caps up to 32
+# keep the main path's int32 mask.
+MAX_TILES_PER_GAUSSIAN = mask_bits(torch.int64)
 CULL_MARGIN = 1e-3
 
 
-def tile_rects(
-    sg: ScreenGaussians, tiles_x: int, tiles_y: int, cap: int = DEFAULT_MAX_TILES_PER_GAUSSIAN,
-    cull_margin: float = CULL_MARGIN,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-Gaussian (counts, base, nx, mask) int32.
-
-    The tile rect spans the threshold-aware extents. Its first `cap` slots,
-    row-major, are kept, and then a slot survives only if the minimum of the
-    quadratic form over the tile's pixel-center box is at most
-    log(255 * opacity) + cull_margin (else every alpha there falls below the
-    threshold). `mask` has bit s set for each surviving slot s and `counts`
-    is its popcount; dead Gaussians get counts 0 and mask 0.
-    """
-    assert cap <= 24
-    num_tiles = tiles_x * tiles_y
-    alive = sg.radius > 0.0
+def _rects(sg: ScreenGaussians, tiles_x: int, tiles_y: int):
+    """Per-Gaussian tile rect of the threshold-aware extents: (tx0, ty0, nx, ny) int32."""
     mx, my = sg.mean2d[:, 0], sg.mean2d[:, 1]
     ex, ey = sg.extent[:, 0], sg.extent[:, 1]
 
@@ -50,8 +39,57 @@ def tile_rects(
 
     tx0, tx1 = tile_index(mx - ex, tiles_x), tile_index(mx + ex, tiles_x)
     ty0, ty1 = tile_index(my - ey, tiles_y), tile_index(my + ey, tiles_y)
-    nx = tx1 - tx0 + 1
-    ny = ty1 - ty0 + 1
+    return tx0, ty0, tx1 - tx0 + 1, ty1 - ty0 + 1
+
+
+def dense_extent(sg: ScreenGaussians) -> torch.Tensor:
+    """(G, 2) per-axis half-extents beyond which every alpha falls below the
+    threshold, not clipped at the 3-sigma radius as `ScreenGaussians.extent`
+    is: the footprint the dense compositor draws. The 2D covariance's
+    diagonal is read back from the conic."""
+    a, b, c = sg.conic.unbind(-1)
+    det = torch.clamp(a * c - b * b, min=1e-30)
+    two_lo = 2.0 * torch.clamp(torch.log(255.0 * torch.clamp(sg.opacity, min=1e-12)) + 1e-3, min=0.0)
+    extent = torch.stack([torch.sqrt(two_lo * c / det), torch.sqrt(two_lo * a / det)], dim=-1) * 1.001 + 0.01
+    return torch.where((sg.radius > 0.0)[:, None], extent, 0.0)
+
+
+def covering_cap(sg: ScreenGaussians, image_shape: tuple[int, int]) -> int:
+    """The least cap that keeps every rect slot of every live Gaussian: the
+    largest rect, in tiles (at least 1; one host read). Raises above
+    MAX_TILES_PER_GAUSSIAN, which the slot mask cannot hold."""
+    h, w = image_shape
+    _, _, nx, ny = _rects(sg, w // TILE, h // TILE)
+    sizes = torch.where(sg.radius > 0.0, nx * ny, torch.zeros_like(nx))
+    largest = max(int(sizes.max()), 1) if sizes.numel() else 1
+    if largest > MAX_TILES_PER_GAUSSIAN:
+        raise ValueError(
+            f"a Gaussian's tile rect spans {largest} tiles of {image_shape}; the slot mask "
+            f"holds {MAX_TILES_PER_GAUSSIAN}"
+        )
+    return largest
+
+
+def tile_rects(
+    sg: ScreenGaussians, tiles_x: int, tiles_y: int, cap: int = DEFAULT_MAX_TILES_PER_GAUSSIAN,
+    cull_margin: float = CULL_MARGIN,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-Gaussian (counts, base, nx, mask): int32, but for `mask`, which
+    is int32 up to a cap of 32 slots and int64 above (up to 64).
+
+    The tile rect spans the threshold-aware extents. Its first `cap` slots,
+    row-major, are kept, and then a slot survives only if the minimum of the
+    quadratic form over the tile's pixel-center box is at most
+    log(255 * opacity) + cull_margin (else every alpha there falls below the
+    threshold). `mask` has bit s set for each surviving slot s and `counts`
+    is its popcount; dead Gaussians get counts 0 and mask 0.
+    """
+    assert 1 <= cap <= MAX_TILES_PER_GAUSSIAN
+    mask_dtype = torch.int32 if cap <= mask_bits(torch.int32) else torch.int64
+    num_tiles = tiles_x * tiles_y
+    alive = sg.radius > 0.0
+    mx, my = sg.mean2d[:, 0], sg.mean2d[:, 1]
+    tx0, ty0, nx, ny = _rects(sg, tiles_x, tiles_y)
     rect_counts = torch.clamp(nx * ny, max=cap)
 
     ca, cb, cc = sg.conic[:, 0], sg.conic[:, 1], sg.conic[:, 2]
@@ -59,7 +97,7 @@ def tile_rects(
     ca_s = torch.clamp(ca, min=1e-12)
     cc_s = torch.clamp(cc, min=1e-12)
     tx0_f, ty0_f, nx_f = tx0.float(), ty0.float(), nx.float()
-    mask = torch.zeros_like(nx)
+    mask = torch.zeros_like(nx, dtype=mask_dtype)
     surv = torch.zeros_like(nx)
 
     def q_at_x(a, dy0, dy1):   # min over dy in [dy0, dy1] of q(a, dy)
@@ -84,7 +122,7 @@ def tile_rects(
         )
         q_min = torch.where(inside, 0.0, q_min)
         bit = ((s < rect_counts) & (q_min <= thresh)).to(torch.int32)
-        mask = mask | (bit << s)
+        mask = mask | (bit.to(mask_dtype) << s)
         surv = surv + bit
 
     live = alive & (surv > 0)
@@ -92,7 +130,7 @@ def tile_rects(
     counts = torch.where(live, surv, zero)
     base = torch.where(live, ty0 * tiles_x + tx0, torch.full_like(surv, num_tiles))
     nx_safe = torch.where(live, nx, torch.ones_like(nx))
-    mask = torch.where(live, mask, zero)
+    mask = torch.where(live, mask, torch.zeros_like(mask))
     return counts, base, nx_safe, mask
 
 

@@ -119,7 +119,10 @@ def test_port_imports_no_jax():
         "evaluation.metric_computer", "evaluation.evaluation_index_generator", "scripts.compute_metrics",
         "scripts.generate_evaluation_index", "scripts.generate_benchmark_table", "dataset.re10k", "dataset.co3d",
         "dataset.jpeg", "dataset.shims", "host_build", "scripts.generate_co3d_evaluation_index",
-        "scripts.generate_gt_image_directory", "training.step",
+        "scripts.generate_gt_image_directory", "training.step", "training.pretrained", "scripts.convert_checkpoint",
+        "scripts.render_uncertainty", "scripts.visualize_epipolar_lines", "model.ply_export",
+        "model.encoder.visualization", "visualization.validation_in_3d", "visualization.drawing",
+        "visualization.colors",
     )
     code = (
         "import sys\n"

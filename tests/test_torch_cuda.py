@@ -88,6 +88,46 @@ def test_duplicate_with_keys_full_masks(cuda, n):
     assert torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys)
 
 
+@pytest.mark.parametrize("cap", [40, 64])
+def test_duplicate_with_keys_64_bit_masks(cuda, cap):
+    # The int64-mask instantiation, at caps above what an int32 mask holds:
+    # on the rects of wide splats (tile_rects at that cap), and on random
+    # masks with the top slots set, written in rounds.
+    sg = screen_gaussians(cap, 20000, 256, cuda, n_wide=2000, n_dead=500)
+    counts, base, nx, mask = tile_rects(sg, 16, 16, cap)
+    assert mask.dtype == torch.int64 and int(counts.max()) > 32
+    before = kernels.launch_counts["duplicate_with_keys"]
+    gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, 16, cap)
+    ref_gids, ref_keys = kernels.duplicate_with_keys_reference(counts, mask, base, nx, sg.depth, 16, cap)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["duplicate_with_keys"] == before + 1
+    assert torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys)
+
+    n = 5000
+    rng = np.random.default_rng(cap)
+    bits = rng.random((n, cap)) < rng.choice([0.05, 0.5, 1.0], (n, 1))
+    bits[: n // 3] = True
+    weights = np.zeros(64, np.uint64)
+    weights[:cap] = 1 << np.arange(cap, dtype=np.uint64)
+    mask = torch.from_numpy((np.pad(bits, ((0, 0), (0, 64 - cap))) * weights).sum(1, dtype=np.uint64).view(np.int64))
+    counts = torch.from_numpy(bits.sum(1).astype(np.int32))
+    nx = torch.from_numpy(rng.integers(1, 9, n).astype(np.int32))
+    base = torch.from_numpy(rng.integers(0, 4096, n).astype(np.int32))
+    depth = torch.from_numpy(rng.uniform(0.1, 100.0, n).astype(np.float32))
+    args = [x.to(cuda) for x in (counts, mask, base, nx, depth)]
+    gids, keys = kernels.duplicate_with_keys(*args, 64, cap)
+    ref_gids, ref_keys = kernels.duplicate_with_keys_reference(*args, 64, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys)
+
+
+def test_duplicate_with_keys_refuses_a_cap_beyond_the_mask(cuda):
+    sg = screen_gaussians(3, 100, 64, cuda)
+    counts, base, nx, mask = tile_rects(sg, 4, 4, CAP)
+    with pytest.raises(ValueError, match="holds 32 slots, cap is 40"):
+        kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, 4, 40)
+
+
 @pytest.mark.parametrize("size", [32, 256])
 def test_composite_forward_matches_reference(cuda, size):
     # Same operations in the same rounding order on the same device.
