@@ -94,7 +94,25 @@
    Gaussians against the dense plain version within 2e-4; (iii) the
    encoder panels and the PLY export, read back exactly; (iv)
    scripts.render_uncertainty and scripts.visualize_epipolar_lines.
-11. Small-input checks: the tiled (kernel) render of a narrow model against
+11. Parallel phase (run after the switches phase): (p1) the data-parallel
+   train step, two ranks on the one card over gloo (`parallel.spawn`), 1
+   scene each, against the one-process step on both scenes (2 context + 4
+   target views at 256x256, step 125000, the same weights, noise and Adam
+   moments of one earlier step): generator/total within max(1e-6, 4x the
+   one-process repeats') relative, each adaptive weight within that of
+   the one-process weight whose nll probe is taken scene by scene, the
+   generator's averaged gradients within max(1e-6, 4x the repeats') and
+   both nets' updated parameters within max(1e-5, 4x the repeats') of
+   each leaf's largest value (the repeats: the one-process step on images
+   1, 2 and 3 rounding steps up), both ranks' states bit-identical, each
+   kernel on
+   each rank; seconds per step, peaks, the state's broadcast; (p2)
+   `make_view_parallel_render` over [cuda, cuda] on the 30-view video
+   trajectory, bit-equal to the plain render; (p3) a `misc.profiler` trace
+   of one `render_full` and one render backward, holding both annotated
+   spans and the four kernels; (p4) the six `paper/` generators over the
+   trainer phase's test output (c), each figure at its layout's size.
+12. Small-input checks: the tiled (kernel) render of a narrow model against
    the dense oracle render, composite_backward and reduce_pairs at 4
    channels against their plain versions, and the narrow model's
    train-step gradients through the tiled kernels against those through
@@ -103,7 +121,8 @@
 Prints the card's name and power limit, one JSON line describing the
 kernels (device ms, plain ms, the bound and its share, the library call's
 ms, launches on the main path, in the trainer phase, in each run of the
-data phase and in each step of the inspection phase; duplicate_with_keys
+data phase, in each step of the inspection phase and in each rank's step of
+the parallel phase; duplicate_with_keys
 also its wrapper's ms; composite_forward once at the flagship's 8 channels,
 once at render_depth's 4 and once at variational=latents' 12, and
 composite_backward and reduce_pairs also at 12 channels), and last
@@ -119,6 +138,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -897,28 +917,27 @@ def trace_breakdown(trace: dict) -> list[str]:
 
 
 def profile_once(label: str, fn, out_dir: str) -> None:
-    """Runs fn(timer=record_function) once more under torch.profiler and
+    """Runs fn(timer=annotate) once more under `misc.profiler.trace` and
     writes an operator table, the per-stage breakdown and (if small) a
     gzipped Chrome trace to `out_dir`; prints the breakdown."""
     import gzip
 
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from latentsplat_tpu_torch.misc.profiler import annotate, trace
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(out / label) as prof:
         start = time.perf_counter()
-        fn(record_function)
+        fn(annotate)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     (out / f"{label}_ops.txt").write_text(prof.key_averages().table(sort_by="cuda_time_total", row_limit=50))
-    raw = out / f"{label}_trace.json"
-    prof.export_chrome_trace(str(raw))
+    raw = out / label / "trace.json"
     lines = trace_breakdown(json.loads(raw.read_text()))
     (out / f"{label}_stages.txt").write_text("\n".join(lines) + "\n")
     packed = gzip.compress(raw.read_bytes())
-    raw.unlink()
+    shutil.rmtree(out / label)
     if len(packed) <= _TRACE_KEEP_BYTES:
         (out / f"{label}_trace.json.gz").write_bytes(packed)
     print(f"profile {label}: {wall_ms:.3f} ms on the host clock under the profiler; files in {out_dir}")
@@ -1040,7 +1059,7 @@ def check_test_output(root: Path, n_views: int) -> dict:
     return means
 
 
-def trainer_phase(seed: int, device) -> tuple[dict, dict]:
+def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, dict]:
     """The entry point, `latentsplat_tpu_torch.main.main`, on the flagship
     re10k model at full width and the synthetic dataset at 256x256 (4
     scenes of 48 frames, so the preset's bounded gaps fit at steps 0 and
@@ -1055,8 +1074,10 @@ def trainer_phase(seed: int, device) -> tuple[dict, dict]:
     scene), and `evaluation_phase` over (c)'s output. The weights are
     random from `seed`, the generator's as `like_trained` leaves them
     (loaded into (a) as its `checkpointing.load`). Checkpoints go to a
-    temporary directory that is deleted. Returns the kernels' launch counts
-    over (a)+(b) and over (c), composite_forward's also by channel count."""
+    temporary directory that is deleted; with `keep`, (c)'s test output and
+    its mean scores are copied to keep/test and keep/scores.mean.json.
+    Returns the kernels' launch counts over (a)+(b) and over (c),
+    composite_forward's also by channel count."""
     from latentsplat_tpu_torch.config import load_config
     from latentsplat_tpu_torch.main import main as run_main
     from latentsplat_tpu_torch.ops.rasterize import kernels
@@ -1173,6 +1194,9 @@ def trainer_phase(seed: int, device) -> tuple[dict, dict]:
         test_launches["composite_forward_by_channels"] = dict(kernels.composite_forward_launches)
         means_c = check_test_output(tmp / "c" / "test" / "evaluation", 4 * 3)
         evaluation_phase(seed, device, dict(data, view_sampler=evaluation), tmp / "c" / "test" / "evaluation", tmp)
+        if keep is not None:
+            shutil.copytree(tmp / "c" / "test" / "evaluation", keep / "test")
+            shutil.copy(tmp / "metrics" / "scores.mean.json", keep / "scores.mean.json")
 
     print(f"trainer phase launches: (a)+(b) {fit_launches}, (c) {test_launches}")
     if min(fit_launches[k] for k in kernels.launch_counts) < 1:
@@ -1682,14 +1706,17 @@ def reset_launches() -> None:
 
     for key in kernels.launch_counts:
         kernels.launch_counts[key] = 0
-    kernels.composite_forward_launches.clear()
+    for by_channels in kernels.launches_by_channels.values():
+        by_channels.clear()
 
 
 def read_launches() -> dict:
-    """Each kernel's launches, and composite_forward's by channel count."""
+    """Each kernel's launches, composite_forward's by channel count, and
+    each compositing kernel's by channel count under "by_channels"."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
-    return {**kernels.launch_counts, "composite_forward_by_channels": dict(kernels.composite_forward_launches)}
+    return {**kernels.launch_counts, "composite_forward_by_channels": dict(kernels.composite_forward_launches),
+            "by_channels": {k: dict(v) for k, v in kernels.launches_by_channels.items()}}
 
 
 def jpeg_tools():
@@ -2450,6 +2477,551 @@ def small_depth_backward_check(seed: int, device) -> None:
         raise AssertionError("composite_backward or reduce_pairs at 4 channels disagrees with its plain version")
 
 
+# -- the parallel phase ----------------------------------------------------------
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def peak_bytes(device) -> int:
+    return torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" else 0
+
+
+def capturing(base):
+    """`base` (a train step's reduce) that also keeps a CPU copy of the
+    gradient averages it returns: the generator's, then the
+    discriminator's."""
+
+    class Capturing(base):
+        def mean_grads(self, grads):
+            out = super().mean_grads(grads)
+            prefix = "discriminator." if hasattr(self, "grads") else "generator."
+            self.grads = {**getattr(self, "grads", {}),
+                          **{prefix + n: g.detach().cpu().clone() for n, g in out.items()}}
+            return out
+
+    return Capturing
+
+
+class DiscriminatorCalls:
+    """A train step's `timer` that keeps the discriminator's calls in the
+    step's "discriminator" stage: each call's input and logits, detached,
+    in the step's order (per GAN site, its fakes, then its reals)."""
+
+    def __init__(self, discriminator):
+        self.calls, self.active = [], False
+        self.handle = discriminator.register_forward_hook(self.keep)
+
+    def keep(self, module, args, output):
+        if self.active:
+            self.calls.append((args[0].detach(), output.detach()))
+
+    @contextmanager
+    def __call__(self, name):
+        self.active = name == "discriminator"
+        try:
+            yield
+        finally:
+            self.active = False
+
+
+def hinge_masks(logits: list) -> list:
+    """Each discriminator call's hinge mask, the logits whose loss term has
+    a gradient: relu(1 + l) on the fakes (even calls), relu(1 - l) on the
+    reals (odd calls)."""
+    return [l > -1.0 if k % 2 == 0 else l < 1.0 for k, l in enumerate(logits)]
+
+
+def hinge_coefficients(losses, n_calls: int) -> list:
+    """Each discriminator call's d(loss)/d(logit) where its hinge mask is
+    set, times the call's logit count: +-weight / 2 (+ on the fakes, - on
+    the reals), at TRAIN_STEP's gate."""
+    from latentsplat_tpu_torch.training.step import make_step_flags
+
+    flags = make_step_flags(losses, TRAIN_STEP)
+    out = []
+    for k in range(n_calls):
+        d = losses[flags.disc[k // 2]].cfg.discriminator
+        if d.loss != "hinge":
+            raise AssertionError(f"(p1) counts hinge masks; {flags.disc[k // 2]} has a {d.loss} loss")
+        gate = 1.0 if TRAIN_STEP >= d.apply_after_step else 0.0
+        out.append((1.0 if k % 2 == 0 else -1.0) * d.weight / 2.0 * gate)
+    return out
+
+
+def masked_disc_grads(state, losses, calls: list, params: dict, masks: list, reduce) -> dict:
+    """The discriminator's gradients, averaged by `reduce`, of the step's
+    hinge loss with each logit's hinge mask given (`masks`, one per call)
+    instead of taken from the logit, at `params` on the calls' inputs; the
+    step's own gradients where the masks are the logits' own. The
+    discriminator's parameters are left as they were."""
+    from latentsplat_tpu_torch.training.step import _grads
+
+    named = dict(state.discriminator.named_parameters())
+    now = {n: p.detach().clone() for n, p in named.items()}
+    with torch.no_grad():
+        for n, p in named.items():
+            p.copy_(params[n])
+    total = 0.0
+    for (x, _), mask, coef in zip(calls, masks, hinge_coefficients(losses, len(calls))):
+        total = total + coef / mask.numel() * (state.discriminator(x) * mask).sum()
+    grads = reduce.mean_grads(_grads(total, named))
+    with torch.no_grad():
+        for n, p in named.items():
+            p.copy_(now[n])
+    return {f"discriminator.{n}": g.detach().cpu() for n, g in grads.items()}
+
+
+def parallel_rank(mesh, cfg, seed: int, initial: str, batch: dict, noise: dict, ref_logits: list) -> dict:
+    """One rank of (p1), in its own process: the flagship state at
+    TRAIN_STEP with the reference's initial tensors (read from the file
+    `initial`), broadcast from rank 0 and checked equal, then two
+    data-parallel steps on this rank's rows of the batch and noise. Returns
+    the first step's logs (and, on rank 0, its averaged gradients and
+    updated parameters, on the CPU), each step's seconds and launches,
+    the broadcast's seconds and this process's peak memory; and, of the
+    first step's discriminator calls, this rank's hinge masks against
+    those of the one-process logits `ref_logits` at its rows (mask sums,
+    the logits whose masks differ and their largest distance from the
+    hinge's edge), and on rank 0 the averaged discriminator gradients
+    recomputed with the one-process masks and with the ranks' own."""
+    from latentsplat_tpu_torch.model.discriminator.patch_gan import set_batch_norm_group
+    from latentsplat_tpu_torch.parallel import replicate_state, shard_batch
+    from latentsplat_tpu_torch.parallel.mesh import RankReduce, assert_replicated, state_tensors
+    from latentsplat_tpu_torch.training.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state, losses, _ = switch_state(cfg, seed, mesh.device)
+    tensors = state_tensors(state)
+    with torch.no_grad():
+        for k, t in torch.load(initial, map_location="cpu", mmap=True, weights_only=True).items():
+            tensors[k].copy_(t)
+    sync(mesh.device)
+    start = time.perf_counter()
+    replicate_state(state, mesh)
+    sync(mesh.device)
+    replicate_s = time.perf_counter() - start
+    set_batch_norm_group(state.discriminator, mesh.group)
+    g = cfg.optimizer.generator
+    reduces = [(capturing(RankReduce) if mesh.is_main else RankReduce)(mesh), RankReduce(mesh)]
+    rows, rows_noise = shard_batch(batch, mesh), shard_batch(noise, mesh)
+    disc_before = {n: p.detach().clone() for n, p in state.discriminator.named_parameters()}
+    calls = DiscriminatorCalls(state.discriminator)
+    sync(mesh.device)
+    if mesh.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    out = {"seconds": [], "launches": [], "replicate_s": replicate_s}
+    for i, reduce in enumerate(reduces):
+        train_step = make_train_step(losses, g.skip_loss_spike_factor, g.skip_loss_spike_patience, reduce=reduce)
+        reset_launches()
+        sync(mesh.device)
+        start = time.perf_counter()
+        state, logs = train_step(state, rows, TRAIN_STEP, noise=rows_noise, timer=calls if i == 0 else None)
+        sync(mesh.device)
+        out["seconds"].append(time.perf_counter() - start)
+        out["launches"].append(read_launches())
+        if i == 0:
+            calls.handle.remove()
+            assert_replicated(state_tensors(state), mesh, "the state after the first data-parallel step")
+            out["logs"] = {k: float(v) for k, v in logs.items()}
+            if mesh.is_main:
+                out["grads"], out["params"] = reduce.grads, updated_params(state)
+            own = [l for _, l in calls.calls]
+            n = own[0].shape[0]
+            ref = [torch.as_tensor(l[mesh.rank * n : (mesh.rank + 1) * n], device=mesh.device) for l in ref_logits]
+            own_masks, ref_masks = hinge_masks(own), hinge_masks(ref)
+            out["hinge"] = [
+                {"own": int(a.sum()), "ref": int(b.sum()), "differ": int((a != b).sum()),
+                 "edge": max([float((l[a != b].abs() - 1.0).abs().max()) for l in (o, r) if (a != b).any()],
+                             default=0.0)}
+                for a, b, o, r in zip(own_masks, ref_masks, own, ref)]
+            # Collectives on both ranks alike: the BatchNorms' sums, the average.
+            masked = {label: masked_disc_grads(state, losses, calls.calls, disc_before, masks, RankReduce(mesh))
+                      for label, masks in (("ref_masks", ref_masks), ("own_masks", own_masks))}
+            if mesh.is_main:
+                out.update(masked)
+            del calls, own, ref, masked
+    out["peak"] = peak_bytes(mesh.device)
+    return out
+
+
+def updated_params(state) -> dict:
+    """The generator's and the discriminator's parameters, on the CPU."""
+    nets = {f"generator.{n}": p for n, p in state.model.named_parameters()}
+    nets.update({f"discriminator.{n}": p for n, p in state.discriminator.named_parameters()})
+    return {n: p.detach().cpu().clone() for n, p in nets.items()}
+
+
+def split_probe_weights(state, losses, batch: dict, noise: dict) -> dict:
+    """Each GAN site's adaptive weight with the nll probe taken scene by
+    scene and averaged, as the ranks take it, and the generator-loss probe
+    of the whole batch: the one-process weight without the rounding that
+    the batch size alone brings (an l1 loss's gradient flips its sign
+    where the decoded image meets the target within rounding)."""
+    from latentsplat_tpu_torch.loss.losses import adaptive_gan_weight
+    from latentsplat_tpu_torch.training.step import _grads, generator_forward, make_step_flags
+
+    flags = make_step_flags(losses, TRAIN_STEP)
+    leaf = {"last": state.model.last_layer()}
+
+    def probes(b, n):
+        _, gan_nll, gan_g, _, _ = generator_forward(state, losses, flags, b, TRAIN_STEP, None, n)
+        return [(_grads(x, leaf, retain_graph=True)["last"], _grads(y, leaf, retain_graph=True)["last"])
+                for x, y in zip(gan_nll, gan_g)]
+
+    def scene(tree, s):
+        return {k: scene(v, s) if isinstance(v, dict) else v[s : s + 1] for k, v in tree.items()}
+
+    whole = probes(batch, noise)
+    scenes = [probes(scene(batch, s), scene(noise, s)) for s in range(2)]
+    return {f"{name}/adaptive_weight": float(adaptive_gan_weight((scenes[0][i][0] + scenes[1][i][0]) / 2, whole[i][1]))
+            for i, name in enumerate(flags.gen_gan)}
+
+
+def leaf_report(ours: dict, ref: dict, repeats: list, floor: float = 1e-6) -> tuple[list, str]:
+    """Each leaf's error against `ref` as a share of its largest |ref| (at
+    least 1e-4 of the largest of all leaves, as `leaf_errors` takes it, for
+    leaves that are zero but for rounding), and its bound max(floor, 4x the
+    largest of the repeats' errors); (leaves over their bound, a summary
+    line)."""
+    over, worst = [], (0.0, None, None)
+    least = 1e-4 * max(float(v.abs().max()) for v in ref.values())
+    for name, value in ref.items():
+        scale = max(float(value.abs().max()), least)
+        err = float((ours[name] - value).abs().max()) / scale
+        bound = max(floor, 4 * max(float((rep[name] - value).abs().max()) for rep in repeats) / scale)
+        if err > bound:
+            over.append((name, err, bound))
+        if worst[1] is None or err / bound > worst[0] / worst[2]:
+            worst = (err, name, bound)
+    return over, (f"{len(ref)} leaves, {len(over)} over their bound; closest to or furthest over its bound "
+                  f"{worst[1]} {worst[0]:.3e} of its largest value (bound {worst[2]:.3e})")
+
+
+def parallel_step_check(cfg, seed: int, device, size: int = 256) -> dict:
+    """(p1) Two ranks on the one card over gloo, each with 1 scene, against
+    the one-process step on the same 2 scenes (2 context + 4 target views at
+    256x256, step 125000), weights, noise and Adam moments (of one earlier
+    step). The repeats are the one-process step on images 1, 2 and 3
+    rounding steps up. Held: generator/total within max(1e-6, 4x the
+    repeats' difference) relative; each adaptive weight within max(1e-6,
+    4x the repeats') of the one-process weight whose nll probe is taken
+    scene by scene (`split_probe_weights`); the generator's averaged
+    gradients, each leaf (of its largest value) within max(1e-6, 4x the
+    repeats'), and both nets' updated parameters within max(1e-5, 4x the
+    repeats'); both ranks' states bit-identical after the step; each kernel
+    launched on each rank in each step. The reference runs first and
+    leaves the card before the ranks start."""
+    from latentsplat_tpu_torch.parallel import spawn
+    from latentsplat_tpu_torch.parallel.mesh import state_tensors
+    from latentsplat_tpu_torch.training.step import LocalReduce, make_train_step
+
+    state, losses, _ = switch_state(cfg, seed, device)
+    g = cfg.optimizer.generator
+    batches = [state.model.data_shim(make_batch(np.random.default_rng(seed + 5 + i), 2, 4, size, device, 2))
+               for i in range(2)]
+    noises = [flagship_noise(state.model, b, seed + 7 + i) for i, b in enumerate(batches)]
+    # A step on another batch first, so that Adam's moments hold a history
+    # as a run's do at step 125000: from zero moments every element moves
+    # by the learning rate times the sign of its gradient, and a gradient
+    # at the level of rounding would flip its move.
+    step = make_train_step(losses, g.skip_loss_spike_factor, g.skip_loss_spike_patience)
+    state, _ = step(state, batches[1], TRAIN_STEP, noise=noises[1])
+    batch, noise = batches[0], noises[0]
+    split = split_probe_weights(state, losses, batch, noise)
+    initial = {k: t.detach().cpu().clone() for k, t in state_tensors(state).items()}
+    # The repeats: the same step on images 1, 2 and 3 rounding steps up
+    # (each pixel moved to the next float32 above it, n times): how far the
+    # step's own rounding moves its results, l1's sign flips where a
+    # decoded pixel meets its target included, as a batch of another size
+    # rounds differently.
+    inputs = [batch]
+    for _ in range(3):
+        inputs.append({key: dict(views, image=torch.nextafter(views["image"], views["image"] + 1.0))
+                       for key, views in inputs[-1].items()})
+    refs, ref_s, ref_logits = [], [], []
+    for images in inputs:
+        with torch.no_grad():
+            for k, t in state_tensors(state).items():
+                t.copy_(initial[k])
+        reduce = capturing(LocalReduce)()
+        train_step = make_train_step(losses, g.skip_loss_spike_factor, g.skip_loss_spike_patience, reduce=reduce)
+        calls = DiscriminatorCalls(state.discriminator)
+        sync(device)
+        start = time.perf_counter()
+        state, logs = train_step(state, images, TRAIN_STEP, noise=noise, timer=calls)
+        sync(device)
+        ref_s.append(time.perf_counter() - start)
+        calls.handle.remove()
+        refs.append(({k: float(v) for k, v in logs.items()}, reduce.grads, updated_params(state)))
+        ref_logits.append([l.cpu().numpy() for _, l in calls.calls])
+        del calls
+    ref_logs = refs[0][0]
+    coefs = hinge_coefficients(losses, len(ref_logits[0]))
+    # The repeats' hinge masks against the reference's: how often rounding
+    # alone moves a logit across the hinge's edge.
+    repeat_flips = [sum(int((a != b).sum()) for a, b in zip(hinge_masks([torch.as_tensor(l) for l in rep]),
+                                                            hinge_masks([torch.as_tensor(l) for l in ref_logits[0]])))
+                    for rep in ref_logits[1:]]
+    # The ranks take numpy arrays and a file: tensors handed to a spawned
+    # process would pass through shared memory, which a container may cap.
+    host = lambda tree: {k: host(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in tree.items()}  # noqa: E731
+    batch, noise = host(batch), host(noise)
+    del state, train_step, step, reduce, inputs, batches, noises
+    sync(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        torch.save(initial, Path(tmp) / "initial.pt")
+        del initial
+        start = time.perf_counter()
+        ranks = spawn(parallel_rank, [device, device], "gloo",
+                      (cfg, seed, str(Path(tmp) / "initial.pt"), batch, noise, ref_logits[0]), join_timeout=600)
+        spawn_s = time.perf_counter() - start
+    ours, failures = ranks[0], []
+    total, ref_total = ours["logs"]["generator/total"], ref_logs["generator/total"]
+    total_err = abs(total - ref_total) / abs(ref_total)
+    # The encoder samples each ray's depth bucket by inverse CDF: rounding
+    # moves a sample across a bucket's edge now and then, so the total's own
+    # repeats differ by more than float32's rounding.
+    total_repeat = max(abs(r[0]["generator/total"] - ref_total) for r in refs[1:]) / abs(ref_total)
+    print(f"parallel (p1) on {card()}: generator/total 2 ranks {total!r}, one process {ref_total!r} "
+          f"(repeats {[r[0]['generator/total'] for r in refs[1:]]}); relative difference {total_err:.3e}, "
+          f"the repeats' {total_repeat:.3e}")
+    if total_err > max(1e-6, 4 * total_repeat) or ranks[1]["logs"]["generator/total"] != total:
+        failures.append("generator/total")
+    if not split:
+        failures.append("no adaptive weight at step 125000")
+    for key, w_split in split.items():
+        err, repeat = abs(ours["logs"][key] - w_split), max(abs(r[0][key] - ref_logs[key]) for r in refs[1:])
+        print(f"parallel (p1) on {card()}: {key} 2 ranks {ours['logs'][key]!r}; one process {ref_logs[key]!r}, with its "
+              f"nll probe scene by scene {w_split!r}; difference from the latter {err:.3e}, from the former "
+              f"{abs(ours['logs'][key] - ref_logs[key]):.3e}; one-process repeat {repeat:.3e}")
+        if err > max(1e-6, 4 * repeat):
+            failures.append(key)
+    # The discriminator's hinge loss has a gradient of +-weight / 2 / M at
+    # each of a call's M logits inside its hinge (fake > -1, real < 1) and
+    # none elsewhere, so conv_out.bias's gradient is the sum of those
+    # shares: with every logit inside, +weight / 2 on the fakes and
+    # -weight / 2 on the reals cancel, and what is left is the float32
+    # rounding of the two sums. Held: on each side that gradient is the
+    # shares of its own masks' counts, within 64 float32 epsilons of the
+    # shares' absolute sum (a logit's share is ~100 times that), so a
+    # logit that the ranks' BatchNorm sums (two halves) round across an
+    # edge shows in the counts and explains the gap; recomputed with the
+    # ranks' own masks, the ranks' gradients are the step's within 1e-6;
+    # recomputed with the one-process masks, they are the one-process
+    # gradients within max(1e-6, 4x the repeats'), of those repeats whose
+    # masks are the one-process step's, every leaf but the bias.
+    hinge = [{k: sum(r["hinge"][c][k] for r in ranks) if k != "edge" else max(r["hinge"][c][k] for r in ranks)
+              for k in ranks[0]["hinge"][c]} for c in range(len(coefs))]
+    m = [l.size for l in ref_logits[0]]
+    bias = "discriminator.conv_out.bias"
+    eps = float(torch.finfo(torch.float32).eps)
+    print(f"parallel (p1) on {card()}: hinge masks of the discriminator's {len(coefs)} calls ({m} logits; inside "
+          f"the hinge, 2 ranks {[h['own'] for h in hinge]}, one process {[h['ref'] for h in hinge]}): "
+          f"{[h['differ'] for h in hinge]} logits differ (furthest from the edge {max(h['edge'] for h in hinge):.3e}); "
+          f"the repeats' against the one process {repeat_flips}; one logit's share "
+          f"{min(abs(c) / n for c, n in zip(coefs, m))!r}")
+    for label, value, key in (("2 ranks' step", ours["grads"][bias], "own"),
+                              ("one process's step", refs[0][1][bias], "ref"),
+                              ("2 ranks recomputed with the one-process masks", ours["ref_masks"][bias], "ref")):
+        shares = sum(c / n * h[key] for c, n, h in zip(coefs, m, hinge))
+        tol = 64 * eps * sum(abs(c) / n * h[key] for c, n, h in zip(coefs, m, hinge))
+        err = abs(float(value.sum()) - shares)
+        print(f"parallel (p1) on {card()}: {bias} gradient, {label}: {float(value.sum())!r}; its masks' shares "
+              f"{shares!r}, apart {err:.3e} (bound {tol:.3e})")
+        if err > tol:
+            failures.append(f"{bias}, {label}: {float(value.sum())!r} is not its masks' shares {shares!r}")
+
+    def only(tree, prefix):
+        return {k: v for k, v in tree.items() if k.startswith(prefix) and k != bias}
+
+    # Held: the generator's averaged gradients and both nets' updated
+    # parameters. Adam's update divides two moments, so an element whose
+    # gradient is small beside its history carries the gradient's rounding
+    # into the parameter magnified: the parameters' floor is 1e-5.
+    disc_ref = only(refs[0][1], "discriminator.")
+    for label, got, ref, repeats, floor in (
+        ("averaged generator gradients", only(ours["grads"], "generator."), only(refs[0][1], "generator."),
+         [only(r[1], "generator.") for r in refs[1:]], 1e-6),
+        ("averaged discriminator gradients recomputed with the ranks' own hinge masks, against the step's",
+         ours["own_masks"], {**only(ours["grads"], "discriminator."), bias: ours["grads"][bias]}, None, 1e-6),
+        (f"averaged discriminator gradients but {bias}, recomputed with the one-process hinge masks",
+         only(ours["ref_masks"], "discriminator."), disc_ref,
+         [only(r[1], "discriminator.") for r, f in zip(refs[1:], repeat_flips) if f == 0], 1e-6),
+        ("updated parameters", ours["params"], refs[0][2], [r[2] for r in refs[1:]], 1e-5),
+    ):
+        over, line = leaf_report(got, ref, repeats or [ref], floor)
+        print(f"parallel (p1) on {card()}: {label}: {line}; over: {[(n, f'{e:.2e}', f'{u:.2e}') for n, e, u in over[:6]]}")
+        if over:
+            failures.append(f"{len(over)} {label}")
+    for r, rank in enumerate(ranks):
+        for i, launches in enumerate(rank["launches"]):
+            if min((launches[k] for k in ALL_KERNELS), default=1) < 1:
+                failures.append(f"rank {r}'s step {i + 1} launches {launches}")
+    print(f"parallel (p1) on {card()}: seconds per step (host clock, synchronized) rank 0 "
+          f"{[round(x, 4) for x in ranks[0]['seconds']]}, rank 1 {[round(x, 4) for x in ranks[1]['seconds']]}; "
+          f"one process with both scenes {[round(x, 4) for x in ref_s]}; peak memory rank 0 "
+          f"{ranks[0]['peak'] / 2**30:.3f} GiB, rank 1 {ranks[1]['peak'] / 2**30:.3f} GiB; state broadcast "
+          f"{ranks[0]['replicate_s']:.2f} s; the ranks' whole run {spawn_s:.1f} s; launches a step, rank 0 "
+          f"{ranks[0]['launches'][1]}, rank 1 {ranks[1]['launches'][1]}")
+    if failures:
+        raise AssertionError(f"the 2-rank step differs from the one-process step: {failures}")
+    return {"launches_per_rank_step": ranks[0]["launches"][1],
+            "seconds": [r["seconds"][1] for r in ranks], "one_process_seconds": ref_s[1],
+            "peak_gib": [r["peak"] / 2**30 for r in ranks]}
+
+
+def video_cameras(context: dict, num_frames: int = 30) -> dict:
+    """`Trainer.render_video`'s interpolation between the first and last
+    context views of scene 0, as (1, V, ...) tensors."""
+    from latentsplat_tpu_torch.visualization.camera_trajectory import interpolate_extrinsics, interpolate_intrinsics
+
+    t = np.linspace(0, 1, num_frames, dtype=np.float32)
+    t = (np.cos(np.pi * (t + 1)) + 1) / 2
+    ext, intr = context["extrinsics"][0].cpu().numpy(), context["intrinsics"][0].cpu().numpy()
+    device = context["extrinsics"].device
+    return {
+        "extrinsics": torch.from_numpy(interpolate_extrinsics(ext[0], ext[-1], t)[None]).to(device),
+        "intrinsics": torch.from_numpy(interpolate_intrinsics(intr[0], intr[-1], t)[None]).to(device),
+        "near": context["near"][:1, :1].expand(1, num_frames).contiguous(),
+        "far": context["far"][:1, :1].expand(1, num_frames).contiguous(),
+    }
+
+
+def parallel_render_check(cfg, seed: int, device, size: int = 256) -> None:
+    """(p2) `make_view_parallel_render` over [cuda:0, cuda:0] on the 30-view
+    video trajectory of the slice's Gaussians, bit-equal to the plain
+    render; (p3) a trace of one `render_full` and one render backward
+    through `misc.profiler`, holding its annotated spans and the four
+    kernels."""
+    from latentsplat_tpu_torch.misc.profiler import annotate, trace
+    from latentsplat_tpu_torch.model.latentsplat import render_full
+    from latentsplat_tpu_torch.ops.rasterize.api import render
+    from latentsplat_tpu_torch.parallel import make_view_parallel_render
+
+    model = build_model(cfg, seed, device)
+    batch = make_batch(np.random.default_rng(seed), 2, 4, size, device)
+    shimmed, gaussians = slice_gaussians(model, batch, seed)
+    cams = video_cameras(shimmed["context"])
+    gauss = {"background_color": torch.zeros(1, 3, device=device), "gaussian_means": gaussians.means,
+             "gaussian_covariances": gaussians.covariances, "gaussian_opacities": gaussians.opacities,
+             "gaussian_color_sh": gaussians.color_harmonics, "gaussian_feature_sh": gaussians.feature_harmonics}
+    view_parallel = make_view_parallel_render([device, device], (size, size))
+
+    def plain():
+        return render(*(cams[k] for k in ("extrinsics", "intrinsics", "near", "far")), (size, size), **gauss)
+
+    with torch.no_grad():
+        outs, seconds = {}, {}
+        for name, fn in (("plain", plain), ("view_parallel", lambda: view_parallel(cams, gauss))):
+            sync(device)
+            start = time.perf_counter()
+            outs[name] = fn()
+            sync(device)
+            seconds[name] = time.perf_counter() - start
+    for field in ("color", "feature", "mask", "depth", "num_pairs"):
+        if not torch.equal(getattr(outs["plain"], field), getattr(outs["view_parallel"], field)):
+            raise AssertionError(f"the view-parallel render's {field} differs from the plain render's")
+    print(f"parallel (p2) on {card()}: 30 views at {size}x{size}, view-parallel over 2 shards on one card bit-equal "
+          f"to the plain render; {seconds['view_parallel']:.4f} s against {seconds['plain']:.4f} s (host clock)")
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        with trace(Path(tmp)):
+            with annotate("render_full"), torch.no_grad():
+                render_full(model, batch, generator=gen)
+            with annotate("render_backward"):
+                opacities = gauss["gaussian_opacities"].detach().requires_grad_(True)
+                out = render(*(cams[k][:, :1] for k in ("extrinsics", "intrinsics", "near", "far")), (size, size),
+                             **dict(gauss, gaussian_opacities=opacities))
+                out.color.sum().backward()
+            sync(device)
+        events = json.loads((Path(tmp) / "trace.json").read_text())["traceEvents"]
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    kernels = {k: sum(1 for e in events if e.get("cat") == "kernel" and f"{k}_kernel" in e.get("name", ""))
+               for k in ALL_KERNELS}
+    found = sorted(spans & {"render_full", "render_backward"})
+    print(f"parallel (p3) on {card()}: the trace holds the spans {found} and the kernels {kernels} "
+          f"({len(events)} events)")
+    if not {"render_full", "render_backward"} <= spans or min(kernels.values(), default=1) < 1:
+        raise AssertionError("the profiler's trace lacks an annotated span or a kernel")
+
+
+def paper_check(rendered: Path, scores: Path, out: Path) -> None:
+    """(p4) Each of the six paper generators once over the trainer phase's
+    test output (c): the files written, each figure at the size its layout
+    gives."""
+    from latentsplat_tpu_torch.misc.image_io import load_image
+    from latentsplat_tpu_torch.paper import (
+        generate_ablation_image_comparison,
+        generate_benchmark_table,
+        generate_comparison_table,
+        generate_feature_image,
+        generate_image_comparison,
+        generate_teaser,
+    )
+    from latentsplat_tpu_torch.paper.common import MARGIN
+    from latentsplat_tpu_torch.visualization.annotation import draw_label
+
+    pngs = sorted(rendered.rglob("color/*.png"))
+    scene, ctx_key = pngs[0].parent.parent.parent.name, pngs[0].parent.parent.name
+    indices = sorted(int(p.stem) for p in pngs if p.parent.parent.parent.name == scene)
+    row = f"rows=[{{scene: {scene}, ctx_key: '{ctx_key}', index: {indices[0]}}}]"
+    method = f"{{name: Ours, path: {rendered}}}"
+    start = time.perf_counter()
+    generate_comparison_table.main([f"metrics_path={scores}", "methods=[{name: Ours, key: ours}]",
+                                    f"output_path={out / 'table.tex'}"])
+    generate_benchmark_table.main([f"methods=[{method}]", f"output_path={out / 'benchmark_table.tex'}"])
+    generate_image_comparison.main([f"methods=[{method}]", row, f"output_path={out / 'comparison.png'}"])
+    generate_ablation_image_comparison.main([f"methods=[{method}, {method}]", row, f"output_path={out / 'ablation.png'}"])
+    generate_teaser.main([f"method_path={rendered}", f"rows=[{{scene: {scene}, ctx_key: '{ctx_key}', indices: {indices}}}]",
+                          f"output_path={out / 'teaser.png'}"])
+    generate_feature_image.main([f"method_path={rendered}", "modalities=[{name: Color, kind: color}]", row,
+                                 f"output_path={out / 'features.png'}"])
+    seconds = time.perf_counter() - start
+    table, bench = (out / "table.tex").read_text(), (out / "benchmark_table.tex").read_text()
+    if "PSNR $\\uparrow$" not in table or "Ours" not in table or "Decoding (s)" not in bench:
+        raise AssertionError("a paper table lacks its headers or its method")
+
+    def column(label: str, width: int = 256) -> tuple[int, int]:
+        """A labelled column of one 256-pixel-high image or context panel."""
+        h, w = draw_label(label, font_size=18).shape[:2]
+        return h + 2 + 256, max(w, width)
+
+    def grid(*cols) -> tuple[int, int]:
+        return max(h for h, _ in cols), sum(w for _, w in cols) + MARGIN * (len(cols) - 1)
+
+    half = (256 - MARGIN) // 2   # the context panel's two views, stacked
+    expected = {
+        "comparison.png": grid(column("Ref.", half), column("Ours")),
+        "ablation.png": grid(column("Ours"), column("Ours")),
+        "teaser.png": (192, (192 - MARGIN) // 2 + (192 + MARGIN) * len(indices)),
+        "features.png": grid(column("Ref.", half), column("Target View"), column("Color")),
+    }
+    sizes = {name: load_image(out / name).shape[:2] for name in expected}
+    print(f"parallel (p4) on {card()}: the six paper generators over {len(pngs)} test PNGs in {seconds:.2f} s; "
+          f"figures {sizes}")
+    if sizes != expected:
+        raise AssertionError(f"paper figures of sizes {sizes}, not {expected}")
+
+
+def parallel_phase(seed: int, device, trainer_output: Path) -> dict:
+    """(p1)-(p4); returns (p1)'s numbers."""
+    from latentsplat_tpu_torch.config import load_config
+
+    cfg = load_config("re10k")
+    record = parallel_step_check(cfg, seed, device)
+    parallel_render_check(cfg, seed, device)
+    paper_check(trainer_output / "test", trainer_output / "scores.mean.json", trainer_output)
+    return record
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2486,7 +3058,8 @@ def main() -> int:
     depth_record, depth_launches = depth_phase(model, batch, args.seed)
     del model
     train_launches = train_phase(cfg, args.seed, device, args.profile)
-    fit_launches, test_launches = trainer_phase(args.seed, device)
+    trainer_output = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_output_"))
+    fit_launches, test_launches = trainer_phase(args.seed, device, trainer_output)
     data = data_phase(args.seed, device)
     inspection = inspection_phase(args.seed, device)
     # Each kernel's count comes from the path it serves: the forward kernels
@@ -2510,6 +3083,18 @@ def main() -> int:
                                            for step, launches in inspection["launches"].items()}
     results.append(depth_record)
     results += switches_phase(args.seed, device)
+    parallel = parallel_phase(args.seed, device, trainer_output)
+    shutil.rmtree(trainer_output)
+    # The parallel phase's launches: rank 0's in one data-parallel step (1
+    # scene of 4 target views), the compositing kernels' read at each row's
+    # channel count (the kernel and backward phases' rows are the flagship's
+    # 8 channels).
+    launches = parallel["launches_per_rank_step"]
+    for entry in results:
+        name = entry["name"]
+        entry["parallel_launches_per_rank_step"] = (
+            launches[name] if name == "duplicate_with_keys"
+            else launches["by_channels"][name].get(entry.get("channels", entry.get("row", 14) - 6), 0))
     small_input_check(args.seed, device)
     small_depth_backward_check(args.seed, device)
     small_gradient_check(args.seed, device)
@@ -2517,6 +3102,8 @@ def main() -> int:
     print(f"data phase summary on {card()}: " + json.dumps({k: v for k, v in data.items() if k != "launches"}))
     print(f"inspection phase summary on {card()}: "
           + json.dumps({k: v for k, v in inspection.items() if k != "launches"}))
+    print(f"parallel phase summary on {card()}: "
+          + json.dumps({k: v for k, v in parallel.items() if k != "launches_per_rank_step"}))
     print(card())
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

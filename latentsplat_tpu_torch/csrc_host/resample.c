@@ -1,8 +1,10 @@
-/* LANCZOS resize of 8-bit interleaved images, with the arithmetic of
- * Pillow's ImagingResample (libImaging/Resample.c) for Image.LANCZOS:
+/* LANCZOS and BILINEAR resizes of 8-bit interleaved images, with the
+ * arithmetic of Pillow's ImagingResample (libImaging/Resample.c) for
+ * Image.LANCZOS and Image.BILINEAR:
  *
- *   - a separable filter, sinc(x) * sinc(x / 3) on |x| < 3, stretched by the
- *     scale when shrinking (support 3 * max(1, in / out));
+ *   - a separable filter, sinc(x) * sinc(x / 3) on |x| < 3 (LANCZOS) or the
+ *     triangle 1 - |x| on |x| < 1 (BILINEAR), stretched by the scale when
+ *     shrinking (support 3 or 1, times max(1, in / out));
  *   - per output sample, the taps are computed in double, normalised to sum
  *     to 1 and rounded to 22-bit fixed point;
  *   - the horizontal pass runs first, over the rows the vertical pass reads,
@@ -12,14 +14,15 @@
  * are, so that the taps have the same bits.
  *
  * C interface (ctypes):
- *   int lanczos_resize(const uint8_t *in, int in_h, int in_w, int channels,
- *                      uint8_t *out, int out_h, int out_w,
- *                      int row0, int col0, int win_h, int win_w);
- * resizes (in_h, in_w) to (out_h, out_w) and writes only the window of
+ *   int resample(const uint8_t *in, int in_h, int in_w, int channels,
+ *                uint8_t *out, int out_h, int out_w,
+ *                int row0, int col0, int win_h, int win_w, int filter);
+ * with `filter` Pillow's number for it (1 LANCZOS, 2 BILINEAR), resizes
+ * (in_h, in_w) to (out_h, out_w) and writes only the window of
  * win_h x win_w output samples at (row0, col0) into `out`: a center crop
  * after the resize costs only the samples it keeps, each with the bits of
  * the whole resize. Returns 0, or -1 when out of memory or given an empty
- * size or a window outside the output.
+ * size, a window outside the output or another filter.
  */
 
 #include <math.h>
@@ -40,9 +43,24 @@ static double lanczos_filter(double x) {
   return 0.0;
 }
 
+static double bilinear_filter(double x) {
+  if (x < 0.0) x = -x;
+  if (x < 1.0) return 1.0 - x;
+  return 0.0;
+}
+
+struct filter {
+  double (*fn)(double);
+  double support;
+};
+
+static const struct filter LANCZOS = {lanczos_filter, 3.0};
+static const struct filter BILINEAR = {bilinear_filter, 1.0};
+
 /* Taps of each output sample: bounds[2 * i] = first input index,
  * bounds[2 * i + 1] = count; kk[i * ksize + j] in 22-bit fixed point. */
-static int precompute_coeffs(int in_size, int out_size, int **bounds_p, int32_t **kk_p) {
+static int precompute_coeffs(const struct filter *filter, int in_size, int out_size, int **bounds_p,
+                             int32_t **kk_p) {
   double filterscale, scale = (double)((float)in_size - 0.0f) / out_size;
   double support, center, ww, ss;
   int ksize, xmin, xmax;
@@ -51,7 +69,7 @@ static int precompute_coeffs(int in_size, int out_size, int **bounds_p, int32_t 
   int32_t *kk;
 
   filterscale = scale < 1.0 ? 1.0 : scale;
-  support = 3.0 * filterscale;
+  support = filter->support * filterscale;
   ksize = (int)ceil(support) * 2 + 1;
   k = (double *)malloc((size_t)ksize * sizeof(double));
   kk = (int32_t *)malloc((size_t)out_size * ksize * sizeof(int32_t));
@@ -72,7 +90,7 @@ static int precompute_coeffs(int in_size, int out_size, int **bounds_p, int32_t 
     if (xmax > in_size) xmax = in_size;
     xmax -= xmin;
     for (int x = 0; x < xmax; x++) {
-      double w = lanczos_filter((x + xmin - center + 0.5) * ss);
+      double w = filter->fn((x + xmin - center + 0.5) * ss);
       k[x] = w;
       ww += w;
     }
@@ -99,8 +117,9 @@ static inline uint8_t clip8(int in) {
   return (uint8_t)(in >> PRECISION_BITS);
 }
 
-int lanczos_resize(const uint8_t *in, int in_h, int in_w, int channels, uint8_t *out, int out_h,
-                   int out_w, int row0, int col0, int win_h, int win_w) {
+int resample(const uint8_t *in, int in_h, int in_w, int channels, uint8_t *out, int out_h, int out_w,
+             int row0, int col0, int win_h, int win_w, int filter_id) {
+  const struct filter *filter = filter_id == 1 ? &LANCZOS : filter_id == 2 ? &BILINEAR : NULL;
   int *bh = NULL, *bv = NULL;
   int32_t *kh = NULL, *kv = NULL;
   int ksh, ksv, y_first = 0, y_last, rc = -1;
@@ -110,7 +129,7 @@ int lanczos_resize(const uint8_t *in, int in_h, int in_w, int channels, uint8_t 
   int src_w = in_w, src_col0 = col0;
 
   if (in_h <= 0 || in_w <= 0 || out_h <= 0 || out_w <= 0 || channels <= 0 || win_h <= 0 || win_w <= 0 ||
-      row0 < 0 || col0 < 0 || row0 + win_h > out_h || col0 + win_w > out_w)
+      row0 < 0 || col0 < 0 || row0 + win_h > out_h || col0 + win_w > out_w || filter == NULL)
     return -1;
   if (in_h == out_h && in_w == out_w) {
     for (int y = 0; y < win_h; y++)
@@ -118,8 +137,8 @@ int lanczos_resize(const uint8_t *in, int in_h, int in_w, int channels, uint8_t 
              (size_t)win_w * channels);
     return 0;
   }
-  ksh = precompute_coeffs(in_w, out_w, &bh, &kh);
-  ksv = precompute_coeffs(in_h, out_h, &bv, &kv);
+  ksh = precompute_coeffs(filter, in_w, out_w, &bh, &kh);
+  ksv = precompute_coeffs(filter, in_h, out_h, &bv, &kv);
   if (ksh < 0 || ksv < 0) goto done;
 
   if (out_w != in_w) {

@@ -14,14 +14,15 @@ from __future__ import annotations
 
 import gzip
 import json
+from functools import partial
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from .jpeg import CorruptJPEGError, decode_jpeg
-from .shims import _rescale_image, apply_augmentation_shim, apply_crop_shim
-from .types import DatasetCO3DCfg, Stage
+from .shims import _rescale_image, apply_crop_shim, shard_rows
+from .types import DatasetCO3DCfg, RowShard, Stage
 from .view_samplers import ViewSampler, ViewSamplerEvaluation
 
 
@@ -89,6 +90,7 @@ class DatasetCO3D:
         self.path = Path(cfg.roots[0])
         self.shard_index = shard_index
         self.num_shards = num_shards
+        self.row_shard = RowShard()
         self.rng = np.random.default_rng(0)
 
         self.dataset = self._load_annotations()
@@ -154,33 +156,45 @@ class DatasetCO3D:
         if self.num_shards > 1:
             names = names[self.shard_index :: self.num_shards]
 
-        for seq_name in names:
-            frames = self.dataset[seq_name]
-            try:
-                view_indices = self.view_sampler.sample(seq_name, len(frames), self.rng)
-            except ValueError:
-                continue
-            for view_index in view_indices:
-                example = self._make_example(seq_name, frames, view_index.context, view_index.target)
-                if example is None:
+        # Each view draw whose frames pass the checks made without their
+        # images is a row (`shard_rows`; under a row shard a frame that fails
+        # to decode drops its row on its own rank alone).
+        def candidates():
+            for seq_name in names:
+                frames = self.dataset[seq_name]
+                try:
+                    view_indices = self.view_sampler.sample(seq_name, len(frames), self.rng)
+                except ValueError:
                     continue
-                if self.stage == "train" and self.cfg.augment:
-                    example = apply_augmentation_shim(example, self.rng)
-                yield apply_crop_shim(example, tuple(self.cfg.image_shape))
+                for view_index in view_indices:
+                    cameras = [self._check_views(frames, idx) for idx in (view_index.context, view_index.target)]
+                    if None not in cameras:
+                        yield partial(self._make_example, seq_name, frames, view_index.context, view_index.target,
+                                      cameras)
 
-    def _make_example(self, seq_name, frames, context_idx, target_idx):
-        def views(indices):
-            selected = [frames[int(i)] for i in indices]
-            for fr in selected:
-                h, w = fr["image"]["size"]
-                if h <= self.cfg.image_shape[0] or w <= self.cfg.image_shape[1]:
-                    return None
-            cams = [self._camera(fr) for fr in selected]
-            extrinsics = np.stack([c[0] for c in cams])
-            intrinsics = np.stack([c[1] for c in cams])
-            # Some sequences hold reflections (det(R) = -1).
-            if not np.allclose(np.linalg.det(extrinsics[:, :3, :3]), 1.0, atol=1e-4):
+        augment = self.stage == "train" and self.cfg.augment
+        for example in shard_rows(candidates(), self.row_shard, self.rng, augment):
+            yield apply_crop_shim(example, tuple(self.cfg.image_shape))
+
+    def _check_views(self, frames, indices):
+        """(extrinsics, intrinsics) of the frames at `indices`, or None when
+        one is too small or a camera is a reflection; reads no image."""
+        selected = [frames[int(i)] for i in indices]
+        for fr in selected:
+            h, w = fr["image"]["size"]
+            if h <= self.cfg.image_shape[0] or w <= self.cfg.image_shape[1]:
                 return None
+        cams = [self._camera(fr) for fr in selected]
+        extrinsics = np.stack([c[0] for c in cams])
+        intrinsics = np.stack([c[1] for c in cams])
+        # Some sequences hold reflections (det(R) = -1).
+        if not np.allclose(np.linalg.det(extrinsics[:, :3, :3]), 1.0, atol=1e-4):
+            return None
+        return extrinsics, intrinsics
+
+    def _make_example(self, seq_name, frames, context_idx, target_idx, cameras):
+        def views(indices, extrinsics, intrinsics):
+            selected = [frames[int(i)] for i in indices]
             images = []
             for fr in selected:
                 img = self._load_image(fr["image"]["path"])
@@ -203,8 +217,8 @@ class DatasetCO3D:
                 "index": np.asarray(indices, np.int32),
             }
 
-        context = views(context_idx)
-        target = views(target_idx)
+        context = views(context_idx, *cameras[0])
+        target = views(target_idx, *cameras[1])
         if context is None or target is None:
             return None
         return {"context": context, "target": target, "scene": seq_name}

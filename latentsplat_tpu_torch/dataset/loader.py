@@ -147,10 +147,13 @@ def _worker_loop(dataset, batch_size, drop_last, repeat, seed, worker_id, num_wo
 
 
 class MultiprocessLoader:
-    """N worker processes put collated batches on one queue. Batch order
-    across workers is not deterministic; within a worker it follows its
-    seeded shuffle. In the train stage every worker walks the whole dataset
-    with its own random stream; in the test stage the workers shard it.
+    """N worker processes, each putting collated batches on its own queue;
+    the consumer takes one batch from each live worker in turn, so the
+    order is set by the workers' seeds alone: worker w's batch j is batch
+    j * N + w (data-parallel ranks, whose workers walk the same streams,
+    take their rows of the same global batches). In the train stage every
+    worker walks the whole dataset with its own random stream; in the test
+    stage the workers shard it.
 
     Workers start from the forkserver context, so they never inherit the
     parent's CUDA context or threads; the dataset must pickle."""
@@ -169,44 +172,45 @@ class MultiprocessLoader:
         mp_context: str = "forkserver",
     ):
         ctx = mp.get_context(mp_context)
-        self._queue = ctx.Queue(maxsize=max(2, prefetch_per_worker * num_workers))
+        self._queues = [ctx.Queue(maxsize=max(1, prefetch_per_worker)) for _ in range(num_workers)]
         self._procs = [
             ctx.Process(
                 target=_worker_loop,
-                args=(dataset, batch_size, drop_last, repeat, seed, w, num_workers, self._queue, stage),
+                args=(dataset, batch_size, drop_last, repeat, seed, w, num_workers, self._queues[w], stage),
                 daemon=True,
             )
             for w in range(num_workers)
         ]
         for p in self._procs:
             p.start()
-        self._live = num_workers
+        self._turns = list(range(num_workers))   # the live workers, in turn
+        self._next = 0
 
     def __iter__(self):
         return self
 
     def __next__(self):
-        while self._live > 0:
+        while self._turns:
+            turn = self._next % len(self._turns)
+            w = self._turns[turn]
             try:
-                item = self._queue.get(timeout=5.0)
+                item = self._queues[w].get(timeout=5.0)
             except queue.Empty:
                 # A worker that died without its sentinel (a crash, an OOM
                 # kill) must not hang the consumer: a dead worker adds nothing
-                # beyond what is queued, so after one more drain the sentinels
-                # above the count of live workers are lost.
-                n_alive = sum(1 for p in self._procs if p.is_alive())
-                if self._live <= n_alive:
+                # beyond what is queued, so after one more drain it is done.
+                if self._procs[w].is_alive():
                     continue
                 try:
-                    item = self._queue.get(timeout=1.0)
+                    item = self._queues[w].get(timeout=1.0)
                 except queue.Empty:
-                    lost = self._live - n_alive
-                    self._live = n_alive
-                    warnings.warn(f"{lost} loader worker(s) died without a sentinel; continuing with the survivors")
-                    continue
+                    warnings.warn(f"loader worker {w} died without a sentinel; continuing with the survivors")
+                    item = None
             if item is None:
-                self._live -= 1
+                del self._turns[turn]   # the next worker in turn moves up to `turn`
+                self._next = turn
                 continue
+            self._next = turn + 1
             return item
         raise StopIteration
 

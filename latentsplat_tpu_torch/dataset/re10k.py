@@ -14,15 +14,15 @@ Frames are decoded by the port's C decoder (`dataset.jpeg`), not PIL.
 from __future__ import annotations
 
 import json
-from functools import cached_property
+from functools import cached_property, partial
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from .jpeg import decode_jpeg
-from .shims import apply_augmentation_shim, apply_crop_shim
-from .types import DatasetRE10kCfg, Stage
+from .shims import apply_crop_shim, shard_rows
+from .types import DatasetRE10kCfg, RowShard, Stage
 from .view_samplers import ViewSampler, ViewSamplerEvaluation
 
 NEAR = 0.1
@@ -68,6 +68,7 @@ class DatasetRE10k:
         self.rng = np.random.default_rng(seed)
         self.shard_index = shard_index
         self.num_shards = num_shards
+        self.row_shard = RowShard()
 
         self.chunks: list[Path] = []
         for root in cfg.roots:
@@ -88,18 +89,25 @@ class DatasetRE10k:
         if self.stage == "test" and self.num_shards > 1:
             chunks = [c for i, c in enumerate(chunks) if i % self.num_shards == self.shard_index]
 
-        for chunk_path in chunks:
-            chunk = self._load_chunk(chunk_path)
-            if self.cfg.overfit_to_scene is not None:
-                item = [x for x in chunk if x["key"] == self.cfg.overfit_to_scene]
-                assert len(item) == 1
-                chunk = item * len(chunk)
-            if self.stage in ("train", "val"):
-                self.rng.shuffle(chunk)
-            for example in chunk:
-                yield from self._process_example(example)
+        def candidates():
+            for chunk_path in chunks:
+                chunk = self._load_chunk(chunk_path)
+                if self.cfg.overfit_to_scene is not None:
+                    item = [x for x in chunk if x["key"] == self.cfg.overfit_to_scene]
+                    assert len(item) == 1
+                    chunk = item * len(chunk)
+                if self.stage in ("train", "val"):
+                    self.rng.shuffle(chunk)
+                for example in chunk:
+                    yield from self._candidates(example)
 
-    def _process_example(self, example):
+        augment = self.stage == "train" and self.cfg.augment
+        for sample in shard_rows(candidates(), self.row_shard, self.rng, augment):
+            yield apply_crop_shim(sample, tuple(self.cfg.image_shape))
+
+    def _candidates(self, example):
+        """A loader (`_load_sample`) of each of the example's view draws that
+        passes the checks made without its images: one row each."""
         extrinsics, intrinsics = convert_poses(np.asarray(example["cameras"], np.float32))
         scene = example["key"]
         if (_fov_deg(intrinsics) > self.cfg.max_fov).any():
@@ -112,12 +120,6 @@ class DatasetRE10k:
         for view_index in view_indices:
             ctx_idx = np.asarray(view_index.context)
             tgt_idx = np.asarray(view_index.target)
-            context_images = self._convert_images([example["images"][int(i)] for i in ctx_idx])
-            target_images = self._convert_images([example["images"][int(i)] for i in tgt_idx])
-            if context_images.shape[1:] != (360, 640, 3) or target_images.shape[1:] != (360, 640, 3):
-                print(f"Skipped bad example {scene}: shapes {context_images.shape} / {target_images.shape}.")
-                continue
-
             ext = extrinsics.copy()
             scale = 1.0
             if len(ctx_idx) == 2 and self.cfg.make_baseline_1:
@@ -127,23 +129,30 @@ class DatasetRE10k:
                     print(f"Skipped {scene}: insufficient baseline {scale:.6f}")
                     continue
                 ext[:, :3, 3] /= scale
+            yield partial(self._load_sample, example, ctx_idx, tgt_idx, ext, intrinsics, scale)
 
-            def views(indices, images):
-                n = len(indices)
-                return {
-                    "extrinsics": ext[indices],
-                    "intrinsics": intrinsics[indices],
-                    "image": images,
-                    "near": np.full((n,), NEAR / scale, np.float32),
-                    "far": np.full((n,), FAR / scale, np.float32),
-                    "index": indices.astype(np.int32),
-                }
+    def _load_sample(self, example, ctx_idx, tgt_idx, ext, intrinsics, scale):
+        """One view draw's sample with its frames decoded, or None where a
+        frame has another shape than 360 x 640."""
+        scene = example["key"]
+        context_images = self._convert_images([example["images"][int(i)] for i in ctx_idx])
+        target_images = self._convert_images([example["images"][int(i)] for i in tgt_idx])
+        if context_images.shape[1:] != (360, 640, 3) or target_images.shape[1:] != (360, 640, 3):
+            print(f"Skipped bad example {scene}: shapes {context_images.shape} / {target_images.shape}.")
+            return None
 
-            sample = {"context": views(ctx_idx, context_images), "target": views(tgt_idx, target_images),
-                      "scene": scene}
-            if self.stage == "train" and self.cfg.augment:
-                sample = apply_augmentation_shim(sample, self.rng)
-            yield apply_crop_shim(sample, tuple(self.cfg.image_shape))
+        def views(indices, images):
+            n = len(indices)
+            return {
+                "extrinsics": ext[indices],
+                "intrinsics": intrinsics[indices],
+                "image": images,
+                "near": np.full((n,), NEAR / scale, np.float32),
+                "far": np.full((n,), FAR / scale, np.float32),
+                "index": indices.astype(np.int32),
+            }
+
+        return {"context": views(ctx_idx, context_images), "target": views(tgt_idx, target_images), "scene": scene}
 
     @staticmethod
     def _convert_images(images) -> np.ndarray:

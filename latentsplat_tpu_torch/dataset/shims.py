@@ -12,6 +12,8 @@ level k, so both yield the same floats.
 
 from __future__ import annotations
 
+from typing import Callable, Iterable, Iterator, Optional
+
 import numpy as np
 import torch
 
@@ -22,19 +24,7 @@ def _rescale_image(image: np.ndarray, shape: tuple[int, int],
                    window: tuple[int, int, int, int] | None = None) -> np.ndarray:
     """uint8 (h, w, c) -> uint8 LANCZOS resize to `shape` (h, w); with
     `window` (row, col, h, w), only that part of the resized image."""
-    if image.dtype != np.uint8 or image.ndim != 3:
-        raise ValueError(f"_rescale_image takes uint8 (h, w, c) images, not {image.dtype} {image.shape}")
-    h, w = shape
-    row, col, win_h, win_w = window if window is not None else (0, 0, h, w)
-    image = np.ascontiguousarray(image)
-    out = np.empty((win_h, win_w, image.shape[2]), np.uint8)
-    rc = host_build.load_library().lanczos_resize(
-        image.ctypes.data, image.shape[0], image.shape[1], image.shape[2], out.ctypes.data, h, w,
-        row, col, win_h, win_w,
-    )
-    if rc != 0:
-        raise ValueError(f"lanczos_resize: {image.shape} -> {shape}, window {window}")
-    return out
+    return host_build.resample(image, shape, "lanczos", window)
 
 
 def rescale_and_crop(images: np.ndarray, intrinsics: np.ndarray, shape: tuple[int, int]):
@@ -76,15 +66,50 @@ def _reflect_views(views: dict) -> dict:
     }
 
 
-def apply_augmentation_shim(example: dict, rng: np.random.Generator) -> dict:
-    """A horizontal flip, with the extrinsics reflected, for half the examples."""
-    if rng.random() < 0.5:
-        return example
+def draw_flip(rng: np.random.Generator) -> bool:
+    """The augmentation shim's one draw: whether to flip."""
+    return rng.random() >= 0.5
+
+
+def flip_example(example: dict) -> dict:
+    """A horizontal flip, with the extrinsics reflected."""
     return {
         **example,
         "context": _reflect_views(example["context"]),
         "target": _reflect_views(example["target"]),
     }
+
+
+def shard_rows(candidates: Iterable[Callable[[], Optional[dict]]], row_shard,
+               rng: np.random.Generator, augment: bool) -> Iterator[dict]:
+    """One pass of a dataset's examples. `candidates` gives, for each row
+    of the one-process order, a callable that decodes it (None where it
+    cannot); with `augment` the augmentation shim flips each decoded
+    example on one draw of `rng`, for half the examples.
+
+    Under a data-parallel `row_shard` (`types.RowShard`) every rank draws
+    each row's flip before decoding (a row dropped after decoding would
+    otherwise shift the other ranks' draws), decodes only its own rows and
+    yields them a period (one global batch) at a time: a pass's last,
+    incomplete period is dropped, as the one-process loader drops its
+    partial last batch, so every rank starts each pass on a new global
+    batch."""
+    if row_shard.whole:
+        for load in candidates:
+            example = load()
+            if example is not None:
+                yield flip_example(example) if augment and draw_flip(rng) else example
+        return
+    rows = []
+    for position, load in enumerate(candidates):
+        flip = augment and draw_flip(rng)
+        if row_shard.keeps(position):
+            example = load()
+            if example is not None:
+                rows.append(flip_example(example) if flip else example)
+        if position % row_shard.period == row_shard.period - 1:
+            yield from rows
+            rows = []
 
 
 def apply_patch_shim(batch: dict, patch_size: int) -> dict:

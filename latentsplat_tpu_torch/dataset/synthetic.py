@@ -9,10 +9,12 @@ mounted RE10k or CO3D data.
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 
-from .shims import apply_augmentation_shim
-from .types import DatasetSyntheticCfg, Stage
+from .shims import shard_rows
+from .types import DatasetSyntheticCfg, RowShard, Stage
 from .view_samplers import ViewSampler
 
 
@@ -87,6 +89,7 @@ class DatasetSynthetic:
         self.rng = np.random.default_rng(cfg.seed + seed)
         self.shard_index = shard_index
         self.num_shards = num_shards
+        self.row_shard = RowShard()
 
     def _scene(self, scene_id: int):
         rng = np.random.default_rng(self.cfg.seed * 7919 + scene_id)
@@ -117,23 +120,22 @@ class DatasetSynthetic:
         if self.stage in ("train", "val"):
             self.rng.shuffle(scene_ids)
 
-        h, w = self.cfg.image_shape
-        for scene_id in scene_ids:
-            means, colors, radii, extrinsics, intrinsics = self._scene(scene_id)
-            n = extrinsics.shape[0]
-            scene = f"synthetic_{scene_id:04d}"
-            try:
-                view_indices = self.view_sampler.sample(scene, n, self.rng)
-            except ValueError:
-                continue
-            for view_index in view_indices:
-                sample = self._make_sample(
-                    scene, means, colors, radii, extrinsics, intrinsics,
-                    np.asarray(view_index.context), np.asarray(view_index.target), (h, w),
-                )
-                if self.stage == "train":
-                    sample = apply_augmentation_shim(sample, self.rng)
-                yield sample
+        def candidates():
+            for scene_id in scene_ids:
+                means, colors, radii, extrinsics, intrinsics = self._scene(scene_id)
+                n = extrinsics.shape[0]
+                scene = f"synthetic_{scene_id:04d}"
+                try:
+                    view_indices = self.view_sampler.sample(scene, n, self.rng)
+                except ValueError:
+                    continue
+                for view_index in view_indices:
+                    yield partial(
+                        self._make_sample, scene, means, colors, radii, extrinsics, intrinsics,
+                        np.asarray(view_index.context), np.asarray(view_index.target), tuple(self.cfg.image_shape),
+                    )
+
+        yield from shard_rows(candidates(), self.row_shard, self.rng, self.stage == "train")
 
     def _make_sample(self, scene, means, colors, radii, extrinsics, intrinsics, ctx_idx, tgt_idx, shape):
         def views(indices):

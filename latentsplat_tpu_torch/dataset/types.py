@@ -24,6 +24,27 @@ from .view_samplers import (
 
 Stage = Literal["train", "val", "test"]
 
+
+@dataclass(frozen=True)
+class RowShard:
+    """The rows of each global batch that one data-parallel rank reads: of
+    every `period` consecutive examples in the one-process order, those at
+    positions start .. stop - 1. A dataset with a row shard still makes
+    every example's random draws (view indices, flips), in order, but
+    decodes only its own rows, and drops a pass's last, incomplete period
+    (`shims.shard_rows`). The default keeps every row."""
+
+    start: int = 0
+    stop: int = 1
+    period: int = 1
+
+    @property
+    def whole(self) -> bool:
+        return self.period == 1
+
+    def keeps(self, position: int) -> bool:
+        return self.start <= position % self.period < self.stop
+
 ViewSamplerCfg = Union[
     ViewSamplerBoundedCfg,
     ViewSamplerArbitraryCfg,

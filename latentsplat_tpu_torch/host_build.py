@@ -1,5 +1,5 @@
 """Build and load the port's host C library (the JPEG decoder and the
-LANCZOS resampler of the data pipeline).
+LANCZOS and BILINEAR resampler of the data pipeline and the figures).
 
 Every `csrc_host/*.c` file is compiled with the host C compiler (`$CC`,
 else `cc`) into one shared library in `build/host/` at the repository
@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc_host"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "host"
 CFLAGS = ["-O2", "-fPIC", "-ffp-contract=off", "-std=c99", "-D_DEFAULT_SOURCE", "-shared"]
@@ -33,7 +35,7 @@ _S = ctypes.c_char_p
 _SIGNATURES = {
     "jpeg_header": ([_P, _L, _P, _P, _P, _S, _I], _I),
     "jpeg_decode": ([_P, _L, _P, _I, _I, _S, _I], _I),
-    "lanczos_resize": ([_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I], _I),
+    "resample": ([_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I], _I),
 }
 
 # The loaded library of this process: never an attribute of a dataset,
@@ -95,3 +97,27 @@ def load_library() -> ctypes.CDLL:
         fn.restype = restype
     _library = lib
     return lib
+
+
+# Pillow's numbers for the resampling filters that csrc_host/resample.c has.
+FILTERS = {"lanczos": 1, "bilinear": 2}
+
+
+def resample(image: np.ndarray, shape: tuple[int, int], filter: str,
+             window: tuple[int, int, int, int] | None = None) -> np.ndarray:
+    """uint8 (h, w, c) -> uint8 resize to `shape` (h, w) with Pillow's
+    LANCZOS or BILINEAR arithmetic; with `window` (row, col, h, w), only that
+    part of the resized image."""
+    if image.dtype != np.uint8 or image.ndim != 3:
+        raise ValueError(f"resample takes uint8 (h, w, c) images, not {image.dtype} {image.shape}")
+    h, w = shape
+    row, col, win_h, win_w = window if window is not None else (0, 0, h, w)
+    image = np.ascontiguousarray(image)
+    out = np.empty((win_h, win_w, image.shape[2]), np.uint8)
+    rc = load_library().resample(
+        image.ctypes.data, image.shape[0], image.shape[1], image.shape[2], out.ctypes.data, h, w,
+        row, col, win_h, win_w, FILTERS[filter],
+    )
+    if rc != 0:
+        raise ValueError(f"resample ({filter}): {image.shape} -> {shape}, window {window}")
+    return out

@@ -50,7 +50,8 @@ def encode_png(pixels: np.ndarray) -> bytes:
 
 
 def decode_png(data: bytes) -> np.ndarray:
-    """The bytes of a PNG file of the form `encode_png` writes -> uint8 (h, w, 3)."""
+    """The bytes of an 8-bit RGB PNG file without interlace (the form
+    `encode_png` writes, with any row filters) -> uint8 (h, w, 3)."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []
@@ -72,9 +73,44 @@ def decode_png(data: bytes) -> np.ndarray:
     if (depth, color, interlace) != (8, 2, 0):
         raise ValueError(f"only 8-bit RGB PNGs without interlace are read (depth {depth}, color type {color})")
     rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        raise ValueError("only PNG rows with filter type 0 are read")
-    return rows[:, 1:].reshape(h, w, 3).copy()
+    if not rows[:, 0].any():
+        return rows[:, 1:].reshape(h, w, 3).copy()
+    return _unfilter(rows, w)
+
+
+def _unfilter(rows: np.ndarray, w: int) -> np.ndarray:
+    """Undo PNG's per-row filters (None, Sub, Up, Average, Paeth) of 8-bit
+    RGB rows, as other writers (PIL) choose them."""
+    h = rows.shape[0]
+    out = np.zeros((h, w, 3), np.uint8)
+    prev = np.zeros((w, 3), np.int32)
+    for y in range(h):
+        kind, raw = rows[y, 0], rows[y, 1:].reshape(w, 3).astype(np.int32)
+        if kind == 0:
+            cur = raw
+        elif kind == 1:
+            cur = np.cumsum(raw, axis=0) % 256
+        elif kind == 2:
+            cur = (raw + prev) % 256
+        elif kind in (3, 4):
+            cur = np.zeros_like(raw)
+            left = np.zeros(3, np.int32)
+            up_left = np.zeros(3, np.int32)
+            for x in range(w):
+                up = prev[x]
+                if kind == 3:
+                    pred = (left + up) // 2
+                else:
+                    p = left + up - up_left
+                    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - up_left)
+                    pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, up_left))
+                cur[x] = (raw[x] + pred) % 256
+                left, up_left = cur[x], up
+        else:
+            raise ValueError(f"PNG row {y}: unknown filter type {kind}")
+        out[y] = cur
+        prev = cur
+    return out
 
 
 def save_image(image: np.ndarray, path: Union[Path, str]) -> None:

@@ -8,9 +8,9 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ...ops.distributions import DiagonalGaussian
+from .base import Autoencoder
 
 
 @dataclass
@@ -19,7 +19,7 @@ class AutoencoderIdCfg:
     skip_connections: bool = False
 
 
-class AutoencoderId(nn.Module):
+class AutoencoderId(Autoencoder):
     def __init__(self, cfg: AutoencoderIdCfg, d_in: int = 3):
         super().__init__()
         self.cfg = cfg

@@ -22,6 +22,7 @@ from torch import nn
 
 from ...ops.distributions import DiagonalGaussian
 from ..transformer import attention
+from .base import Autoencoder
 
 GROUP_NORM_EPS = 1e-6
 
@@ -177,7 +178,7 @@ class VaeDecoder(nn.Module):
         return self.conv_out(F.silu(self.conv_norm_out(h)))
 
 
-class AutoencoderKL(nn.Module):
+class AutoencoderKL(Autoencoder):
     def __init__(self, cfg: AutoencoderKLCfg, d_in: int = 3, d_skip_extra: int = 0):
         super().__init__()
         self.cfg = cfg
@@ -202,6 +203,9 @@ class AutoencoderKL(nn.Module):
     @property
     def expects_skip_extra(self) -> bool:
         return self.cfg.skip_extra
+
+    def last_layer(self) -> nn.Parameter:
+        return self.decoder.conv_out.weight
 
     def encode(self, images: torch.Tensor) -> DiagonalGaussian:
         """[0, 1] images (..., h, w, c) -> the latent posterior over

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...misc.fraction_utils import get_integer
 from ..transformer import LAYER_NORM_EPS, attention
 
 _VIT_SPECS = {
@@ -72,12 +73,6 @@ class BackboneEnsembleCfg:
 
 
 BackboneCfg = Union[SingleBackboneCfg, BackboneEnsembleCfg, List[SingleBackboneCfg]]
-
-
-def get_integer(value) -> int:
-    value = Fraction(value)
-    assert value.denominator == 1, f"{value} is not an integer"
-    return int(value)
 
 
 class MultiHeadDotProductAttention(nn.Module):

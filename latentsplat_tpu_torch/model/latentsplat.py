@@ -21,11 +21,11 @@ import torch
 from torch import nn
 
 from ..dataset.shims import apply_bounds_shim, apply_patch_shim
+from ..misc.fraction_utils import get_integer
 from ..ops.resize import resize_antialias
 from .autoencoder.identity import AutoencoderId
 from .autoencoder.kl import AutoencoderKL
 from .decoder.splatting import DecoderSplatting
-from .encoder.backbone import get_integer
 from .encoder.encoder_epipolar import EncoderEpipolar
 
 
@@ -73,11 +73,11 @@ class LatentSplat(nn.Module):
         return resize_antialias(x, LatentSplat.scaled_size(scale, x.shape[-3:-1]))
 
     def last_layer(self) -> nn.Parameter:
-        """The adaptive GAN weight's anchor: the VAE decoder's conv_out weight,
-        or the encoder's to_gaussians weight when the autoencoder has none."""
-        if isinstance(self.autoencoder, AutoencoderId):
-            return self.encoder.to_gaussians.weight
-        return self.autoencoder.decoder.conv_out.weight
+        """The adaptive GAN weight's anchor: the autoencoder's (the VAE
+        decoder's conv_out weight), or the encoder's to_gaussians weight when
+        the autoencoder has none."""
+        last = self.autoencoder.last_layer()
+        return self.encoder.to_gaussians.weight if last is None else last
 
     def depth_noise_shape(self, context: dict, features: Optional[torch.Tensor] = None) -> tuple[int, ...]:
         """Shape of the encoder's depth-sample uniforms, (b, v, rays,

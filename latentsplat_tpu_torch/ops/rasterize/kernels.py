@@ -11,8 +11,10 @@
 
 A wrapper given CPU tensors runs the `*_reference` version; given CUDA
 tensors it launches the kernel or raises. `launch_counts` counts kernel
-launches (not reference calls); `composite_forward_launches` splits the
-forward compositor's by channel count.
+launches (not reference calls); `launches_by_channels` splits the three
+compositing kernels' by the channel count they were launched for
+(`reduce_pairs`: its row's width less the 6 attributes), and
+`composite_forward_launches` is the forward compositor's part of it.
 """
 
 from __future__ import annotations
@@ -37,7 +39,16 @@ FOOTPRINT_DET_MIN = 1e-3
 launch_counts = {
     "duplicate_with_keys": 0, "composite_forward": 0, "composite_backward": 0, "reduce_pairs": 0,
 }
-composite_forward_launches: dict[int, int] = {}
+launches_by_channels: dict[str, dict[int, int]] = {
+    "composite_forward": {}, "composite_backward": {}, "reduce_pairs": {},
+}
+composite_forward_launches = launches_by_channels["composite_forward"]
+
+
+def _count(name: str, n_ch: int) -> None:
+    launch_counts[name] += 1
+    by_channels = launches_by_channels[name]
+    by_channels[n_ch] = by_channels.get(n_ch, 0) + 1
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -277,8 +288,7 @@ def composite_forward(
         _stream(),
     )
     check(rc, "composite_forward")
-    launch_counts["composite_forward"] += 1
-    composite_forward_launches[n_ch] = composite_forward_launches.get(n_ch, 0) + 1
+    _count("composite_forward", n_ch)
     return channels, transmittance, last
 
 
@@ -390,7 +400,7 @@ def composite_backward(
         g_channels.data_ptr(), g_t.data_ptr(), d_rows.data_ptr(), _stream(),
     )
     check(rc, "composite_backward")
-    launch_counts["composite_backward"] += 1
+    _count("composite_backward", n_ch)
     return d_rows
 
 
@@ -425,5 +435,5 @@ def reduce_pairs(
         offsets.shape[0], row, d_rows.data_ptr(), offsets.data_ptr(), out.data_ptr(), _stream(),
     )
     check(rc, "reduce_pairs")
-    launch_counts["reduce_pairs"] += 1
+    _count("reduce_pairs", row - 6)
     return out

@@ -18,7 +18,11 @@ generator=None, noise=None) -> (state, logs)`:
   * the generator update, then the discriminator's loss on the detached
     fakes and its update, gated on the generator's `ok`.
 The batch is the JAX layout (NHWC images, (b, v, ...) cameras) after the
-data shims, as the JAX step takes it. Randomness comes from `generator` or
+data shims, as the JAX step takes it. `reduce` makes the step's reductions
+over the global batch: the identity (`LocalReduce`) in one process, and
+collectives across the ranks of a data-parallel group
+(`parallel.mesh.RankReduce`): the probe gradients before the adaptive
+weight, the gradients, the losses the guards decide on, and the logs. Randomness comes from `generator` or
 from `noise` = {"depth", "gaussians", "latent", "context_latent",
 "target_latent"} (see `render_full`); the depth samples are drawn before
 the encoder runs, so a recomputation under remat sees the same ones.
@@ -105,6 +109,23 @@ def make_step_flags(losses: Dict[str, LossGroup], step: int) -> StepFlags:
         gen_gan=tuple(g for g in GAN_GROUPS if losses[g].is_generator_active(step)),
         disc=tuple(g for g in GAN_GROUPS if losses[g].is_discriminator_active(step)),
     )
+
+
+class LocalReduce:
+    """The train step's reductions over the global batch when this process
+    holds all of it: each is the identity."""
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch's value of a loss or gradient that is a mean
+        over this process's rows."""
+        return x
+
+    def mean_grads(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return grads
+
+    def logs(self, logs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The global batch's logs: means of means, maxima of `diag/max_*`."""
+        return logs
 
 
 @dataclass
@@ -518,11 +539,14 @@ def _grads(output: torch.Tensor, params: Dict[str, torch.Tensor], retain_graph: 
 def generator_grads(
     state: TrainState, losses: Dict[str, LossGroup], flags: StepFlags, batch: dict, step: int,
     generator: Optional[torch.Generator] = None, noise: Optional[dict] = None, timer=None,
+    reduce: Optional[LocalReduce] = None,
 ):
     """The generator's forward and backward: (gradients by parameter name,
     generator total, logs, fakes for the discriminator). Per GAN site, two
-    probe backwards to the last layer give the adaptive weight w; the
-    gradients are those of nll + sum(w * g)."""
+    probe backwards to the last layer give the adaptive weight w (from the
+    global batch's probes under `reduce`); the gradients and the total are
+    this process's, of nll + sum(w * g); the logs are the global batch's."""
+    reduce = reduce or LocalReduce()
     def stage(name):
         return timer(name) if timer is not None else nullcontext()
 
@@ -531,13 +555,14 @@ def generator_grads(
         nll, gan_nll, gan_g, logs, fakes = generator_forward(
             state, losses, flags, batch, step, generator, noise
         )
+        logs = reduce.logs(logs)
     with stage("generator_backward"):
         leaf = {"last": state.model.last_layer()}
         weights = []
         for nll_i, g_i in zip(gan_nll, gan_g):
             g_nll = _grads(nll_i, leaf, retain_graph=True)["last"]
             g_g = _grads(g_i, leaf, retain_graph=True)["last"]
-            weights.append(adaptive_gan_weight(g_nll, g_g))
+            weights.append(adaptive_gan_weight(reduce.mean(g_nll), reduce.mean(g_g)))
         gen_loss = nll + sum(w * g for w, g in zip(weights, gan_g))
         for name, w in zip(flags.gen_gan, weights):
             logs[f"{name}/adaptive_weight"] = w
@@ -566,11 +591,16 @@ def make_train_step(
     losses: Dict[str, LossGroup],
     skip_loss_spike_factor: Optional[float] = None,
     skip_loss_spike_patience: int = 10,
+    reduce: Optional[LocalReduce] = None,
 ):
     """Returns train_step(state, batch, step, generator=None, noise=None,
     timer=None) -> (state, logs); `timer(name)`, if given, is a context
     manager around the stages "generator_forward", "generator_backward",
-    "generator_update" and "discriminator"."""
+    "generator_update" and "discriminator". Under `reduce` the gradients
+    are averaged over the global batch before the norms and the update, and
+    the guards and the discriminator's gate read the global losses, so that
+    every rank takes the same branch."""
+    reduce = reduce or LocalReduce()
 
     def train_step(state: TrainState, batch: dict, step: int,
                    generator: Optional[torch.Generator] = None, noise: Optional[dict] = None,
@@ -580,8 +610,10 @@ def make_train_step(
 
         flags = make_step_flags(losses, step)
         grads, gen_loss, logs, fakes = generator_grads(
-            state, losses, flags, batch, step, generator, noise, timer
+            state, losses, flags, batch, step, generator, noise, timer, reduce
         )
+        grads = reduce.mean_grads(grads)
+        gen_loss = reduce.mean(gen_loss)
         logs["generator/total"] = gen_loss
         # Pre-clip gradient norms, overall and per top-level module.
         logs["grad_norm/generator"] = global_norm(grads.values())
@@ -615,12 +647,13 @@ def make_train_step(
         if flags.disc:
             with stage("discriminator"):
                 d_loss, d_logs = discriminator_loss(state, losses, flags, batch, step, fakes)
-                d_grads = _grads(d_loss, dict(state.discriminator.named_parameters()))
-                logs.update(d_logs)
-                logs["discriminator/total"] = d_loss.detach()
+                d_grads = reduce.mean_grads(_grads(d_loss, dict(state.discriminator.named_parameters())))
+                d_loss = reduce.mean(d_loss.detach())
+                logs.update(reduce.logs(d_logs))
+                logs["discriminator/total"] = d_loss
                 # Gated on the generator's ok too: when the generator's step
                 # is skipped the discriminator does not train on.
-                state.opt_disc.step(d_grads, torch.isfinite(d_loss.detach()) & ok)
+                state.opt_disc.step(d_grads, torch.isfinite(d_loss) & ok)
         return state, {k: torch.as_tensor(v).detach() for k, v in logs.items()}
 
     return train_step

@@ -15,6 +15,19 @@ Randomness comes from `torch.Generator`s seeded in the JAX trainer's roles:
 `seed` for the weights, `seed + 1` for training, `seed + 2` for validation,
 `seed + 3` for test, `seed + 4` for the videos. Batches arrive as numpy
 from the loader and move to the device here, on the calling thread.
+
+Data parallelism (`mesh`, one rank of `parallel.mesh`): the global batch
+is data_loader.train.batch_size x world_size examples in the one-process
+order, and each rank reads and decodes only its own contiguous rows
+(`RowShard`; a loader's workers are taken in turn, so every rank's batch
+k holds its rows of the same global batch); across hosts each host's datasets also take its scene shard
+(`shard_index`, `num_shards`), as in the JAX trainer. Every rank builds the
+same seeded state, which is broadcast from rank 0 after the init and a
+resume and checked equal. The step reduces over the global batch
+(`make_parallel_train_step`). Each rank draws its training noise from
+its own generator, seeded from `seed + 1` and its rank, so a run on N
+ranks is not draw for draw a run on one. Rank 0 alone logs, validates and
+writes checkpoints; the other ranks wait for it at a barrier.
 """
 
 from __future__ import annotations
@@ -30,6 +43,7 @@ from torch import nn
 
 from ..dataset import get_dataset
 from ..dataset.loader import make_loader
+from ..dataset.types import RowShard
 from ..dataset.view_samplers import get_view_sampler
 from ..evaluation.metrics import compute_psnr
 from ..loss.losses import LossGroup
@@ -38,6 +52,7 @@ from ..misc.benchmarker import Benchmarker
 from ..misc.image_io import save_image
 from ..model.discriminator.patch_gan import DiscriminatorPatchGan
 from ..model.latentsplat import LatentSplat, render_full
+from ..parallel.mesh import Mesh, make_parallel_train_step, replicate_state, single_mesh
 from ..visualization.annotation import add_label
 from ..visualization.camera_trajectory import generate_wobble, interpolate_extrinsics, interpolate_intrinsics
 from ..visualization.color_map import apply_depth_color_map
@@ -51,7 +66,7 @@ from .checkpointing import (
 )
 from .logger import get_logger
 from .optim import build_optimizers
-from .step import GROUP_NAMES, TrainState, make_train_step
+from .step import GROUP_NAMES, TrainState
 from .step_tracker import StepTracker
 
 
@@ -85,15 +100,13 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 
 class Trainer:
-    """`device` None means the card ("cuda"); tests pass "cpu"."""
+    """`device` None means the card ("cuda"); tests pass "cpu". `mesh`, a
+    rank of a data-parallel group, sets the device instead."""
 
-    def __init__(self, cfg, output_dir: Optional[Path] = None, device=None):
-        if cfg.trainer.num_devices is not None and cfg.trainer.num_devices > 1:
-            raise NotImplementedError(
-                "trainer.num_devices > 1 needs data-parallel training (DDP), not ported yet (ROADMAP queue 1 item 8)"
-            )
+    def __init__(self, cfg, output_dir: Optional[Path] = None, device=None, mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = torch.device("cuda" if device is None else device)
+        self.mesh = mesh if mesh is not None else single_mesh("cuda" if device is None else device)
+        self.device = self.mesh.device
         self.output_dir = Path(output_dir or cfg.output_dir)
         # The generator's weights come from `seed` on the CPU, so every
         # device starts from the same ones.
@@ -102,7 +115,7 @@ class Trainer:
             self.model = LatentSplat(cfg.model, tuple(cfg.dataset.background_color)).to(self.device)
         self.losses = {name: LossGroup(name, getattr(cfg.loss, name)) for name in GROUP_NAMES}
         self.step_tracker = StepTracker(cfg.train.step_offset)
-        self.logger = get_logger(cfg.wandb, self.output_dir / "local")
+        self.logger = get_logger(cfg.wandb, self.output_dir / "local") if self.mesh.is_main else None
         self.benchmarker = Benchmarker()
         self.checkpoint_dir = self.output_dir / "checkpoints"
         self.step = 0   # the port's TrainState has no step: the trainer keeps it
@@ -113,7 +126,14 @@ class Trainer:
             self.cfg.dataset.view_sampler, stage, self.cfg.dataset.overfit_to_scene is not None,
             self.cfg.dataset.cameras_are_circular, self.step_tracker,
         )
-        return get_dataset(self.cfg.dataset, stage, view_sampler)
+        dataset = get_dataset(self.cfg.dataset, stage, view_sampler)
+        mesh = self.mesh
+        if stage == "train" and mesh.world_size > 1:
+            if mesh.num_hosts > 1:
+                dataset.shard_index, dataset.num_shards = mesh.host, mesh.num_hosts
+            b = self.cfg.data_loader.train.batch_size
+            dataset.row_shard = RowShard(mesh.local_rank * b, (mesh.local_rank + 1) * b, mesh.local_world_size * b)
+        return dataset
 
     def _loader(self, stage: str, batch_size: int, repeat: bool) -> Iterator:
         lcfg = getattr(self.cfg.data_loader, stage)
@@ -154,7 +174,8 @@ class Trainer:
         disc = disc.to(self.device) if disc is not None else None
         lpips = lpips.to(self.device)
         self.opt_gen, self.opt_disc = build_optimizers(
-            self.model, disc, cfg.optimizer, cfg.data_loader.train.batch_size, freeze=cfg.freeze
+            self.model, disc, cfg.optimizer, cfg.data_loader.train.batch_size * self.mesh.world_size,
+            freeze=cfg.freeze,
         )
         state = TrainState(self.model, disc, lpips, self.opt_gen, self.opt_disc)
         if cfg.optimizer.generator.skip_loss_spike_factor is not None:
@@ -163,7 +184,7 @@ class Trainer:
 
         self.step = 0
         ckpt = cfg.checkpointing
-        if ckpt.load is not None:
+        if ckpt.load is not None and self.mesh.is_main:
             path = resolve_checkpoint_uri(ckpt.load)
             if ckpt.resume:
                 self.step = int(load_checkpoint(path, state, self.device)["step"])
@@ -171,7 +192,18 @@ class Trainer:
             else:
                 load_generator_weights(path, self.model)
                 print(f"loaded generator weights from {ckpt.load}")
+        if self.mesh.world_size > 1:
+            step = torch.tensor([self.step], device=self.device)
+            torch.distributed.broadcast(step, src=0, group=self.mesh.group)
+            self.step = int(step)
+            replicate_state(state, self.mesh)
         return state
+
+    def _on_main(self, fn, *args) -> None:
+        """`fn(*args)` on rank 0 while the other ranks wait."""
+        if self.mesh.is_main:
+            fn(*args)
+        self.mesh.barrier()
 
     # -- training ---------------------------------------------------------------
     def fit(self, max_steps: Optional[int] = None) -> TrainState:
@@ -185,8 +217,12 @@ class Trainer:
         batch = strip_batch(next(loader))
         state = self.init_state()
         g = cfg.optimizer.generator
-        train_step = make_train_step(self.losses, g.skip_loss_spike_factor, g.skip_loss_spike_patience)
-        generator = torch.Generator(self.device).manual_seed(cfg.seed + 1)
+        train_step = make_parallel_train_step(self.losses, self.mesh, g.skip_loss_spike_factor,
+                                              g.skip_loss_spike_patience)
+        seed = cfg.seed + 1
+        if self.mesh.world_size > 1:
+            seed = int(np.random.SeedSequence([seed, self.mesh.rank]).generate_state(1)[0])
+        generator = torch.Generator(self.device).manual_seed(seed)
 
         step = self.step
         log_every = cfg.trainer.log_every_n_steps
@@ -199,7 +235,7 @@ class Trainer:
             step += 1
             self.step = step
 
-            if step % log_every == 0 or step == 1:
+            if self.mesh.is_main and (step % log_every == 0 or step == 1):
                 host_logs = {k: float(v) for k, v in logs.items()}
                 dt = (time.perf_counter() - t_last) / (log_every if step > 1 else 1)
                 t_last = time.perf_counter()
@@ -209,12 +245,12 @@ class Trainer:
                 print(f"step {step}: generator/total={gen_total:.4f} ({host_logs['steps_per_sec']:.2f} it/s)")
 
             if cfg.trainer.val_check_interval and step % cfg.trainer.val_check_interval == 0:
-                self.validate(state, step)
+                self._on_main(self.validate, state, step)
 
             if cfg.checkpointing.every_n_train_steps and step % cfg.checkpointing.every_n_train_steps == 0:
-                save_checkpoint(state, self.checkpoint_dir, step)
+                self._on_main(save_checkpoint, state, self.checkpoint_dir, step)
 
-        save_checkpoint(state, self.checkpoint_dir, step)
+        self._on_main(save_checkpoint, state, self.checkpoint_dir, step)
         return state
 
     # -- forward passes for evaluation ------------------------------------------

@@ -1,6 +1,7 @@
 """Image composition on the host: overlay, cat, hcat, vcat, add_border
 (counterpart of latentsplat_tpu/visualization/layout.py) on numpy HWC
-float images in [0, 1]. `resize` waits for an image resampler without PIL.
+float images in [0, 1]. `resize` is PIL's BILINEAR through the port's C
+resampler (`csrc_host/resample.c`), with PIL's bits.
 """
 
 from __future__ import annotations
@@ -8,6 +9,8 @@ from __future__ import annotations
 from typing import Any, Generator, Iterable, Literal, Union
 
 import numpy as np
+
+from .. import host_build
 
 Alignment = Literal["start", "center", "end"]
 Axis = Literal["horizontal", "vertical"]
@@ -151,3 +154,26 @@ def add_border(
     ).astype(np.float32).copy()
     result[border : border + h, border : border + w] = image
     return result
+
+
+def resize(
+    image: np.ndarray,
+    shape: tuple[int, int] | None = None,
+    width: int | None = None,
+    height: int | None = None,
+) -> np.ndarray:
+    """Resize to `shape` (h, w), or to `width` or `height` keeping the aspect
+    ratio, as the JAX package does: clip to [0, 1], truncate to uint8, PIL's
+    BILINEAR, / 255."""
+    image = _sanitize_image(image)
+    h, w, c = image.shape
+    if (shape is not None) + (width is not None) + (height is not None) != 1:
+        raise ValueError("resize takes exactly one of shape, width and height")
+    if c != 3:
+        raise ValueError(f"resize takes RGB images, not {c} channels")
+    if width is not None:
+        shape = (int(h * width / w), width)
+    elif height is not None:
+        shape = (height, int(w * height / h))
+    pixels = (np.clip(image, 0, 1) * 255).astype(np.uint8)
+    return host_build.resample(pixels, tuple(shape), "bilinear").astype(np.float32) / 255.0

@@ -122,7 +122,11 @@ def test_port_imports_no_jax():
         "scripts.generate_gt_image_directory", "training.step", "training.pretrained", "scripts.convert_checkpoint",
         "scripts.render_uncertainty", "scripts.visualize_epipolar_lines", "model.ply_export",
         "model.encoder.visualization", "visualization.validation_in_3d", "visualization.drawing",
-        "visualization.colors",
+        "visualization.colors", "parallel", "parallel.mesh", "parallel.render", "paper", "paper.common",
+        "paper.table", "paper.generate_ablation_image_comparison", "paper.generate_benchmark_table",
+        "paper.generate_comparison_table", "paper.generate_feature_image", "paper.generate_image_comparison",
+        "paper.generate_teaser", "misc.profiler", "misc.fraction_utils", "model.autoencoder.base",
+        "model.encoder.alt_depth",
     )
     code = (
         "import sys\n"

@@ -26,8 +26,9 @@ from latentsplat_tpu_torch.config import load_config
 from latentsplat_tpu_torch.dataset import get_dataset
 from latentsplat_tpu_torch.dataset import view_samplers as vs
 from latentsplat_tpu_torch.dataset.loader import MultiprocessLoader, batch_iterator, collate, make_loader
-from latentsplat_tpu_torch.dataset.shims import apply_augmentation_shim
+from latentsplat_tpu_torch.dataset.shims import draw_flip, flip_example
 from latentsplat_tpu_torch.dataset.synthetic import DatasetSynthetic
+from latentsplat_tpu_torch.dataset.types import RowShard
 from latentsplat_tpu_torch.training.step_tracker import StepTracker
 from latentsplat_tpu_torch.training.trainer import Trainer, strip_batch, to_device
 
@@ -157,7 +158,8 @@ def test_synthetic_augmentation_flips():
     plain = DatasetSynthetic(cfg, "val", vs.get_view_sampler(cfg.view_sampler, "val", False, False, None))
     example = next(iter(plain))
     rng = np.random.default_rng(0)
-    flipped = next(out for out in (apply_augmentation_shim(example, rng) for _ in range(20)) if out is not example)
+    assert {draw_flip(rng) for _ in range(20)} == {False, True}
+    flipped = flip_example(example)
     np.testing.assert_array_equal(flipped["context"]["image"], example["context"]["image"][:, :, ::-1])
     reflect = np.diag([-1.0, 1.0, 1.0, 1.0]).astype(np.float32)
     np.testing.assert_array_equal(flipped["target"]["extrinsics"], reflect @ example["target"]["extrinsics"] @ reflect)
@@ -246,6 +248,30 @@ def test_dead_worker_does_not_hang():
     assert time.monotonic() - start < 60.0
     assert any("died without a sentinel" in str(w.message) for w in caught)
     loader.close()
+
+
+def test_multiprocess_loader_gives_ranks_rows_of_the_same_global_batches():
+    # The workers are taken in turn, so the order is set by their seeds
+    # alone: at each step two data-parallel ranks' loaders (2 workers each,
+    # 1 row a rank) give the two rows of the one-process loader's batch.
+    cfg, _ = tiny_dataset_cfgs()
+
+    def loader(row_shard, batch_size):
+        dataset = DatasetSynthetic(cfg, "train", vs.get_view_sampler(cfg.view_sampler, "train", False, False, None))
+        dataset.row_shard = row_shard
+        return MultiprocessLoader(dataset, batch_size, num_workers=2, repeat=True, seed=0, stage="train")
+
+    loaders = [loader(RowShard(), 2), loader(RowShard(0, 1, 2), 1), loader(RowShard(1, 2, 2), 1)]
+    try:
+        for _ in range(6):
+            whole, *rows = [next(it) for it in loaders]
+            for r, row in enumerate(rows):
+                for key in ("context", "target"):
+                    for name in ("image", "extrinsics", "index"):
+                        np.testing.assert_array_equal(row[key][name][0], whole[key][name][r])
+    finally:
+        for it in loaders:
+            it.close()
 
 
 def test_step_tracker_live_in_workers():

@@ -23,7 +23,7 @@ from latentsplat_tpu.training.trainer import Trainer as JaxTrainer
 from latentsplat_tpu.training.trainer import strip_batch as jax_strip_batch
 from latentsplat_tpu.visualization import layout as jax_layout
 from latentsplat_tpu_torch.config import load_config
-from latentsplat_tpu_torch.main import main
+from latentsplat_tpu_torch.main import main, num_ranks
 from latentsplat_tpu_torch.misc.benchmarker import Benchmarker
 from latentsplat_tpu_torch.misc.image_io import decode_png, load_image, prep_image, save_image
 from latentsplat_tpu_torch.training.checkpointing import (
@@ -293,8 +293,14 @@ def test_command_line_without_cuda_exits_with_a_message():
 
 
 def test_unported_options_name_their_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        Trainer(tiny_cfg(tmp_path, ["trainer.num_devices=2"]), tmp_path, device="cpu")
+    # trainer.num_devices > 1 trains data-parallel now (tests/test_torch_parallel.py);
+    # asking for more cards than are visible raises, naming both counts.
+    cfg = tiny_cfg(tmp_path, ["trainer.num_devices=9"])
+    visible = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"num_devices=9 asks for more cards than the {visible} visible"):
+        num_ranks(cfg, None)
+    assert num_ranks(cfg, "cpu") == 9
+    assert num_ranks(tiny_cfg(tmp_path, ["trainer.num_devices=null"]), "cpu") == 1
 
 
 
