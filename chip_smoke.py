@@ -76,9 +76,12 @@
    vae:off,lpips:off against the plain step on the same batch and noise
    (generator/total within 1e-6 relative, each gradient leaf within 1e-6
    of its largest value or 4x the plain step's own repeat difference; 8 + 8
-   forward launches a step); (s5) compute_dtype bfloat16 and
-   vae/lpips/disc:bfloat16 (generator/total within 5% of float32, float32
-   master parameters); (s6) the vit (dino_vitb8) backbone and an ensemble
+   forward launches a step), and the peak memory of each setting and of no
+   remat in one process, on one state, batch and noise, at the forward's
+   end, after each probe backward and in the final backward: `nothing`
+   must have the smallest peak and `dots` one at or below no remat's;
+   (s5) compute_dtype bfloat16 and vae/lpips/disc:bfloat16
+   (generator/total within 5% of float32, float32 master parameters); (s6) the vit (dino_vitb8) backbone and an ensemble
    of dino + resnet50. Prints step seconds, stage splits, peaks and
    launches of every run.
 10. Inspection phase (run between the data and switches phases): what a
@@ -117,12 +120,18 @@
    channels against their plain versions, and the narrow model's
    train-step gradients through the tiled kernels against those through
    the dense oracle.
+13. Convergence phase (last): scripts.convergence, the flagship at full
+   width overfitting one synthetic scene (2 context + 4 target views at
+   128x128, seed 0) with the whole VAE-GAN objective and sh_l2 at 0.01 for
+   150 steps, cuDNN's TF32 on as in `main`: every logged loss finite, the
+   render PSNR of steps 140-149 at least 8 dB above steps 0-9, each kernel
+   launched 4 times a step; prints the PSNR curve at every 10th step.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (device ms, plain ms, the bound and its share, the library call's
 ms, launches on the main path, in the trainer phase, in each run of the
-data phase, in each step of the inspection phase and in each rank's step of
-the parallel phase; duplicate_with_keys
+data phase, in each step of the inspection phase, in each rank's step of
+the parallel phase and over the convergence phase; duplicate_with_keys
 also its wrapper's ms; composite_forward once at the flagship's 8 channels,
 once at render_depth's 4 and once at variational=latents' 12, and
 composite_backward and reduce_pairs also at 12 channels), and last
@@ -1701,6 +1710,16 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
     return out
 
 
+def launches_at(launches: dict, entry: dict) -> int:
+    """A kernel row's launches in `launches` (read_launches' dict), the
+    compositing kernels' read at the row's channel count (the kernel and
+    backward phases' rows are the flagship's 8 channels)."""
+    name = entry["name"]
+    if name == "duplicate_with_keys":
+        return launches[name]
+    return launches["by_channels"][name].get(entry.get("channels", entry.get("row", 14) - 6), 0)
+
+
 def reset_launches() -> None:
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
@@ -2249,8 +2268,10 @@ def switch_remat_bf16(seed: int, device, size: int = 256) -> None:
     plain step, and (s5) bfloat16 compute against float32, on one flagship
     state, one batch of 2 scenes and the same noise tensors."""
     from latentsplat_tpu_torch.config import load_config
+    from latentsplat_tpu_torch.training import step as step_module
     from latentsplat_tpu_torch.training.step import generator_grads, make_step_flags
 
+    grads = step_module._grads
     cfg = load_config("re10k")
     state, losses, train_step = switch_state(cfg, seed, device)
     model = state.model
@@ -2259,17 +2280,46 @@ def switch_remat_bf16(seed: int, device, size: int = 256) -> None:
     noise = flagship_noise(model, batch, seed + 5)
     flags = make_step_flags(losses, TRAIN_STEP)
 
+    stages: dict[str, dict[str, tuple[float, float]]] = {}
+
     def grads_of(label: str):
+        """generator_grads on the state, batch and noise; keeps under
+        stages[label] each stage's (peak, held at its end) in GiB: the
+        forward, each probe backward, the final backward."""
+        marks = stages[label] = {}
+
+        def mark(name):
+            torch.cuda.synchronize()
+            marks[name] = (torch.cuda.max_memory_allocated() / 2**30, torch.cuda.memory_allocated() / 2**30)
+            torch.cuda.reset_peak_memory_stats()
+
+        @contextmanager
+        def timer(name):
+            yield
+            if name == "generator_forward":
+                mark("forward")
+
+        def staged_grads(output, params, retain_graph=False):
+            out = grads(output, params, retain_graph)
+            mark(f"probe {sum(k.startswith('probe') for k in marks) + 1}" if retain_graph else "final backward")
+            return out
+
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         start = time.perf_counter()
-        grads, total, _, _ = generator_grads(state, losses, flags, batch, TRAIN_STEP, noise=noise)
+        step_module._grads = staged_grads
+        try:
+            out, total, _, _ = generator_grads(state, losses, flags, batch, TRAIN_STEP, noise=noise, timer=timer)
+        finally:
+            step_module._grads = grads
         torch.cuda.synchronize()
-        seconds, peak, launches = time.perf_counter() - start, torch.cuda.max_memory_allocated(), read_launches()
+        seconds, launches = time.perf_counter() - start, read_launches()
+        peak = max(p for p, _ in marks.values())
         print(f"switches {label}: generator/total {float(total)!r}, forward + backward {seconds:.4f} s, "
-              f"peak {peak / 2**30:.3f} GiB, launches {launches}")
-        return grads, float(total), launches
+              f"peak {peak:.3f} GiB, launches {launches}; GiB (peak, held after) "
+              + ", ".join(f"{k} ({p:.3f}, {h:.3f})" for k, (p, h) in marks.items()))
+        return out, float(total), launches
 
     # The comparisons run with cuDNN's deterministic algorithms, so that the
     # plain step repeats itself as closely as the card allows.
@@ -2285,30 +2335,31 @@ def switch_remat_bf16(seed: int, device, size: int = 256) -> None:
     model.decoder.cfg.remat = True
     for policy in ("nothing", "dots", "vae:off,lpips:off"):
         mcfg.remat_policy = policy
-        grads, total, launches = grads_of(f"(s4) remat {policy}")
-        err, leaf = leaf_errors(grads, plain)
+        out, total, launches = grads_of(f"(s4) remat {policy}")
+        err, leaf = leaf_errors(out, plain)
         print(f"switches (s4) remat {policy}: generator/total equal to plain {total == plain_total} "
               f"({abs(total - plain_total) / abs(plain_total):.3e} relative); largest leaf difference {err:.3e} "
-              f"of its largest value ({leaf}); bit-identical {all(torch.equal(grads[n], plain[n]) for n in plain)}")
+              f"of its largest value ({leaf}); bit-identical {all(torch.equal(out[n], plain[n]) for n in plain)}")
         if abs(total - plain_total) > 1e-6 * abs(plain_total) or err > max(1e-6, 4 * floor_err):
             raise AssertionError(f"(s4) remat {policy} differs from the plain step")
         if launches["composite_forward"] != 16 or launches["duplicate_with_keys"] != 16:
             raise AssertionError(f"(s4) remat {policy}: {launches['composite_forward']} forward launches, not 8 + 8")
-        del grads
+        del out
     mcfg.remat, mcfg.remat_policy = False, "nothing"
     model.decoder.cfg.remat = False
     torch.backends.cudnn.deterministic = False
+    remat_peaks(stages, card())
 
     for dtype in ("bfloat16", "vae:bfloat16,lpips:bfloat16,disc:bfloat16"):
         mcfg.compute_dtype = dtype
-        grads, total, _ = grads_of(f"(s5) compute_dtype={dtype}")
+        out, total, _ = grads_of(f"(s5) compute_dtype={dtype}")
         rel = abs(total - plain_total) / abs(plain_total)
-        err, leaf = leaf_errors(grads, plain)
+        err, leaf = leaf_errors(out, plain)
         print(f"switches (s5) {dtype}: generator/total {total:.6g} vs float32 {plain_total:.6g}, {rel:.3e} relative "
               f"(tolerance 0.05); largest leaf difference {err:.3e} of its largest value ({leaf})")
         if not rel <= 0.05:
             raise AssertionError(f"(s5) {dtype}: generator/total {rel:.3e} relative from float32")
-        del grads
+        del out
     del plain
     for dtype in ("float32", "bfloat16", "vae:bfloat16,lpips:bfloat16,disc:bfloat16"):
         mcfg.compute_dtype = dtype
@@ -2326,6 +2377,32 @@ def switch_remat_bf16(seed: int, device, size: int = 256) -> None:
         state, _, seconds, peak, _ = timed_steps(f"switches (s4) remat {policy} train", state, train_step, batch,
                                                  seed + 3, 2)
         print(f"switches (s4) remat {policy}: step {seconds[-1]:.4f} s, peak {peak / 2**30:.3f} GiB")
+
+
+def remat_peaks(stages: dict, device_name: str) -> dict:
+    """(s4)'s peaks of generator_grads in one process on one state, batch
+    and noise: no remat, then each policy. Prints each setting's peak, the
+    stage that sets it and what the probes leave held; asserts that
+    `nothing` has the smallest peak and `dots` one at or below no remat's.
+    Returns {setting: peak GiB}."""
+    settings = {"none": "(s4) plain", "nothing": "(s4) remat nothing", "dots": "(s4) remat dots",
+                "vae:off,lpips:off": "(s4) remat vae:off,lpips:off"}
+    peaks = {}
+    for setting, label in settings.items():
+        marks = stages[label]
+        peak, stage = max((p, k) for k, (p, _) in marks.items())
+        probes = [k for k in marks if k.startswith("probe")]
+        kept = marks[probes[-1]][1] - marks["forward"][1] if probes else 0.0
+        peaks[setting] = peak
+        print(f"switches (s4) remat peak, {setting}: {peak:.3f} GiB in the {stage} (forward {marks['forward'][0]:.3f}, "
+              f"final backward {marks['final backward'][0]:.3f}); the probes leave {kept:.3f} GiB held; "
+              f"{device_name}")
+    print("switches (s4) remat peaks (GiB, one process): " + json.dumps({k: round(v, 4) for k, v in peaks.items()}))
+    if peaks["nothing"] > min(peaks.values()):
+        raise AssertionError(f"(s4) remat nothing is not the smallest peak: {peaks}")
+    if peaks["dots"] > peaks["none"]:
+        raise AssertionError(f"(s4) remat dots peaks above no remat: {peaks}")
+    return peaks
 
 
 def switch_backbones(seed: int, device, size: int = 256) -> None:
@@ -3022,6 +3099,56 @@ def parallel_phase(seed: int, device, trainer_output: Path) -> dict:
     return record
 
 
+# -- the convergence phase -------------------------------------------------------
+
+CONVERGENCE_STEPS = 150
+CONVERGENCE_GAIN_DB = 8.0
+
+
+def convergence_phase(seed: int, device) -> dict:
+    """The port's convergence run (scripts.convergence) for CONVERGENCE_STEPS
+    steps at 128x128 with sh_l2 at 0.01: every logged loss finite, the
+    render PSNR of the last 10 steps at least CONVERGENCE_GAIN_DB above the
+    first 10, and each kernel launched 4 times a step (1 scene x 4 target
+    views, no remat at 128x128). The run takes PyTorch's TF32 default for cuDNN
+    (on), as `main` does; the other phases turn it off. Prints the PSNR
+    curve at every 10th step; returns the launches over the run."""
+    from latentsplat_tpu_torch.scripts import convergence
+
+    size, steps = 128, CONVERGENCE_STEPS
+    start = time.perf_counter()
+    reset_launches()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        record = convergence.run(size, steps, seed, 0.01, device)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    launches = read_launches()
+    curves = record["curves"]
+    render, combined = curves["train/target_render/psnr"], curves["train/target_combined/psnr"]
+    print(f"convergence phase on {card()}: {steps} steps at {size}x{size}, seed {seed}, sh_l2 0.01, "
+          f"TF32 {record['tf32']}, {time.perf_counter() - start:.1f} s in all, median step "
+          f"{record['seconds_per_step_median']:.4f} s, first {record['first_step_seconds']:.2f} s; launches {launches}")
+    print("convergence phase PSNR (step: render, combined): "
+          + ", ".join(f"{i}: {render[i]:.3f}, {combined[i]:.3f}" for i in range(0, steps, 10)))
+    print(f"convergence phase: max|SH| largest {record['max_abs_color_sh_largest']:.5g}, final "
+          f"{record['max_abs_color_sh_final']:.5g}; adaptive weight last "
+          f"{curves['target_combined/adaptive_weight'][-1]:.5g}")
+    bad = sorted(k for k, values in curves.items() if any(v is None or not math.isfinite(v) for v in values))
+    if bad:
+        raise AssertionError(f"convergence phase: non-finite logs {bad}")
+    gain = statistics.fmean(render[-10:]) - statistics.fmean(render[:10])
+    print(f"convergence phase: render PSNR of steps {steps - 10}-{steps - 1} is {gain:.3f} dB above steps 0-9 "
+          f"(gate {CONVERGENCE_GAIN_DB} dB)")
+    if not gain >= CONVERGENCE_GAIN_DB:
+        raise AssertionError(f"convergence phase: render PSNR gained {gain:.3f} dB, under {CONVERGENCE_GAIN_DB}")
+    wrong = {k: launches[k] for k in ALL_KERNELS if launches[k] != 4 * steps}
+    if wrong:
+        raise AssertionError(f"convergence phase: launches {wrong}, not {4 * steps} each")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3086,18 +3213,16 @@ def main() -> int:
     parallel = parallel_phase(args.seed, device, trainer_output)
     shutil.rmtree(trainer_output)
     # The parallel phase's launches: rank 0's in one data-parallel step (1
-    # scene of 4 target views), the compositing kernels' read at each row's
-    # channel count (the kernel and backward phases' rows are the flagship's
-    # 8 channels).
-    launches = parallel["launches_per_rank_step"]
+    # scene of 4 target views).
     for entry in results:
-        name = entry["name"]
-        entry["parallel_launches_per_rank_step"] = (
-            launches[name] if name == "duplicate_with_keys"
-            else launches["by_channels"][name].get(entry.get("channels", entry.get("row", 14) - 6), 0))
+        entry["parallel_launches_per_rank_step"] = launches_at(parallel["launches_per_rank_step"], entry)
     small_input_check(args.seed, device)
     small_depth_backward_check(args.seed, device)
     small_gradient_check(args.seed, device)
+    torch.cuda.empty_cache()
+    convergence_launches = convergence_phase(args.seed, device)
+    for entry in results:
+        entry["convergence_launches"] = launches_at(convergence_launches, entry)
 
     print(f"data phase summary on {card()}: " + json.dumps({k: v for k, v in data.items() if k != "launches"}))
     print(f"inspection phase summary on {card()}: "

@@ -161,6 +161,10 @@ class VaeDecoder(nn.Module):
         self.conv_out = nn.Conv2d(prev, d_out, 3, padding=1)
 
     def forward(self, z: torch.Tensor, skip_z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.conv_out(self.hidden(z, skip_z))
+
+    def hidden(self, z: torch.Tensor, skip_z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Everything but conv_out: its NCHW input."""
         cfg = self.cfg
         n_blocks = len(cfg.block_out_channels)
         h = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(self.conv_in(z))))
@@ -175,7 +179,7 @@ class VaeDecoder(nn.Module):
                 h = getattr(self, f"up_{i}_resnet_{j}")(h)
             if i < n_blocks - 1:
                 h = getattr(self, f"up_{i}_upsample")(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return F.silu(self.conv_norm_out(h))
 
 
 class AutoencoderKL(Autoencoder):
@@ -219,11 +223,18 @@ class AutoencoderKL(Autoencoder):
 
     def decode(self, z: torch.Tensor, skip_z: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Latents (..., h', w', z) [+ skip (..., H, W, d_skip)] -> [0, 1] images."""
-        batch_dims = z.shape[:-3]
+        return self.decode_out(self.decode_hidden(z, skip_z), z.shape[:-3])
+
+    def decode_hidden(self, z: torch.Tensor, skip_z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The decode up to its last layer: the NCHW input of conv_out."""
         z_flat = z.reshape(-1, *z.shape[-3:]).permute(0, 3, 1, 2)
         skip_flat = None
         if skip_z is not None:
             skip_flat = skip_z.reshape(-1, *skip_z.shape[-3:]).permute(0, 3, 1, 2)
-        y = self.decoder(self.post_quant_conv(z_flat), skip_flat)
-        y = ((y + 1.0) / 2.0).permute(0, 2, 3, 1)
+        return self.decoder.hidden(self.post_quant_conv(z_flat), skip_flat)
+
+    def decode_out(self, hidden: torch.Tensor, batch_dims: tuple) -> torch.Tensor:
+        """The decode's last layer (`last_layer()`) on `decode_hidden`'s
+        output, as images (*batch_dims, H, W, c)."""
+        y = ((self.decoder.conv_out(hidden) + 1.0) / 2.0).permute(0, 2, 3, 1)
         return y.reshape(*batch_dims, *y.shape[1:])

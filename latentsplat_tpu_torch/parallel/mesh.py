@@ -27,10 +27,13 @@ that start equal stay equal. `make_mesh` joins the process group;
 
 from __future__ import annotations
 
+import json
 import os
+import re
 import socket
 import tempfile
 import time
+import traceback
 from dataclasses import dataclass
 from datetime import timedelta
 from pathlib import Path
@@ -356,11 +359,60 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+_COLLECTIVE_MESSAGES = re.compile(r"Connection (reset|closed) by peer|Read error")
+_JOIN_GRACE_S = 2.0   # how long a failed run waits for the other ranks' error files
+
+
+def _is_collective_error(exc: BaseException) -> bool:
+    """True when `exc` was raised inside a torch.distributed call or a
+    `Mesh` method, or is gloo's message for a peer that went away: the
+    error a rank sees when another rank fails, not a cause of its own."""
+    if isinstance(exc, RuntimeError) and _COLLECTIVE_MESSAGES.search(str(exc)):
+        return True
+    mesh_methods = {f.__code__ for f in vars(Mesh).values() if callable(f) and hasattr(f, "__code__")}
+    distributed = os.path.dirname(dist.__file__) + os.sep
+    return any(
+        frame.f_code in mesh_methods or frame.f_code.co_filename.startswith(distributed)
+        for frame, _ in traceback.walk_tb(exc.__traceback__)
+    )
+
+
+def _write_rank_error(out_dir, rank: int, exc: BaseException) -> None:
+    """rank_{rank}.err: the rank's formatted traceback, the time.monotonic()
+    at which it raised and whether it came from a collective (written whole,
+    then renamed, so that a reader never sees a part of it)."""
+    record = {
+        "rank": rank, "time": time.monotonic(), "collective": _is_collective_error(exc),
+        "traceback": "".join(traceback.format_exception(exc)),
+    }
+    path = Path(out_dir) / f"rank_{rank}.err"
+    path.with_suffix(".tmp").write_text(json.dumps(record))
+    path.with_suffix(".tmp").replace(path)
+
+
+def read_rank_errors(out_dir) -> List[dict]:
+    """The rank_*.err records in `out_dir`, earliest first."""
+    records = [json.loads(p.read_text()) for p in Path(out_dir).glob("rank_*.err")]
+    return sorted(records, key=lambda r: r["time"])
+
+
+def first_cause(records: List[dict]) -> Optional[dict]:
+    """The error a failed run reports: the earliest that is not a collective
+    error (a rank's own cause), else the earliest of all; None without any."""
+    own = [r for r in records if not r["collective"]]
+    return min(own or records, key=lambda r: r["time"], default=None)
+
+
 def _rank_entry(rank, fn, devices, backend, init_method, args, out_dir, timeout):
     mesh = make_mesh(devices, rank, backend, init_method, timeout)
     try:
         result = fn(mesh, *args)
         torch.save(result, Path(out_dir) / f"rank_{rank}.pt")
+    except Exception as exc:
+        # Written before the group is destroyed below, which is what fails
+        # the other ranks' collectives.
+        _write_rank_error(out_dir, rank, exc)
+        raise
     finally:
         destroy_mesh(mesh)
 
@@ -378,7 +430,10 @@ def spawn(
     result (saved with torch.save). A rank that raises or dies fails the
     run, and the others are stopped; so does a run that outlasts
     `join_timeout` seconds, and a collective that waits longer than
-    `timeout` raises in its rank. `fn` must be importable by name."""
+    `timeout` raises in its rank. A failed run raises a
+    ProcessRaisedException with the traceback of its cause (`first_cause`):
+    the rank whose own code raised, not a rank whose collective lost its
+    peer. `fn` must be importable by name."""
     devices = [torch.device(d) for d in devices]
     check_devices(devices, backend)
     init_method = f"tcp://localhost:{free_port()}"
@@ -389,9 +444,17 @@ def spawn(
         )
         deadline = None if join_timeout is None else time.monotonic() + join_timeout
         try:
-            while not context.join(timeout=1.0):
+            while not context.join(timeout=1.0, grace_period=_JOIN_GRACE_S):
                 if deadline is not None and time.monotonic() > deadline:
                     raise TimeoutError(f"{len(devices)} ranks did not finish within {join_timeout} s")
+        except (torch_mp.ProcessRaisedException, torch_mp.ProcessExitedException) as exc:
+            cause = first_cause(read_rank_errors(out_dir))
+            if cause is None or (cause["collective"] and isinstance(exc, torch_mp.ProcessExitedException)):
+                raise   # no rank raised, or one died without raising and the others lost it
+            raise torch_mp.ProcessRaisedException(
+                f"\n\n-- Process {cause['rank']:d} terminated with the following error:\n{cause['traceback']}",
+                cause["rank"], context.processes[cause["rank"]].pid,
+            ) from None
         finally:
             for process in context.processes:
                 if process.is_alive():

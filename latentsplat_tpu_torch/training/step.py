@@ -27,8 +27,11 @@ from `noise` = {"depth", "gaussians", "latent", "context_latent",
 "target_latent"} (see `render_full`); the depth samples are drawn before
 the encoder runs, so a recomputation under remat sees the same ones.
 
-`model.remat` checkpoints the encoder, the target_combined VAE decode and
-LPIPS (`torch.utils.checkpoint`, non-reentrant) under `model.remat_policy`:
+`model.remat` checkpoints the encoder, the target_combined VAE decode up to
+its last layer (the adaptive weight's anchor, so that the probes never
+recompute the decoder and leave no recomputed activation to the final
+backward) and LPIPS (`torch.utils.checkpoint`, non-reentrant) under
+`model.remat_policy`:
 "nothing" (recompute everything), "dots" (keep the outputs of
 convolutions, matmuls and attention, recompute the rest) or per site
 "encoder:full|dots|off,vae:...,lpips:...". `decoder.remat` checkpoints each
@@ -351,6 +354,7 @@ def make_sites(state: TrainState) -> Sites:
         return model.encoder(context, step, deterministic=False, depth_noise=depth_noise, features=features)
 
     ae_encode, ae_decode = ae.encode, ae.decode
+    ae_hidden, ae_out = ae.decode_hidden, ae.decode_out
     lpips = state.lpips
     disc = functools.partial(discriminate, state.discriminator) if state.discriminator is not None else None
     if mixed_site(cfg, "encoder"):
@@ -365,6 +369,7 @@ def make_sites(state: TrainState) -> Sites:
             return encoder_bf16(context, step, deterministic=False, depth_noise=depth_noise, features=features)
     if mixed_site(cfg, "vae"):
         ae_encode, ae_decode = _bf16(ae, "encode"), _bf16(ae, "decode")
+        ae_hidden, ae_out = _bf16(ae, "decode_hidden"), _bf16(ae, "decode_out")
     if mixed_site(cfg, "lpips"):
         lpips = _bf16(state.lpips)
     if disc is not None and mixed_site(cfg, "disc"):
@@ -375,8 +380,15 @@ def make_sites(state: TrainState) -> Sites:
     ae_decode_remat = ae_decode
     if cfg.remat:
         encode = _remat(encode, cfg, "encoder")
-        ae_decode_remat = _remat(ae_decode, cfg, "vae")
         lpips = _remat(lpips, cfg, "lpips")
+        if remat_mode(cfg, "vae") != "off":
+            # The checkpoint ends before the last layer, the adaptive
+            # weight's anchor: the probes' backwards stop at that layer and
+            # never recompute the decoder.
+            hidden = _remat(ae_hidden, cfg, "vae")
+
+            def ae_decode_remat(z, skip_z):
+                return ae_out(hidden(z, skip_z), z.shape[:-3])
     return Sites(encode, ae_encode, ae_decode, ae_decode_remat, disc, lpips)
 
 

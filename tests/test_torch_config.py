@@ -126,7 +126,7 @@ def test_port_imports_no_jax():
         "paper.table", "paper.generate_ablation_image_comparison", "paper.generate_benchmark_table",
         "paper.generate_comparison_table", "paper.generate_feature_image", "paper.generate_image_comparison",
         "paper.generate_teaser", "misc.profiler", "misc.fraction_utils", "model.autoencoder.base",
-        "model.encoder.alt_depth",
+        "model.encoder.alt_depth", "scripts.convergence",
     )
     code = (
         "import sys\n"

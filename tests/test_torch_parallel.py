@@ -56,7 +56,9 @@ from latentsplat_tpu_torch.misc.image_io import load_image, prep_image
 from latentsplat_tpu_torch.model.discriminator.patch_gan import DiscriminatorPatchGan
 from latentsplat_tpu_torch.ops.rasterize.api import render
 from latentsplat_tpu_torch.parallel import batch_sharding, make_view_parallel_render, shard_batch, spawn
-from latentsplat_tpu_torch.parallel.mesh import Mesh, check_devices, free_port
+from latentsplat_tpu_torch.parallel.mesh import (
+    Mesh, _is_collective_error, check_devices, first_cause, free_port, read_rank_errors,
+)
 from latentsplat_tpu_torch.training import step as tstep
 from latentsplat_tpu_torch.training.checkpointing import load_checkpoint
 from latentsplat_tpu_torch.training.trainer import Trainer, strip_batch, to_device
@@ -502,10 +504,44 @@ def test_nccl_refuses_two_ranks_on_one_card_and_the_cpu():
 
 
 def test_a_failed_rank_fails_the_run():
-    # The run fails with rank 1's error, or with rank 0's lost connection to it.
-    with pytest.raises(torch_mp.ProcessRaisedException, match="rank 1 failed on purpose|Connection closed by peer"):
+    # The run fails with rank 1's own error, never rank 0's lost connection to it.
+    with pytest.raises(torch_mp.ProcessRaisedException, match="rank 1 failed on purpose"):
         with one_thread_ranks():
             spawn(ranks.rank_fails, CPU2, "gloo", join_timeout=JOIN_S)
+
+
+def write_err(root, rank: int, at: float, collective: bool, message: str) -> None:
+    (root / f"rank_{rank}.err").write_text(json.dumps(
+        {"rank": rank, "time": at, "collective": collective, "traceback": message}))
+
+
+def test_a_failed_run_reports_the_rank_that_caused_it(tmp_path):
+    # Rank 0's collective lost its peer first; rank 1's own error came later.
+    write_err(tmp_path, 0, 10.0, True, "RuntimeError: [gloo] Read error: Connection reset by peer")
+    write_err(tmp_path, 1, 10.5, False, "RuntimeError: rank 1 failed on purpose")
+    records = read_rank_errors(tmp_path)
+    assert [r["rank"] for r in records] == [0, 1]
+    assert first_cause(records)["traceback"] == "RuntimeError: rank 1 failed on purpose"
+    # Only collective errors: the earliest.
+    (tmp_path / "rank_1.err").unlink()
+    write_err(tmp_path, 2, 9.0, True, "RuntimeError: Connection closed by peer")
+    assert first_cause(read_rank_errors(tmp_path))["rank"] == 2
+    assert first_cause([]) is None
+
+
+def test_collective_errors_are_told_from_a_rank_s_own():
+    def raised(fn):
+        try:
+            fn()
+        except Exception as exc:
+            return exc
+
+    mesh = Mesh(0, 2, torch.device("cpu"), group=object())
+    assert not _is_collective_error(raised(lambda: ranks.rank_fails(Mesh(1, 2, torch.device("cpu")))))
+    assert _is_collective_error(raised(lambda: mesh.barrier()))   # inside torch.distributed and a Mesh method
+    assert _is_collective_error(RuntimeError("[../gloo/transport/tcp/pair.cc:534] Read error [::1]:4242: "
+                                             "Connection reset by peer"))
+    assert not _is_collective_error(RuntimeError("CUDA out of memory"))
 
 
 def test_a_hung_rank_fails_the_run():

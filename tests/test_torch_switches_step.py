@@ -14,12 +14,14 @@ weight probes and its backward run under one jax.jit.
 """
 
 import dataclasses
+import weakref
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.utils.checkpoint
 
 from latentsplat_tpu.loss.losses import LossCfg, LossDiscriminatorCfg, LossGroupCfg, adaptive_gan_weight
 from latentsplat_tpu.model.latentsplat import LatentSplat as JLatentSplat
@@ -398,3 +400,59 @@ def test_dots_policy_serves_every_backward():
         theirs = torch.autograd.grad(ref, [x, conv.weight], retain_graph=True)
         for a, b in zip(ours, theirs):
             torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+def recomputed_bytes(frames: list) -> int:
+    """Bytes of the tensors that live checkpoint frames hold from their
+    recomputations, over every backward (each storage counted once)."""
+    storages = {}
+    for ref in frames:
+        frame = ref()
+        for tensors in [] if frame is None else frame.recomputed.values():
+            for t in tensors.values():
+                storages[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(storages.values())
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_remat_probes_leave_nothing_to_the_final_backward(policy):
+    # Between the adaptive weight's last probe and the final backward, the
+    # checkpointed sites (encoder, VAE decode, LPIPS) hold no tensor they
+    # recomputed for a probe: every byte they hold then is what the final
+    # backward recomputes for itself. The final backward recomputes each site.
+    state, losses = remat_state()
+    batch = torch_batch({"context": make_views(np.random.default_rng(1), 2),
+                         "target": make_views(np.random.default_rng(2), 2)})
+    frames, phase, held, recomputed = [], ["forward"], {}, {}
+    frame_init = torch.utils.checkpoint._CheckpointFrame.__init__
+    check = torch.utils.checkpoint._CheckpointFrame.check_recomputed_tensors_match
+    grads = tstep._grads
+
+    def init(self, *args, **kwargs):
+        frame_init(self, *args, **kwargs)
+        frames.append(weakref.ref(self))
+
+    def checked(self, gid):
+        check(self, gid)
+        recomputed[phase[0]] = recomputed.get(phase[0], 0) + sum(
+            t.untyped_storage().nbytes() for t in self.recomputed[gid].values())
+
+    def counted_grads(output, params, retain_graph=False):
+        phase[0] = "probe" if retain_graph else "final"
+        if not retain_graph:
+            held["before_final"] = recomputed_bytes(frames)
+        return grads(output, params, retain_graph)
+
+    cfg = state.model.cfg
+    cfg.remat, cfg.remat_policy, state.model.decoder.cfg.remat = True, policy, True
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.utils.checkpoint._CheckpointFrame, "__init__", init)
+        mp.setattr(torch.utils.checkpoint._CheckpointFrame, "check_recomputed_tensors_match", checked)
+        mp.setattr(tstep, "_grads", counted_grads)
+        flags = tstep.make_step_flags(losses, STEP)
+        assert len(flags.gen_gan) == 3
+        tstep.generator_grads(state, losses, flags, batch, STEP, generator=torch.Generator().manual_seed(7))
+    assert recomputed["probe"] > 0 and recomputed["final"] > 0
+    assert held["before_final"] == 0, (
+        f"{held['before_final']} bytes recomputed for the probes survive into the final backward "
+        f"({recomputed['probe']} recomputed by the probes, {recomputed['final']} by the final backward)")
