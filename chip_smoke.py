@@ -107,9 +107,8 @@
    generator's averaged gradients within max(1e-6, 4x the repeats') and
    both nets' updated parameters within max(1e-5, 4x the repeats') of
    each leaf's largest value (the repeats: the one-process step on images
-   1, 2 and 3 rounding steps up), both ranks' states bit-identical, each
-   kernel on
-   each rank; seconds per step, peaks, the state's broadcast; (p2)
+   1, 2, ..., 8 rounding steps up), both ranks' states bit-identical, each
+   kernel on each rank; seconds per step, peaks, the state's broadcast; (p2)
    `make_view_parallel_render` over [cuda, cuda] on the 30-view video
    trajectory, bit-equal to the plain render; (p3) a `misc.profiler` trace
    of one `render_full` and one render backward, holding both annotated
@@ -120,7 +119,19 @@
    channels against their plain versions, and the narrow model's
    train-step gradients through the tiled kernels against those through
    the dense oracle.
-13. Convergence phase (last): scripts.convergence, the flagship at full
+13. Bench phase: the port's bench scripts (latentsplat_tpu_torch.scripts)
+   at their full shapes with PyTorch's TF32 defaults, as a user runs
+   them: bench_train at 128x128 batch 1, --full --batch 2 and --full
+   --batch 2 --bf16 (finite positive steps/s and FLOPs, each kernel's
+   launches exactly what the steps and model.decoder.remat imply, the
+   --full --batch 2 peak below 80 GB); bench_render, 64 views of 393,216
+   Gaussians at 256x256 (duplicate_with_keys and composite_forward<8>
+   launched exactly 64 x 6 times, no pair dropped); bench_render_stages,
+   bench_enc_stages and bench_train_stages (finite positive times);
+   bench_trace_step's top kernels (device self time within the wall time);
+   entry.dryrun_multichip(2) with both ranks on the card. Prints every
+   JSON line.
+14. Convergence phase (last): scripts.convergence, the flagship at full
    width overfitting one synthetic scene (2 context + 4 target views at
    128x128, seed 0) with the whole VAE-GAN objective and sh_l2 at 0.01 for
    150 steps, cuDNN's TF32 on as in `main`: every logged loss finite, the
@@ -131,7 +142,8 @@ Prints the card's name and power limit, one JSON line describing the
 kernels (device ms, plain ms, the bound and its share, the library call's
 ms, launches on the main path, in the trainer phase, in each run of the
 data phase, in each step of the inspection phase, in each rank's step of
-the parallel phase and over the convergence phase; duplicate_with_keys
+the parallel phase, in each run of the bench phase and over the
+convergence phase; duplicate_with_keys
 also its wrapper's ms; composite_forward once at the flagship's 8 channels,
 once at render_depth's 4 and once at variational=latents' 12, and
 composite_backward and reduce_pairs also at 12 channels), and last
@@ -167,20 +179,14 @@ BACKWARD_RTOL = 1e-4
 # Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# Rounded float32 operations (an expf, a min or a compare counts as one)
-# that the composite kernels spend per (pair, pixel) evaluation, and per
-# composited (pair, pixel) on top: the forward's weight, channel sums and
-# transmittance; the backward's value path, 6 + n_ch partials and its
-# share of their sum over the tile's pixels.
-EVAL_OPS = 14
 FLUSH_BYTES = 128 << 20
 
 
-def forward_composited_ops(n_ch: int) -> int:
-    return 2 * n_ch + 3
-
-
 def backward_composited_ops(n_ch: int) -> int:
+    """Rounded float32 operations of composite_backward per composited
+    (pair, pixel) on top of its evaluation's (bench_render.EVAL_OPS, as
+    composite_forward's): the value path, 6 + n_ch partials and its share
+    of their sum over the tile's pixels."""
     return 3 * n_ch + 29 + (6 + n_ch)
 TRAIN_STEP = 125000
 FORWARD_KERNELS = ("duplicate_with_keys", "composite_forward")
@@ -313,86 +319,12 @@ def entry(name: str, source: str, replaces: str, err: float, ms: float, plain_ms
             "library_ms": library_ms, **extra}
 
 
-def warp_blocks(x: torch.Tensor) -> torch.Tensor:
-    """(..., 256) row-major tile pixels -> (..., 8, 32) by the tile's 4x8-pixel
-    blocks, which composite_forward's warps own: pixel 16 r + c is lane
-    8 (r % 4) + c % 8 of block 2 (r // 4) + c // 8."""
-    from latentsplat_tpu_torch.ops.rasterize.kernels import TILE, WARP_COLS, WARP_ROWS
+def counted_work(view: dict) -> dict:
+    """bench_render.composite_work of `view`, printed."""
+    from latentsplat_tpu_torch.scripts.bench_render import composite_work
 
-    x = x.reshape(*x.shape[:-1], TILE // WARP_ROWS, WARP_ROWS, TILE // WARP_COLS, WARP_COLS)
-    return x.transpose(-3, -2).reshape(*x.shape[:-4], TILE * TILE // 32, 32)
-
-
-def composite_work(view: dict) -> dict:
-    """The (pair, pixel) work this view's inputs need, counted on the card:
-    the forward's evaluations (each pixel up to its `last` if it
-    saturated, else to its tile's end), the backward's (each pixel up to
-    its `last`), the composited (pair, pixel) combinations and the pairs
-    some pixel composited. Then the (pair, warp) steps of each composite
-    kernel's warps: the forward's 4x8-pixel warps (all pairs up to the
-    warp's stop, those whose footprint box meets the warp's pixels, those
-    where some lane composited) and the backward's two-row warps (all
-    pairs up to the tile's largest `last`, those below the warp's largest
-    `last`, those where some lane composited), with each kernel's median
-    and longest tile walk. Raises if a lane composited a pair whose box
-    misses its warp: the forward's cull must drop no such pair."""
-    from latentsplat_tpu_torch.ops.rasterize import kernels
-
-    gids, ranges, attrs, tiles_x, (h, w) = (view[k] for k in ("gids", "ranges", "attrs", "tiles_x", "shape"))
-    tiles_y = h // kernels.TILE
-    num_tiles = tiles_x * tiles_y
-    n_warps = kernels.PIX // 32
-    device = attrs.device
-    starts, stops = ranges[:-1].long(), ranges[1:].long()
-    last = kernels.tile(view["last"], tiles_x, tiles_y).long()                   # (T, 256)
-    saturated = kernels.tile(view["t_final"], tiles_x, tiles_y) < kernels.TRANSMITTANCE_MIN
-    forward_end = torch.where(saturated, last, stops[:, None])                   # each pixel's stop
-    warp_end = warp_blocks(forward_end).max(dim=2).values                        # (T, 8)
-    px, py = kernels._tile_pixels(num_tiles, tiles_x, device)
-    # Top-left pixel of each forward warp's 4x8 block, (T, 8).
-    warp_x0 = warp_blocks(px).amin(dim=2)
-    warp_y0 = warp_blocks(py).amin(dim=2)
-    pair_tile = torch.repeat_interleave(torch.arange(num_tiles, device=device), stops - starts)
-    used = used_pairs = used_steps = kept_steps = composited_steps = culled_composited = 0
-    for lo in range(0, gids.shape[0], 1 << 15):
-        hi = min(lo + (1 << 15), gids.shape[0])
-        t = pair_tile[lo:hi]
-        a = attrs[gids[lo:hi].long()]
-        dx, dy = px[t] - a[:, 0:1], py[t] - a[:, 1:2]
-        power = -0.5 * (a[:, 2:3] * dx * dx + a[:, 4:5] * dy * dy) - a[:, 3:4] * dx * dy
-        alpha = torch.clamp(a[:, 5:6] * torch.exp(power), max=kernels.ALPHA_CLAMP)
-        pos = torch.arange(lo, hi, device=device)[:, None]
-        use = (pos < last[t]) & (power <= 0.0) & (alpha >= kernels.ALPHA_THRESHOLD)
-        used += int(use.sum())
-        used_pairs += int(use.any(dim=1).sum())
-        used_steps += int(use.view(-1, n_warps, 32).any(dim=2).sum())
-        box = kernels.footprint_box_reference(a)
-        x0, y0 = warp_x0[t], warp_y0[t]
-        kept = ((box[:, 0:1] <= x0 + (kernels.WARP_COLS - 1)) & (box[:, 1:2] >= x0)
-                & (box[:, 2:3] <= y0 + (kernels.WARP_ROWS - 1)) & (box[:, 3:4] >= y0))
-        composited = warp_blocks(use).any(dim=2)
-        kept_steps += int((kept & (pos < warp_end[t])).sum())
-        composited_steps += int(composited.sum())
-        culled_composited += int((composited & ~kept).sum())
-    walk = last.max(dim=1).values - starts                 # pairs each tile's backward walks
-    forward_walk = forward_end.max(dim=1).values - starts
-    work = {
-        "forward_evaluations": int((forward_end - starts[:, None]).sum()),
-        "backward_evaluations": int((last - starts[:, None]).sum()),
-        "composited": used, "composited_pairs": used_pairs,
-        "forward_warp_steps": int((warp_end - starts[:, None]).sum()),
-        "forward_warp_steps_kept": kept_steps,
-        "forward_warp_steps_composited": composited_steps,
-        "forward_tile_walk_median": int(forward_walk.median()),
-        "forward_tile_walk_max": int(forward_walk.max()),
-        "warp_steps": int(walk.sum()) * n_warps,
-        "warp_steps_below_warp_last": int((last.view(num_tiles, -1, 32).max(dim=2).values - starts[:, None]).sum()),
-        "warp_steps_composited": used_steps,
-        "tile_walk_median": int(walk.median()), "tile_walk_max": int(walk.max()),
-    }
+    work = composite_work(view)
     print("composite work (counted on the card): " + ", ".join(f"{k} {v}" for k, v in work.items()))
-    if culled_composited:
-        raise AssertionError(f"{culled_composited} composited (pair, warp) steps lie outside the footprint box")
     return work
 
 
@@ -504,7 +436,7 @@ def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[di
     print(f"composite_forward: {comp_ms:.4f} ms (device) vs plain {comp_plain_ms:.4f} ms")
     view = {"gids": sorted_gids, "ranges": ranges, "order": order, "counts": counts, "attrs": attrs,
             "tiles_x": tiles_x, "shape": (h, w), "t_final": out[1], "last": out[2]}
-    view["work"] = work = composite_work(view)
+    view["work"] = work = counted_work(view)
     print(f"composite_forward: {comp_ms * 1e6 / work['forward_tile_walk_max']:.1f} ns per pair of the "
           f"longest tile walk")
     if parent:
@@ -524,6 +456,8 @@ def forward_entry(err: float, ms: float, plain_ms: float, view: dict) -> dict:
     """composite_forward's record: the pairs' ids, the tile ranges and every
     Gaussian's attribute row read once, the channels, T and `last` written;
     operations as counted by `composite_work`."""
+    from latentsplat_tpu_torch.scripts.bench_render import EVAL_OPS, forward_composited_ops
+
     attrs, ranges, work = view["attrs"], view["ranges"], view["work"]
     p_count, (g_count, row) = view["gids"].shape[0], attrs.shape
     n_ch, plane = row - 6, view["shape"][0] * view["shape"][1]
@@ -602,7 +536,7 @@ def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
     args = (view["gids"], view["ranges"], view["attrs"], view["tiles_x"], shape)
     ms = device_ms(lambda: kernels.composite_forward(*args))
     plain_ms = cuda_ms(lambda: kernels.composite_forward_reference(*args), 3)
-    view["work"] = composite_work(view)
+    view["work"] = counted_work(view)
     print(f"depth phase: composite_forward at 4 channels {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms; "
           f"{view['gids'].shape[0]} pairs")
     record = forward_entry(err, ms, plain_ms, view)
@@ -732,6 +666,8 @@ def backward_kernel_phase(view: dict, seed: int) -> list[dict]:
           f"{statistics.median(r['kernel_warm'] for r in rounds):.4f} ms; library {library_ms:.4f} ms; "
           f"no slower than the library in {wins} of {len(rounds)} rounds; plain on the card "
           f"{red_plain_ms:.4f} ms")
+
+    from latentsplat_tpu_torch.scripts.bench_render import EVAL_OPS
 
     work, n_ch, p_count = view["work"], attrs.shape[1] - 6, gids.shape[0]
     plane = shape[0] * shape[1]
@@ -870,59 +806,7 @@ def slice_phase(model, batch, seed: int, profile_dir: str | None = None) -> dict
     return launches
 
 
-# Device activity in a Chrome trace of torch.profiler.
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-_RASTER_KERNELS = ("duplicate_with_keys", "composite_forward", "composite_backward", "reduce_pairs",
-                   "RadixSort")
 _TRACE_KEEP_BYTES = 16 << 20
-
-
-def trace_breakdown(trace: dict) -> list[str]:
-    """Per stage marked with record_function: the device work it launched
-    (each kernel, copy or fill goes to the stage whose host span holds its
-    launch, matched by correlation id), its device span from first start
-    to last end, the busy share of that span, and the top kernels."""
-    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
-    stages = [e for e in events if e.get("cat") == "user_annotation"]
-    launch_ts = {
-        e["args"]["correlation"]: e["ts"] for e in events
-        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})
-    }
-    device = [e for e in events if e.get("cat") in _DEVICE_CATS]
-    per_stage: dict[str, list[dict]] = {}
-    for e in device:
-        ts = launch_ts.get(e.get("args", {}).get("correlation"))
-        owner = next((s["name"] for s in stages if ts is not None and s["ts"] <= ts <= s["ts"] + s["dur"]),
-                     "(outside the stages)")
-        per_stage.setdefault(owner, []).append(e)
-    lines = []
-    for name, items in list(per_stage.items()) + [("all", device)]:
-        if not items:
-            continue
-        busy_us = sum(e["dur"] for e in items)
-        span_us = max(e["ts"] + e["dur"] for e in items) - min(e["ts"] for e in items)
-        by_name: dict[str, float] = {}
-        for e in items:
-            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        lines.append(
-            f"{name}: device span {span_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
-            f"({busy_us / max(span_us, 1e-9):.0%}), {len(items)} launches; top: "
-            + "; ".join(f"{k[:70]} {v / 1e3:.3f}" for k, v in top)
-        )
-    # The rasterizer's kernels (the port's four and the library sort).
-    raster: dict[str, list[float]] = {}
-    for e in device:
-        name = next((k for k in _RASTER_KERNELS if k in e["name"]), None)
-        if name:
-            raster.setdefault(name, []).append(e["dur"])
-    busy_us = sum(e["dur"] for e in device)
-    raster_us = sum(sum(v) for v in raster.values())
-    lines.append(
-        f"rasterizer kernels: {raster_us / 1e3:.3f} ms, {raster_us / max(busy_us, 1e-9):.2%} of device busy; "
-        + "; ".join(f"{k} {sum(v) / 1e3:.3f} ms in {len(v)} launches" for k, v in raster.items())
-    )
-    return lines
 
 
 def profile_once(label: str, fn, out_dir: str) -> None:
@@ -932,6 +816,7 @@ def profile_once(label: str, fn, out_dir: str) -> None:
     import gzip
 
     from latentsplat_tpu_torch.misc.profiler import annotate, trace
+    from latentsplat_tpu_torch.scripts.bench_trace_step import trace_breakdown
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
@@ -2236,7 +2121,7 @@ def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict
     args = (view["gids"], view["ranges"], view["attrs"], view["tiles_x"], shape)
     ms = device_ms(lambda: kernels.composite_forward(*args))
     plain_ms = cuda_ms(lambda: kernels.composite_forward_reference(*args), 3)
-    view["work"] = composite_work(view)
+    view["work"] = counted_work(view)
     print(f"switches (s3): composite_forward at 12 channels {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms; "
           f"{view['gids'].shape[0]} pairs")
     records = [forward_entry(err, ms, plain_ms, view)]
@@ -2758,6 +2643,12 @@ def split_probe_weights(state, losses, batch: dict, noise: dict) -> dict:
             for i, name in enumerate(flags.gen_gan)}
 
 
+# One-process repeats that set (p1)'s bounds: with 3, 1 run in 10 had 3
+# updated parameters over their bound, each on another leaf than the
+# earlier misses; with 8, none of the same 10 runs had one.
+P1_REPEATS = 8
+
+
 def leaf_report(ours: dict, ref: dict, repeats: list, floor: float = 1e-6) -> tuple[list, str]:
     """Each leaf's error against `ref` as a share of its largest |ref| (at
     least 1e-4 of the largest of all leaves, as `leaf_errors` takes it, for
@@ -2778,12 +2669,12 @@ def leaf_report(ours: dict, ref: dict, repeats: list, floor: float = 1e-6) -> tu
                   f"{worst[1]} {worst[0]:.3e} of its largest value (bound {worst[2]:.3e})")
 
 
-def parallel_step_check(cfg, seed: int, device, size: int = 256) -> dict:
+def parallel_step_check(cfg, seed: int, device, size: int = 256, n_repeats: int = P1_REPEATS) -> dict:
     """(p1) Two ranks on the one card over gloo, each with 1 scene, against
     the one-process step on the same 2 scenes (2 context + 4 target views at
     256x256, step 125000), weights, noise and Adam moments (of one earlier
-    step). The repeats are the one-process step on images 1, 2 and 3
-    rounding steps up. Held: generator/total within max(1e-6, 4x the
+    step). The repeats are the one-process step on images 1, 2, ...,
+    `n_repeats` rounding steps up. Held: generator/total within max(1e-6, 4x the
     repeats' difference) relative; each adaptive weight within max(1e-6,
     4x the repeats') of the one-process weight whose nll probe is taken
     scene by scene (`split_probe_weights`); the generator's averaged
@@ -2810,13 +2701,13 @@ def parallel_step_check(cfg, seed: int, device, size: int = 256) -> dict:
     batch, noise = batches[0], noises[0]
     split = split_probe_weights(state, losses, batch, noise)
     initial = {k: t.detach().cpu().clone() for k, t in state_tensors(state).items()}
-    # The repeats: the same step on images 1, 2 and 3 rounding steps up
+    # The repeats: the same step on images 1, 2, ... rounding steps up
     # (each pixel moved to the next float32 above it, n times): how far the
     # step's own rounding moves its results, l1's sign flips where a
     # decoded pixel meets its target included, as a batch of another size
     # rounds differently.
     inputs = [batch]
-    for _ in range(3):
+    for _ in range(n_repeats):
         inputs.append({key: dict(views, image=torch.nextafter(views["image"], views["image"] + 1.0))
                        for key, views in inputs[-1].items()})
     refs, ref_s, ref_logits = [], [], []
@@ -2935,6 +2826,10 @@ def parallel_step_check(cfg, seed: int, device, size: int = 256) -> dict:
     ):
         over, line = leaf_report(got, ref, repeats or [ref], floor)
         print(f"parallel (p1) on {card()}: {label}: {line}; over: {[(n, f'{e:.2e}', f'{u:.2e}') for n, e, u in over[:6]]}")
+        if repeats and len(repeats) > 3:   # the bound of the first three repeats, beside it
+            first = leaf_report(got, ref, repeats[:3], floor)[0]
+            print(f"parallel (p1): {label}, bound of repeats 1-3 only: {len(first)} over: "
+                  f"{[(n, f'{e:.2e}', f'{u:.2e}') for n, e, u in first[:6]]}")
         if over:
             failures.append(f"{len(over)} {label}")
     for r, rank in enumerate(ranks):
@@ -3099,6 +2994,100 @@ def parallel_phase(seed: int, device, trainer_output: Path) -> dict:
     return record
 
 
+# -- the bench phase -------------------------------------------------------------
+
+BENCH_TRAIN_RUNS = {"default": [], "full_b2": ["--full", "--batch", "2"],
+                    "full_b2_bf16": ["--full", "--batch", "2", "--bf16"]}
+CARD_BYTES = 80e9
+
+
+def bench_phase(seed: int, device) -> dict:
+    """The port's bench scripts at their full shapes, as a user runs them
+    (`main`), each JSON line printed on its own: bench_train three times
+    (128x128 batch 1; --full --batch 2; --full --batch 2 --bf16), each with
+    finite positive steps/s and FLOPs and its kernels launched exactly as
+    often as its steps need (8 a step of 2 x 4 views for the backward
+    kernels and, under model.decoder.remat, twice as many for the forward
+    ones, which render each view again in the backward), --full --batch 2's
+    peak below the card's 80 GB; bench_render (64 views of 393,216
+    Gaussians at 256x256) with duplicate_with_keys and composite_forward<8>
+    launched exactly 64 x 6 times in its warm-up and 5 timed calls (its
+    operation count, which launches each once more a view, runs after) and
+    no pair dropped; the three stage benches with finite positive stage
+    times; bench_trace_step's top kernels, with device self time within
+    the step's wall time; and entry.dryrun_multichip(2), its two ranks
+    sharing the card. Records go to a temp dir. Returns each run's
+    launches."""
+    from latentsplat_tpu_torch.entry import dryrun_multichip
+    from latentsplat_tpu_torch.scripts.bench_enc_stages import main as enc_stages
+    from latentsplat_tpu_torch.scripts.bench_render import make_scene, summarize, time_render
+    from latentsplat_tpu_torch.scripts.bench_render_stages import main as render_stages
+    from latentsplat_tpu_torch.scripts.bench_trace_step import main as trace_step
+    from latentsplat_tpu_torch.scripts.bench_train import main as train_bench
+    from latentsplat_tpu_torch.scripts.bench_train_stages import main as train_stages
+
+    start = time.perf_counter()
+    launches = {}
+    # PyTorch's TF32 defaults, as the scripts run from the command line.
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as records:
+        for label, argv in BENCH_TRAIN_RUNS.items():
+            reset_launches()
+            result = train_bench([*argv, "--out-dir", records], device=device)
+            sync(device)
+            launches[label] = read_launches()
+            per_view = result["steps_run"] * result["batch"] * 4
+            expected = {"duplicate_with_keys": per_view * (2 if result["decoder_remat"] else 1),
+                        "composite_backward": per_view, "reduce_pairs": per_view}
+            expected["composite_forward"] = expected["duplicate_with_keys"]
+            got = {k: launches[label][k] for k in expected}
+            print(f"bench phase: bench_train {' '.join(argv) or '(default)'}: {result['value']!r} steps/s, peak "
+                  f"{result['peak_gib']!r} GiB, {result['train_flops_per_step']!r} FLOPs a step, train_mfu "
+                  f"{result['train_mfu']!r}; launches {got} over {result['steps_run']} steps")
+            if got != expected or launches[label]["by_channels"]["composite_forward"] != {8: expected["composite_forward"]}:
+                raise AssertionError(f"bench_train {argv}: launches {launches[label]}, not {expected}")
+            if not (math.isfinite(result["value"]) and result["value"] > 0 and result["train_flops_per_step"] > 0):
+                raise AssertionError(f"bench_train {argv}: {result}")
+            if label == "full_b2" and not result["peak_gib"] * 2**30 < CARD_BYTES:
+                raise AssertionError(f"bench_train --full --batch 2: peak {result['peak_gib']} GiB, over 80 GB")
+
+        scene = make_scene(seed, device=device)
+        reset_launches()
+        timing = time_render(scene, 256)
+        sync(device)
+        launches["render"] = read_launches()
+        n_calls, n_views = 1 + len(timing["seconds"]), scene["extrinsics"].shape[1]
+        expected = {"duplicate_with_keys": n_calls * n_views, "composite_forward": n_calls * n_views,
+                    "composite_backward": 0, "reduce_pairs": 0}
+        if {k: launches["render"][k] for k in expected} != expected or \
+                launches["render"]["composite_forward_by_channels"] != {8: n_calls * n_views}:
+            raise AssertionError(f"bench_render: launches {launches['render']}, not {expected}")
+        render = summarize(scene, 256, timing, device, Path(records))   # raises on a dropped pair
+        print(f"device: {render['device']}")
+        print(json.dumps(render))
+        print(f"bench phase: bench_render {render['value']!r} views/s, {render['ms_per_view']!r} ms a view, "
+              f"{render['pairs_per_view_mean']!r} pairs a view, render_mfu {render['render_mfu']!r}; launches "
+              f"{expected} in {n_calls} calls of {n_views} views")
+        if not (math.isfinite(render["value"]) and render["value"] > 0 and render["render_flops_per_view"] > 0):
+            raise AssertionError(f"bench_render: {render}")
+        del scene
+
+        stages = {"render": render_stages([], device=device), "encoder": enc_stages([], device=device),
+                  "train": train_stages(["--out-dir", records], device=device)}
+        bad = {k: v for k, v in stages.items() if not all(math.isfinite(ms) and ms > 0 for ms in v.values())}
+        if bad:
+            raise AssertionError(f"bench phase: stage times not finite and positive {bad}")
+        traced = trace_step([], device=device)
+        if not 0 < traced["self_ms"] <= traced["wall_ms"]:
+            raise AssertionError(f"bench_trace_step: device self time {traced['self_ms']} ms, wall {traced['wall_ms']} ms")
+    torch.backends.cudnn.allow_tf32 = False
+    dry = dryrun_multichip(2)
+    print(f"bench phase on {card()}: {time.perf_counter() - start:.1f} s in all; stages {json.dumps(stages)}; "
+          f"trace: wall {traced['wall_ms']:.1f} ms, device self {traced['self_ms']:.1f} ms; dryrun_multichip(2) "
+          f"generator/total {dry['generator/total']!r}")
+    return launches
+
+
 # -- the convergence phase -------------------------------------------------------
 
 CONVERGENCE_STEPS = 150
@@ -3220,8 +3209,11 @@ def main() -> int:
     small_depth_backward_check(args.seed, device)
     small_gradient_check(args.seed, device)
     torch.cuda.empty_cache()
+    bench_launches = bench_phase(args.seed, device)
+    torch.cuda.empty_cache()
     convergence_launches = convergence_phase(args.seed, device)
     for entry in results:
+        entry["bench_launches"] = {run: launches_at(launches, entry) for run, launches in bench_launches.items()}
         entry["convergence_launches"] = launches_at(convergence_launches, entry)
 
     print(f"data phase summary on {card()}: " + json.dumps({k: v for k, v in data.items() if k != "launches"}))

@@ -1,0 +1,372 @@
+"""Render benchmark: target views per second of a 393,216-Gaussian scene at
+256x256 (the port's counterpart of the repository's root bench.py, exact
+precision):
+
+    python -m latentsplat_tpu_torch.scripts.bench_render [--seed 0]
+
+The scene has the flagship re10k test shape (`make_scene`): 2 context views
+x 256^2 pixels x 3 Gaussians a pixel on a smooth depth surface, color SH of
+degree 4 (25 coefficients), 4 latent feature channels of degree 2 (9), 64
+target views on an arc, near 0.5 and far 20. One warm-up call, then ITERS
+calls of the tiled render of all 64 views (opacities scaled by
+1 - 1e-6 i so that no call repeats another), each ended by a device
+synchronize; the median over the views gives views/s. Every call's pairs
+per view are held against the total that the tile cull counts for that
+call's inputs: a render that composited fewer pairs than it counted raises.
+
+The render's float32 operations per view are counted as PERF.md counts
+the composite kernels' (`composite_work` on each view's kernel outputs: 14
+per (pair, pixel) evaluation, 2 C + 3 per composited (pair, pixel)), plus
+the SH evaluation and projection of every Gaussian, counted by running
+them under `count_operations`. `render_mfu` is that over the card's
+float32 peak.
+
+Prints the card's name and power limit, then ONE JSON line: metric
+render_256px_393k_gaussians_fwd in views/sec/chip, `value` = `value_exact`,
+the mean pairs per view, the operations, `render_mfu`, and the newest
+record of bench_train in outputs/bench/. Sizes are arguments so that tests
+can shrink the scene. The command line runs on the card;
+`main(argv, device="cpu")` on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import statistics
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from ..entry import arc_cameras
+from ..ops.rasterize import kernels
+from ..ops.rasterize.api import render
+from ..ops.rasterize.tiled import pack_attributes, sort_pairs, tile_rects
+from . import resolve_device
+from .measure import FP32_FLOPS, RECORD_DIR, device_name, median_seconds, screen_view, sync
+
+METRIC = "render_256px_393k_gaussians_fwd"
+REFERENCE_VIEWS_PER_SEC = 100.0  # bench.py's anchor: the reference CUDA rasterizer on an A100, assumed
+SIZE = 256
+SIDE = 256                # the depth surface's pixel grid per context view
+GAUSSIANS_PER_PIXEL = 3
+N_VIEWS = 64
+N_FEATURES = 4
+COLOR_SH = 25             # degree 4
+FEATURE_SH = 9            # degree 2
+ITERS = 5
+# Rounded float32 operations (an expf, a min or a compare counts as one)
+# that composite_forward spends per (pair, pixel) evaluation, and per
+# composited (pair, pixel) on top: the weight, the channel sums and the
+# transmittance.
+EVAL_OPS = 14
+
+
+def forward_composited_ops(n_ch: int) -> int:
+    return 2 * n_ch + 3
+
+
+def scene_draws(rng: np.random.Generator, n: int) -> dict:
+    """make_scene's random draws in bench.make_scene's order: the surface
+    jitter's normals, the scales' and opacities' uniforms, the color and
+    feature harmonics' normals."""
+    return {
+        "jitter": rng.standard_normal((n, 3), dtype=np.float32),
+        "scale": rng.uniform(5e-3, 2e-2, (n, 3)).astype(np.float32),
+        "opacity": rng.uniform(0.3, 1.0, (n,)).astype(np.float32),
+        "color_sh": rng.standard_normal((n, 3, COLOR_SH), dtype=np.float32),
+        "feature_sh": rng.standard_normal((n, N_FEATURES, FEATURE_SH), dtype=np.float32),
+    }
+
+
+def make_scene(seed: int = 0, side: int = SIDE, n_views: int = N_VIEWS, device="cpu") -> dict:
+    """bench.make_scene from a numpy generator: surface Gaussians like the
+    encoder emits, 2 x side^2 x GAUSSIANS_PER_PIXEL of them on a smooth depth
+    surface sampled on a side x side grid (jittered along depth), scales in
+    [5e-3, 2e-2), opacities in [0.3, 1), harmonics N(0, 0.3^2); n_views
+    cameras on an arc; one scene, as tensors with a leading axis of 1."""
+    n = 2 * GAUSSIANS_PER_PIXEL * side * side
+    d = scene_draws(np.random.default_rng(seed), n)
+    u, v = np.meshgrid(np.linspace(-1.5, 1.5, side, dtype=np.float32), np.linspace(-1.5, 1.5, side, dtype=np.float32))
+    base_depth = np.float32(4.0) + np.float32(0.8) * np.sin(2 * u) * np.cos(np.float32(1.5) * v) + np.float32(0.3) * u
+    grid = np.stack([u, v, base_depth], axis=-1).reshape(-1, 3)
+    means = np.tile(grid[None], (2 * GAUSSIANS_PER_PIXEL, 1, 1)).reshape(-1, 3)
+    means = means + d["jitter"] * np.asarray([5e-3, 5e-3, 8e-2], np.float32)
+    extrinsics, intrinsics = arc_cameras(n_views)
+    arrays = {
+        "extrinsics": extrinsics, "intrinsics": intrinsics,
+        "near": np.full((n_views,), 0.5, np.float32), "far": np.full((n_views,), 20.0, np.float32),
+        "background_color": np.zeros((3,), np.float32),
+        "gaussian_means": means,
+        "gaussian_covariances": np.eye(3, dtype=np.float32)[None] * (d["scale"] ** 2)[:, :, None],
+        "gaussian_opacities": d["opacity"],
+        "gaussian_color_sh": d["color_sh"] * np.float32(0.3),
+        "gaussian_feature_sh": d["feature_sh"] * np.float32(0.3),
+    }
+    return {k: torch.from_numpy(a)[None].to(device) for k, a in arrays.items()}
+
+
+def render_scene(scene: dict, size: int, i: int = 0):
+    """The exact tiled render of every view, opacities scaled by 1 - 1e-6 i."""
+    with torch.no_grad():
+        return render(
+            scene["extrinsics"], scene["intrinsics"], scene["near"], scene["far"], (size, size),
+            scene["background_color"], scene["gaussian_means"], scene["gaussian_covariances"],
+            scene["gaussian_opacities"] * (1.0 - 1e-6 * i), scene["gaussian_color_sh"], scene["gaussian_feature_sh"],
+        )
+
+
+def counted_pairs(scene: dict, size: int, i: int = 0) -> list:
+    """Each view's pair total as the tile cull counts it (what
+    duplicate_with_keys allocates), opacities scaled by 1 - 1e-6 i. Launches
+    no kernel."""
+    tiles = size // kernels.TILE
+    with torch.no_grad():
+        return [int(tile_rects(screen_view(scene, size, j, i), tiles, tiles)[0].sum())
+                for j in range(scene["extrinsics"].shape[1])]
+
+
+def time_render(scene: dict, size: int, iters: int = ITERS) -> dict:
+    """One warm-up call, then `iters` timed calls of `render_scene`; each
+    call's pairs per view, its seconds and the kernels' launches over all
+    the calls."""
+    device = scene["gaussian_means"].device
+    before = dict(kernels.launch_counts)
+    pairs = []
+
+    def call(i):
+        pairs.append(render_scene(scene, size, i).num_pairs.reshape(-1).tolist())
+
+    sync(device)
+    call(0)
+    sync(device)
+    median, seconds = median_seconds(call, iters, device)
+    return {"median_s": median, "seconds": seconds, "pairs": pairs,
+            "launches": {k: kernels.launch_counts[k] - before[k] for k in before}}
+
+
+def check_pairs(scene: dict, size: int, pairs: list) -> None:
+    """Raises unless call i composited, in every view, the pairs its inputs
+    count (`counted_pairs` with opacities scaled as call i's)."""
+    for i, got in enumerate(pairs):
+        counted = counted_pairs(scene, size, i)
+        if got != counted:
+            dropped = [(j, c - g) for j, (c, g) in enumerate(zip(counted, got)) if c != g]
+            raise AssertionError(f"render call {i} composited other pair totals than it counted (view, "
+                                 f"counted - composited): {dropped[:8]}")
+
+
+def warp_blocks(x: torch.Tensor) -> torch.Tensor:
+    """(..., 256) row-major tile pixels -> (..., 8, 32) by the tile's 4x8-pixel
+    blocks, which composite_forward's warps own: pixel 16 r + c is lane
+    8 (r % 4) + c % 8 of block 2 (r // 4) + c // 8."""
+    x = x.reshape(*x.shape[:-1], kernels.TILE // kernels.WARP_ROWS, kernels.WARP_ROWS,
+                  kernels.TILE // kernels.WARP_COLS, kernels.WARP_COLS)
+    return x.transpose(-3, -2).reshape(*x.shape[:-4], kernels.TILE * kernels.TILE // 32, 32)
+
+
+def composite_work(view: dict) -> dict:
+    """The (pair, pixel) work this view's inputs need, counted on its
+    device: the forward's evaluations (each pixel up to its `last` if it
+    saturated, else to its tile's end), the backward's (each pixel up to
+    its `last`), the composited (pair, pixel) combinations and the pairs
+    some pixel composited. Then the (pair, warp) steps of each composite
+    kernel's warps: the forward's 4x8-pixel warps (all pairs up to the
+    warp's stop, those whose footprint box meets the warp's pixels, those
+    where some lane composited) and the backward's two-row warps (all
+    pairs up to the tile's largest `last`, those below the warp's largest
+    `last`, those where some lane composited), with each kernel's median
+    and longest tile walk. `view` holds the sorted gids, tile ranges,
+    attribute rows, tiles_x, (h, w) and composite_forward's `t_final` and
+    `last`. Raises if a lane composited a pair whose box misses its warp:
+    the forward's cull must drop no such pair."""
+    gids, ranges, attrs, tiles_x, (h, w) = (view[k] for k in ("gids", "ranges", "attrs", "tiles_x", "shape"))
+    tiles_y = h // kernels.TILE
+    num_tiles = tiles_x * tiles_y
+    n_warps = kernels.PIX // 32
+    device = attrs.device
+    starts, stops = ranges[:-1].long(), ranges[1:].long()
+    last = kernels.tile(view["last"], tiles_x, tiles_y).long()                   # (T, 256)
+    saturated = kernels.tile(view["t_final"], tiles_x, tiles_y) < kernels.TRANSMITTANCE_MIN
+    forward_end = torch.where(saturated, last, stops[:, None])                   # each pixel's stop
+    warp_end = warp_blocks(forward_end).max(dim=2).values                        # (T, 8)
+    px, py = kernels._tile_pixels(num_tiles, tiles_x, device)
+    # Top-left pixel of each forward warp's 4x8 block, (T, 8).
+    warp_x0 = warp_blocks(px).amin(dim=2)
+    warp_y0 = warp_blocks(py).amin(dim=2)
+    pair_tile = torch.repeat_interleave(torch.arange(num_tiles, device=device), stops - starts)
+    used = used_pairs = used_steps = kept_steps = composited_steps = culled_composited = 0
+    for lo in range(0, gids.shape[0], 1 << 15):
+        hi = min(lo + (1 << 15), gids.shape[0])
+        t = pair_tile[lo:hi]
+        a = attrs[gids[lo:hi].long()]
+        dx, dy = px[t] - a[:, 0:1], py[t] - a[:, 1:2]
+        power = -0.5 * (a[:, 2:3] * dx * dx + a[:, 4:5] * dy * dy) - a[:, 3:4] * dx * dy
+        alpha = torch.clamp(a[:, 5:6] * torch.exp(power), max=kernels.ALPHA_CLAMP)
+        pos = torch.arange(lo, hi, device=device)[:, None]
+        use = (pos < last[t]) & (power <= 0.0) & (alpha >= kernels.ALPHA_THRESHOLD)
+        used += int(use.sum())
+        used_pairs += int(use.any(dim=1).sum())
+        used_steps += int(use.view(-1, n_warps, 32).any(dim=2).sum())
+        box = kernels.footprint_box_reference(a)
+        x0, y0 = warp_x0[t], warp_y0[t]
+        kept = ((box[:, 0:1] <= x0 + (kernels.WARP_COLS - 1)) & (box[:, 1:2] >= x0)
+                & (box[:, 2:3] <= y0 + (kernels.WARP_ROWS - 1)) & (box[:, 3:4] >= y0))
+        composited = warp_blocks(use).any(dim=2)
+        kept_steps += int((kept & (pos < warp_end[t])).sum())
+        composited_steps += int(composited.sum())
+        culled_composited += int((composited & ~kept).sum())
+    walk = last.max(dim=1).values - starts                 # pairs each tile's backward walks
+    forward_walk = forward_end.max(dim=1).values - starts
+    if culled_composited:
+        raise AssertionError(f"{culled_composited} composited (pair, warp) steps lie outside the footprint box")
+    return {
+        "forward_evaluations": int((forward_end - starts[:, None]).sum()),
+        "backward_evaluations": int((last - starts[:, None]).sum()),
+        "composited": used, "composited_pairs": used_pairs,
+        "forward_warp_steps": int((warp_end - starts[:, None]).sum()),
+        "forward_warp_steps_kept": kept_steps,
+        "forward_warp_steps_composited": composited_steps,
+        "forward_tile_walk_median": int(forward_walk.median()),
+        "forward_tile_walk_max": int(forward_walk.max()),
+        "warp_steps": int(walk.sum()) * n_warps,
+        "warp_steps_below_warp_last": int((last.view(num_tiles, -1, 32).max(dim=2).values - starts[:, None]).sum()),
+        "warp_steps_composited": used_steps,
+        "tile_walk_median": int(walk.median()), "tile_walk_max": int(walk.max()),
+    }
+
+
+def view_work(scene: dict, size: int, j: int) -> tuple[dict, int]:
+    """(composite_work, channels composited) of view j, through the
+    render's own pipeline (one launch of each forward kernel)."""
+    tiles = size // kernels.TILE
+    with torch.no_grad():
+        sg = screen_view(scene, size, j)
+        counts, base, nx, mask = tile_rects(sg, tiles, tiles)
+        gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth.contiguous(), tiles, 9)
+        gids, ranges, _ = sort_pairs(gids, keys, tiles * tiles)
+        attrs = pack_attributes(sg)
+        _, t_final, last = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size))
+        view = {"gids": gids, "ranges": ranges, "attrs": attrs, "tiles_x": tiles, "shape": (size, size),
+                "t_final": t_final, "last": last}
+        return composite_work(view), attrs.shape[1] - 6
+
+
+class _PointwiseCount(TorchDispatchMode):
+    """Counts one operation per output element of each pointwise op and one
+    per input element of each reduction."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if torch.Tag.pointwise in func.tags and isinstance(out, torch.Tensor):
+            self.ops += out.numel()
+        elif torch.Tag.reduction in func.tags and args and isinstance(args[0], torch.Tensor):
+            self.ops += args[0].numel()
+        return out
+
+
+def count_operations(fn, *args) -> int:
+    """Operations of fn(*args) as its code runs them: 2 m n k a matrix
+    product (FlopCounterMode), one per output element of a pointwise op,
+    one per input element of a reduction."""
+    with FlopCounterMode(display=False) as flops, _PointwiseCount() as pointwise:
+        fn(*args)
+    return flops.get_total_flops() + pointwise.ops
+
+
+def render_operations(scene: dict, size: int) -> dict:
+    """Float32 operations of one view, the mean over all views: the SH
+    evaluation and projection of every Gaussian (counted by running them),
+    and composite_forward's, from each view's `composite_work`. Launches
+    each forward kernel once a view."""
+    with torch.no_grad():
+        project = count_operations(screen_view, scene, size, 0)
+    composite = []
+    for j in range(scene["extrinsics"].shape[1]):
+        work, n_ch = view_work(scene, size, j)
+        composite.append(EVAL_OPS * work["forward_evaluations"] + forward_composited_ops(n_ch) * work["composited"])
+    return {"total": project + statistics.fmean(composite), "project_sh": project,
+            "composite": statistics.fmean(composite)}
+
+
+def newest_train_record(record_dir: Path):
+    """The newest train_step record that bench_train wrote to `record_dir`."""
+    records = [json.loads(p.read_text()) for p in sorted(Path(record_dir).glob("train_step_*.json"))]
+    return max(records, key=lambda r: r.get("measured_unix", 0), default=None)
+
+
+def summarize(scene: dict, size: int, timing: dict, device: torch.device, record_dir: Path) -> dict:
+    """The JSON record of a `time_render` run (checks its pairs first)."""
+    check_pairs(scene, size, timing["pairs"])
+    n_views = scene["extrinsics"].shape[1]
+    vps = n_views / timing["median_s"]
+    ops = render_operations(scene, size)
+    on_card = device.type == "cuda"
+    result = {
+        "metric": METRIC,
+        "value": vps,
+        "unit": "views/sec/chip",
+        "vs_baseline": vps / REFERENCE_VIEWS_PER_SEC,
+        "value_exact": vps,
+        "precision": "exact",
+        "device": device_name(device),
+        "views": n_views,
+        "gaussians": scene["gaussian_means"].shape[1],
+        "size": size,
+        "ms_per_view": 1e3 * timing["median_s"] / n_views,
+        "call_seconds": timing["seconds"],
+        "pairs_per_view_mean": statistics.fmean(timing["pairs"][0]),
+        "render_flops_per_view": ops["total"],
+        "render_mfu": ops["total"] * vps / FP32_FLOPS if on_card else None,
+        "render_flops_note": (
+            f"float32 operations per view: SH evaluation + projection {ops['project_sh']:.4g} (counted by "
+            f"running them) + composite_forward {ops['composite']:.4g} (14 per (pair, pixel) evaluation, "
+            "2 C + 3 per composited (pair, pixel), counted on each view's kernel outputs); render_mfu "
+            "over the H100 SXM float32 peak, 67 TFLOP/s (NVIDIA's data sheet, 700 W)"
+        ),
+        "launches": timing["launches"],
+    }
+    train = newest_train_record(record_dir)
+    if train is not None:
+        result.update({
+            "train_step_steps_per_sec": train["value"], "train_step_config": train["metric"],
+            "train_step_measured_unix": train.get("measured_unix"), "train_mfu": train.get("train_mfu"),
+            "train_step_device": train.get("device"),
+        })
+    return result
+
+
+def main(argv=None, device=None) -> dict:
+    """Returns the JSON record it prints."""
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--side", type=int, default=SIDE, help="the depth surface's grid side (Gaussians: 6 side^2)")
+    parser.add_argument("--views", type=int, default=N_VIEWS)
+    parser.add_argument("--size", type=int, default=SIZE)
+    parser.add_argument("--iters", type=int, default=ITERS)
+    parser.add_argument("--records", type=Path, default=RECORD_DIR, help="where bench_train's records are")
+    args = parser.parse_args(argv if argv is not None else sys.argv[1:])
+    device = resolve_device(device, "bench_render")
+    scene = make_scene(args.seed, args.side, args.views, device)
+    timing = time_render(scene, args.size, args.iters)
+    result = summarize(scene, args.size, timing, device, args.records)
+    print(f"bench_render: {result['views']} views of {result['gaussians']} Gaussians at {args.size}x{args.size}, "
+          f"call seconds {[round(s, 4) for s in timing['seconds']]}", file=sys.stderr)
+    print(f"device: {result['device']}")
+    print(json.dumps(result))
+    if not all(math.isfinite(x) and x > 0 for x in (result["value"], result["render_flops_per_view"])):
+        raise AssertionError(f"bench_render: a non-finite or non-positive result {result}")
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,112 @@
+"""What the bench scripts share (bench_render, bench_train, the stage
+benches, bench_trace_step): the card's published peaks, its name and power
+limit, synchronized median timing, the directory of their records, a
+view's screen Gaussians as the render makes them, and the train shape's
+setup (the flagship, its train state, step and batch)."""
+
+from __future__ import annotations
+
+import statistics
+import time
+from pathlib import Path
+
+import torch
+
+from ..entry import arc_batch, flagship_model, to_tensors
+from ..loss.losses import LossGroup
+from ..ops.rasterize.api import view_channels
+from ..ops.rasterize.camera import project_gaussians_to_screen
+from ..training.step import GROUP_NAMES, make_step_flags, make_train_step
+from ..training.trainer import init_train_state
+from .convergence import device_name
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W).
+FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+# Where bench_train writes its records and bench_render reads the newest
+# (gitignored).
+RECORD_DIR = Path(__file__).resolve().parents[2] / "outputs" / "bench"
+V_CONTEXT, V_TARGET = 2, 4
+# The whole objective from step 0 (the reference's late-schedule losses are
+# the expensive ones).
+OBJECTIVE = [
+    "loss.target_render_image.nll=[{name: mse, weight: 10}, {name: lpips, weight: 0.5}]",
+    "loss.target_combined.nll=[{name: l1}, {name: lpips}]",
+    "loss.target_combined.generator={name: generator, weight: 0.5}",
+    "loss.target_combined.discriminator={name: discriminator, loss: hinge}",
+]
+
+__all__ = ["BF16_FLOPS", "FP32_FLOPS", "OBJECTIVE", "RECORD_DIR", "device_name", "gaussian_sum", "grad_sum",
+           "median_seconds", "screen_view", "sync", "timed_ms", "train_setup"]
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def median_seconds(fn, iters: int, device: torch.device) -> tuple[float, list]:
+    """(median, all) seconds of `iters` calls fn(i), i = 1..iters, each on
+    the host clock from a synchronized device to a synchronized device."""
+    times = []
+    for i in range(1, iters + 1):
+        sync(device)
+        start = time.perf_counter()
+        fn(i)
+        sync(device)
+        times.append(time.perf_counter() - start)
+    return statistics.median(times), times
+
+
+def timed_ms(fn, iters: int, device: torch.device) -> float:
+    """Median milliseconds of `iters` calls after one warm-up."""
+    fn(0)
+    sync(device)
+    return 1e3 * median_seconds(fn, iters, device)[0]
+
+
+def grad_sum(loss: torch.Tensor, inputs: list) -> float:
+    """The sum of every gradient of `loss` over `inputs` (the host read ends
+    the backward)."""
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    return float(sum(g.sum() for g in grads if g is not None))
+
+
+def screen_view(scene: dict, size: int, j: int, i: int = 0):
+    """View j's screen Gaussians as `render` hands them to the compositor
+    (SH towards the camera, the scene scaled by 1/near), opacities scaled
+    by 1 - 1e-6 i."""
+    means, ext, near = scene["gaussian_means"][0], scene["extrinsics"][0, j], scene["near"][0, j]
+    channels = view_channels(means, scene["gaussian_color_sh"][0], scene["gaussian_feature_sh"][0], ext[:3, 3])
+    s = 1.0 / near
+    ext_s = ext.clone()
+    ext_s[:3, 3] = ext[:3, 3] * s
+    return project_gaussians_to_screen(
+        means * s, scene["gaussian_covariances"][0] * (s * s), scene["gaussian_opacities"][0] * (1.0 - 1e-6 * i),
+        channels, ext_s, scene["intrinsics"][0, j], (size, size),
+    )
+
+
+def gaussian_sum(g) -> torch.Tensor:
+    """The sum of every tensor of the encoder's variational Gaussians (the
+    feature posterior by its mean)."""
+    return (g.means.sum() + g.covariances.sum() + g.opacities.sum() + g.color_harmonics.sum()
+            + g.feature_harmonics.mean.sum())
+
+
+def train_setup(overrides: list, batch_size: int, size: int, device: torch.device) -> tuple:
+    """(cfg, state, losses, train_step, batch): the flagship with `overrides`
+    and weights from seed 0, its discriminator, LPIPS and optimizers
+    (`init_train_state`), the step, and `arc_batch(batch_size, 2, 4, size,
+    size)` on `device`, as the step takes it (no data shims)."""
+    cfg, model = flagship_model(overrides, device)
+    state = init_train_state(cfg, model.train(), device, batch_size, seed=0)
+    losses = {name: LossGroup(name, getattr(cfg.loss, name)) for name in GROUP_NAMES}
+    flags = make_step_flags(losses, 0)
+    if not (flags.disc and flags.gen_gan):
+        raise RuntimeError("the GAN path must be live from step 0")
+    g = cfg.optimizer.generator
+    train_step = make_train_step(losses, g.skip_loss_spike_factor, g.skip_loss_spike_patience)
+    batch = to_tensors({side: {k: v for k, v in views.items() if k != "index"} for side, views in
+                        arc_batch(batch_size, V_CONTEXT, V_TARGET, size, size).items()}, device)
+    return cfg, state, losses, train_step, batch

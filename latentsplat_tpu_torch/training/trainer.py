@@ -99,6 +99,24 @@ def to_device(batch: dict, device: torch.device) -> dict:
     }
 
 
+def init_train_state(cfg, model: LatentSplat, device, effective_batch_size: int, seed: int) -> TrainState:
+    """`model` with a PatchGAN discriminator and LPIPS whose weights come
+    from `seed` on the CPU, their optimizers (learning rates scaled for
+    `effective_batch_size`), and the spike guard's state where `cfg` has
+    one."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        disc = DiscriminatorPatchGan(cfg.model.discriminator) if cfg.model.discriminator else None
+        lpips = LPIPS().requires_grad_(False)
+    disc = disc.to(device) if disc is not None else None
+    opt_gen, opt_disc = build_optimizers(model, disc, cfg.optimizer, effective_batch_size, freeze=cfg.freeze)
+    state = TrainState(model, disc, lpips.to(device), opt_gen, opt_disc)
+    if cfg.optimizer.generator.skip_loss_spike_factor is not None:
+        state.gen_loss_ema = torch.zeros((), device=device)
+        state.spike_skip_count = torch.zeros((), dtype=torch.int32, device=device)
+    return state
+
+
 class Trainer:
     """`device` None means the card ("cuda"); tests pass "cpu". `mesh`, a
     rank of a data-parallel group, sets the device instead."""
@@ -167,20 +185,9 @@ class Trainer:
         of `checkpointing.load`, whole (`resume`) or the generator's weights
         only. Sets `self.step`."""
         cfg = self.cfg
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(cfg.seed)
-            disc = DiscriminatorPatchGan(cfg.model.discriminator) if cfg.model.discriminator else None
-            lpips = LPIPS().requires_grad_(False)
-        disc = disc.to(self.device) if disc is not None else None
-        lpips = lpips.to(self.device)
-        self.opt_gen, self.opt_disc = build_optimizers(
-            self.model, disc, cfg.optimizer, cfg.data_loader.train.batch_size * self.mesh.world_size,
-            freeze=cfg.freeze,
+        state = init_train_state(
+            cfg, self.model, self.device, cfg.data_loader.train.batch_size * self.mesh.world_size, cfg.seed
         )
-        state = TrainState(self.model, disc, lpips, self.opt_gen, self.opt_disc)
-        if cfg.optimizer.generator.skip_loss_spike_factor is not None:
-            state.gen_loss_ema = torch.zeros((), device=self.device)
-            state.spike_skip_count = torch.zeros((), dtype=torch.int32, device=self.device)
 
         self.step = 0
         ckpt = cfg.checkpointing

@@ -1,0 +1,214 @@
+"""The port's bench scripts (latentsplat_tpu_torch.scripts.bench_*) against
+the repository's root bench*.py on the CPU: bench_render's scene against
+bench.make_scene for the same draws, a shrunk scene's render against the
+JAX dense render, bench_train's overrides and metric names against
+bench_train.py's, and every script run narrow through its `main`."""
+
+import ast
+import json
+import math
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import bench as jax_bench
+from latentsplat_tpu.ops.rasterize import render as j_render
+from latentsplat_tpu_torch.scripts import (
+    bench_enc_stages,
+    bench_render,
+    bench_render_stages,
+    bench_train,
+    bench_train_stages,
+    bench_trace_step,
+)
+
+from tests.test_torch_convergence import SMALL
+
+ROOT = Path(__file__).resolve().parent.parent
+# SMALL with one Gaussian a pixel: the plain compositor on the CPU walks
+# each tile's pairs one by one. The runs through a whole step also render
+# with the dense backend (the tiled path is held above and in
+# tests/test_torch_step*.py).
+NARROW = [*SMALL, "model.encoder.gaussians_per_pixel=1"]
+DENSE = [*NARROW, "model.decoder.backend=dense"]
+
+
+def test_make_scene_is_bench_make_scene(monkeypatch):
+    # Full size (393,216 Gaussians), 4 views. The JAX draws are the port's
+    # numpy draws, in bench.make_scene's order.
+    n_views = 4
+    monkeypatch.setattr(jax_bench, "N_VIEWS", n_views)
+    draws = bench_render.scene_draws(np.random.default_rng(0), bench_render.GAUSSIANS_PER_PIXEL * 2 * 256 * 256)
+    queue = {"normal": [draws["jitter"], draws["color_sh"], draws["feature_sh"]],
+             "uniform": [draws["scale"], draws["opacity"]]}
+
+    def fake(kind):
+        def draw(key, shape=(), dtype=jnp.float32, *args, **kwargs):
+            value = queue[kind].pop(0)
+            assert value.shape == tuple(shape), (kind, value.shape, shape)
+            return jnp.asarray(value)
+        return draw
+
+    monkeypatch.setattr(jax.random, "normal", fake("normal"))
+    monkeypatch.setattr(jax.random, "uniform", fake("uniform"))
+    theirs = {k: np.asarray(v) for k, v in jax_bench.make_scene(jax.random.PRNGKey(0)).items()}
+    assert queue == {"normal": [], "uniform": []}
+    ours = {k: v.numpy() for k, v in bench_render.make_scene(0, n_views=n_views).items()}
+    assert ours.keys() == theirs.keys()
+    assert ours["gaussian_means"].shape == (1, jax_bench.N_GAUSSIANS, 3)
+    for key, value in theirs.items():
+        assert ours[key].shape == value.shape and ours[key].dtype == value.dtype, key
+        if key == "gaussian_means":
+            # sin and cos round differently in the two libraries.
+            np.testing.assert_allclose(ours[key], value, rtol=0, atol=1e-6 * np.abs(value).max())
+        else:
+            np.testing.assert_array_equal(ours[key], value, err_msg=key)
+
+
+def test_shrunk_scene_renders_as_jax_dense():
+    # 6,144 Gaussians (a 32x32 surface grid), 4 views at 64x64: the port's
+    # tiled render (its kernels' plain versions on the CPU) against the JAX
+    # dense render, at tests/test_rasterize.py's tiled-vs-dense tolerances.
+    size = 64
+    scene = bench_render.make_scene(0, side=32, n_views=4)
+    ours = bench_render.render_scene(scene, size)
+    j = {k: jnp.asarray(v.numpy()) for k, v in scene.items()}
+    theirs = j_render(j["extrinsics"], j["intrinsics"], j["near"], j["far"], (size, size), j["background_color"],
+                      j["gaussian_means"], j["gaussian_covariances"], j["gaussian_opacities"],
+                      j["gaussian_color_sh"], j["gaussian_feature_sh"], backend="dense")
+    assert int(ours.num_pairs.min()) > 1000
+    for key, atol in (("color", 2e-4), ("feature", 2e-4), ("mask", 2e-4), ("depth", 2e-3)):
+        a, b = getattr(ours, key).numpy(), np.asarray(getattr(theirs, key))
+        assert a.shape == b.shape, key
+        np.testing.assert_allclose(a, b, atol=atol, rtol=0, err_msg=key)
+
+
+def test_bench_render_runs_on_the_cpu(tmp_path, capsys):
+    for name, unix, value in (("train_step_256px_b2.json", 100, 0.5), ("train_step_256px_b2_bf16.json", 200, 0.7)):
+        (tmp_path / name).write_text(json.dumps({"metric": name[:-5], "value": value, "measured_unix": unix,
+                                                 "train_mfu": 0.1, "device": "cpu"}))
+    result = bench_render.main(["--side", "16", "--views", "2", "--size", "32", "--iters", "2", "--records",
+                                str(tmp_path)], device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-2] == "device: cpu" and json.loads(lines[-1]) == json.loads(json.dumps(result))
+    assert result["metric"] == "render_256px_393k_gaussians_fwd" and result["unit"] == "views/sec/chip"
+    assert result["value"] == result["value_exact"] > 0 and result["precision"] == "exact"
+    assert "value_fast" not in result and "fast_vs_exact_psnr_db" not in result
+    assert result["views"] == 2 and result["gaussians"] == 6 * 16 * 16 and len(result["call_seconds"]) == 2
+    assert result["pairs_per_view_mean"] > 0 and result["render_mfu"] is None
+    assert result["render_flops_per_view"] > 0 and math.isfinite(result["render_flops_per_view"])
+    assert result["train_step_steps_per_sec"] == 0.7 and result["train_step_config"] == "train_step_256px_b2_bf16"
+
+
+def test_a_dropped_pair_fails_the_render_bench():
+    scene = bench_render.make_scene(0, side=8, n_views=2)
+    pairs = [bench_render.counted_pairs(scene, 32, i) for i in range(2)]
+    bench_render.check_pairs(scene, 32, pairs)
+    pairs[1][1] -= 1
+    with pytest.raises(AssertionError, match="call 1"):
+        bench_render.check_pairs(scene, 32, pairs)
+
+
+def test_counted_operations():
+    # 2 m n k for a product, one per element of a pointwise op, one per
+    # input element of a reduction.
+    a, b = torch.ones(4, 5), torch.ones(5, 3)
+    assert bench_render.count_operations(lambda: (a @ b).exp().sum()) == 2 * 4 * 5 * 3 + 12 + 12
+
+
+def jax_bench_train_names():
+    """bench_train.py's `overrides` list, `variant` and result "metric" as
+    expressions of its flags, read with ast from its main()."""
+    fn = next(n for n in ast.parse((ROOT / "bench_train.py").read_text()).body
+              if isinstance(n, ast.FunctionDef) and n.name == "main")
+    assigns = {n.targets[0].id: n.value for n in ast.walk(fn)
+               if isinstance(n, ast.Assign) and isinstance(n.targets[0], ast.Name)}
+    metric = next(v for k, v in zip(assigns["result"].keys, assigns["result"].values) if k.value == "metric")
+    return {name: compile(ast.Expression(node), "bench_train.py", "eval")
+            for name, node in (("overrides", assigns["overrides"]), ("variant", assigns["variant"]),
+                               ("metric", metric))}
+
+
+FLAGS = [[], ["--bf16"], ["--full", "--batch", "2"], ["--full", "--batch", "2", "--bf16"],
+         ["--full", "--batch", "2", "--bf16", "--remat-policy", "dots"],
+         ["--compute", "encoder:bfloat16,vae:bfloat16"],
+         ["--full", "--no-decoder-remat", "--remat-policy", "vae:off,lpips:off"]]
+
+
+@pytest.mark.parametrize("argv", FLAGS, ids=lambda a: " ".join(a) or "default")
+def test_bench_train_names_and_overrides_are_bench_train_s(argv):
+    args = bench_train.parse_args(argv)
+    flags = {"full": args.full, "size": args.size, "batch": args.batch, "fast": False, "bf16": args.bf16,
+             "compute": args.compute, "remat_policy": args.remat_policy, "no_dec_remat": args.no_decoder_remat}
+    jax_exprs = jax_bench_train_names()
+    flags["variant"] = eval(jax_exprs["variant"], {}, dict(flags))
+    assert bench_train.metric_name(args) == eval(jax_exprs["metric"], {}, flags)
+    assert bench_train.train_overrides(args) == eval(jax_exprs["overrides"], {}, flags)
+    if argv == FLAGS[4]:
+        assert bench_train.metric_name(args) == "train_step_256px_batch2_vae_gan_bf16_dots"
+
+
+def test_bench_train_runs_one_step_on_the_cpu(tmp_path, capsys):
+    result = bench_train.main(["--size", "32", "--iters", "1", "--out-dir", str(tmp_path), *DENSE], device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-2] == "device: cpu" and json.loads(lines[-1])["metric"] == "train_step_32px_batch1_vae_gan"
+    assert math.isfinite(result["value"]) and result["value"] > 0 and result["unit"] == "steps/sec/chip"
+    assert result["train_flops_per_step"] > 0 and result["train_mfu"] is None and result["peak_gib"] is None
+    assert result["steps_run"] == 3 and all(math.isfinite(t) for t in result["generator_total"])
+    written = json.loads((tmp_path / "train_step_32px_b1.json").read_text())
+    assert written["metric"] == result["metric"] and written["measured_unix"] > 0
+
+
+def test_bench_train_refuses_the_fast_precision(capsys):
+    with pytest.raises(SystemExit) as exc:
+        bench_train.main(["--fast"], device="cpu")
+    assert exc.value.code == 2 and "not ported" in capsys.readouterr().err
+
+
+def printed_names(text: str) -> list:
+    return re.findall(r"^(\w+_\w+)[ :]", text, flags=re.M)
+
+
+def jax_stage_names(script: str, pattern: str) -> list:
+    return re.findall(pattern, (ROOT / script).read_text())
+
+
+@pytest.mark.parametrize("module, script, pattern, extra", [
+    (bench_render_stages, "bench_render_stages.py", r'print\(f"(\w+_\w+)[ :]', []),
+    (bench_enc_stages, "bench_enc_stages.py", r'print\(f"(\w+_\w+)[ :]', []),
+    (bench_train_stages, "bench_train_stages.py", r'report\("(\w+)"', ["--out-dir"]),
+], ids=["render", "enc", "train"])
+def test_stage_benches_print_the_jax_scripts_stages(module, script, pattern, extra, tmp_path, capsys):
+    argv = ["--size", "32", "--iters", "1", *([extra[0], str(tmp_path)] if extra else []),
+            *(DENSE if module is bench_train_stages else NARROW)]
+    out = module.main(argv, device="cpu")
+    names = printed_names(capsys.readouterr().out)
+    assert names == jax_stage_names(script, pattern)
+    assert all(math.isfinite(ms) and ms > 0 for ms in out.values())
+    if module is bench_train_stages:
+        record = json.loads((tmp_path / "train_stages_32px_b2.json").read_text())
+        assert list(record["components_ms"]) == names and record["device"] == "cpu"
+
+
+def test_trace_step_self_times_fit_in_the_wall_time(capsys):
+    result = bench_trace_step.main(["--size", "32", "--top", "5", *DENSE], device="cpu")
+    printed = capsys.readouterr().out
+    assert 0 < result["self_ms"] <= result["wall_ms"] and result["events"] > 0
+    assert len(result["top"]) == 5 and all(ms > 0 for _, ms, _ in result["top"])
+    assert result["top"] == sorted(result["top"], key=lambda row: -row[1])
+    assert f"x{result['top'][0][2]:<5d} {result['top'][0][0][:100]}" in printed
+
+
+def test_self_times_subtract_children():
+    def event(name, ts, dur, tid=1, cat="kernel"):
+        return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "pid": 0, "tid": tid}
+
+    trace = {"traceEvents": [event("outer", 0, 10), event("inner.1", 2, 3), event("inner.2", 6, 2),
+                             event("other", 0, 4, tid=2), event("host", 0, 50, cat="cpu_op")]}
+    assert bench_trace_step.self_times(trace) == {"outer": [5.0, 1], "inner": [5.0, 2], "other": [4.0, 1]}

@@ -126,12 +126,15 @@ def test_port_imports_no_jax():
         "paper.table", "paper.generate_ablation_image_comparison", "paper.generate_benchmark_table",
         "paper.generate_comparison_table", "paper.generate_feature_image", "paper.generate_image_comparison",
         "paper.generate_teaser", "misc.profiler", "misc.fraction_utils", "model.autoencoder.base",
-        "model.encoder.alt_depth", "scripts.convergence",
+        "model.encoder.alt_depth", "scripts.convergence", "entry", "scripts.measure", "scripts.bench_render",
+        "scripts.bench_train", "scripts.bench_render_stages", "scripts.bench_enc_stages",
+        "scripts.bench_train_stages", "scripts.bench_trace_step",
     )
     code = (
         "import sys\n"
         f"import {', '.join('latentsplat_tpu_torch.' + m for m in modules)}\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'latentsplat_tpu', 'PIL'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'latentsplat_tpu', 'PIL',\n"
+        "    '__graft_entry__', 'tools_parse_trace') or m.split('.')[0].startswith('bench'))\n"
         "assert not bad, bad\n"
         # The host C library builds and loads at the first decode, never at import.
         "assert latentsplat_tpu_torch.host_build._library is None\n"

@@ -1,13 +1,15 @@
-"""The port's flagship forward against `__graft_entry__.entry()` on the CPU.
+"""The port's `entry()` (latentsplat_tpu_torch.entry) against
+`__graft_entry__.entry()` on the CPU.
 
 The model is the re10k preset at full width (DINO ViT-B/8, d_feature 128,
 2 + 2 epipolar layers, the 512-wide f8 VAE with skips; 184,619,843
 generator parameters) at 64x64, one scene of 2 context and 2 target views,
-as `entry()` builds it. The parameters start from
-`model.init_params(PRNGKey(0), batch)`, as `entry()` does; every leaf is
-then redrawn from a numpy generator (tests/test_torch_slice.py's
-`random_leaves`), so that no zero-initialised skip conv hides a mismatch,
-and crosses over with `params_from_jax`.
+as both `entry()`s build it (the port's example batch equals the JAX
+one). The parameters start from `model.init_params(PRNGKey(0), batch)`,
+as `entry()` does; every leaf is then redrawn from a numpy generator
+(tests/test_torch_slice.py's `random_leaves`), so that no zero-initialised
+skip conv hides a mismatch, and crosses over with `params_from_jax` into
+the model of the port's `entry()`.
 
 `entry()`'s forward draws three times: the depth uniforms, the Gaussian
 feature normals and the latent normals. The same numpy draws go to both
@@ -16,8 +18,9 @@ the port's), each depth uniform moved to the middle of its bucket's CDF
 interval under the port's depth pdf: the epipolar triangulation turns
 1-ulp differences into bucket flips otherwise.
 
-The port runs entry()'s forward with its own modules (no data shims, as
-in entry(); the tiled rasterizer's plain versions on the CPU), with the
+The port's `entry()` forward runs (no data shims, as in entry(); the
+tiled rasterizer's plain versions on the CPU; its Gaussians and render
+read by a hook on the encoder and a wrapper around the decoder), with the
 sample depths that the JAX side's epipolar transformer triangulates
 replayed into it: near-parallel rays turn 1-ulp differences into ~1e-2
 relative depth differences (without the replay the image differs from the
@@ -41,8 +44,7 @@ import jax.numpy as jnp
 import __graft_entry__ as graft
 import latentsplat_tpu.model.encoder.epipolar_transformer as j_epipolar
 import latentsplat_tpu_torch.model.encoder.epipolar_transformer as t_epipolar
-from latentsplat_tpu_torch.config import load_config
-from latentsplat_tpu_torch.model.latentsplat import LatentSplat
+from latentsplat_tpu_torch.entry import entry
 from latentsplat_tpu_torch.weights import params_from_jax
 
 from tests.test_torch_slice import OUTPUT_ATOL, random_leaves
@@ -125,23 +127,29 @@ def dense_forward(model, cfg):
 
 
 @torch.no_grad()
-def port_forward(model, batch, noise):
-    """dense_forward's counterpart in the port: entry()'s forward (no data
-    shims) with the draws taken from `noise`."""
-    context, target = batch["context"], batch["target"]
-    gaussians = model.encoder(context, 0, deterministic=False, depth_noise=noise["depth"])
-    size = model.scaled_size(model.scale_factor, target["image"].shape[-3:-1])
-    rendered = model.decoder(
-        gaussians.sample(noise=noise["gaussians"]), target["extrinsics"], target["intrinsics"], target["near"],
-        target["far"], size,
-    )
-    latent = rendered.feature_posterior.sample(noise=noise["latent"])
-    z = model.rescale(latent, Fraction(1, model.cfg.supersampling_factor))
-    skip_z = torch.cat([rendered.color, latent], dim=-1)
+def port_forward(forward, batch, noise):
+    """dense_forward's counterpart in the port: the port's entry() forward
+    with the draws taken from `noise`, its Gaussians and render read on the
+    way."""
+    model, seen = forward.model, {}
+    decoder = model.decoder
+
+    def render(*args):
+        seen["rendered"] = decoder(*args)
+        return seen["rendered"]
+
+    hook = model.encoder.register_forward_hook(lambda module, args, out: seen.update(gaussians=out))
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(model, "decoder", render)
+            image = forward(batch, noise=noise)
+    finally:
+        hook.remove()
+    gaussians, rendered = seen["gaussians"], seen["rendered"]
     return {
         "means": gaussians.means, "covariances": gaussians.covariances, "opacities": gaussians.opacities,
         "color_harmonics": gaussians.color_harmonics, "feature_mean": gaussians.feature_harmonics.mean,
-        "render": rendered.color, "depth": rendered.depth, "image": model.autoencoder.decode(z, skip_z),
+        "render": rendered.color, "depth": rendered.depth, "image": image,
     }
 
 
@@ -149,13 +157,16 @@ def port_forward(model, batch, noise):
 def flagship():
     fn, (params, batch, rng_key) = graft.entry()
     params = random_leaves(params, np.random.default_rng(2024))
-    model = LatentSplat(load_config("re10k", [OVERRIDE]).model).eval()
+    port_entry, (tbatch, _) = entry(device="cpu")
+    model = port_entry.model
     state = params_from_jax(params, model)
     model.load_state_dict(state, strict=True)
     n_mapped = len(state)
     del state
 
-    tbatch = torch_batch(batch)
+    for side, views in torch_batch(batch).items():   # the port's example batch is entry()'s
+        assert views.keys() == tbatch[side].keys()
+        assert all(torch.equal(views[k], tbatch[side][k]) for k in views), side
     context = tbatch["context"]
     rng = np.random.default_rng(7)
     ae = model.autoencoder
@@ -185,7 +196,7 @@ def flagship():
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(t_epipolar, "get_depth", lambda *args: torch.from_numpy(depths))
-        port = port_forward(model, tbatch, {k: torch.from_numpy(a) for k, a in noise.items()})
+        port = port_forward(port_entry, tbatch, {k: torch.from_numpy(a) for k, a in noise.items()})
     return {"model": model, "n_leaves": len(jax.tree_util.tree_leaves(params)), "n_mapped": n_mapped,
             "port": {k: v.numpy() for k, v in port.items()}, **outputs}
 
