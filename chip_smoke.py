@@ -24,6 +24,17 @@
    256x256, probabilistic) through `render_full` on the flagship re10k
    model at full width with seeded random weights, checks the output and
    that both forward kernels ran on that path.
+4b. Fast phase (model.decoder.precision=fast): at view 0, the pairs and
+   rows composite_tiled prepares at "fast"; composite_forward's coef
+   (serving) and fast (training, writing the block state) variants and
+   composite_backward's fast variant (on the fast forward's outputs and
+   block state, a seeded random cotangent) held against their plain
+   versions (forward: `last` exactly, T 1e-5, each channel 1e-5 of its
+   largest value, the block state exactly; backward: 1e-4 of each column's
+   largest value or one bfloat16 step of the value, the same bits again),
+   timed and their work counted; then `render_full` at precision fast on
+   the slice batch: finite outputs, the coef variant launched once a target
+   view and no exact composite, the render's PSNR against exact.
 5. Depth phase: on the slice's Gaussians, composite_forward at 4 channels
    (render_depth's payload) against its plain version and timed at view 0;
    the splatting decoder in each depth mode (depth, disparity,
@@ -36,7 +47,9 @@
    at step 125000, where every re10k loss is live. Checks finite losses and
    gradient norms, the adaptive weight in [0, 1], changed parameters of
    both nets and that all four kernels ran; prints seconds per step, a
-   stage split and the peak memory.
+   stage split and the peak memory. Then 2 steps at precision fast: finite
+   logs, the fast forward and backward variants 8 times a step and no
+   exact composite.
 7. Trainer phase: the program's entry point, `latentsplat_tpu_torch.main.main`,
    on the flagship model at full width and the synthetic dataset at
    256x256: train from step 0 (2 steps, a validation with the wobble and
@@ -71,7 +84,10 @@
    batch, 2 train steps and `main` in test mode, whose benchmark.json holds
    autoencoder_encoder; (s3) variational=latents: composite_forward and
    composite_backward at 12 channels and reduce_pairs at rows of 18 against
-   their plain versions and timed at view 0, then 2 train steps; (s4)
+   their plain versions and timed at view 0, the fast family's variants at
+   12 channels as in the fast phase, then 2 train steps, a render without
+   gradient and 1 train step at precision fast (4 coef, 8 fast forward and
+   backward launches); (s4)
    model.remat with decoder.remat under the policies nothing, dots and
    vae:off,lpips:off against the plain step on the same batch and noise
    (generator/total within 1e-6 relative, each gradient leaf within 1e-6
@@ -121,12 +137,15 @@
    the dense oracle.
 13. Bench phase: the port's bench scripts (latentsplat_tpu_torch.scripts)
    at their full shapes with PyTorch's TF32 defaults, as a user runs
-   them: bench_train at 128x128 batch 1, --full --batch 2 and --full
-   --batch 2 --bf16 (finite positive steps/s and FLOPs, each kernel's
-   launches exactly what the steps and model.decoder.remat imply, the
-   --full --batch 2 peak below 80 GB); bench_render, 64 views of 393,216
-   Gaussians at 256x256 (duplicate_with_keys and composite_forward<8>
-   launched exactly 64 x 6 times, no pair dropped); bench_render_stages,
+   them: bench_train at 128x128 batch 1, --full --batch 2, --full
+   --batch 2 --bf16 and --fast (finite positive steps/s and FLOPs, each
+   kernel's launches exactly what the steps and model.decoder.remat imply,
+   in the precision's variant, the --full --batch 2 peak below 80 GB);
+   bench_render, 64 views of 393,216 Gaussians at 256x256 at precision fast
+   (the headline) and exact (duplicate_with_keys and composite_forward<8>
+   launched exactly 64 x 6 times at each, coef and exact, no pair dropped,
+   value_fast, value_exact and fast_vs_exact_psnr_db finite);
+   bench_precision_knobs --views 8 (every mode finite); bench_render_stages,
    bench_enc_stages and bench_train_stages (finite positive times);
    bench_trace_step's top kernels (device self time within the wall time);
    entry.dryrun_multichip(2) with both ranks on the card. Prints every
@@ -146,7 +165,10 @@ the parallel phase, in each run of the bench phase and over the
 convergence phase; duplicate_with_keys
 also its wrapper's ms; composite_forward once at the flagship's 8 channels,
 once at render_depth's 4 and once at variational=latents' 12, and
-composite_backward and reduce_pairs also at 12 channels), and last
+composite_backward and reduce_pairs also at 12 channels; the fast family's
+rows, marked "variant", at 8 and 12 channels: composite_forward's coef and
+fast, composite_backward's fast, with the launches of serving and training
+at precision fast), and last
 `{"ok": true, "device": {...}}`.
 Any failed check raises.
 Exits non-zero without printing a result when no CUDA device is present.
@@ -452,20 +474,42 @@ def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[di
     ]
 
 
-def forward_entry(err: float, ms: float, plain_ms: float, view: dict) -> dict:
+def forward_entry(err: float, ms: float, plain_ms: float, view: dict, variant: str = "exact",
+                  extra_bytes: int = 0) -> dict:
     """composite_forward's record: the pairs' ids, the tile ranges and every
-    Gaussian's attribute row read once, the channels, T and `last` written;
-    operations as counted by `composite_work`."""
+    Gaussian's attribute row read once, the channels, T and `last` written
+    (and `extra_bytes`: a fast variant's block state); operations as counted
+    by `composite_work`."""
     from latentsplat_tpu_torch.scripts.bench_render import EVAL_OPS, forward_composited_ops
 
     attrs, ranges, work = view["attrs"], view["ranges"], view["work"]
     p_count, (g_count, row) = view["gids"].shape[0], attrs.shape
     n_ch, plane = row - 6, view["shape"][0] * view["shape"][1]
-    return entry("composite_forward", "composite_forward.cu", "latentsplat_tpu/ops/rasterize/pallas_kernels.py:399",
-                 err, ms, plain_ms,
-                 n_bytes=4 * p_count + 4 * ranges.numel() + 4 * row * g_count + 4 * (n_ch + 2) * plane,
-                 n_ops=EVAL_OPS * work["forward_evaluations"] + forward_composited_ops(n_ch) * work["composited"],
-                 channels=n_ch)
+    record = entry("composite_forward", "composite_forward.cu", "latentsplat_tpu/ops/rasterize/pallas_kernels.py:399",
+                   err, ms, plain_ms,
+                   n_bytes=4 * p_count + 4 * ranges.numel() + 4 * row * g_count + 4 * (n_ch + 2) * plane + extra_bytes,
+                   n_ops=EVAL_OPS * work["forward_evaluations"] + forward_composited_ops(n_ch) * work["composited"],
+                   channels=n_ch)
+    return {**record, "variant": variant} if variant != "exact" else record
+
+
+def backward_entry(err: float, ms: float, plain_ms: float, view: dict, variant: str = "exact",
+                   extra_bytes: int = 0) -> dict:
+    """composite_backward's record: ids, ranges, order, the attribute rows,
+    `last`, T and the cotangents read once, the pair rows written (and
+    `extra_bytes`: a fast variant's block state read); operations as
+    counted by `composite_work`."""
+    from latentsplat_tpu_torch.scripts.bench_render import EVAL_OPS
+
+    attrs, ranges, work = view["attrs"], view["ranges"], view["work"]
+    p_count, n_ch = view["gids"].shape[0], attrs.shape[1] - 6
+    plane = view["shape"][0] * view["shape"][1]
+    record = entry("composite_backward", "composite_backward.cu", "latentsplat_tpu/ops/rasterize/pallas_kernels.py:667",
+                   err, ms, plain_ms,
+                   n_bytes=4 * p_count + 4 * ranges.numel() + 8 * p_count + 4 * (n_ch + 6) * attrs.shape[0]
+                   + 4 * (n_ch + 3) * plane + 4 * (n_ch + 6) * p_count + extra_bytes,
+                   n_ops=EVAL_OPS * work["backward_evaluations"] + backward_composited_ops(n_ch) * work["composited"])
+    return {**record, "variant": variant} if variant != "exact" else record
 
 
 DEPTH_MODES = ("depth", "disparity", "relative_disparity", "log")
@@ -495,6 +539,24 @@ def depth_view(sg, shape: tuple[int, int]) -> dict:
             "tiles_x": tiles_x, "shape": shape, "t_final": t_final, "last": last}
 
 
+def held_forward(out: tuple, ref: tuple, label: str) -> float:
+    """composite_forward's outputs against its plain version's: `last`
+    exactly, T within KERNEL_ATOL and each channel within KERNEL_ATOL of its
+    largest value; raises, else returns the largest error."""
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+
+    scale = ref[0].abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    err_ch = ((out[0] - ref[0]).abs().amax(dim=(1, 2)) / scale).max().item()
+    err_t = (out[1] - ref[1]).abs().max().item()
+    last_mismatch = int((out[2] != ref[2]).sum())
+    saturated = (ref[1] < kernels.TRANSMITTANCE_MIN).float().mean().item()
+    print(f"{label}: max channel error relative to its largest value {err_ch:.3e}, max |T err| {err_t:.3e}, "
+          f"last-contributor mismatches {last_mismatch}, saturated pixels {saturated:.3f}")
+    if not (err_ch <= KERNEL_ATOL and err_t <= KERNEL_ATOL) or last_mismatch:
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return max(err_ch, err_t)
+
+
 def check_forward(view: dict, label: str) -> float:
     """composite_forward against its plain version on `view`: `last`
     exactly, T within KERNEL_ATOL and each channel within KERNEL_ATOL of
@@ -506,15 +568,7 @@ def check_forward(view: dict, label: str) -> float:
     out = kernels.composite_forward(*args)
     ref = kernels.composite_forward_reference(*args)
     torch.cuda.synchronize()
-    scale = ref[0].abs().amax(dim=(1, 2)).clamp(min=1e-30)
-    err_ch = ((out[0] - ref[0]).abs().amax(dim=(1, 2)) / scale).max().item()
-    err_t = (out[1] - ref[1]).abs().max().item()
-    last_mismatch = int((out[2] != ref[2]).sum())
-    print(f"{label}: composite_forward at {view['attrs'].shape[1] - 6} channels, max channel error relative to "
-          f"its largest value {err_ch:.3e}, max |T err| {err_t:.3e}, last-contributor mismatches {last_mismatch}")
-    if not (err_ch <= KERNEL_ATOL and err_t <= KERNEL_ATOL) or last_mismatch:
-        raise AssertionError(f"{label}: composite_forward disagrees with its plain version")
-    return max(err_ch, err_t)
+    return held_forward(out, ref, f"{label}: composite_forward at {view['attrs'].shape[1] - 6} channels")
 
 
 def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
@@ -667,21 +721,148 @@ def backward_kernel_phase(view: dict, seed: int) -> list[dict]:
           f"no slower than the library in {wins} of {len(rounds)} rounds; plain on the card "
           f"{red_plain_ms:.4f} ms")
 
-    from latentsplat_tpu_torch.scripts.bench_render import EVAL_OPS
-
-    work, n_ch, p_count = view["work"], attrs.shape[1] - 6, gids.shape[0]
-    plane = shape[0] * shape[1]
+    p_count = gids.shape[0]
     return [
-        entry("composite_backward", "composite_backward.cu",
-              "latentsplat_tpu/ops/rasterize/pallas_kernels.py:667", (d_rows - ref).abs().max().item(),
-              bwd_ms, bwd_plain_ms,
-              n_bytes=4 * p_count + 4 * ranges.numel() + 8 * p_count + 4 * (n_ch + 6) * attrs.shape[0]
-              + 4 * (n_ch + 3) * plane + 4 * (n_ch + 6) * p_count,
-              n_ops=EVAL_OPS * work["backward_evaluations"] + backward_composited_ops(n_ch) * work["composited"]),
+        backward_entry((d_rows - ref).abs().max().item(), bwd_ms, bwd_plain_ms, view),
         entry("reduce_pairs", "reduce_pairs.cu", "latentsplat_tpu/ops/rasterize/expand.py:254", red_err,
               red_ms, red_plain_ms, n_bytes=4 * row * p_count + 8 * g_count + 4 * row * g_count, n_ops=0,
               library_ms=library_ms),
     ]
+
+
+# A fast-family gradient row is rounded to bfloat16 when it is written; a
+# row whose float32 sum the kernel takes in another order than the plain
+# version may round the other way: one bfloat16 step, at most 2^-7 of the value.
+BF16_STEP = 2.0**-7
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds by CUDA events, the host's time included): a
+    plain version, slow enough at flagship shapes that one call is timed."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str) -> list[dict]:
+    """The fast family's kernel variants on the screen Gaussians `sg`, with
+    the pairs and rows `composite_tiled` prepares at "fast" (the wider cull,
+    the truncated depth order, bf16 conic and opacity, 12-bit channels, the
+    code's depth): composite_forward's coef (serving) and fast (training,
+    writing the block state) variants, and composite_backward's fast
+    variant on the fast forward's outputs and block state with a seeded
+    random cotangent, each against its plain version on the same inputs
+    (forward: the exact rows' bounds, and the block state exactly;
+    backward: BACKWARD_RTOL of each column's largest value, or one bfloat16
+    step of the value, and the same bits again) and timed (the plain
+    version once, by CUDA events: seconds at these shapes); the work each
+    needs counted on the card. Returns their records (launches come later)."""
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+    from latentsplat_tpu_torch.ops.rasterize.tiled import (
+        depth_code_bits, pack_attributes, precision_knobs, quantize_attributes, tile_pairs)
+
+    h, w = shape
+    tiles_x = w // 16
+    gids, ranges, order, counts = tile_pairs(sg, shape, 9, "fast")
+    attrs = quantize_attributes(pack_attributes(sg), precision_knobs("fast"), depth_code_bits(tiles_x * (h // 16))[1])
+    base = (gids, ranges, attrs, tiles_x, shape)
+    n_ch = attrs.shape[1] - 6
+    print(f"{label}: fast pairs {gids.shape[0]}, {n_ch} channels")
+    records = []
+
+    out = kernels.composite_forward(*base, coef=True)
+    ref, plain_ms = timed_once(lambda: kernels.composite_forward_reference(*base, coef=True))
+    err = held_forward(out, ref, f"{label}: composite_forward (coef)")
+    ms = device_ms(lambda: kernels.composite_forward(*base, coef=True))
+    view = {"gids": gids, "ranges": ranges, "order": order, "counts": counts, "attrs": attrs, "tiles_x": tiles_x,
+            "shape": shape, "t_final": out[1], "last": out[2]}
+    view["work"] = counted_work(view)
+    print(f"{label}: composite_forward (coef) {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms")
+    records.append(forward_entry(err, ms, plain_ms, view, "coef"))
+
+    blocks = kernels.block_state(ranges, gids.shape[0])
+    blocks[1].zero_()
+    ref_blocks = (blocks[0], torch.zeros_like(blocks[1]))
+    fast = dict(f16_xy=True, bf16_mm=True)
+    out = kernels.composite_forward(*base, **fast, blocks=blocks)
+    ref, plain_ms = timed_once(lambda: kernels.composite_forward_reference(*base, **fast, blocks=ref_blocks))
+    err = held_forward(out, ref, f"{label}: composite_forward (fast)")
+    written = int((blocks[1][..., 1] != 0).sum())
+    if not torch.equal(blocks[1], ref_blocks[1]) or written == 0:
+        raise AssertionError(f"{label}: composite_forward (fast) wrote another block state than its plain version")
+    ms = device_ms(lambda: kernels.composite_forward(*base, **fast, blocks=blocks))
+    view = {**view, "t_final": out[1], "last": out[2]}
+    view["work"] = counted_work(view)
+    print(f"{label}: composite_forward (fast) {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms; block state equal, "
+          f"{written} (block, pixel) entries written of {blocks[1].shape[0] * blocks[1].shape[1]}")
+    records.append(forward_entry(err, ms, plain_ms, view, "fast", extra_bytes=8 * written))
+
+    gen = torch.Generator(device=attrs.device).manual_seed(seed + 1)
+    g_out = torch.randn((n_ch, *shape), generator=gen, device=attrs.device)
+    g_t = torch.randn(shape, generator=gen, device=attrs.device)
+    args = (gids, ranges, order, attrs, tiles_x, shape, out[2], out[1], g_out, g_t)
+    knobs = dict(f16_xy=True, bf16_mm=True, bf16_grads=True, blocks=blocks)
+    d_rows = kernels.composite_backward(*args, **knobs)
+    ref, plain_ms = timed_once(lambda: kernels.composite_backward_reference(*args, **knobs))
+    scale = ref.abs().amax(dim=0).clamp(min=1e-30)
+    excess = (d_rows - ref).abs() - BACKWARD_RTOL * scale - BF16_STEP * ref.abs()
+    rel = ((d_rows - ref).abs() / scale).max().item()
+    print(f"{label}: composite_backward (fast): {gids.shape[0]} pair rows, max error relative to each column's "
+          f"largest value {rel:.3e}; {int((d_rows != ref).sum())} elements differ, {int((excess > 0).sum())} beyond "
+          f"{BACKWARD_RTOL} of the column or one bfloat16 step")
+    if (excess > 0).any() or not torch.equal(d_rows, kernels.composite_backward(*args, **knobs)):
+        raise AssertionError(f"{label}: composite_backward (fast) disagrees with its plain version")
+    ms = device_ms(lambda: kernels.composite_backward(*args, **knobs))
+    print(f"{label}: composite_backward (fast) {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms")
+    records.append(backward_entry((d_rows - ref).abs().max().item(), ms, plain_ms, view, "fast",
+                                  extra_bytes=8 * written))
+    for record in records:
+        record["channels"] = n_ch
+    return records
+
+
+def fast_serve_phase(model, batch, seed: int) -> tuple[list[dict], dict]:
+    """The fast precision on the flagship: the kernel variants at view 0
+    (`fast_kernel_checks`, 8 channels), then `render_full` at
+    model.decoder.precision=fast on the slice batch (the counted run): the
+    coefficient-layout forward once a target view and no exact composite,
+    finite outputs of the slice's shapes, and the render's PSNR against the
+    exact one on the same noise. Returns the records and the launches."""
+    from latentsplat_tpu_torch.model.latentsplat import render_full
+
+    sg, shape = first_view(model, batch, seed)
+    records = fast_kernel_checks(sg, shape, seed, "fast phase, view 0")
+    del sg
+    gen = torch.Generator(device=batch["target"]["image"].device)
+    exact = render_full(model, batch, generator=gen.manual_seed(seed))
+    model.decoder.cfg.precision = "fast"
+    try:
+        render_full(model, batch, generator=gen.manual_seed(seed))     # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        out = render_full(model, batch, generator=gen.manual_seed(seed))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = read_launches()
+    finally:
+        model.decoder.cfg.precision = "exact"
+    n_target = batch["target"]["image"].shape[1]
+    for key in ("image", "render", "depth"):
+        if out[key].shape != exact[key].shape or not torch.isfinite(out[key]).all():
+            raise AssertionError(f"fast phase: {key} of shape {tuple(out[key].shape)} or non-finite")
+    expected = {"composite_forward": {"coef": {8: n_target}}, "composite_backward": {}}
+    if launches["by_variant"] != expected or launches["duplicate_with_keys"] != n_target:
+        raise AssertionError(f"fast phase: render_full launched {launches}, not {expected}")
+    mse = {k: (out[k].clamp(0, 1) - exact[k].clamp(0, 1)).square().mean().item() for k in ("render", "image")}
+    print(f"fast phase: render_full at precision fast {seconds:.4f} s (host clock, synchronized); render PSNR "
+          f"against exact {-10 * math.log10(max(mse['render'], 1e-12)):.3f} dB, decoded image "
+          f"{-10 * math.log10(max(mse['image'], 1e-12)):.3f} dB; pairs per view {out['num_pairs'].reshape(-1).tolist()} "
+          f"(exact {exact['num_pairs'].reshape(-1).tolist()}); launches {launches['by_variant']}")
+    return records, launches
 
 
 def parent_comparison(parent: str, dup_args: tuple, dup_out: tuple, comp_args: tuple, comp_out: tuple,
@@ -856,9 +1037,9 @@ def build_trainer(cfg, seed: int, device, peaked_depth: bool = True):
     return state, trainer.losses, make_train_step(trainer.losses, g.skip_loss_spike_factor, g.skip_loss_spike_patience)
 
 
-def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: int = 256) -> dict:
-    """3 flagship train steps on one batch; returns the kernels' launch
-    counts over those steps."""
+def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: int = 256) -> tuple[dict, dict]:
+    """3 flagship train steps on one batch, then 2 at precision fast;
+    returns the kernels' launch counts over each run."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
     scenes = 2
@@ -919,12 +1100,24 @@ def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: in
         f"{k} {statistics.median(v[1:]):.4f}" for k, v in stage_s.items()))
     print(f"train peak memory allocated: {peak / 2**30:.3f} GiB")
     print(f"train launches: {launches}")
+    # Then two steps at precision fast (the counted run of the fast
+    # family's training variants): 8 forward and backward launches a step.
+    state.model.decoder.cfg.precision = "fast"
+    try:
+        state, _, _, _, fast_launches = timed_steps("train phase at precision fast", state, train_step, batch,
+                                                    seed + 4, 2)
+    finally:
+        state.model.decoder.cfg.precision = "exact"
+    n = 2 * scenes * 4
+    expected = {"composite_forward": {"fast": {8: n}}, "composite_backward": {"fast": {8: n}}}
+    if fast_launches["by_variant"] != expected or fast_launches["reduce_pairs"] != n:
+        raise AssertionError(f"train phase at precision fast: launches {fast_launches}, not {expected}")
     if profile_dir:
         profile_once(
             "train_step", lambda timer: train_step(state, batch, TRAIN_STEP, generator=gen, timer=timer),
             profile_dir,
         )
-    return launches
+    return launches, fast_launches
 
 
 def read_records(run: Path) -> list[dict]:
@@ -1445,8 +1638,8 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
         composite_tiled = api.composite_tiled
         render_orthographic = validation_in_3d.render_orthographic
 
-        def spy_composite(sg, shape, background, cap):
-            result = composite_tiled(sg, shape, background, cap)
+        def spy_composite(sg, shape, background, cap, *args, **kwargs):
+            result = composite_tiled(sg, shape, background, cap, *args, **kwargs)
             records.append({"cap": cap, "pairs": result[3], "sg": sg})
             return result
 
@@ -1598,11 +1791,15 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
 def launches_at(launches: dict, entry: dict) -> int:
     """A kernel row's launches in `launches` (read_launches' dict), the
     compositing kernels' read at the row's channel count (the kernel and
-    backward phases' rows are the flagship's 8 channels)."""
+    backward phases' rows are the flagship's 8 channels) and the two
+    composite kernels' at the row's variant ("exact" unless it names one)."""
     name = entry["name"]
     if name == "duplicate_with_keys":
         return launches[name]
-    return launches["by_channels"][name].get(entry.get("channels", entry.get("row", 14) - 6), 0)
+    channels = entry.get("channels", entry.get("row", 14) - 6)
+    if name in launches["by_variant"]:
+        return launches["by_variant"][name].get(entry.get("variant", "exact"), {}).get(channels, 0)
+    return launches["by_channels"][name].get(channels, 0)
 
 
 def reset_launches() -> None:
@@ -1610,17 +1807,20 @@ def reset_launches() -> None:
 
     for key in kernels.launch_counts:
         kernels.launch_counts[key] = 0
-    for by_channels in kernels.launches_by_channels.values():
-        by_channels.clear()
+    for counts in (*kernels.launches_by_channels.values(), *kernels.launches_by_variant.values()):
+        counts.clear()
 
 
 def read_launches() -> dict:
-    """Each kernel's launches, composite_forward's by channel count, and
-    each compositing kernel's by channel count under "by_channels"."""
+    """Each kernel's launches, composite_forward's by channel count, each
+    compositing kernel's by channel count under "by_channels" and the
+    composite kernels' by variant and channel count under "by_variant"."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
     return {**kernels.launch_counts, "composite_forward_by_channels": dict(kernels.composite_forward_launches),
-            "by_channels": {k: dict(v) for k, v in kernels.launches_by_channels.items()}}
+            "by_channels": {k: dict(v) for k, v in kernels.launches_by_channels.items()},
+            "by_variant": {k: {variant: dict(c) for variant, c in v.items()}
+                           for k, v in kernels.launches_by_variant.items()}}
 
 
 def jpeg_tools():
@@ -2105,8 +2305,11 @@ def switch_encode_latents(seed: int, device, size: int = 256) -> None:
 def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict]:
     """(s3) variational=latents: at view 0 composite_forward and
     composite_backward at 12 channels and reduce_pairs at rows of 18 against
-    their plain versions, timed beside their bounds; then 2 train steps.
-    Returns the three records and the steps' launches."""
+    their plain versions, timed beside their bounds, and the fast family's
+    variants at 12 channels (`fast_kernel_checks`); then 2 train steps, a
+    render without gradient and 1 train step at precision fast. Returns the
+    records (the fast ones with their launches) and the exact steps'
+    launches."""
     from latentsplat_tpu_torch.config import load_config
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
@@ -2128,7 +2331,9 @@ def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict
     records += backward_kernel_phase(view, seed)
     records[1]["channels"] = 12
     records[2]["row"] = 18
+    fast_records = fast_kernel_checks(sg, shape, seed, "switches (s3) view 0")
     del view, sg
+    serve_batch = make_batch(np.random.default_rng(seed), 2, 4, size, device)
     model.train()
     batch = model.data_shim(make_batch(np.random.default_rng(seed + 2), 2, 4, size, device, 2))
     _, _, _, _, launches = timed_steps("switches (s3) variational=latents train", state, train_step, batch,
@@ -2136,7 +2341,38 @@ def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict
     by_channels = launches["composite_forward_by_channels"]
     if by_channels.get(12) != 2 * 8 or launches["composite_backward"] != 2 * 8 or launches["reduce_pairs"] != 2 * 8:
         raise AssertionError(f"(s3): the 12-channel kernels ran {launches}, not 8 times a step")
-    return records, launches
+    # At precision fast: the decoder without gradient on a batch's mean and
+    # logvar Gaussians, as the step renders them (the coef variant once a
+    # target view; render_full, like the JAX package's, samples the
+    # Gaussians and serves no `latents` model), and one train step (the
+    # fast variants 8 times), whose launches the 12-channel fast rows take.
+    model.decoder.cfg.precision = "fast"
+    try:
+        model.eval()
+        shimmed, flat = slice_gaussians(model, serve_batch, seed, flatten=True)
+        target = shimmed["target"]
+        size = model.scaled_size(model.scale_factor, target["image"].shape[2:4])
+        reset_launches()
+        with torch.no_grad():
+            served = model.decoder(flat, target["extrinsics"], target["intrinsics"], target["near"], target["far"],
+                                   size)
+        torch.cuda.synchronize()
+        serve_launches = read_launches()
+        model.train()
+        _, _, _, _, fast_launches = timed_steps("switches (s3) variational=latents train at precision fast", state,
+                                                train_step, batch, seed + 4, 1)
+    finally:
+        model.decoder.cfg.precision = "exact"
+    if not all(torch.isfinite(x).all() for x in (served.color, served.feature_posterior.mean, served.depth)):
+        raise AssertionError("(s3) at precision fast: non-finite render")
+    expected = ({"composite_forward": {"coef": {12: 4}}, "composite_backward": {}},
+                {"composite_forward": {"fast": {12: 8}}, "composite_backward": {"fast": {12: 8}}})
+    if (serve_launches["by_variant"], fast_launches["by_variant"]) != expected:
+        raise AssertionError(f"(s3) at precision fast: launches {serve_launches['by_variant']} serving, "
+                             f"{fast_launches['by_variant']} training, not {expected}")
+    for record in fast_records:
+        record["launches"] = launches_at(serve_launches if record["variant"] == "coef" else fast_launches, record)
+    return records + fast_records, launches
 
 
 def leaf_errors(a: dict, b: dict) -> tuple[float, str]:
@@ -2335,8 +2571,9 @@ def switches_phase(seed: int, device) -> list[dict]:
     torch.cuda.empty_cache()
     records, launches = switch_latents(seed, device)
     for record in records:
-        record["launches"] = (launches["composite_forward_by_channels"][12] if record["name"] == "composite_forward"
-                              else launches[record["name"]])
+        if "launches" not in record:
+            record["launches"] = (launches["composite_forward_by_channels"][12]
+                                  if record["name"] == "composite_forward" else launches[record["name"]])
     torch.cuda.empty_cache()
     switch_remat_bf16(seed, device)
     torch.cuda.empty_cache()
@@ -2997,29 +3234,35 @@ def parallel_phase(seed: int, device, trainer_output: Path) -> dict:
 # -- the bench phase -------------------------------------------------------------
 
 BENCH_TRAIN_RUNS = {"default": [], "full_b2": ["--full", "--batch", "2"],
-                    "full_b2_bf16": ["--full", "--batch", "2", "--bf16"]}
+                    "full_b2_bf16": ["--full", "--batch", "2", "--bf16"], "fast": ["--fast"]}
 CARD_BYTES = 80e9
 
 
 def bench_phase(seed: int, device) -> dict:
     """The port's bench scripts at their full shapes, as a user runs them
-    (`main`), each JSON line printed on its own: bench_train three times
-    (128x128 batch 1; --full --batch 2; --full --batch 2 --bf16), each with
-    finite positive steps/s and FLOPs and its kernels launched exactly as
-    often as its steps need (8 a step of 2 x 4 views for the backward
-    kernels and, under model.decoder.remat, twice as many for the forward
-    ones, which render each view again in the backward), --full --batch 2's
-    peak below the card's 80 GB; bench_render (64 views of 393,216
-    Gaussians at 256x256) with duplicate_with_keys and composite_forward<8>
-    launched exactly 64 x 6 times in its warm-up and 5 timed calls (its
-    operation count, which launches each once more a view, runs after) and
-    no pair dropped; the three stage benches with finite positive stage
+    (`main`), each JSON line printed on its own: bench_train four times
+    (128x128 batch 1; --full --batch 2; --full --batch 2 --bf16; --fast at
+    128x128 batch 1), each with finite positive steps/s and FLOPs and its
+    kernels launched exactly as often as its steps need, in the variant its
+    precision takes (8 a step of 2 x 4 views for the backward kernels and,
+    under model.decoder.remat, twice as many for the forward ones, which
+    render each view again in the backward), --full --batch 2's peak below
+    the card's 80 GB; bench_render (64 views of 393,216 Gaussians at
+    256x256, fast then exact) with duplicate_with_keys and composite_forward<8>
+    launched exactly 64 x 6 times at each precision (coef, then exact) in
+    its warm-ups and 5 timed calls (its operation count and PSNR, which
+    launch more, run after), no pair dropped, finite value_fast, value_exact
+    and fast_vs_exact_psnr_db; bench_precision_knobs --views 8 with every
+    mode finite; the three stage benches with finite positive stage
     times; bench_trace_step's top kernels, with device self time within
     the step's wall time; and entry.dryrun_multichip(2), its two ranks
     sharing the card. Records go to a temp dir. Returns each run's
     launches."""
     from latentsplat_tpu_torch.entry import dryrun_multichip
     from latentsplat_tpu_torch.scripts.bench_enc_stages import main as enc_stages
+    from latentsplat_tpu_torch.scripts.bench_precision_knobs import MODES as PRECISION_KNOB_MODES
+    from latentsplat_tpu_torch.scripts.bench_precision_knobs import main as precision_knobs_bench
+    from latentsplat_tpu_torch.scripts.bench_render import PRECISIONS as RENDER_PRECISIONS
     from latentsplat_tpu_torch.scripts.bench_render import make_scene, summarize, time_render
     from latentsplat_tpu_torch.scripts.bench_render_stages import main as render_stages
     from latentsplat_tpu_torch.scripts.bench_trace_step import main as trace_step
@@ -3044,8 +3287,11 @@ def bench_phase(seed: int, device) -> dict:
             print(f"bench phase: bench_train {' '.join(argv) or '(default)'}: {result['value']!r} steps/s, peak "
                   f"{result['peak_gib']!r} GiB, {result['train_flops_per_step']!r} FLOPs a step, train_mfu "
                   f"{result['train_mfu']!r}; launches {got} over {result['steps_run']} steps")
-            if got != expected or launches[label]["by_channels"]["composite_forward"] != {8: expected["composite_forward"]}:
-                raise AssertionError(f"bench_train {argv}: launches {launches[label]}, not {expected}")
+            variant = "fast" if "--fast" in argv else "exact"
+            by_variant = {"composite_forward": {variant: {8: expected["composite_forward"]}},
+                          "composite_backward": {variant: {8: expected["composite_backward"]}}}
+            if got != expected or launches[label]["by_variant"] != by_variant:
+                raise AssertionError(f"bench_train {argv}: launches {launches[label]}, not {expected} ({by_variant})")
             if not (math.isfinite(result["value"]) and result["value"] > 0 and result["train_flops_per_step"] > 0):
                 raise AssertionError(f"bench_train {argv}: {result}")
             if label == "full_b2" and not result["peak_gib"] * 2**30 < CARD_BYTES:
@@ -3053,24 +3299,35 @@ def bench_phase(seed: int, device) -> dict:
 
         scene = make_scene(seed, device=device)
         reset_launches()
-        timing = time_render(scene, 256)
+        timings = {p: time_render(scene, 256, precision=p) for p in RENDER_PRECISIONS}
         sync(device)
         launches["render"] = read_launches()
-        n_calls, n_views = 1 + len(timing["seconds"]), scene["extrinsics"].shape[1]
-        expected = {"duplicate_with_keys": n_calls * n_views, "composite_forward": n_calls * n_views,
-                    "composite_backward": 0, "reduce_pairs": 0}
-        if {k: launches["render"][k] for k in expected} != expected or \
-                launches["render"]["composite_forward_by_channels"] != {8: n_calls * n_views}:
-            raise AssertionError(f"bench_render: launches {launches['render']}, not {expected}")
-        render = summarize(scene, 256, timing, device, Path(records))   # raises on a dropped pair
+        n_calls, n_views = 1 + len(timings["fast"]["seconds"]), scene["extrinsics"].shape[1]
+        n = n_calls * n_views
+        expected = {"duplicate_with_keys": 2 * n, "composite_forward": 2 * n, "composite_backward": 0,
+                    "reduce_pairs": 0}
+        by_variant = {"composite_forward": {"coef": {8: n}, "exact": {8: n}}, "composite_backward": {}}
+        if {k: launches["render"][k] for k in expected} != expected or launches["render"]["by_variant"] != by_variant:
+            raise AssertionError(f"bench_render: launches {launches['render']}, not {expected} ({by_variant})")
+        render = summarize(scene, 256, timings, device, Path(records))   # raises on a dropped pair
         print(f"device: {render['device']}")
         print(json.dumps(render))
-        print(f"bench phase: bench_render {render['value']!r} views/s, {render['ms_per_view']!r} ms a view, "
-              f"{render['pairs_per_view_mean']!r} pairs a view, render_mfu {render['render_mfu']!r}; launches "
-              f"{expected} in {n_calls} calls of {n_views} views")
-        if not (math.isfinite(render["value"]) and render["value"] > 0 and render["render_flops_per_view"] > 0):
+        print(f"bench phase: bench_render value_fast {render['value_fast']!r} views/s ({render['ms_per_view']!r} ms "
+              f"a view), value_exact {render['value_exact']!r} views/s ({render['ms_per_view_exact']!r} ms), "
+              f"fast_vs_exact_psnr_db {render['fast_vs_exact_psnr_db']!r}, {render['pairs_per_view_mean']!r} pairs a "
+              f"fast view ({render['pairs_per_view_mean_exact']!r} exact), render_mfu {render['render_mfu']!r}; "
+              f"launches {by_variant} in {n_calls} calls of {n_views} views at each precision")
+        if not all(math.isfinite(render[k]) and render[k] > 0
+                   for k in ("value", "value_exact", "render_flops_per_view", "fast_vs_exact_psnr_db")):
             raise AssertionError(f"bench_render: {render}")
         del scene
+        knobs = precision_knobs_bench(["--views", "8", "--out-dir", records], device=device)
+        bad = {m: k for m, k in knobs["knobs"].items() if not all(math.isfinite(v) for v in k.values())}
+        print(f"bench phase: bench_precision_knobs --views 8: fast {knobs['value']!r} dB against exact; " + "; ".join(
+            f"{m} color {k['color_psnr_db']:.3f} dB, feature {k['feature_psnr_db']:.3f} dB, depth rel err median "
+            f"{k['depth_rel_err']:.3e} max {k['depth_rel_err_max']:.3e}" for m, k in knobs["knobs"].items()))
+        if bad or set(knobs["knobs"]) != set(PRECISION_KNOB_MODES):
+            raise AssertionError(f"bench_precision_knobs: non-finite or missing modes {bad}")
 
         stages = {"render": render_stages([], device=device), "encoder": enc_stages([], device=device),
                   "train": train_stages(["--out-dir", records], device=device)}
@@ -3171,9 +3428,10 @@ def main() -> int:
     results += backward_kernel_phase(view, args.seed)
     del view
     serve_launches = slice_phase(model, batch, args.seed, args.profile)
+    fast_records, fast_serve_launches = fast_serve_phase(model, batch, args.seed)
     depth_record, depth_launches = depth_phase(model, batch, args.seed)
     del model
-    train_launches = train_phase(cfg, args.seed, device, args.profile)
+    train_launches, fast_train_launches = train_phase(cfg, args.seed, device, args.profile)
     trainer_output = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_output_"))
     fit_launches, test_launches = trainer_phase(args.seed, device, trainer_output)
     data = data_phase(args.seed, device)
@@ -3198,6 +3456,12 @@ def main() -> int:
     depth_record["inspection_launches"] = {step: launches["composite_forward_by_channels"].get(4, 0)
                                            for step, launches in inspection["launches"].items()}
     results.append(depth_record)
+    # The fast family's rows: coef from serving at precision fast, the
+    # training variants from the train phase's fast steps.
+    for record in fast_records:
+        record["launches"] = launches_at(
+            fast_serve_launches if record.get("variant") == "coef" else fast_train_launches, record)
+    results += fast_records
     results += switches_phase(args.seed, device)
     parallel = parallel_phase(args.seed, device, trainer_output)
     shutil.rmtree(trainer_output)

@@ -51,8 +51,29 @@
 // per composited (pair, pixel) ~60 more, against which the kernel pays for
 // whole warps (a composited pair uses about a quarter of a warp's lanes),
 // the shuffle exchange, and each tile's serial walk.
+//
+// The fast family (FAST) reproduces the values of the TPU kernel's `fast`
+// switch (pallas_kernels.py:600-637) and of the bfloat16 gradient rows
+// (tiled.py:662-679), with knobs chosen at run time:
+// - f16_xy: the staged mean is rounded to float16 relative to the tile's
+//   origin, as composite_forward stages it.
+// - bf16_mm: the transmittance before a pair is exp(lt + p16), with lt
+//   the log T at the start of the pair's SCAN_BLOCK-block and p16 the
+//   bfloat16 sum of log1p(-alpha) of the pixel's earlier pairs in it: the
+//   forward wrote (lt, the block's whole bf16 sum) to the block state, and
+//   walking back the pixel subtracts each pair's term from that sum. The
+//   reciprocal recovery of the exact path cannot give the forward's
+//   rounding. The suffix is float32 over later blocks and the sum of
+//   bfloat16-rounded contributions within the block; c . g takes bfloat16
+//   channels and cotangents; each partial that is summed over the pixels
+//   is rounded to bfloat16 first (the channel partials are products of
+//   two bfloat16 values). That path is rounded explicitly, in the plain
+//   version's order, so that the rounded terms agree.
+// - bf16_grads: each row is rounded to bfloat16 when it is written.
 
 #include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -64,6 +85,13 @@ constexpr int kBatch = 64;
 constexpr float kAlphaClamp = 0.99f;
 constexpr float kAlphaThreshold = static_cast<float>(1.0 / 255.0);
 constexpr unsigned kFull = 0xffffffffu;
+// The fast family's scan block and knob bits (kernels.py _knob_bits).
+constexpr int kScanBlock = 128;
+constexpr int kF16Xy = 1;
+constexpr int kBf16Mm = 2;
+constexpr int kBf16Grads = 4;
+
+__device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 
 // The layout of one instantiation: a pair's attribute row (kStride floats)
 // staged as kRow floats whose last two hold its footprint rows, kPart
@@ -189,6 +217,78 @@ __device__ __forceinline__ void partials(const float4 (&row)[Layout<NCH>::kRow /
   t = t_before;
 }
 
+// A pixel's replay state under bf16_mm: the current block's log T at its
+// start, the bf16 sum of log1p(-alpha) of the pixel's pairs in it before
+// the current one, its float32 and bfloat16 sums of the contributions of
+// the later pairs, and its index (-1 before the first).
+struct Replay {
+  float lt = 0.0f, prefix16 = 0.0f, suffix32 = 0.0f, suffix16 = 0.0f;
+  int block = -1;
+};
+
+// partials() under bf16_mm (see the header): `suffix` holds the later
+// blocks' float32 suffix, `g` the bfloat16 cotangents, the row bfloat16
+// channels; on entering a block, (lt, its bf16 sum) is read from `state`
+// at state_base + block * 256.
+template <int NCH>
+__device__ __forceinline__ void partials_log(const float4 (&row)[Layout<NCH>::kRow / 4], const Hit& h,
+                                             const float (&g)[NCH], int pos, Replay& r, float& suffix,
+                                             const float2* __restrict__ state, int64_t state_base,
+                                             float* part) {
+  constexpr int kRow = Layout<NCH>::kRow;
+  float a[kRow];
+#pragma unroll
+  for (int i = 0; i < kRow / 4; ++i) {
+    a[4 * i] = row[i].x;
+    a[4 * i + 1] = row[i].y;
+    a[4 * i + 2] = row[i].z;
+    a[4 * i + 3] = row[i].w;
+  }
+  const float ca = a[2], cb = a[3], cc = a[4];
+  const float alpha = h.pass ? h.alpha : 0.0f;
+  if (h.pass) {
+    const int block = pos / kScanBlock;
+    if (block != r.block) {
+      suffix = __fadd_rn(suffix, r.suffix32);
+      r.suffix32 = 0.0f;
+      r.suffix16 = 0.0f;
+      r.block = block;
+      const float2 v = state[state_base + static_cast<int64_t>(block) * kPixels];
+      r.lt = v.x;
+      r.prefix16 = v.y;
+    }
+    r.prefix16 = __fsub_rn(r.prefix16, bf16_round(log1pf(-alpha)));
+  }
+  const float one_minus = __fsub_rn(1.0f, alpha);
+  const float t_before = expf(__fadd_rn(r.lt, r.prefix16));
+  const float w = __fmul_rn(alpha, t_before);
+  const float w16 = bf16_round(w);
+  float cg = __fmul_rn(a[6], g[0]);
+#pragma unroll
+  for (int c = 1; c < NCH; ++c) cg = __fadd_rn(cg, __fmul_rn(a[6 + c], g[c]));
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) part[6 + c] = __fmul_rn(w16, g[c]);
+  const float d_alpha =
+      h.pass && h.raw < kAlphaClamp
+          ? __fsub_rn(__fmul_rn(cg, t_before), __fdiv_rn(__fadd_rn(suffix, r.suffix16), one_minus))
+          : 0.0f;
+  const float d_pow = __fmul_rn(d_alpha, alpha);
+  const float dx = h.dx, dy = h.dy;
+  part[0] = bf16_round(__fmul_rn(__fadd_rn(__fmul_rn(ca, dx), __fmul_rn(cb, dy)), d_pow));
+  part[1] = bf16_round(__fmul_rn(__fadd_rn(__fmul_rn(cc, dy), __fmul_rn(cb, dx)), d_pow));
+  part[2] = bf16_round(__fmul_rn(__fmul_rn(__fmul_rn(-0.5f, dx), dx), d_pow));
+  part[3] = bf16_round(__fmul_rn(__fmul_rn(-dx, dy), d_pow));
+  part[4] = bf16_round(__fmul_rn(__fmul_rn(__fmul_rn(-0.5f, dy), dy), d_pow));
+  part[5] = bf16_round(__fmul_rn(d_alpha, h.e));
+#pragma unroll
+  for (int k = 6 + NCH; k < Layout<NCH>::kPart; ++k) part[k] = 0.0f;
+  if (h.pass) {
+    const float contribution = __fmul_rn(w, cg);
+    r.suffix32 = __fadd_rn(r.suffix32, contribution);
+    r.suffix16 = __fadd_rn(r.suffix16, bf16_round(contribution));
+  }
+}
+
 // Shared memory of one block: the batch's attribute rows and destinations,
 // and the warps' partial sums, both double-buffered across batches so
 // that one barrier per batch suffices.
@@ -200,7 +300,7 @@ struct Shared {
   int end[kWarps];
 };
 
-template <int NCH>
+template <int NCH, bool FAST>
 __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
     const int32_t* __restrict__ gids,         // (P,) depth-sorted within each tile
     const int32_t* __restrict__ tile_ranges,  // (T + 1,)
@@ -211,7 +311,10 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
     const float* __restrict__ t_final,        // (H, W)
     const float* __restrict__ g_channels,     // (NCH, H, W) cotangent of the channels
     const float* __restrict__ g_t,            // (H, W) cotangent of T_final
-    float* __restrict__ d_rows) {             // (P, 6 + NCH) Gaussian-major
+    float* __restrict__ d_rows,               // (P, 6 + NCH) Gaussian-major
+    int knobs,                                // FAST: kF16Xy | kBf16Mm | kBf16Grads
+    const int32_t* __restrict__ block_offsets,  // FAST, bf16_mm: (T,) first state row of each tile
+    const float2* __restrict__ block_state) {   // FAST, bf16_mm: (B, 256) from composite_forward
   using L = Layout<NCH>;
   constexpr int kStride = L::kStride;
   constexpr int kRow = L::kRow;
@@ -223,8 +326,9 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int tile = static_cast<int>(blockIdx.x);
+  const int tx0 = (tile % tiles_x) * kTile;
   const int ty0 = (tile / tiles_x) * kTile;
-  const int px = (tile % tiles_x) * kTile + tid % kTile;
+  const int px = tx0 + tid % kTile;
   const int py = ty0 + tid / kTile;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
@@ -233,13 +337,29 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
   const int64_t plane = static_cast<int64_t>(height) * width;
   const int start = tile_ranges[tile];
   const int stop = tile_ranges[tile + 1];
+  const bool f16_xy = FAST && (knobs & kF16Xy);
+  const bool bf16_mm = FAST && (knobs & kBf16Mm);
+  const bool bf16_grads = FAST && (knobs & kBf16Grads);
 
   const int my_last = last[pixel];
   float t = t_final[pixel];
   float g[NCH];
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) g[c] = g_channels[c * plane + pixel];
+  for (int c = 0; c < NCH; ++c) {
+    g[c] = g_channels[c * plane + pixel];
+    if (bf16_mm) g[c] = bf16_round(g[c]);
+  }
   float suffix = __fmul_rn(g_t[pixel], t);
+  Replay replay;
+  const int64_t state_base =
+      bf16_mm ? (static_cast<int64_t>(block_offsets[tile]) - start / kScanBlock) * kPixels + tid : 0;
+  auto pair_partials = [&](const float4 (&row)[kRow / 4], const Hit& h, int pos, float* part) {
+    if (FAST && bf16_mm) {
+      partials_log<NCH>(row, h, g, pos, replay, suffix, block_state, state_base, part);
+    } else {
+      partials<NCH>(row, h, g, t, suffix, part);
+    }
+  };
 
   // Above its own largest `last` a warp only stores zeros; the tile's
   // largest `last` bounds the walk.
@@ -267,6 +387,15 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
       float a[kRow];
 #pragma unroll
       for (int r = 0; r < kRow; ++r) a[r] = r < kStride ? src[r] : 0.0f;
+      if (f16_xy) {
+        const float ox = static_cast<float>(tx0), oy = static_cast<float>(ty0);
+        a[0] = __fadd_rn(__half2float(__float2half_rn(__fsub_rn(a[0], ox))), ox);
+        a[1] = __fadd_rn(__half2float(__float2half_rn(__fsub_rn(a[1], oy))), oy);
+      }
+      if (bf16_mm) {
+#pragma unroll
+        for (int r = 6; r < kStride; ++r) a[r] = bf16_round(a[r]);
+      }
       const float2 rows = footprint_rows(a);
       a[kFootprint] = rows.x;
       a[kFootprint + 1] = rows.y;
@@ -305,8 +434,8 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
                 rb[i] = sm.attr[kb][i];
               }
               float part[32];
-              partials<NCH>(ra, ha, g, t, suffix, part);
-              partials<NCH>(rb, hb, g, t, suffix, part + 16);
+              pair_partials(ra, ha, lo + k, part);
+              pair_partials(rb, hb, lo + kb, part + 16);
               sum = warp_sum32(part, lane);
             }
           }
@@ -328,7 +457,7 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
 #pragma unroll
               for (int i = 2; i < kRow / 4; ++i) ra[i] = sm.attr[k][i];
               float part[32];
-              partials<NCH>(ra, ha, g, t, suffix, part);
+              pair_partials(ra, ha, lo + k, part);
               sum = warp_sum32(part, lane);
             }
           }
@@ -343,17 +472,17 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
       float sum = 0.0f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) sum += sm.part[buf][w][k][r];
-      d_rows[sm.dst[buf][k] * kStride + r] = sum;
+      d_rows[sm.dst[buf][k] * kStride + r] = bf16_grads ? bf16_round(sum) : sum;
     }
   }
 }
 
-template <int NCH>
+template <int NCH, bool FAST>
 cudaError_t launch(int num_tiles, const void* gids, const void* tile_ranges, const void* order,
                    const void* attrs, int tiles_x, int height, int width, const void* last,
                    const void* t_final, const void* g_channels, const void* g_t, void* d_rows,
-                   cudaStream_t stream) {
-  auto kernel = composite_backward_kernel<NCH>;
+                   int knobs, const void* block_offsets, const void* block_state, cudaStream_t stream) {
+  auto kernel = composite_backward_kernel<NCH, FAST>;
   constexpr int kBytes = static_cast<int>(sizeof(Shared<NCH>));
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
@@ -363,7 +492,8 @@ cudaError_t launch(int num_tiles, const void* gids, const void* tile_ranges, con
       static_cast<const int64_t*>(order), static_cast<const float*>(attrs), tiles_x, height,
       width, static_cast<const int32_t*>(last), static_cast<const float*>(t_final),
       static_cast<const float*>(g_channels), static_cast<const float*>(g_t),
-      static_cast<float*>(d_rows));
+      static_cast<float*>(d_rows), knobs, static_cast<const int32_t*>(block_offsets),
+      static_cast<const float2*>(block_state));
   return cudaSuccess;
 }
 
@@ -377,26 +507,62 @@ extern "C" int composite_backward(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (num_tiles > 0) {
+#define LAUNCH(N)                                                                                  \
+  launch<N, false>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last, t_final, \
+                   g_channels, g_t, d_rows, 0, nullptr, nullptr, s)
     switch (n_channels) {
       case 4:
-        err = launch<4>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,
-                        t_final, g_channels, g_t, d_rows, s);
+        err = LAUNCH(4);
         break;
       case 5:
-        err = launch<5>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,
-                        t_final, g_channels, g_t, d_rows, s);
+        err = LAUNCH(5);
         break;
       case 8:
-        err = launch<8>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,
-                        t_final, g_channels, g_t, d_rows, s);
+        err = LAUNCH(8);
         break;
       case 12:
-        err = launch<12>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,
-                         t_final, g_channels, g_t, d_rows, s);
+        err = LAUNCH(12);
         break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
+#undef LAUNCH
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fast family, at composite_fast_channels' counts (5, 8 and 12);
+// `knobs` is kF16Xy | kBf16Mm | kBf16Grads, and bf16_mm reads the block
+// state that composite_forward_fast wrote.
+extern "C" int composite_backward_fast(
+    int n_channels, int knobs, int num_tiles, const void* gids, const void* tile_ranges,
+    const void* order, const void* attrs, int tiles_x, int height, int width, const void* last,
+    const void* t_final, const void* g_channels, const void* g_t, const void* block_offsets,
+    const void* block_state, void* d_rows, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  if ((knobs & kBf16Mm) && (block_offsets == nullptr || block_state == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_tiles > 0) {
+#define LAUNCH(N)                                                                                 \
+  launch<N, true>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last, t_final, \
+                  g_channels, g_t, d_rows, knobs, block_offsets, block_state, s)
+    switch (n_channels) {
+      case 5:
+        err = LAUNCH(5);
+        break;
+      case 8:
+        err = LAUNCH(8);
+        break;
+      case 12:
+        err = LAUNCH(12);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef LAUNCH
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

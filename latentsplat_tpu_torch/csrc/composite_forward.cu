@@ -45,8 +45,35 @@
 // and early-stop decisions and `last` agrees exactly. The expected-depth
 // channel reaches tens, where contracted channel sums would eat into the
 // 1e-5 tolerance.
+//
+// The fast family (FAST, and COEF on top of it) reproduces the values of
+// the TPU kernel's `fast` and `coef` switches (_mm(fast=True) and
+// _chunk_alpha_coef, pallas_kernels.py:116-187, 356-369), not its
+// matmuls. Knobs, chosen at run time in a FAST instantiation:
+// - f16_xy: when a pair is staged, its mean is rounded to float16 relative
+//   to the tile's origin and moved back (the footprint box is computed
+//   from the rounded row, so the cull stays exact for it).
+// - bf16_mm: the compositor runs in log space. Each pixel keeps log T at
+//   the start of the current SCAN_BLOCK-block of pair positions (128,
+//   aligned in the tile-sorted pair array, as the TPU's block-partitioned
+//   scan was) and the block's float32 and bfloat16 sums of
+//   log1p(-alpha); a pair's weight is alpha exp(lt + bf16 sum), rounded to
+//   bfloat16 like its channels (rounded when staged), and the channel sum
+//   of their products is float32. A pixel stops once lt + float32 sum <
+//   log(1e-4). When a pixel leaves a block it composited in, it writes
+//   (lt, bf16 sum) to the block state, from which the backward recovers
+//   the same transmittances.
+// - COEF (serving): staging replaces the row's geometry by the six
+//   quadratic coefficients of power + log(opacity) over the tile-relative
+//   pixel basis [px^2, px, py^2, py, px py, 1], built from the rounded row
+//   in the JAX package's order of operations, so a pair's alpha is one
+//   5-term dot product and an expf; as on the TPU there is no power > 0
+//   guard. COEF implies f16_xy and bf16_mm.
+// Those paths are rounded explicitly too, in the plain version's order.
 
 #include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -65,6 +92,16 @@ constexpr float kTransmittanceMin = 1e-4f;
 // nearer to degenerate the rounding of power could outgrow the box margins.
 constexpr float kDetMin = 1e-3f;
 constexpr unsigned kFull = 0xffffffffu;
+// The fast family's scan block (pallas_kernels.py SCAN_BLOCK) and
+// float32(log(1e-4)), its stop test in log space.
+constexpr int kScanBlock = 128;
+constexpr float kLogTransmittanceMin = -0x1.26bb1cp+3f;
+// Knob bits of composite_forward_fast (kernels.py _knob_bits).
+constexpr int kF16Xy = 1;
+constexpr int kBf16Mm = 2;
+
+__device__ __forceinline__ float bf16_round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+__device__ __forceinline__ float f16_round(float x) { return __half2float(__float2half_rn(x)); }
 
 // Floats per staged row: 16, or the row rounded up to whole float4s.
 template <int NCH>
@@ -122,6 +159,95 @@ __device__ __forceinline__ Hit alpha_test(const float4& q0, const float4& q1, fl
   return {alpha, power <= 0.0f && alpha >= kAlphaThreshold};
 }
 
+// The coefficient layout's alpha test: c . basis summed left to right,
+// then min(0.99, expf); no power > 0 guard.
+__device__ __forceinline__ Hit alpha_test_coef(const float4& q0, const float4& q1, const float (&basis)[5]) {
+  float p = __fmul_rn(q0.x, basis[0]);
+  p = __fadd_rn(p, __fmul_rn(q0.y, basis[1]));
+  p = __fadd_rn(p, __fmul_rn(q0.z, basis[2]));
+  p = __fadd_rn(p, __fmul_rn(q0.w, basis[3]));
+  p = __fadd_rn(p, __fmul_rn(q1.x, basis[4]));
+  p = __fadd_rn(p, q1.y);
+  const float alpha = fminf(kAlphaClamp, expf(p));
+  return {alpha, alpha >= kAlphaThreshold};
+}
+
+// The fast family's staging of one attribute row in place: f16_xy's
+// rounded mean (tile origin ox, oy), the footprint bits from the rounded
+// row, bf16_mm's bfloat16 channels and COEF's coefficients. Returns the
+// warp bits.
+template <int N, bool COEF>
+__device__ __forceinline__ uint32_t prepare_fast(float (&a)[N], float ox, float oy, bool f16_xy, bool bf16_mm,
+                                                 int x0, int y0) {
+  float xr = __fsub_rn(a[0], ox), yr = __fsub_rn(a[1], oy);
+  if (f16_xy) {
+    xr = f16_round(xr);
+    yr = f16_round(yr);
+    a[0] = __fadd_rn(xr, ox);
+    a[1] = __fadd_rn(yr, oy);
+  }
+  const uint32_t bits = warp_bits(a, x0, y0);
+  if (bf16_mm) {
+#pragma unroll
+    for (int c = 6; c < N; ++c) a[c] = bf16_round(a[c]);   // the padding stays 0
+  }
+  if constexpr (COEF) {
+    const float ca = a[2], cb = a[3], cc = a[4];
+    const float log_op = logf(fmaxf(a[5], 1e-12f));
+    const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, xr), xr), __fmul_rn(__fmul_rn(cc, yr), yr));
+    a[0] = __fmul_rn(-0.5f, ca);
+    a[1] = __fadd_rn(__fmul_rn(ca, xr), __fmul_rn(cb, yr));
+    a[2] = __fmul_rn(-0.5f, cc);
+    a[3] = __fadd_rn(__fmul_rn(cc, yr), __fmul_rn(cb, xr));
+    a[4] = -cb;
+    a[5] = __fsub_rn(__fsub_rn(log_op, __fmul_rn(0.5f, quad)), __fmul_rn(__fmul_rn(cb, xr), yr));
+  }
+  return bits;
+}
+
+// A pixel's log-space state under bf16_mm: log T at the current block's
+// start, the block's float32 and bfloat16 sums of log1p(-alpha), and the
+// block's index (-1 before the first composited pair).
+struct LogState {
+  float lt = 0.0f, sum32 = 0.0f, sum16 = 0.0f;
+  int block = -1;
+};
+
+// Adds one pair (staged row `row`, position pos) at alpha under bf16_mm;
+// on leaving a block, writes its (lt, bf16 sum) to `state` (if not null)
+// at state_base + block * 256, the pixel's entry of the block's row.
+// Returns whether the pixel stops.
+template <int NCH>
+__device__ __forceinline__ bool composite_log(const float4 (&row)[kRow<NCH> / 4], float alpha, int pos,
+                                              LogState& s, float (&acc)[NCH], float2* state,
+                                              int64_t state_base) {
+  float a[kRow<NCH>];
+#pragma unroll
+  for (int i = 0; i < kRow<NCH> / 4; ++i) {
+    a[4 * i] = row[i].x;
+    a[4 * i + 1] = row[i].y;
+    a[4 * i + 2] = row[i].z;
+    a[4 * i + 3] = row[i].w;
+  }
+  const int block = pos / kScanBlock;
+  if (block != s.block) {
+    if (state != nullptr && s.block >= 0) {
+      state[state_base + static_cast<int64_t>(s.block) * (kTile * kTile)] = make_float2(s.lt, s.sum16);
+    }
+    s.lt = __fadd_rn(s.lt, s.sum32);
+    s.sum32 = 0.0f;
+    s.sum16 = 0.0f;
+    s.block = block;
+  }
+  const float la = log1pf(-alpha);
+  const float weight = bf16_round(__fmul_rn(alpha, expf(__fadd_rn(s.lt, s.sum16))));
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(a[6 + c], weight));
+  s.sum32 = __fadd_rn(s.sum32, la);
+  s.sum16 = __fadd_rn(s.sum16, bf16_round(la));
+  return __fadd_rn(s.lt, s.sum32) < kLogTransmittanceMin;
+}
+
 // Adds one pair (staged row `row`) at alpha to the pixel's channels and
 // transmittance.
 template <int NCH>
@@ -141,7 +267,7 @@ __device__ __forceinline__ void composite(const float4 (&row)[kRow<NCH> / 4], fl
   t = __fmul_rn(t, __fsub_rn(1.0f, alpha));
 }
 
-template <int NCH>
+template <int NCH, bool FAST, bool COEF>
 __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_kernel(
     const int32_t* __restrict__ gids,         // (P,) depth-sorted within each tile
     const int32_t* __restrict__ tile_ranges,  // (T + 1,) pair range of each tile
@@ -149,7 +275,11 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_ke
     int tiles_x, int height, int width,
     float* __restrict__ out_channels,         // (NCH, H, W)
     float* __restrict__ out_transmittance,    // (H, W)
-    int32_t* __restrict__ out_last) {         // (H, W) exclusive end of contributing pairs
+    int32_t* __restrict__ out_last,           // (H, W) exclusive end of contributing pairs
+    int knobs,                                // FAST: kF16Xy | kBf16Mm
+    const int32_t* __restrict__ block_offsets,  // FAST, bf16_mm: (T,) first state row of each tile
+    float2* __restrict__ block_state) {       // FAST, bf16_mm: (B, 256) or null
+  static_assert(FAST || !COEF, "the coefficient layout is a fast-family variant");
   constexpr int kStride = 6 + NCH;
   constexpr int kPad = kRow<NCH>;
   constexpr int kAcross = kTile / kQuarter;
@@ -162,36 +292,73 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_ke
   const int warp = tid >> 5;
   const int tile = static_cast<int>(blockIdx.x) / (kAcross * kAcross);
   const int quarter = static_cast<int>(blockIdx.x) % (kAcross * kAcross);
-  const int x0 = (tile % tiles_x) * kTile + (quarter % kAcross) * kQuarter;
-  const int y0 = (tile / tiles_x) * kTile + (quarter / kAcross) * kQuarter;
+  const int tx0 = (tile % tiles_x) * kTile;
+  const int ty0 = (tile / tiles_x) * kTile;
+  const int x0 = tx0 + (quarter % kAcross) * kQuarter;
+  const int y0 = ty0 + (quarter / kAcross) * kQuarter;
   const int px = x0 + lane % kQuarter;
   const int py = y0 + warp * kWarpRows + lane / kQuarter;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
   const int start = tile_ranges[tile];
   const int end = tile_ranges[tile + 1];
+  const bool f16_xy = COEF || (FAST && (knobs & kF16Xy));
+  const bool bf16_mm = COEF || (FAST && (knobs & kBf16Mm));
+  // COEF: this pixel's tile-relative basis [px^2, px, py^2, py, px py].
+  const float rx = static_cast<float>(px - tx0), ry = static_cast<float>(py - ty0);
+  const float basis[5] = {rx * rx, rx, ry * ry, ry, rx * ry};
+  // bf16_mm: this pixel's entries of the block state.
+  float2* const state = bf16_mm ? block_state : nullptr;
+  const int64_t state_base =
+      state != nullptr ? (static_cast<int64_t>(block_offsets[tile]) - start / kScanBlock) * (kTile * kTile) +
+                             (py - ty0) * kTile + (px - tx0)
+                       : 0;
 
   // Stages the row `a` of pair `batch + tid` into half `buf`.
-  auto stage = [&](const float (&a)[kPad], int buf) {
+  auto stage = [&](float (&a)[kPad], int buf) {
+    uint32_t bits;
+    if constexpr (FAST) {
+      bits = prepare_fast<kPad, COEF>(a, static_cast<float>(tx0), static_cast<float>(ty0), f16_xy, bf16_mm, x0, y0);
+    } else {
+      bits = warp_bits(a, x0, y0);
+    }
 #pragma unroll
     for (int i = 0; i < kPad / 4; ++i) {
       s_row[buf][tid][i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
     }
-    s_bits[buf][tid] = warp_bits(a, x0, y0);
+    s_bits[buf][tid] = bits;
   };
   auto load = [&](int gid, float (&a)[kPad]) {
     const float* src = attrs + static_cast<int64_t>(gid) * kStride;
 #pragma unroll
     for (int r = 0; r < kPad; ++r) a[r] = r < kStride ? __ldg(src + r) : 0.0f;
   };
+  auto test = [&](const float4& q0, const float4& q1) {
+    if constexpr (COEF) {
+      return alpha_test_coef(q0, q1, basis);
+    } else {
+      return alpha_test(q0, q1, fx, fy);
+    }
+  };
 
   float t = 1.0f;
   float acc[NCH];
 #pragma unroll
   for (int c = 0; c < NCH; ++c) acc[c] = 0.0f;
+  LogState ls;
   int last = start;
   bool done = false;
   bool warp_done = false;
+  // Adds the pair at position pos (staged row `row`) at alpha.
+  auto add = [&](const float4 (&row)[kPad / 4], float alpha, int pos) {
+    if (FAST && bf16_mm) {
+      done = composite_log<NCH>(row, alpha, pos, ls, acc, state, state_base);
+    } else {
+      composite<NCH>(row, alpha, t, acc);
+      done = t < kTransmittanceMin;
+    }
+    last = pos + 1;
+  };
 
   if (start + tid < end) {
     float a[kPad];
@@ -224,24 +391,16 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_ke
         ra[1] = s_row[buf][ja][1];
         rb[0] = s_row[buf][jb][0];
         rb[1] = s_row[buf][jb][1];
-        const Hit ha = alpha_test(ra[0], ra[1], fx, fy);
-        const Hit hb = alpha_test(rb[0], rb[1], fx, fy);
+        const Hit ha = test(ra[0], ra[1]);
+        const Hit hb = test(rb[0], rb[1]);
         if (__any_sync(kFull, !done && (ha.pass || (has_b && hb.pass)))) {
 #pragma unroll
           for (int i = 2; i < kPad / 4; ++i) {
             ra[i] = s_row[buf][ja][i];
             rb[i] = s_row[buf][jb][i];
           }
-          if (!done && ha.pass) {
-            composite<NCH>(ra, ha.alpha, t, acc);
-            last = batch + ja + 1;
-            done = t < kTransmittanceMin;
-          }
-          if (!done && has_b && hb.pass) {
-            composite<NCH>(rb, hb.alpha, t, acc);
-            last = batch + jb + 1;
-            done = t < kTransmittanceMin;
-          }
+          if (!done && ha.pass) add(ra, ha.alpha, batch + ja);
+          if (!done && has_b && hb.pass) add(rb, hb.alpha, batch + jb);
           if (__all_sync(kFull, done)) {
             warp_done = true;
             break;
@@ -254,6 +413,12 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_ke
     if (__syncthreads_count(done) == kThreads) break;
   }
 
+  if (FAST && bf16_mm) {
+    if (state != nullptr && ls.block >= 0) {
+      state[state_base + static_cast<int64_t>(ls.block) * (kTile * kTile)] = make_float2(ls.lt, ls.sum16);
+    }
+    t = expf(__fadd_rn(ls.lt, ls.sum32));
+  }
   const int pixel = py * width + px;
   const int64_t plane = static_cast<int64_t>(height) * width;
 #pragma unroll
@@ -262,16 +427,17 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_ke
   out_last[pixel] = last;
 }
 
-template <int NCH>
+template <int NCH, bool FAST, bool COEF>
 void launch(int num_tiles, const void* gids, const void* tile_ranges, const void* attrs,
             int tiles_x, int height, int width, void* channels, void* transmittance,
-            void* last, cudaStream_t stream) {
+            void* last, int knobs, const void* block_offsets, void* block_state, cudaStream_t stream) {
   constexpr int kQuarters = (kTile / kQuarter) * (kTile / kQuarter);
-  composite_forward_kernel<NCH><<<num_tiles * kQuarters, kThreads, 0, stream>>>(
+  composite_forward_kernel<NCH, FAST, COEF><<<num_tiles * kQuarters, kThreads, 0, stream>>>(
       static_cast<const int32_t*>(gids), static_cast<const int32_t*>(tile_ranges),
       static_cast<const float*>(attrs), tiles_x, height, width,
       static_cast<float*>(channels), static_cast<float*>(transmittance),
-      static_cast<int32_t*>(last));
+      static_cast<int32_t*>(last), knobs, static_cast<const int32_t*>(block_offsets),
+      static_cast<float2*>(block_state));
 }
 
 }  // namespace
@@ -293,24 +459,65 @@ extern "C" int composite_forward(
   if (num_tiles > 0) {
     switch (n_channels) {
       case 4:
-        launch<4>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
-                  transmittance, last, s);
+        launch<4, false, false>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+                                transmittance, last, 0, nullptr, nullptr, s);
         break;
       case 5:
-        launch<5>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
-                  transmittance, last, s);
+        launch<5, false, false>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+                                transmittance, last, 0, nullptr, nullptr, s);
         break;
       case 8:
-        launch<8>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
-                  transmittance, last, s);
+        launch<8, false, false>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+                                transmittance, last, 0, nullptr, nullptr, s);
         break;
       case 12:
-        launch<12>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
-                   transmittance, last, s);
+        launch<12, false, false>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+                                 transmittance, last, 0, nullptr, nullptr, s);
         break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);
     }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Channel counts of the fast family, in both composite kernels: those the
+// splatting decoder composites (5 = 4 latent features + depth, when it
+// renders no color; 8; 12). render_depth's 4 renders exact only.
+extern "C" int composite_fast_channels(int index) {
+  constexpr int kChannels[] = {5, 8, 12};
+  return index < static_cast<int>(sizeof(kChannels) / sizeof(int)) ? kChannels[index] : -1;
+}
+
+// The fast family: coef != 0 launches the coefficient layout (f16_xy and
+// bf16_mm implied), else `knobs` (kF16Xy | kBf16Mm) selects. Under bf16_mm,
+// block_state (with block_offsets) receives the backward's per-block
+// state, or is null when no backward follows.
+extern "C" int composite_forward_fast(
+    int n_channels, int coef, int knobs, int num_tiles, const void* gids, const void* tile_ranges,
+    const void* attrs, int tiles_x, int height, int width, void* channels, void* transmittance,
+    void* last, const void* block_offsets, void* block_state, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (num_tiles > 0) {
+#define LAUNCH_FAST(N)                                                                              \
+  (coef ? launch<N, true, true>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels, \
+                                transmittance, last, knobs, block_offsets, block_state, s)            \
+        : launch<N, true, false>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels, \
+                                 transmittance, last, knobs, block_offsets, block_state, s))
+    switch (n_channels) {
+      case 5:
+        LAUNCH_FAST(5);
+        break;
+      case 8:
+        LAUNCH_FAST(8);
+        break;
+      case 12:
+        LAUNCH_FAST(12);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef LAUNCH_FAST
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,10 @@ per source, all started together, and the objects are linked into one
 shared library with a plain C interface, loaded with ctypes. The library
 lands in `build/kernels/` at the repository root, named by a hash of the
 sources, so a changed source triggers a rebuild and an unchanged one is
-reused. Nothing is built at import: the first kernel launch builds.
+reused. Nothing is built at import: the first kernel launch builds. The
+composite kernels' fast-family variants are instantiated only at the
+channel counts the splatting decoder reaches (`composite_fast_channels`:
+5, 8 and 12), beside the exact ones at 4, 5, 8 and 12.
 """
 
 from __future__ import annotations
@@ -33,7 +36,10 @@ _SIGNATURES = {
     "duplicate_with_keys64": ([_I, _P, _P, _P, _P, _P, _I, _P, _P, _P], _I),
     "composite_forward": ([_I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
     "composite_forward_channels": ([_I], _I),
+    "composite_fast_channels": ([_I], _I),
+    "composite_forward_fast": ([_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
     "composite_backward": ([_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
+    "composite_backward_fast": ([_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     "reduce_pairs": ([_I, _I, _P, _P, _P, _P], _I),
 }
 

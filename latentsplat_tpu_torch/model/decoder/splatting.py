@@ -6,7 +6,10 @@ log(1 - mask), so empty pixels have unit variance around the zero
 background; when it is (`variational: latents`), the rendered channels are
 the posterior's mean and logvar. `remat` checkpoints each view's render.
 A `depth_mode` other than "depth" replaces the render's own
-(normalized) depth with `render_depth` in that mode."""
+(normalized) depth with `render_depth` in that mode, which renders at
+"exact" as in the JAX package. `precision` takes the JAX package's names
+(ops/rasterize/tiled.py PRECISIONS: "exact", "fast" and the diagnostic
+precisions)."""
 
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 
 from ...ops.distributions import DiagonalGaussian
 from ...ops.rasterize.api import DepthRenderingMode, render, render_depth
+from ...ops.rasterize.tiled import precision_knobs
 from ..types import Gaussians
 
 
@@ -42,8 +46,7 @@ class DecoderOutput:
 class DecoderSplatting:
     def __init__(self, cfg: DecoderSplattingCfg, background_color=(0.0, 0.0, 0.0),
                  variational: bool = False):
-        if cfg.precision != "exact":
-            raise NotImplementedError("only the exact rasterizer precision is ported")
+        precision_knobs(cfg.precision)   # raises on a name the JAX package does not take
         self.cfg = cfg
         self.background_color = tuple(background_color)
         self.variational = variational
@@ -62,7 +65,7 @@ class DecoderSplatting:
             gaussians.color_harmonics if return_colors else None,
             gaussians.feature_harmonics if return_features else None,
             backend=self.cfg.backend, max_tiles_per_gaussian=self.cfg.max_tiles_per_gaussian,
-            remat=self.cfg.remat,
+            remat=self.cfg.remat, precision=self.cfg.precision,
         )
         color = out.color.permute(0, 1, 3, 4, 2) if out.color is not None else None
         posterior = None

@@ -7,7 +7,11 @@ evaluated towards the camera, or their DC coefficients as they are with
 EWA projection, then the tiled (CUDA) or dense (oracle) compositor. Views
 and scenes run in a Python loop and share the Gaussians. With `remat` each
 view's render is checkpointed (non-reentrant): the backward renders the
-view again, the kernels included, instead of keeping its pair buffers. `render_depth`
+view again, the kernels included, instead of keeping its pair buffers.
+`precision` is one of the JAX package's rasterizer precisions
+(tiled.PRECISIONS); those with the bf16 SH knob ("fast", "fast_nocoef",
+"exact_bf16_sh") round each scene's SH tables to bfloat16 once, before
+either compositor, and the dense compositor ignores the rest. `render_depth`
 composites each view's camera-space depth (or its disparity, relative
 disparity or log) as a 3-channel color. `render_orthographic` pulls a
 camera far back along its look axis and renders through the tiled kernels,
@@ -29,7 +33,7 @@ from ...geometry.projection import homogenize_points, invert_se3
 from ..sh import eval_sh
 from .camera import project_gaussians_to_screen
 from .dense import composite_dense
-from .tiled import composite_tiled, covering_cap, dense_extent
+from .tiled import composite_tiled, covering_cap, dense_extent, precision_knobs
 from .types import RenderOutput
 
 DepthRenderingMode = Literal["depth", "disparity", "relative_disparity", "log"]
@@ -39,8 +43,10 @@ def view_channels(
     means: torch.Tensor, color_sh: Optional[torch.Tensor],
     feature_sh: Optional[torch.Tensor], camera: torch.Tensor, use_sh: bool = True,
 ) -> torch.Tensor:
-    """Per-Gaussian composited payload for one camera position: (G, C).
-    Without `use_sh` the DC coefficients are the payload as they are."""
+    """Per-Gaussian composited payload for one camera position: (G, C),
+    float32 (bfloat16 tables are evaluated in float32). Without `use_sh`
+    the DC coefficients are the payload as they are."""
+    color_sh, feature_sh = (sh.float() if sh is not None else None for sh in (color_sh, feature_sh))
     if not use_sh:
         return torch.cat([sh[..., 0] for sh in (color_sh, feature_sh) if sh is not None], dim=-1)
     direction = means - camera[None, :]
@@ -72,6 +78,7 @@ def render(
     backend: str = "tiled",
     max_tiles_per_gaussian: Optional[int] = 9,
     remat: bool = False,
+    precision: str = "exact",
 ) -> RenderOutput:
     """Returns color (B, V, 3, H, W), feature (B, V, C, H, W), mask and
     depth (B, V, H, W). With `scale_invariant` the depth stays in the
@@ -83,6 +90,7 @@ def render(
     if not use_sh:
         assert all(sh is None or sh.shape[-1] == 1 for sh in (gaussian_color_sh, gaussian_feature_sh))
     n_color = 3 if gaussian_color_sh is not None else 0
+    bf16_sh = precision_knobs(precision).bf16_sh
 
     def render_view(means, covs, opacities, color_sh, feature_sh, ext, intr, near_ij, background_color):
         channels = view_channels(means, color_sh, feature_sh, ext[:3, 3], use_sh)
@@ -103,7 +111,7 @@ def render(
             if cap is None:
                 sg = dataclasses.replace(sg, extent=dense_extent(sg))
                 cap = covering_cap(sg, image_shape)
-            return composite_tiled(sg, image_shape, background, cap)
+            return composite_tiled(sg, image_shape, background, cap, precision)
         raise ValueError(f"unknown backend {backend!r}")
 
     if remat and torch.is_grad_enabled():
@@ -116,6 +124,10 @@ def render(
     for i in range(b):
         color_sh = gaussian_color_sh[i] if n_color else None
         feature_sh = gaussian_feature_sh[i] if gaussian_feature_sh is not None else None
+        if bf16_sh:
+            # Once a scene, outside the view loop, as the JAX package does.
+            color_sh, feature_sh = (sh.to(torch.bfloat16) if sh is not None else None
+                                    for sh in (color_sh, feature_sh))
         for j in range(v):
             image, mask, depth, num_pairs = body(
                 gaussian_means[i], gaussian_covariances[i], gaussian_opacities[i], color_sh, feature_sh,

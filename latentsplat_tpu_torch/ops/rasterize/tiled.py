@@ -1,5 +1,5 @@
-"""Tiled rasterization (counterpart of the exact-precision path of
-latentsplat_tpu/ops/rasterize/tiled.py), forward and backward.
+"""Tiled rasterization (counterpart of latentsplat_tpu/ops/rasterize/tiled.py),
+forward and backward, at each of the JAX package's precisions.
 
 Pipeline per view: per-Gaussian tile rects with the exact ellipse-tile cull
 (`tile_rects`, a port of the JAX `_tile_rects`), pair duplication with
@@ -10,16 +10,33 @@ counterpart of the JAX `_pair_composite` custom_vjp) replays each tile
 back to front (`composite_backward` kernel), writing each pair's gradient
 row at its Gaussian-major position, and sums each Gaussian's contiguous
 pair rows (`reduce_pairs` kernel); like the JAX package, the cull and the sort
-carry no gradient. Channels stay float32 end to end; the JAX package's TPU
-workarounds (fast/coef mode, payload packing, rank sorts, static pair
-budgets) are not ported.
+carry no gradient. At "exact" the channels stay float32 end to end.
+
+`precision` selects the JAX package's fast family by the values it
+computes (`Knobs`): "fast" applies every knob, "fast_nocoef" all but the
+coefficient layout, and each diagnostic precision exactly one. The TPU
+mechanism behind them (payload bit packing, rank sorts, static pair
+budgets) is not ported. The per-Gaussian knobs (depth order and value,
+bf16 conic and opacity, 12-bit channels) are applied here, inside the
+autograd function, so that the gradient passes them straight through as
+the JAX custom VJP does; the per-pair ones are the composite kernels'.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from .kernels import TILE, composite_backward, composite_forward, duplicate_with_keys, mask_bits, reduce_pairs
+from .kernels import (
+    TILE,
+    block_state,
+    composite_backward,
+    composite_forward,
+    duplicate_with_keys,
+    mask_bits,
+    reduce_pairs,
+)
 from .types import ScreenGaussians
 
 DEFAULT_MAX_TILES_PER_GAUSSIAN = 9
@@ -27,6 +44,97 @@ DEFAULT_MAX_TILES_PER_GAUSSIAN = 9
 # keep the main path's int32 mask.
 MAX_TILES_PER_GAUSSIAN = mask_bits(torch.int64)
 CULL_MARGIN = 1e-3
+FAST_CULL_MARGIN = 6e-2
+# The JAX package's diagnostic precisions (tiled.py:123-127): "exact" plus
+# one knob of "fast" each, and fast_nocoef, "fast" without its coefficient
+# layout.
+DIAGNOSTIC_PRECISIONS = (
+    "exact_wide_cull", "exact_tie_depth", "exact_bf16_mm",
+    "exact_q12_channels", "exact_f16_xy", "exact_bf16_conic",
+    "exact_depth_val", "exact_bf16_sh", "exact_bf16_grads",
+    "fast_nocoef",
+)
+PRECISIONS = ("exact", "fast", *DIAGNOSTIC_PRECISIONS)
+# The fewest depth-code bits a fast-family sort key may keep.
+MIN_DEPTH_CODE_BITS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Knobs:
+    """What a precision does to the values the rasterizer computes."""
+
+    wide_cull: bool = False      # cull margin FAST_CULL_MARGIN
+    tie_depth: bool = False      # order by the truncated depth code, ties Gaussian-major
+    depth_value: bool = False    # the depth channel reads the code back (midpoint fill)
+    f16_xy: bool = False         # each pair's mean in float16, relative to its tile
+    bf16_conic: bool = False     # conic and opacity in bfloat16
+    q12_channels: bool = False   # channels in 12-bit fixed point, one scale a channel
+    bf16_sh: bool = False        # SH tables in bfloat16 (applied by api.render)
+    bf16_mm: bool = False        # the compositor's scan, channel and row-sum terms in bfloat16
+    coef: bool = False           # serving: alpha from quadratic coefficients
+    bf16_grads: bool = False     # each pair's gradient row in bfloat16
+
+
+_DIAGNOSTIC_KNOBS = {
+    "exact_wide_cull": "wide_cull", "exact_tie_depth": "tie_depth", "exact_bf16_mm": "bf16_mm",
+    "exact_q12_channels": "q12_channels", "exact_f16_xy": "f16_xy", "exact_bf16_conic": "bf16_conic",
+    "exact_depth_val": "depth_value", "exact_bf16_sh": "bf16_sh", "exact_bf16_grads": "bf16_grads",
+}
+
+
+def precision_knobs(precision: str) -> Knobs:
+    """The knobs of one of PRECISIONS; raises on any other name."""
+    if precision == "exact":
+        return Knobs()
+    if precision in ("fast", "fast_nocoef"):
+        every = {f.name: True for f in dataclasses.fields(Knobs)}
+        return Knobs(**{**every, "coef": precision == "fast"})
+    if precision in _DIAGNOSTIC_KNOBS:
+        return Knobs(**{_DIAGNOSTIC_KNOBS[precision]: True})
+    raise ValueError(f"unknown rasterizer precision {precision!r}; expected one of {PRECISIONS}")
+
+
+def is_fast(precision: str) -> bool:
+    return precision in ("fast", "fast_nocoef")
+
+
+def depth_code_bits(num_tiles: int) -> tuple[int, int]:
+    """(code_bits, code_shift): the depth code keeps the top code_bits of a
+    positive float32's bits, every bit that the tile field (num_tiles + 1
+    values) leaves free in the JAX package's int31 sort key; 22 at 256
+    tiles."""
+    code_bits = 31 - (num_tiles + 2).bit_length()
+    return code_bits, 31 - code_bits
+
+
+def truncated_depth(depth: torch.Tensor, code_shift: int, midpoint: bool = False) -> torch.Tensor:
+    """Depth with the low code_shift bits of its float32 bits cleared (the
+    sort order of the depth code) or, with `midpoint`, set to the middle of
+    the dropped range (the value the code reads back as)."""
+    bits = depth.contiguous().view(torch.int32) & ~((1 << code_shift) - 1)
+    if midpoint:
+        bits = bits | (1 << (code_shift - 1))
+    return bits.view(torch.float32)
+
+
+def quantize_attributes(attrs: torch.Tensor, knobs: Knobs, code_shift: int) -> torch.Tensor:
+    """The per-Gaussian value knobs applied to `pack_attributes` rows: conic
+    and opacity rounded to bfloat16; each channel (not the depth) in 12-bit
+    fixed point over its largest magnitude among all the view's Gaussians
+    (at least 1e-8); the depth read back from its code."""
+    if not (knobs.bf16_conic or knobs.q12_channels or knobs.depth_value):
+        return attrs
+    out = attrs.clone()
+    if knobs.bf16_conic:
+        out[:, 2:6] = attrs[:, 2:6].to(torch.bfloat16).float()
+    if knobs.q12_channels and attrs.shape[0]:
+        c = attrs[:, 6:-1]
+        s = torch.clamp(c.abs().amax(dim=0), min=1e-8)
+        q = torch.clamp(torch.round((c / s * 0.5 + 0.5) * 4095.0), 0.0, 4095.0)
+        out[:, 6:-1] = (q / 4095.0 * 2.0 - 1.0) * s
+    if knobs.depth_value:
+        out[:, -1] = truncated_depth(attrs[:, -1], code_shift, midpoint=True)
+    return out
 
 
 def _rects(sg: ScreenGaussians, tiles_x: int, tiles_y: int):
@@ -156,25 +264,58 @@ def pack_attributes(sg: ScreenGaussians) -> torch.Tensor:
 class _PairComposite(torch.autograd.Function):
     """Per-Gaussian attribute rows -> composited channels (n_ch, H, W) and
     final transmittance (H, W), over pairs that are already duplicated and
-    sorted."""
+    sorted. The value knobs quantize the rows the kernels read; the
+    gradient reaches `attrs` unquantized (straight through)."""
 
     @staticmethod
-    def forward(ctx, attrs, gids, tile_ranges, order, counts, tiles_x, image_shape):
-        out, t_final, last = composite_forward(gids, tile_ranges, attrs, tiles_x, image_shape)
-        ctx.save_for_backward(attrs, gids, tile_ranges, order, counts, last, t_final)
-        ctx.tiles_x, ctx.image_shape = tiles_x, image_shape
+    def forward(ctx, attrs, gids, tile_ranges, order, counts, tiles_x, image_shape, knobs, code_shift, want_grad):
+        rows = quantize_attributes(attrs, knobs, code_shift)
+        blocks = block_state(tile_ranges, gids.shape[0]) if knobs.bf16_mm and want_grad else None
+        out, t_final, last = composite_forward(
+            gids, tile_ranges, rows, tiles_x, image_shape, f16_xy=knobs.f16_xy, bf16_mm=knobs.bf16_mm,
+            coef=knobs.coef and not want_grad, blocks=blocks,
+        )
+        ctx.save_for_backward(rows, gids, tile_ranges, order, counts, last, t_final, *(blocks or ()))
+        ctx.tiles_x, ctx.image_shape, ctx.knobs = tiles_x, image_shape, knobs
         return out, t_final
 
     @staticmethod
     def backward(ctx, g_out, g_t):
-        attrs, gids, tile_ranges, order, counts, last, t_final = ctx.saved_tensors
+        rows, gids, tile_ranges, order, counts, last, t_final, *blocks = ctx.saved_tensors
+        knobs = ctx.knobs
         d_rows = composite_backward(
-            gids, tile_ranges, order, attrs, ctx.tiles_x, ctx.image_shape, last, t_final,
-            g_out.contiguous(), g_t.contiguous(),
+            gids, tile_ranges, order, rows, ctx.tiles_x, ctx.image_shape, last, t_final,
+            g_out.contiguous(), g_t.contiguous(), f16_xy=knobs.f16_xy, bf16_mm=knobs.bf16_mm,
+            bf16_grads=knobs.bf16_grads, blocks=tuple(blocks) or None,
         )
         offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
         d_attrs = reduce_pairs(d_rows, offsets)
-        return d_attrs, None, None, None, None, None, None
+        return d_attrs, *([None] * 9)
+
+
+def tile_pairs(
+    sg: ScreenGaussians, image_shape: tuple[int, int], max_tiles_per_gaussian: int = DEFAULT_MAX_TILES_PER_GAUSSIAN,
+    precision: str = "exact",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pairs `composite_tiled` composites at `precision`, duplicated and
+    sorted (no gradient): (gids, tile ranges, order, counts). The fast
+    family refuses a tile count whose depth code keeps fewer than
+    MIN_DEPTH_CODE_BITS bits."""
+    h, w = image_shape
+    assert h % TILE == 0 and w % TILE == 0, "image dims must be multiples of 16"
+    tiles_x, tiles_y = w // TILE, h // TILE
+    knobs = precision_knobs(precision)
+    code_bits, code_shift = depth_code_bits(tiles_x * tiles_y)
+    if is_fast(precision) and code_bits < MIN_DEPTH_CODE_BITS:
+        raise ValueError(f"{tiles_x * tiles_y} tiles leave a {code_bits}-bit depth code, under the "
+                         f"{MIN_DEPTH_CODE_BITS} bits the {precision!r} precision needs")
+    cull_margin = FAST_CULL_MARGIN if knobs.wide_cull else CULL_MARGIN
+    with torch.no_grad():
+        counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y, max_tiles_per_gaussian, cull_margin)
+        depth = truncated_depth(sg.depth, code_shift) if knobs.tie_depth else sg.depth.contiguous()
+        gids, keys = duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, max_tiles_per_gaussian)
+        gids, tile_ranges, order = sort_pairs(gids, keys, tiles_x * tiles_y)
+    return gids, tile_ranges, order, counts
 
 
 def composite_tiled(
@@ -182,23 +323,21 @@ def composite_tiled(
     image_shape: tuple[int, int],
     background: torch.Tensor,      # (C,)
     max_tiles_per_gaussian: int = DEFAULT_MAX_TILES_PER_GAUSSIAN,
+    precision: str = "exact",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Returns (channels (C, H, W), mask (H, W), expected depth (H, W),
     number of tile pairs), the contract of `composite_dense` plus the pair
     count. Differentiable in sg.mean2d, conic, opacity, channels, depth and
-    in `background`."""
-    h, w = image_shape
-    assert h % TILE == 0 and w % TILE == 0, "image dims must be multiples of 16"
-    tiles_x, tiles_y = w // TILE, h // TILE
-    c = sg.num_channels
-    with torch.no_grad():
-        counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y, max_tiles_per_gaussian)
-        gids, keys = duplicate_with_keys(
-            counts, mask, base, nx, sg.depth.contiguous(), tiles_x, max_tiles_per_gaussian
-        )
-        gids, tile_ranges, order = sort_pairs(gids, keys, tiles_x * tiles_y)
+    in `background`. `precision` is one of PRECISIONS; "fast" serves (no
+    gradient wanted) through the coefficient layout."""
+    gids, tile_ranges, order, counts = tile_pairs(sg, image_shape, max_tiles_per_gaussian, precision)
+    tiles_x = image_shape[1] // TILE
+    attrs = pack_attributes(sg)
+    want_grad = torch.is_grad_enabled() and attrs.requires_grad
     out, t_final = _PairComposite.apply(
-        pack_attributes(sg), gids, tile_ranges, order, counts, tiles_x, image_shape
+        attrs, gids, tile_ranges, order, counts, tiles_x, image_shape, precision_knobs(precision),
+        depth_code_bits(tiles_x * (image_shape[0] // TILE))[1], want_grad,
     )
+    c = sg.num_channels
     channels = out[:c] + background[:, None, None] * t_final[None]
     return channels, 1.0 - t_final, out[c], gids.shape[0]

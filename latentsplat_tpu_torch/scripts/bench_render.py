@@ -1,32 +1,35 @@
 """Render benchmark: target views per second of a 393,216-Gaussian scene at
-256x256 (the port's counterpart of the repository's root bench.py, exact
-precision):
+256x256 (the port's counterpart of the repository's root bench.py), at the
+fast precision (the headline) and at exact:
 
     python -m latentsplat_tpu_torch.scripts.bench_render [--seed 0]
 
 The scene has the flagship re10k test shape (`make_scene`): 2 context views
 x 256^2 pixels x 3 Gaussians a pixel on a smooth depth surface, color SH of
 degree 4 (25 coefficients), 4 latent feature channels of degree 2 (9), 64
-target views on an arc, near 0.5 and far 20. One warm-up call, then ITERS
-calls of the tiled render of all 64 views (opacities scaled by
-1 - 1e-6 i so that no call repeats another), each ended by a device
-synchronize; the median over the views gives views/s. Every call's pairs
-per view are held against the total that the tile cull counts for that
-call's inputs: a render that composited fewer pairs than it counted raises.
+target views on an arc, near 0.5 and far 20. At each precision ("fast",
+then "exact"): one warm-up call, then ITERS calls of the tiled render of
+all 64 views (opacities scaled by 1 - 1e-6 i so that no call repeats
+another), each ended by a device synchronize; the median over the views
+gives views/s. Every call's pairs per view are held against the total
+that the tile cull (at the precision's margin) counts for that call's
+inputs: a render that composited fewer pairs than it counted raises.
+`fast_vs_exact_psnr_db` is the PSNR of the fast render's colors (clipped
+to [0, 1]) against the exact render's, over all views, as bench.py takes it.
 
-The render's float32 operations per view are counted as PERF.md counts
-the composite kernels' (`composite_work` on each view's kernel outputs: 14
-per (pair, pixel) evaluation, 2 C + 3 per composited (pair, pixel)), plus
-the SH evaluation and projection of every Gaussian, counted by running
-them under `count_operations`. `render_mfu` is that over the card's
-float32 peak.
+The fast render's float32 operations per view are counted as PERF.md
+counts the composite kernels' (`composite_work` on each view's kernel
+outputs: 14 per (pair, pixel) evaluation, 2 C + 3 per composited (pair,
+pixel)), plus the SH evaluation and projection of every Gaussian, counted
+by running them under `count_operations`. `render_mfu` is that over the
+card's float32 peak.
 
 Prints the card's name and power limit, then ONE JSON line: metric
-render_256px_393k_gaussians_fwd in views/sec/chip, `value` = `value_exact`,
-the mean pairs per view, the operations, `render_mfu`, and the newest
-record of bench_train in outputs/bench/. Sizes are arguments so that tests
-can shrink the scene. The command line runs on the card;
-`main(argv, device="cpu")` on the CPU.
+render_256px_393k_gaussians_fwd in views/sec/chip, `value` = `value_fast`,
+`value_exact`, `fast_vs_exact_psnr_db`, the mean pairs per view, the
+operations, `render_mfu`, and the newest record of bench_train in
+outputs/bench/. Sizes are arguments so that tests can shrink the scene.
+The command line runs on the card; `main(argv, device="cpu")` on the CPU.
 """
 
 from __future__ import annotations
@@ -46,7 +49,16 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..entry import arc_cameras
 from ..ops.rasterize import kernels
 from ..ops.rasterize.api import render
-from ..ops.rasterize.tiled import pack_attributes, sort_pairs, tile_rects
+from ..ops.rasterize.tiled import (
+    CULL_MARGIN,
+    FAST_CULL_MARGIN,
+    depth_code_bits,
+    pack_attributes,
+    precision_knobs,
+    quantize_attributes,
+    tile_pairs,
+    tile_rects,
+)
 from . import resolve_device
 from .measure import FP32_FLOPS, RECORD_DIR, device_name, median_seconds, screen_view, sync
 
@@ -60,6 +72,8 @@ N_FEATURES = 4
 COLOR_SH = 25             # degree 4
 FEATURE_SH = 9            # degree 2
 ITERS = 5
+# Measured in this order; the first is the headline `value`.
+PRECISIONS = ("fast", "exact")
 # Rounded float32 operations (an expf, a min or a compare counts as one)
 # that composite_forward spends per (pair, pixel) evaluation, and per
 # composited (pair, pixel) on top: the weight, the channel sums and the
@@ -111,36 +125,39 @@ def make_scene(seed: int = 0, side: int = SIDE, n_views: int = N_VIEWS, device="
     return {k: torch.from_numpy(a)[None].to(device) for k, a in arrays.items()}
 
 
-def render_scene(scene: dict, size: int, i: int = 0):
-    """The exact tiled render of every view, opacities scaled by 1 - 1e-6 i."""
+def render_scene(scene: dict, size: int, i: int = 0, precision: str = "exact"):
+    """The tiled render of every view at `precision`, opacities scaled by
+    1 - 1e-6 i."""
     with torch.no_grad():
         return render(
             scene["extrinsics"], scene["intrinsics"], scene["near"], scene["far"], (size, size),
             scene["background_color"], scene["gaussian_means"], scene["gaussian_covariances"],
             scene["gaussian_opacities"] * (1.0 - 1e-6 * i), scene["gaussian_color_sh"], scene["gaussian_feature_sh"],
+            precision=precision,
         )
 
 
-def counted_pairs(scene: dict, size: int, i: int = 0) -> list:
-    """Each view's pair total as the tile cull counts it (what
-    duplicate_with_keys allocates), opacities scaled by 1 - 1e-6 i. Launches
-    no kernel."""
+def counted_pairs(scene: dict, size: int, i: int = 0, precision: str = "exact") -> list:
+    """Each view's pair total as the tile cull counts it at `precision`'s
+    margin (what duplicate_with_keys allocates), opacities scaled by
+    1 - 1e-6 i. Launches no kernel."""
     tiles = size // kernels.TILE
+    margin = FAST_CULL_MARGIN if precision_knobs(precision).wide_cull else CULL_MARGIN
     with torch.no_grad():
-        return [int(tile_rects(screen_view(scene, size, j, i), tiles, tiles)[0].sum())
+        return [int(tile_rects(screen_view(scene, size, j, i), tiles, tiles, 9, margin)[0].sum())
                 for j in range(scene["extrinsics"].shape[1])]
 
 
-def time_render(scene: dict, size: int, iters: int = ITERS) -> dict:
-    """One warm-up call, then `iters` timed calls of `render_scene`; each
-    call's pairs per view, its seconds and the kernels' launches over all
-    the calls."""
+def time_render(scene: dict, size: int, iters: int = ITERS, precision: str = "exact") -> dict:
+    """One warm-up call, then `iters` timed calls of `render_scene` at
+    `precision`; each call's pairs per view, its seconds and the kernels'
+    launches over all the calls."""
     device = scene["gaussian_means"].device
     before = dict(kernels.launch_counts)
     pairs = []
 
     def call(i):
-        pairs.append(render_scene(scene, size, i).num_pairs.reshape(-1).tolist())
+        pairs.append(render_scene(scene, size, i, precision).num_pairs.reshape(-1).tolist())
 
     sync(device)
     call(0)
@@ -150,11 +167,11 @@ def time_render(scene: dict, size: int, iters: int = ITERS) -> dict:
             "launches": {k: kernels.launch_counts[k] - before[k] for k in before}}
 
 
-def check_pairs(scene: dict, size: int, pairs: list) -> None:
+def check_pairs(scene: dict, size: int, pairs: list, precision: str = "exact") -> None:
     """Raises unless call i composited, in every view, the pairs its inputs
     count (`counted_pairs` with opacities scaled as call i's)."""
     for i, got in enumerate(pairs):
-        counted = counted_pairs(scene, size, i)
+        counted = counted_pairs(scene, size, i, precision)
         if got != counted:
             dropped = [(j, c - g) for j, (c, g) in enumerate(zip(counted, got)) if c != g]
             raise AssertionError(f"render call {i} composited other pair totals than it counted (view, "
@@ -241,17 +258,20 @@ def composite_work(view: dict) -> dict:
     }
 
 
-def view_work(scene: dict, size: int, j: int) -> tuple[dict, int]:
+def view_work(scene: dict, size: int, j: int, precision: str = "exact") -> tuple[dict, int]:
     """(composite_work, channels composited) of view j, through the
-    render's own pipeline (one launch of each forward kernel)."""
+    render's own pipeline at `precision` (one launch of each forward
+    kernel, composite_forward in the variant a render without gradient
+    takes); the work is counted on the Gaussians' rows as the kernel reads
+    them (the f16_xy knob's per-pair rounding aside)."""
     tiles = size // kernels.TILE
+    knobs = precision_knobs(precision)
     with torch.no_grad():
-        sg = screen_view(scene, size, j)
-        counts, base, nx, mask = tile_rects(sg, tiles, tiles)
-        gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth.contiguous(), tiles, 9)
-        gids, ranges, _ = sort_pairs(gids, keys, tiles * tiles)
-        attrs = pack_attributes(sg)
-        _, t_final, last = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size))
+        sg = screen_view(scene, size, j, precision=precision)
+        gids, ranges, _, _ = tile_pairs(sg, (size, size), 9, precision)
+        attrs = quantize_attributes(pack_attributes(sg), knobs, depth_code_bits(tiles * tiles)[1])
+        _, t_final, last = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size), f16_xy=knobs.f16_xy,
+                                                     bf16_mm=knobs.bf16_mm, coef=knobs.coef)
         view = {"gids": gids, "ranges": ranges, "attrs": attrs, "tiles_x": tiles, "shape": (size, size),
                 "t_final": t_final, "last": last}
         return composite_work(view), attrs.shape[1] - 6
@@ -283,16 +303,16 @@ def count_operations(fn, *args) -> int:
     return flops.get_total_flops() + pointwise.ops
 
 
-def render_operations(scene: dict, size: int) -> dict:
-    """Float32 operations of one view, the mean over all views: the SH
-    evaluation and projection of every Gaussian (counted by running them),
-    and composite_forward's, from each view's `composite_work`. Launches
-    each forward kernel once a view."""
+def render_operations(scene: dict, size: int, precision: str = "exact") -> dict:
+    """Float32 operations of one view at `precision`, the mean over all
+    views: the SH evaluation and projection of every Gaussian (counted by
+    running them), and composite_forward's, from each view's
+    `composite_work`. Launches each forward kernel once a view."""
     with torch.no_grad():
-        project = count_operations(screen_view, scene, size, 0)
+        project = count_operations(screen_view, scene, size, 0, 0, precision)
     composite = []
     for j in range(scene["extrinsics"].shape[1]):
-        work, n_ch = view_work(scene, size, j)
+        work, n_ch = view_work(scene, size, j, precision)
         composite.append(EVAL_OPS * work["forward_evaluations"] + forward_composited_ops(n_ch) * work["composited"])
     return {"total": project + statistics.fmean(composite), "project_sh": project,
             "composite": statistics.fmean(composite)}
@@ -304,36 +324,52 @@ def newest_train_record(record_dir: Path):
     return max(records, key=lambda r: r.get("measured_unix", 0), default=None)
 
 
-def summarize(scene: dict, size: int, timing: dict, device: torch.device, record_dir: Path) -> dict:
-    """The JSON record of a `time_render` run (checks its pairs first)."""
-    check_pairs(scene, size, timing["pairs"])
+def fast_vs_exact_psnr(scene: dict, size: int) -> float:
+    """PSNR of the fast render's colors against the exact render's over all
+    views, both clipped to [0, 1] (bench.py's _fast_vs_exact_psnr)."""
+    fast, exact = (render_scene(scene, size, 0, p).color.clamp(0.0, 1.0) for p in ("fast", "exact"))
+    mse = (fast - exact).square().mean().item()
+    return -10.0 * math.log10(max(mse, 1e-12))
+
+
+def summarize(scene: dict, size: int, timings: dict, device: torch.device, record_dir: Path) -> dict:
+    """The JSON record of a `time_render` run at each of PRECISIONS
+    (`timings` by precision; checks their pairs first)."""
+    for precision, timing in timings.items():
+        check_pairs(scene, size, timing["pairs"], precision)
     n_views = scene["extrinsics"].shape[1]
-    vps = n_views / timing["median_s"]
-    ops = render_operations(scene, size)
+    vps = {p: n_views / timing["median_s"] for p, timing in timings.items()}
+    fast, exact = timings["fast"], timings["exact"]
+    ops = render_operations(scene, size, "fast")
     on_card = device.type == "cuda"
     result = {
         "metric": METRIC,
-        "value": vps,
+        "value": vps["fast"],
         "unit": "views/sec/chip",
-        "vs_baseline": vps / REFERENCE_VIEWS_PER_SEC,
-        "value_exact": vps,
-        "precision": "exact",
+        "vs_baseline": vps["fast"] / REFERENCE_VIEWS_PER_SEC,
+        "value_fast": vps["fast"],
+        "value_exact": vps["exact"],
+        "fast_vs_exact_psnr_db": fast_vs_exact_psnr(scene, size),
+        "precision": "fast",
         "device": device_name(device),
         "views": n_views,
         "gaussians": scene["gaussian_means"].shape[1],
         "size": size,
-        "ms_per_view": 1e3 * timing["median_s"] / n_views,
-        "call_seconds": timing["seconds"],
-        "pairs_per_view_mean": statistics.fmean(timing["pairs"][0]),
+        "ms_per_view": 1e3 * fast["median_s"] / n_views,
+        "ms_per_view_exact": 1e3 * exact["median_s"] / n_views,
+        "call_seconds": fast["seconds"],
+        "call_seconds_exact": exact["seconds"],
+        "pairs_per_view_mean": statistics.fmean(fast["pairs"][0]),
+        "pairs_per_view_mean_exact": statistics.fmean(exact["pairs"][0]),
         "render_flops_per_view": ops["total"],
-        "render_mfu": ops["total"] * vps / FP32_FLOPS if on_card else None,
+        "render_mfu": ops["total"] * vps["fast"] / FP32_FLOPS if on_card else None,
         "render_flops_note": (
-            f"float32 operations per view: SH evaluation + projection {ops['project_sh']:.4g} (counted by "
+            f"float32 operations per fast view: SH evaluation + projection {ops['project_sh']:.4g} (counted by "
             f"running them) + composite_forward {ops['composite']:.4g} (14 per (pair, pixel) evaluation, "
             "2 C + 3 per composited (pair, pixel), counted on each view's kernel outputs); render_mfu "
             "over the H100 SXM float32 peak, 67 TFLOP/s (NVIDIA's data sheet, 700 W)"
         ),
-        "launches": timing["launches"],
+        "launches": {p: timing["launches"] for p, timing in timings.items()},
     }
     train = newest_train_record(record_dir)
     if train is not None:
@@ -357,13 +393,15 @@ def main(argv=None, device=None) -> dict:
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
     device = resolve_device(device, "bench_render")
     scene = make_scene(args.seed, args.side, args.views, device)
-    timing = time_render(scene, args.size, args.iters)
-    result = summarize(scene, args.size, timing, device, args.records)
+    timings = {p: time_render(scene, args.size, args.iters, p) for p in PRECISIONS}
+    result = summarize(scene, args.size, timings, device, args.records)
     print(f"bench_render: {result['views']} views of {result['gaussians']} Gaussians at {args.size}x{args.size}, "
-          f"call seconds {[round(s, 4) for s in timing['seconds']]}", file=sys.stderr)
+          + "; ".join(f"{p} call seconds {[round(x, 4) for x in t['seconds']]}" for p, t in timings.items()),
+          file=sys.stderr)
     print(f"device: {result['device']}")
     print(json.dumps(result))
-    if not all(math.isfinite(x) and x > 0 for x in (result["value"], result["render_flops_per_view"])):
+    if not all(math.isfinite(x) and x > 0 for x in (result["value"], result["value_exact"],
+                                                    result["render_flops_per_view"], result["fast_vs_exact_psnr_db"])):
         raise AssertionError(f"bench_render: a non-finite or non-positive result {result}")
     return result
 

@@ -21,10 +21,11 @@ bf16 peak gives `train_mfu`.
 Prints the card's name and power limit, then ONE JSON line (metric
 train_step_<size>px_batch<B>_vae_gan<variant>, the names of bench_train.py;
 unit steps/sec/chip) and writes it with the device and the time to
-outputs/bench/ (--out-dir), where bench_render finds the newest. The fast
-precision is not ported: --fast exits with code 2. Trailing key=value
-arguments override the config further (tests pass a narrow model). The
-command line runs on the card; `main(argv, device="cpu")` on the CPU.
+outputs/bench/ (--out-dir), where bench_render finds the newest. --fast
+trains at model.decoder.precision=fast, as bench_train.py's --fast does.
+Trailing key=value arguments override the config further (tests pass a
+narrow model). The command line runs on the card; `main(argv,
+device="cpu")` on the CPU.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ def parse_args(argv) -> argparse.Namespace:
     parser.add_argument("--compute", help="model.compute_dtype per site, e.g. encoder:bfloat16,vae:bfloat16")
     parser.add_argument("--remat-policy", default="nothing")
     parser.add_argument("--no-decoder-remat", action="store_true")
-    parser.add_argument("--fast", action="store_true", help="the JAX package's fast precision (not ported)")
+    parser.add_argument("--fast", action="store_true", help="model.decoder.precision=fast")
     parser.add_argument("--size", type=int, help="image side (default 256 with --full, else 128)")
     parser.add_argument("--iters", type=int, default=ITERS)
     parser.add_argument("--out-dir", type=Path, default=RECORD_DIR)
@@ -75,6 +76,7 @@ def train_overrides(args: argparse.Namespace) -> list:
         f"dataset.image_shape=[{args.size},{args.size}]",
         f"model.remat_policy={args.remat_policy}",
         *compute,
+        *(["model.decoder.precision=fast"] if args.fast else []),
         f"model.remat={'true' if args.full else 'false'}",
         f"model.decoder.remat={'true' if args.full and not args.no_decoder_remat else 'false'}",
         *OBJECTIVE,
@@ -83,10 +85,11 @@ def train_overrides(args: argparse.Namespace) -> list:
 
 def metric_name(args: argparse.Namespace) -> str:
     """bench_train.py's metric name for these flags."""
+    variant = "_fast" if args.fast else ""
     if args.compute:
-        variant = "_" + args.compute.replace(":", "-").replace(",", "+")
-    else:
-        variant = "_bf16" if args.bf16 else ""
+        variant += "_" + args.compute.replace(":", "-").replace(",", "+")
+    elif args.bf16:
+        variant += "_bf16"
     if args.remat_policy != "nothing":
         variant += "_" + args.remat_policy.replace(":", "-").replace(",", "+")
     if args.no_decoder_remat:
@@ -146,6 +149,7 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
         "generator_total": totals,
         "steps_run": len(totals),
         "decoder_remat": cfg.model.decoder.remat,
+        "precision": cfg.model.decoder.precision,
         "launches": launches,
     }
 
@@ -153,10 +157,6 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
 def main(argv=None, device=None) -> dict:
     """Returns the JSON record it prints and writes."""
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.fast:
-        print("bench_train: the fast precision (model.decoder.precision=fast) is not ported; "
-              "the port renders in exact precision only", file=sys.stderr)
-        raise SystemExit(2)
     device = resolve_device(device, "bench_train")
     print(f"bench_train: {args.size}px, batch {args.batch} on {device}", file=sys.stderr)
     result = run(args, device)

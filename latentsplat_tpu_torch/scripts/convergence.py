@@ -1,5 +1,6 @@
 """Convergence run of the port's VAE-GAN train step (the counterpart of the
-root bench_convergence.py in exact precision, the port's only one):
+root bench_convergence.py --precision exact; the trailing override
+model.decoder.precision=fast runs its default):
 
     python -m latentsplat_tpu_torch.scripts.convergence --size 128 --steps 600 --seed 0 \\
         --sh-l2 0.01 --out outputs/convergence/seed0.json [key=value ...]
@@ -80,7 +81,7 @@ def overfit_batch(size: int) -> dict:
 
 
 def objective_overrides(size: int, seed: int, sh_l2: float) -> list:
-    """bench_convergence.py's run_mode overrides, in the port's exact mode."""
+    """bench_convergence.py's run_mode overrides at exact precision."""
     remat = "true" if size >= 256 else "false"
     gaussian = "[{name: kl, weight: 0.0001}" + (f", {{name: sh_l2, weight: {sh_l2}}}]" if sh_l2 else "]")
     return [

@@ -16,6 +16,7 @@ from ..entry import arc_batch, flagship_model, to_tensors
 from ..loss.losses import LossGroup
 from ..ops.rasterize.api import view_channels
 from ..ops.rasterize.camera import project_gaussians_to_screen
+from ..ops.rasterize.tiled import precision_knobs
 from ..training.step import GROUP_NAMES, make_step_flags, make_train_step
 from ..training.trainer import init_train_state
 from .convergence import device_name
@@ -72,12 +73,15 @@ def grad_sum(loss: torch.Tensor, inputs: list) -> float:
     return float(sum(g.sum() for g in grads if g is not None))
 
 
-def screen_view(scene: dict, size: int, j: int, i: int = 0):
+def screen_view(scene: dict, size: int, j: int, i: int = 0, precision: str = "exact"):
     """View j's screen Gaussians as `render` hands them to the compositor
-    (SH towards the camera, the scene scaled by 1/near), opacities scaled
-    by 1 - 1e-6 i."""
+    at `precision` (SH towards the camera, in bfloat16 under its bf16 SH
+    knob; the scene scaled by 1/near), opacities scaled by 1 - 1e-6 i."""
     means, ext, near = scene["gaussian_means"][0], scene["extrinsics"][0, j], scene["near"][0, j]
-    channels = view_channels(means, scene["gaussian_color_sh"][0], scene["gaussian_feature_sh"][0], ext[:3, 3])
+    sh = (scene["gaussian_color_sh"][0], scene["gaussian_feature_sh"][0])
+    if precision_knobs(precision).bf16_sh:
+        sh = tuple(x.to(torch.bfloat16) for x in sh)
+    channels = view_channels(means, *sh, ext[:3, 3])
     s = 1.0 / near
     ext_s = ext.clone()
     ext_s[:3, 3] = ext[:3, 3] * s

@@ -2,7 +2,9 @@
 the repository's root bench*.py on the CPU: bench_render's scene against
 bench.make_scene for the same draws, a shrunk scene's render against the
 JAX dense render, bench_train's overrides and metric names against
-bench_train.py's, and every script run narrow through its `main`."""
+bench_train.py's, and every script run narrow through its `main`
+(bench_render at both precisions, bench_train --fast,
+bench_precision_knobs over every mode)."""
 
 import ast
 import json
@@ -21,6 +23,7 @@ import bench as jax_bench
 from latentsplat_tpu.ops.rasterize import render as j_render
 from latentsplat_tpu_torch.scripts import (
     bench_enc_stages,
+    bench_precision_knobs,
     bench_render,
     bench_render_stages,
     bench_train,
@@ -98,9 +101,11 @@ def test_bench_render_runs_on_the_cpu(tmp_path, capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[-2] == "device: cpu" and json.loads(lines[-1]) == json.loads(json.dumps(result))
     assert result["metric"] == "render_256px_393k_gaussians_fwd" and result["unit"] == "views/sec/chip"
-    assert result["value"] == result["value_exact"] > 0 and result["precision"] == "exact"
-    assert "value_fast" not in result and "fast_vs_exact_psnr_db" not in result
+    # bench.py's keys: the headline is the fast render.
+    assert result["value"] == result["value_fast"] > 0 and result["precision"] == "fast"
+    assert result["value_exact"] > 0 and 30.0 < result["fast_vs_exact_psnr_db"] < 120.0
     assert result["views"] == 2 and result["gaussians"] == 6 * 16 * 16 and len(result["call_seconds"]) == 2
+    assert len(result["call_seconds_exact"]) == 2 and result["pairs_per_view_mean_exact"] > 0
     assert result["pairs_per_view_mean"] > 0 and result["render_mfu"] is None
     assert result["render_flops_per_view"] > 0 and math.isfinite(result["render_flops_per_view"])
     assert result["train_step_steps_per_sec"] == 0.7 and result["train_step_config"] == "train_step_256px_b2_bf16"
@@ -135,7 +140,8 @@ def jax_bench_train_names():
                                ("metric", metric))}
 
 
-FLAGS = [[], ["--bf16"], ["--full", "--batch", "2"], ["--full", "--batch", "2", "--bf16"],
+FLAGS = [[], ["--bf16"], ["--fast"], ["--fast", "--full", "--bf16"], ["--full", "--batch", "2"],
+         ["--full", "--batch", "2", "--bf16"],
          ["--full", "--batch", "2", "--bf16", "--remat-policy", "dots"],
          ["--compute", "encoder:bfloat16,vae:bfloat16"],
          ["--full", "--no-decoder-remat", "--remat-policy", "vae:off,lpips:off"]]
@@ -144,13 +150,13 @@ FLAGS = [[], ["--bf16"], ["--full", "--batch", "2"], ["--full", "--batch", "2", 
 @pytest.mark.parametrize("argv", FLAGS, ids=lambda a: " ".join(a) or "default")
 def test_bench_train_names_and_overrides_are_bench_train_s(argv):
     args = bench_train.parse_args(argv)
-    flags = {"full": args.full, "size": args.size, "batch": args.batch, "fast": False, "bf16": args.bf16,
+    flags = {"full": args.full, "size": args.size, "batch": args.batch, "fast": args.fast, "bf16": args.bf16,
              "compute": args.compute, "remat_policy": args.remat_policy, "no_dec_remat": args.no_decoder_remat}
     jax_exprs = jax_bench_train_names()
     flags["variant"] = eval(jax_exprs["variant"], {}, dict(flags))
     assert bench_train.metric_name(args) == eval(jax_exprs["metric"], {}, flags)
     assert bench_train.train_overrides(args) == eval(jax_exprs["overrides"], {}, flags)
-    if argv == FLAGS[4]:
+    if argv == FLAGS[6]:
         assert bench_train.metric_name(args) == "train_step_256px_batch2_vae_gan_bf16_dots"
 
 
@@ -165,10 +171,34 @@ def test_bench_train_runs_one_step_on_the_cpu(tmp_path, capsys):
     assert written["metric"] == result["metric"] and written["measured_unix"] > 0
 
 
-def test_bench_train_refuses_the_fast_precision(capsys):
-    with pytest.raises(SystemExit) as exc:
-        bench_train.main(["--fast"], device="cpu")
-    assert exc.value.code == 2 and "not ported" in capsys.readouterr().err
+def test_bench_train_fast_runs_a_step_on_the_cpu(tmp_path, capsys):
+    # --fast trains at model.decoder.precision=fast (the dense render here
+    # takes its bf16 SH tables; tests/test_torch_fast.py holds the tiled
+    # fast step against JAX).
+    result = bench_train.main(["--fast", "--size", "32", "--iters", "1", "--out-dir", str(tmp_path), *DENSE],
+                              device="cpu")
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["metric"] == "train_step_32px_batch1_vae_gan_fast"
+    assert result["precision"] == "fast" and "model.decoder.precision=fast" in result["overrides"]
+    assert result["steps_run"] == 3 and all(math.isfinite(t) for t in result["generator_total"])
+    assert json.loads((tmp_path / "train_step_32px_b1_fast.json").read_text())["precision"] == "fast"
+
+
+def test_bench_precision_knobs_reports_every_mode(tmp_path, capsys):
+    result = bench_precision_knobs.main(["--views", "2", "--side", "16", "--size", "32", "--out-dir", str(tmp_path)],
+                                        device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[-2] == "device: cpu" and json.loads(lines[-1]) == json.loads(json.dumps(result))
+    assert list(result["knobs"]) == list(bench_precision_knobs.MODES)
+    assert result["value"] == result["knobs"]["fast"]["color_psnr_db"]
+    knobs = result["knobs"]
+    # Knobs that change no value the colors show are exact; the others cost
+    # some PSNR, fast (all of them) the most.
+    for mode in ("exact_wide_cull", "exact_tie_depth", "exact_depth_val"):
+        assert knobs[mode]["color_psnr_db"] == 120.0, mode
+    assert knobs["exact_depth_val"]["depth_rel_err_max"] > 0
+    for mode in ("exact_bf16_mm", "exact_q12_channels", "exact_f16_xy", "exact_bf16_conic", "exact_bf16_sh"):
+        assert knobs["fast"]["color_psnr_db"] < knobs[mode]["color_psnr_db"] < 120.0, mode
+    assert json.loads((tmp_path / "precision_knobs_psnr.json").read_text())["knobs"] == json.loads(json.dumps(knobs))
 
 
 def printed_names(text: str) -> list:

@@ -128,7 +128,8 @@ def test_port_imports_no_jax():
         "paper.generate_teaser", "misc.profiler", "misc.fraction_utils", "model.autoencoder.base",
         "model.encoder.alt_depth", "scripts.convergence", "entry", "scripts.measure", "scripts.bench_render",
         "scripts.bench_train", "scripts.bench_render_stages", "scripts.bench_enc_stages",
-        "scripts.bench_train_stages", "scripts.bench_trace_step",
+        "scripts.bench_train_stages", "scripts.bench_trace_step", "scripts.bench_precision_knobs",
+        "ops.rasterize.tiled",
     )
     code = (
         "import sys\n"

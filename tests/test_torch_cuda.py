@@ -17,8 +17,12 @@ from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_scre
 from latentsplat_tpu_torch.ops.rasterize.dense import composite_dense
 from latentsplat_tpu_torch.ops.rasterize.tiled import (
     composite_tiled,
+    depth_code_bits,
     pack_attributes,
+    precision_knobs,
+    quantize_attributes,
     sort_pairs,
+    tile_pairs,
     tile_rects,
 )
 
@@ -461,3 +465,113 @@ def test_wrappers_check_inputs(cuda):
         kernels.reduce_pairs(d, offsets.cpu())
     with pytest.raises(ValueError):   # a row length with no instantiation
         kernels.reduce_pairs(d[:, :9].contiguous(), offsets)
+
+
+# -- the fast family (model.decoder.precision "fast", "fast_nocoef" and the
+# diagnostic precisions with a per-pair knob) --------------------------------
+
+FORWARD_VARIANTS = {"coef": {"coef": True}, "fast": {"f16_xy": True, "bf16_mm": True},
+                    "f16_xy": {"f16_xy": True}, "bf16_mm": {"bf16_mm": True}}
+BACKWARD_VARIANTS = {"fast": {"f16_xy": True, "bf16_mm": True, "bf16_grads": True}, "f16_xy": {"f16_xy": True},
+                     "bf16_mm": {"bf16_mm": True}, "bf16_grads": {"bf16_grads": True}}
+
+
+def fast_inputs(seed, size, device, n_channels):
+    """Pairs and attribute rows as composite_tiled prepares them at "fast"."""
+    tiles = size // 16
+    sg = screen_gaussians(seed, 20000, size, device, n_channels=n_channels)
+    gids, ranges, order, _ = tile_pairs(sg, (size, size), CAP, "fast")
+    attrs = quantize_attributes(pack_attributes(sg), precision_knobs("fast"), depth_code_bits(tiles * tiles)[1])
+    return tiles, gids, ranges, order, attrs
+
+
+def variant_launches(name, variant, n_ch):
+    return kernels.launches_by_variant[name].get(variant, {}).get(n_ch, 0)
+
+
+@pytest.mark.parametrize("n_channels", [4, 7, 11])   # + depth: the 5-, 8- and 12-channel instantiations
+@pytest.mark.parametrize("variant", list(FORWARD_VARIANTS))
+def test_composite_forward_fast_variants_match_reference(cuda, variant, n_channels):
+    # Explicitly rounded in the plain version's order: `last` and the block
+    # state exactly, T and channels to 1e-5 (of each channel's largest value).
+    size = 64
+    tiles, gids, ranges, _, attrs = fast_inputs(size + 5, size, cuda, n_channels)
+    knobs = FORWARD_VARIANTS[variant]
+    blocks = ref_blocks = None
+    if knobs.get("bf16_mm"):
+        blocks = kernels.block_state(ranges, gids.shape[0])
+        blocks[1].zero_()
+        ref_blocks = (blocks[0], torch.zeros_like(blocks[1]))
+    before = variant_launches("composite_forward", variant, n_channels + 1)
+    out = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size), **knobs, blocks=blocks)
+    ref = kernels.composite_forward_reference(gids, ranges, attrs, tiles, (size, size), **knobs, blocks=ref_blocks)
+    torch.cuda.synchronize()
+    assert variant_launches("composite_forward", variant, n_channels + 1) == before + 1
+    assert (ref[1] < kernels.TRANSMITTANCE_MIN).any(), "scene never saturates"
+    scale = ref[0].abs().amax(dim=(1, 2), keepdim=True)
+    assert ((out[0] - ref[0]).abs() / scale).max().item() <= 1e-5
+    torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=0)
+    assert torch.equal(out[2], ref[2])
+    if blocks is not None:
+        assert (blocks[1][..., 1] != 0).any() and torch.equal(blocks[1], ref_blocks[1])
+
+
+@pytest.mark.parametrize("n_channels", [4, 7, 11])
+@pytest.mark.parametrize("variant", list(BACKWARD_VARIANTS))
+def test_composite_backward_fast_variants_match_reference(cuda, variant, n_channels):
+    # 1e-4 of each column's largest value as the exact kernel; a row rounded
+    # to bfloat16 may round the other way where the two float32 sums
+    # differ, so with bf16_grads also one bfloat16 step (at most 2^-7 of
+    # the value).
+    size = 64
+    tiles, gids, ranges, order, attrs = fast_inputs(size + 6, size, cuda, n_channels)
+    knobs = BACKWARD_VARIANTS[variant]
+    mm = knobs.get("bf16_mm", False)
+    blocks = kernels.block_state(ranges, gids.shape[0]) if mm else None
+    out, t_final, last = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size),
+                                                   f16_xy=knobs.get("f16_xy", False), bf16_mm=mm, blocks=blocks)
+    g = torch.Generator(device=cuda).manual_seed(size)
+    g_out = torch.randn(out.shape, generator=g, device=cuda)
+    g_t = torch.randn(t_final.shape, generator=g, device=cuda)
+    args = (gids, ranges, order, attrs, tiles, (size, size), last, t_final, g_out, g_t)
+    before = variant_launches("composite_backward", variant, n_channels + 1)
+    d = kernels.composite_backward(*args, **knobs, blocks=blocks)
+    ref = kernels.composite_backward_reference(*args, **knobs, blocks=blocks)
+    torch.cuda.synchronize()
+    assert variant_launches("composite_backward", variant, n_channels + 1) == before + 1
+    bound = 1e-4 * ref.abs().amax(dim=0).clamp(min=1e-12)
+    if knobs.get("bf16_grads"):
+        bound = bound + 2.0**-7 * ref.abs()
+    assert ((d - ref).abs() <= bound).all()
+    assert torch.equal(d, kernels.composite_backward(*args, **knobs, blocks=blocks))
+
+
+def test_fast_render_runs_the_fast_variants(cuda):
+    # Serving at "fast" takes the coefficient layout; a differentiated
+    # render the fast forward and backward; nothing falls back to the exact
+    # kernels, and a channel count without a fast instantiation raises.
+    size = 64
+    sg = screen_gaussians(11, 5000, size, cuda, n_channels=7)
+    bg = torch.rand(7, generator=torch.Generator().manual_seed(0)).to(cuda)
+    exact_before = (variant_launches("composite_forward", "exact", 8), variant_launches("composite_backward", "exact", 8))
+    before = variant_launches("composite_forward", "coef", 8)
+    with torch.no_grad():
+        served = composite_tiled(sg, (size, size), bg, precision="fast")
+    assert variant_launches("composite_forward", "coef", 8) == before + 1
+    cpu = type(sg)(**{k: v.cpu() for k, v in vars(sg).items()})
+    with torch.no_grad():
+        plain = composite_tiled(cpu, (size, size), bg.cpu(), precision="fast")
+    for a, b in zip(served[:3], plain[:3]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+    opacity = sg.opacity.clone().requires_grad_(True)
+    trained = type(sg)(**{**vars(sg), "opacity": opacity})
+    before = (variant_launches("composite_forward", "fast", 8), variant_launches("composite_backward", "fast", 8))
+    img, mask, _, _ = composite_tiled(trained, (size, size), bg, precision="fast")
+    (img.square().sum() + mask.sum()).backward()
+    assert (variant_launches("composite_forward", "fast", 8), variant_launches("composite_backward", "fast", 8)) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(opacity.grad).all()
+    assert (variant_launches("composite_forward", "exact", 8), variant_launches("composite_backward", "exact", 8)) == exact_before
+    four = screen_gaussians(12, 500, size, cuda, n_channels=3)
+    with pytest.raises(ValueError, match="built for"), torch.no_grad():
+        composite_tiled(four, (size, size), torch.zeros(3, device=cuda), precision="fast")

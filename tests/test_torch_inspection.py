@@ -96,9 +96,9 @@ def record_caps(monkeypatch):
     caps = []
     composite_tiled = api.composite_tiled
 
-    def spy(sg, image_shape, background, cap):
+    def spy(sg, image_shape, background, cap, *args, **kwargs):
         caps.append(cap)
-        return composite_tiled(sg, image_shape, background, cap)
+        return composite_tiled(sg, image_shape, background, cap, *args, **kwargs)
 
     monkeypatch.setattr(api, "composite_tiled", spy)
     return caps

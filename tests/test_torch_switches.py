@@ -187,9 +187,9 @@ def test_latents_render_twelve_channels_tiled_dense_and_jax():
 
     forward = tiled.composite_forward
 
-    def counted(gids, ranges, attrs, *args):
+    def counted(gids, ranges, attrs, *args, **kwargs):
         calls.append(attrs.shape[1])
-        return forward(gids, ranges, attrs, *args)
+        return forward(gids, ranges, attrs, *args, **kwargs)
 
     out = {}
     with pytest.MonkeyPatch.context() as mp:

@@ -348,7 +348,7 @@ def run_counted(state, losses, batch):
     calls = []
     forward = tiled.composite_forward
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tiled, "composite_forward", lambda *args: calls.append(1) or forward(*args))
+        mp.setattr(tiled, "composite_forward", lambda *args, **kwargs: calls.append(1) or forward(*args, **kwargs))
         flags = tstep.make_step_flags(losses, STEP)
         grads, total, logs, _ = tstep.generator_grads(
             state, losses, flags, batch, STEP, generator=torch.Generator().manual_seed(7))
