@@ -13,7 +13,7 @@
    warp) work the view needs, from which each kernel's bound follows.
    With --parent DIR, builds the forward kernels of the checkout DIR,
    holds them against this tree's and times both in turns on the same
-   inputs.
+   inputs (and the fast family's, in the fast phase).
 3. Backward kernel phase: on the same view, with a seeded random
    cotangent, holds composite_backward against its plain version (within
    1e-4 of each gradient column's largest value; bit-identical on a
@@ -32,9 +32,15 @@
    versions (forward: `last` exactly, T 1e-5, each channel 1e-5 of its
    largest value, the block state exactly; backward: 1e-4 of each column's
    largest value or one bfloat16 step of the value, the same bits again),
-   timed and their work counted; then `render_full` at precision fast on
-   the slice batch: finite outputs, the coef variant launched once a target
-   view and no exact composite, the render's PSNR against exact.
+   timed and their work counted, with the shape of the fast backward's
+   split walk (pairs and scan blocks a tile, the thread blocks it runs);
+   with --parent DIR, the checkout's coef and fast forwards and fast
+   backward beside this tree's on the same inputs (forward: `last`, T and
+   the block state equal, channels 1e-5; backward: the same bits), timed
+   in turns (parent, this tree, this tree, parent); then `render_full` at
+   precision fast on the slice batch: finite outputs, the coef variant
+   launched once a target view and no exact composite, the render's PSNR
+   against exact.
 5. Depth phase: on the slice's Gaussians, composite_forward at 4 channels
    (render_depth's payload) against its plain version and timed at view 0;
    the splatting decoder in each depth mode (depth, disparity,
@@ -747,7 +753,50 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str) -> list[dict]:
+def split_report(view: dict, blocks, label: str) -> None:
+    """The shape of the fast backward's split walk at this view: pairs a
+    tile (mean, p99, max), scan blocks a tile, and the blocks each launch
+    of composite_backward's split walk runs (one per block-state row) and
+    how many of them walk pairs (scan blocks below their tile's largest
+    `last`), beside the forward's 4 quarter blocks a tile; printed."""
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+
+    ranges, tiles_x, shape = view["ranges"], view["tiles_x"], view["shape"]
+    starts, stops = ranges[:-1].long(), ranges[1:].long()
+    pairs = (stops - starts).float()
+    first = starts // kernels.SCAN_BLOCK
+    n_blocks = torch.where(stops > starts, (stops - 1) // kernels.SCAN_BLOCK - first + 1, 0)
+    end = kernels.tile(view["last"], tiles_x, shape[0] // kernels.TILE).long().amax(dim=1)
+    walked = torch.where(end > starts, (end - 1) // kernels.SCAN_BLOCK - first + 1, 0)
+    report = {
+        "pairs_per_tile_mean": pairs.mean().item(), "pairs_per_tile_p99": torch.quantile(pairs, 0.99).item(),
+        "pairs_per_tile_max": int(pairs.max()), "blocks_per_tile_mean": n_blocks.float().mean().item(),
+        "blocks_per_tile_max": int(n_blocks.max()), "scan_blocks": int(n_blocks.sum()),
+        "backward_blocks_per_launch": blocks[1].shape[0], "backward_working_blocks": int(walked.sum()),
+        "serial_backward_blocks": ranges.numel() - 1, "forward_blocks": 4 * (ranges.numel() - 1),
+    }
+    print(f"{label}: split walk: " + json.dumps(report))
+
+
+def kernel_times(fn, n: int = 10) -> dict:
+    """Device milliseconds a call of each CUDA kernel that `fn` launches:
+    the kernels' self times in a torch.profiler trace of n calls
+    (bench_trace_step.self_times), by name."""
+    from latentsplat_tpu_torch.misc.profiler import trace
+    from latentsplat_tpu_torch.scripts.bench_trace_step import self_times
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(Path(tmp)):
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        times = self_times(json.loads((Path(tmp) / "trace.json").read_text()), ("kernel",))
+    return {name: us / 1e3 / n for name, (us, _) in times.items()}
+
+
+def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str, parent: str | None = None) -> list[dict]:
     """The fast family's kernel variants on the screen Gaussians `sg`, with
     the pairs and rows `composite_tiled` prepares at "fast" (the wider cull,
     the truncated depth order, bf16 conic and opacity, 12-bit channels, the
@@ -759,7 +808,10 @@ def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str) -> lis
     backward: BACKWARD_RTOL of each column's largest value, or one bfloat16
     step of the value, and the same bits again) and timed (the plain
     version once, by CUDA events: seconds at these shapes); the work each
-    needs counted on the card. Returns their records (launches come later)."""
+    needs counted on the card; the backward's split walk described
+    (`split_report`) and its two launches timed apart (`kernel_times`);
+    with `parent`, `parent_fast_comparison`. Returns their records
+    (launches come later)."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.ops.rasterize.tiled import (
         depth_code_bits, pack_attributes, precision_knobs, quantize_attributes, tile_pairs)
@@ -799,6 +851,7 @@ def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str) -> lis
     print(f"{label}: composite_forward (fast) {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms; block state equal, "
           f"{written} (block, pixel) entries written of {blocks[1].shape[0] * blocks[1].shape[1]}")
     records.append(forward_entry(err, ms, plain_ms, view, "fast", extra_bytes=8 * written))
+    split_report(view, blocks, label)
 
     gen = torch.Generator(device=attrs.device).manual_seed(seed + 1)
     g_out = torch.randn((n_ch, *shape), generator=gen, device=attrs.device)
@@ -819,12 +872,122 @@ def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str) -> lis
     print(f"{label}: composite_backward (fast) {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms")
     records.append(backward_entry((d_rows - ref).abs().max().item(), ms, plain_ms, view, "fast",
                                   extra_bytes=8 * written))
+    # The split walk's two launches apart.
+    times = kernel_times(lambda: kernels.composite_backward(*args, **knobs))
+    passes = {key: [v for name, v in times.items() if kernel in name]
+              for key, kernel in (("suffix_pass_ms", "suffix_kernel"), ("walk_ms", "composite_backward_kernel"))}
+    passes = {key: sum(v) if v else None for key, v in passes.items()}
+    print(f"{label}: composite_backward (fast) by launch (torch.profiler, device ms a call): {passes}; "
+          f"the trace's kernels: {sorted(name[:60] for name in times)}")
+    records[-1].update(passes)
+    if parent:
+        parent_fast_comparison(parent, base, blocks, out, (g_out, g_t), order)
     for record in records:
         record["channels"] = n_ch
     return records
 
 
-def fast_serve_phase(model, batch, seed: int) -> tuple[list[dict], dict]:
+def parent_fast_comparison(parent: str, base: tuple, blocks: tuple, out: tuple, cotangents: tuple,
+                           order: torch.Tensor) -> None:
+    """Builds the checkout `parent`'s composite kernels (its fast entry
+    points have the C interfaces from before the split walk:
+    composite_backward_fast without its capacity and scratch), holds them
+    against this tree's on the fast phase's inputs (`base`; the fast
+    forward's outputs `out` and block state `blocks`; the cotangents) and
+    times both in turns (parent, this tree, this tree, parent): the coef
+    and fast forwards (`last`, T and the block state equal, channels within
+    KERNEL_ATOL of each channel's largest value) and the fast backward (the
+    same bits)."""
+    import ctypes
+
+    from latentsplat_tpu_torch import cuda_build
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+
+    lib_path = cuda_build.BUILD_DIR.parent / "parent_fast" / "libparent_fast.so"
+    start = time.perf_counter()
+    cuda_build.compile_library([Path(parent) / "latentsplat_tpu_torch" / "csrc" / f
+                                for f in ("composite_forward.cu", "composite_backward.cu")], lib_path)
+    print(f"parent composite kernels from {parent} built in {time.perf_counter() - start:.2f} s")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    old = ctypes.CDLL(str(lib_path))
+    old.composite_forward_fast.argtypes = [i, i, i, i, p, p, p, i, i, i, p, p, p, p, p, p]
+    old.composite_forward_fast.restype = i
+    old.composite_backward_fast.argtypes = [i, i, i, p, p, p, p, i, i, i, p, p, p, p, p, p, p, p]
+    old.composite_backward_fast.restype = i
+
+    gids, ranges, attrs, tiles_x, (h, w) = base
+    n_ch, num_tiles = attrs.shape[1] - 6, ranges.numel() - 1
+    stream = torch.cuda.current_stream().cuda_stream
+    fast_bits = kernels._knob_bits(True, True)
+    grad_bits = kernels._knob_bits(True, True, True)
+
+    def parent_forward(coef: bool, outputs: tuple, state=None):
+        def run():
+            cuda_build.check(old.composite_forward_fast(
+                n_ch, int(coef), fast_bits, num_tiles, gids.data_ptr(), ranges.data_ptr(), attrs.data_ptr(),
+                tiles_x, h, w, *(x.data_ptr() for x in outputs), *((blocks[0].data_ptr(), state.data_ptr())
+                                                                     if state is not None else (None, None)),
+                stream), "parent composite_forward_fast")
+        return run
+
+    last, t_final = out[2], out[1]
+    g_out, g_t = cotangents
+    old_rows = torch.empty((gids.shape[0], attrs.shape[1]), device=attrs.device)
+
+    def old_backward():
+        cuda_build.check(old.composite_backward_fast(
+            n_ch, grad_bits, num_tiles, gids.data_ptr(), ranges.data_ptr(), order.data_ptr(), attrs.data_ptr(),
+            tiles_x, h, w, last.data_ptr(), t_final.data_ptr(), g_out.data_ptr(), g_t.data_ptr(),
+            blocks[0].data_ptr(), blocks[1].data_ptr(), old_rows.data_ptr(), stream), "parent composite_backward_fast")
+
+    def tree_backward():
+        return kernels.composite_backward(gids, ranges, order, attrs, tiles_x, (h, w), last, t_final, g_out, g_t,
+                                          f16_xy=True, bf16_mm=True, bf16_grads=True, blocks=blocks)
+
+    def outputs():
+        return (torch.empty((n_ch, h, w), device=attrs.device), torch.empty((h, w), device=attrs.device),
+                torch.empty((h, w), dtype=torch.int32, device=attrs.device))
+
+    timings = {}
+    for coef in (True, False):
+        name = "coef" if coef else "fast"
+        state, mine_state = (None, None) if coef else (torch.zeros_like(blocks[1]), torch.zeros_like(blocks[1]))
+        theirs = outputs()
+        runs = {"parent": parent_forward(coef, theirs, state),
+                "this tree": lambda: kernels.composite_forward(
+                    *base, f16_xy=True, bf16_mm=True, coef=coef,
+                    blocks=(blocks[0], mine_state) if mine_state is not None else None)}
+        runs["parent"]()
+        mine = runs["this tree"]()
+        torch.cuda.synchronize()
+        scale = mine[0].abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
+        err = ((theirs[0] - mine[0]).abs() / scale).max().item()
+        exact = (torch.equal(theirs[1], mine[1]) and torch.equal(theirs[2], mine[2])
+                 and (state is None or torch.equal(state, mine_state)))
+        print(f"parent vs this tree, composite_forward ({name}): `last`, T and block state equal {exact}, channels "
+              f"max error relative to each channel's largest value {err:.3e}, the same bits "
+              f"{exact and torch.equal(theirs[0], mine[0])}")
+        if not exact or err > KERNEL_ATOL:
+            raise AssertionError(f"the parent's composite_forward ({name}) and this tree's disagree")
+        timings[f"composite_forward ({name})"] = [
+            (turn, device_ms(runs[turn])) for turn in ("parent", "this tree", "this tree", "parent")]
+
+    old_backward()
+    rows = tree_backward()
+    torch.cuda.synchronize()
+    same = torch.equal(old_rows, rows)
+    print(f"parent vs this tree, composite_backward (fast): {int((old_rows != rows).sum())} of {rows.numel()} "
+          f"elements differ, the same bits {same}")
+    if not same:
+        raise AssertionError("the parent's composite_backward (fast) and this tree's disagree")
+    timings["composite_backward (fast)"] = [
+        (turn, device_ms(old_backward if turn == "parent" else tree_backward))
+        for turn in ("parent", "this tree", "this tree", "parent")]
+    for key, values in timings.items():
+        print(f"parent vs this tree, {key} (device ms, {card()}): " + ", ".join(f"{turn} {v:.4f}" for turn, v in values))
+
+
+def fast_serve_phase(model, batch, seed: int, parent: str | None = None) -> tuple[list[dict], dict]:
     """The fast precision on the flagship: the kernel variants at view 0
     (`fast_kernel_checks`, 8 channels), then `render_full` at
     model.decoder.precision=fast on the slice batch (the counted run): the
@@ -834,7 +997,7 @@ def fast_serve_phase(model, batch, seed: int) -> tuple[list[dict], dict]:
     from latentsplat_tpu_torch.model.latentsplat import render_full
 
     sg, shape = first_view(model, batch, seed)
-    records = fast_kernel_checks(sg, shape, seed, "fast phase, view 0")
+    records = fast_kernel_checks(sg, shape, seed, "fast phase, view 0", parent)
     del sg
     gen = torch.Generator(device=batch["target"]["image"].device)
     exact = render_full(model, batch, generator=gen.manual_seed(seed))
@@ -3428,7 +3591,7 @@ def main() -> int:
     results += backward_kernel_phase(view, args.seed)
     del view
     serve_launches = slice_phase(model, batch, args.seed, args.profile)
-    fast_records, fast_serve_launches = fast_serve_phase(model, batch, args.seed)
+    fast_records, fast_serve_launches = fast_serve_phase(model, batch, args.seed, args.parent)
     depth_record, depth_launches = depth_phase(model, batch, args.seed)
     del model
     train_launches, fast_train_launches = train_phase(cfg, args.seed, device, args.profile)

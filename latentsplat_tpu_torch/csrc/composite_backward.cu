@@ -50,7 +50,9 @@
 // Bound: operations. Per (pair, pixel) below the pixel's `last` ~14 and
 // per composited (pair, pixel) ~60 more, against which the kernel pays for
 // whole warps (a composited pair uses about a quarter of a warp's lanes),
-// the shuffle exchange, and each tile's serial walk.
+// the shuffle exchange, and each tile's serial walk (under bf16_mm, the
+// walk of one scan block, and a second pass of alpha tests for the
+// suffix; see below).
 //
 // The fast family (FAST) reproduces the values of the TPU kernel's `fast`
 // switch (pallas_kernels.py:600-637) and of the bfloat16 gradient rows
@@ -70,6 +72,27 @@
 //   two bfloat16 values). That path is rounded explicitly, in the plain
 //   version's order, so that the rounded terms agree.
 // - bf16_grads: each row is rounded to bfloat16 when it is written.
+//
+// Under bf16_mm the walk is split at the scan blocks (SPLIT): a block's
+// replay needs, besides the block state, only one float32 number per
+// pixel from the rest of the tile, the suffix entering it. So two
+// launches run one block of 256 threads per (tile, scan block), one per
+// row of the block state (its capacity, known from shapes; a block finds
+// its tile by a binary search of the state's tile offsets and leaves at
+// once on an unused row):
+// 1. suffix_kernel replays each pixel's pairs of the block back to front
+//    with the arithmetic of partials_log (the same log_step) and
+//    writes the float32 sum of their contributions, suffix32, to a
+//    (capacity, 256) scratch; no partials, no exchange.
+// 2. composite_backward_kernel<SPLIT> starts each pixel from g_T T_final
+//    plus the suffix32 of the tile's later blocks, added from the last
+//    down, which is the order in which the serial walk enters them (an
+//    unused block adds +0.0, which changes no sum after the first +0.0,
+//    and the serial walk's first entry adds +0.0 too), and runs the
+//    serial kernel's body over its <= 128 pairs.
+// Each pixel's per-pair values, each warp's sum and the 8 warps' sum in
+// warp order are those of the serial walk, so the rows are the same bits;
+// the longest chain is one block's 128 pairs, not a tile's thousands.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -217,55 +240,68 @@ __device__ __forceinline__ void partials(const float4 (&row)[Layout<NCH>::kRow /
   t = t_before;
 }
 
-// A pixel's replay state under bf16_mm: the current block's log T at its
-// start, the bf16 sum of log1p(-alpha) of the pixel's pairs in it before
-// the current one, its float32 and bfloat16 sums of the contributions of
-// the later pairs, and its index (-1 before the first).
+// A pixel's replay state in one scan block under bf16_mm: the block's log
+// T at its start, the bf16 sum of log1p(-alpha) of the pixel's pairs in it
+// before the current one (both read from the block state at the pixel's
+// first pair of the block, walking back), and its float32 and bfloat16
+// sums of the contributions of the later pairs in the block.
 struct Replay {
   float lt = 0.0f, prefix16 = 0.0f, suffix32 = 0.0f, suffix16 = 0.0f;
-  int block = -1;
+  bool entered = false;
 };
 
-// partials() under bf16_mm (see the header): `suffix` holds the later
-// blocks' float32 suffix, `g` the bfloat16 cotangents, the row bfloat16
-// channels; on entering a block, (lt, its bf16 sum) is read from `state`
-// at state_base + block * 256.
-template <int NCH>
-__device__ __forceinline__ void partials_log(const float4 (&row)[Layout<NCH>::kRow / 4], const Hit& h,
-                                             const float (&g)[NCH], int pos, Replay& r, float& suffix,
-                                             const float2* __restrict__ state, int64_t state_base,
-                                             float* part) {
-  constexpr int kRow = Layout<NCH>::kRow;
-  float a[kRow];
+// Steps the replay back over a pair the pixel composited at alpha: the
+// entry's (lt, bf16 sum) on the block's first such pair, then that pair's
+// bf16 term off the prefix.
+__device__ __forceinline__ void log_step(Replay& r, const float2* entry, float alpha) {
+  if (!r.entered) {
+    const float2 v = *entry;
+    r.lt = v.x;
+    r.prefix16 = v.y;
+    r.entered = true;
+  }
+  r.prefix16 = __fsub_rn(r.prefix16, bf16_round(log1pf(-alpha)));
+}
+
+// c . g over the bfloat16 channels of the staged row a and the bfloat16
+// cotangents g, left to right.
+template <int NCH, int N>
+__device__ __forceinline__ float channel_dot(const float (&a)[N], const float (&g)[NCH]) {
+  float cg = __fmul_rn(a[6], g[0]);
 #pragma unroll
-  for (int i = 0; i < kRow / 4; ++i) {
+  for (int c = 1; c < NCH; ++c) cg = __fadd_rn(cg, __fmul_rn(a[6 + c], g[c]));
+  return cg;
+}
+
+template <int N>
+__device__ __forceinline__ void unpack(const float4* row, float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
     a[4 * i] = row[i].x;
     a[4 * i + 1] = row[i].y;
     a[4 * i + 2] = row[i].z;
     a[4 * i + 3] = row[i].w;
   }
+}
+
+// partials() under bf16_mm (see the header), inside one scan block:
+// `suffix` is the float32 suffix of the tile's later blocks, `g` the
+// bfloat16 cotangents, the row's channels bfloat16; `entry` the pixel's
+// entry of the block's state.
+template <int NCH>
+__device__ __forceinline__ void partials_log(const float4 (&row)[Layout<NCH>::kRow / 4], const Hit& h,
+                                             const float (&g)[NCH], Replay& r, float suffix,
+                                             const float2* entry, float* part) {
+  float a[Layout<NCH>::kRow];
+  unpack(row, a);
   const float ca = a[2], cb = a[3], cc = a[4];
   const float alpha = h.pass ? h.alpha : 0.0f;
-  if (h.pass) {
-    const int block = pos / kScanBlock;
-    if (block != r.block) {
-      suffix = __fadd_rn(suffix, r.suffix32);
-      r.suffix32 = 0.0f;
-      r.suffix16 = 0.0f;
-      r.block = block;
-      const float2 v = state[state_base + static_cast<int64_t>(block) * kPixels];
-      r.lt = v.x;
-      r.prefix16 = v.y;
-    }
-    r.prefix16 = __fsub_rn(r.prefix16, bf16_round(log1pf(-alpha)));
-  }
+  if (h.pass) log_step(r, entry, alpha);
   const float one_minus = __fsub_rn(1.0f, alpha);
   const float t_before = expf(__fadd_rn(r.lt, r.prefix16));
   const float w = __fmul_rn(alpha, t_before);
   const float w16 = bf16_round(w);
-  float cg = __fmul_rn(a[6], g[0]);
-#pragma unroll
-  for (int c = 1; c < NCH; ++c) cg = __fadd_rn(cg, __fmul_rn(a[6 + c], g[c]));
+  const float cg = channel_dot(a, g);
 #pragma unroll
   for (int c = 0; c < NCH; ++c) part[6 + c] = __fmul_rn(w16, g[c]);
   const float d_alpha =
@@ -282,11 +318,132 @@ __device__ __forceinline__ void partials_log(const float4 (&row)[Layout<NCH>::kR
   part[5] = bf16_round(__fmul_rn(d_alpha, h.e));
 #pragma unroll
   for (int k = 6 + NCH; k < Layout<NCH>::kPart; ++k) part[k] = 0.0f;
-  if (h.pass) {
-    const float contribution = __fmul_rn(w, cg);
-    r.suffix32 = __fadd_rn(r.suffix32, contribution);
-    r.suffix16 = __fadd_rn(r.suffix16, bf16_round(contribution));
+  if (h.pass) r.suffix16 = __fadd_rn(r.suffix16, bf16_round(__fmul_rn(w, cg)));
+}
+
+// Loads the attribute row of Gaussian `gid` padded to kRow floats, with
+// f16_xy's rounded mean (tile origin ox, oy), bf16_mm's bfloat16 channels
+// and the footprint rows in its last two floats.
+template <int NCH>
+__device__ __forceinline__ void stage_row(const float* __restrict__ attrs, int gid, float ox, float oy,
+                                          bool f16_xy, bool bf16_mm, float4* dst) {
+  using L = Layout<NCH>;
+  const float* src = attrs + static_cast<int64_t>(gid) * L::kStride;
+  float a[L::kRow];
+#pragma unroll
+  for (int r = 0; r < L::kRow; ++r) a[r] = r < L::kStride ? src[r] : 0.0f;
+  if (f16_xy) {
+    a[0] = __fadd_rn(__half2float(__float2half_rn(__fsub_rn(a[0], ox))), ox);
+    a[1] = __fadd_rn(__half2float(__float2half_rn(__fsub_rn(a[1], oy))), oy);
   }
+  if (bf16_mm) {
+#pragma unroll
+    for (int r = 6; r < L::kStride; ++r) a[r] = bf16_round(a[r]);
+  }
+  const float2 rows = footprint_rows(a);
+  a[L::kFootprint] = rows.x;
+  a[L::kFootprint + 1] = rows.y;
+#pragma unroll
+  for (int i = 0; i < L::kRow / 4; ++i) dst[i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+}
+
+// The scan block of block-state row `row`: its tile (the last tile whose
+// first row is <= row, by binary search of `offsets`), its index in the
+// tile and its pair range [lo, hi). False for a row no tile uses.
+struct ScanBlock {
+  int tile, index, lo, hi, start;
+};
+
+__device__ __forceinline__ bool find_block(const int32_t* __restrict__ tile_ranges,
+                                           const int32_t* __restrict__ offsets, int num_tiles, int row,
+                                           ScanBlock& b) {
+  int lo = 0, hi = num_tiles;   // offsets[0] == 0 <= row
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (offsets[mid] <= row) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  const int start = tile_ranges[lo], stop = tile_ranges[lo + 1];
+  const int first = start / kScanBlock;
+  b.tile = lo;
+  b.index = row - offsets[lo];
+  if (stop <= start || b.index > (stop - 1) / kScanBlock - first) return false;
+  b.start = start;
+  b.lo = max(start, (first + b.index) * kScanBlock);
+  b.hi = min(stop, (first + b.index + 1) * kScanBlock);
+  return true;
+}
+
+// The largest `last` of the tile (at least `start`) and of the calling
+// warp, from each thread's own; `scratch` holds kWarps ints.
+__device__ __forceinline__ int tile_last(int my_last, int start, int* scratch, int& warp_last) {
+  warp_last = __reduce_max_sync(kFull, my_last);
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = warp_last;
+  __syncthreads();
+  int end = start;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) end = max(end, scratch[w]);
+  return end;
+}
+
+// The first launch under bf16_mm: one block per block-state row, one
+// thread per pixel; writes each pixel's suffix32 of its pairs in the scan
+// block (+0.0 where it composited none) to suffix_out[row * 256 + pixel],
+// for every scan block below the tile's largest `last` but the tile's
+// first.
+template <int NCH>
+__global__ void __launch_bounds__(kPixels) suffix_kernel(
+    const int32_t* __restrict__ gids, const int32_t* __restrict__ tile_ranges,
+    const float* __restrict__ attrs, int num_tiles, int tiles_x, int width,
+    const int32_t* __restrict__ last, const float* __restrict__ g_channels, int64_t plane, int knobs,
+    const int32_t* __restrict__ block_offsets, const float2* __restrict__ block_state,
+    float* __restrict__ suffix_out) {
+  using L = Layout<NCH>;
+  __shared__ float4 attr[kScanBlock][L::kRow / 4];
+  __shared__ int scratch[kWarps];
+  const int row = static_cast<int>(blockIdx.x);
+  ScanBlock b;
+  // A tile's first scan block has no earlier block to read its sums.
+  if (!find_block(tile_ranges, block_offsets, num_tiles, row, b) || b.index == 0) return;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int tx0 = (b.tile % tiles_x) * kTile;
+  const int ty0 = (b.tile / tiles_x) * kTile;
+  const int px = tx0 + tid % kTile;
+  const int py = ty0 + tid / kTile;
+  const int pixel = py * width + px;
+  const float fx = static_cast<float>(px), fy = static_cast<float>(py);
+  const float warp_y0 = static_cast<float>(ty0 + 2 * (tid >> 5));
+  const int my_last = last[pixel];
+  int warp_last;
+  const int end = tile_last(my_last, b.start, scratch, warp_last);
+  if (b.lo >= end) return;
+  const int n = min(b.hi, end) - b.lo;
+  if (tid < n) {
+    stage_row<NCH>(attrs, gids[b.lo + tid], static_cast<float>(tx0), static_cast<float>(ty0), knobs & kF16Xy,
+                   true, attr[tid]);
+  }
+  float g[NCH];
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) g[c] = bf16_round(g_channels[c * plane + pixel]);
+  const float2* entry = block_state + static_cast<int64_t>(row) * kPixels + tid;
+  __syncthreads();
+
+  Replay r;
+  for (int k = min(n, warp_last - b.lo) - 1; k >= 0; --k) {
+    const float4 f = attr[k][L::kFootprint / 4];
+    if (!(f.z <= warp_y0 + 1.0f && f.w >= warp_y0)) continue;
+    const Hit h = alpha_test(attr[k][0], attr[k][1], fx, fy, b.lo + k < my_last);
+    if (!h.pass) continue;
+    log_step(r, entry, h.alpha);
+    float a[L::kRow];
+    unpack(attr[k], a);
+    const float t_before = expf(__fadd_rn(r.lt, r.prefix16));
+    r.suffix32 = __fadd_rn(r.suffix32, __fmul_rn(__fmul_rn(h.alpha, t_before), channel_dot(a, g)));
+  }
+  suffix_out[static_cast<int64_t>(row) * kPixels + tid] = r.suffix32;
 }
 
 // Shared memory of one block: the batch's attribute rows and destinations,
@@ -300,21 +457,28 @@ struct Shared {
   int end[kWarps];
 };
 
-template <int NCH, bool FAST>
-__global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
+// SPLIT (FAST with bf16_mm): one block per block-state row, walking one
+// scan block from the suffix that suffix_kernel's sums give; otherwise one
+// block per tile, walking the whole tile.
+// The split walk's thousands of short blocks are latency-bound: it runs
+// three blocks (24 warps) an SM, at most 80 registers a thread.
+template <int NCH, bool FAST, bool SPLIT>
+__global__ void __launch_bounds__(kPixels, SPLIT ? 3 : 2) composite_backward_kernel(
     const int32_t* __restrict__ gids,         // (P,) depth-sorted within each tile
     const int32_t* __restrict__ tile_ranges,  // (T + 1,)
     const int64_t* __restrict__ order,        // (P,) sorted position -> Gaussian-major position
     const float* __restrict__ attrs,          // (G, 6 + NCH)
-    int tiles_x, int height, int width,
+    int num_tiles, int tiles_x, int height, int width,
     const int32_t* __restrict__ last,         // (H, W) exclusive end of contributing pairs
     const float* __restrict__ t_final,        // (H, W)
     const float* __restrict__ g_channels,     // (NCH, H, W) cotangent of the channels
     const float* __restrict__ g_t,            // (H, W) cotangent of T_final
     float* __restrict__ d_rows,               // (P, 6 + NCH) Gaussian-major
-    int knobs,                                // FAST: kF16Xy | kBf16Mm | kBf16Grads
-    const int32_t* __restrict__ block_offsets,  // FAST, bf16_mm: (T,) first state row of each tile
-    const float2* __restrict__ block_state) {   // FAST, bf16_mm: (B, 256) from composite_forward
+    int knobs,                                // FAST: kF16Xy | kBf16Grads (| kBf16Mm when SPLIT)
+    const int32_t* __restrict__ block_offsets,  // SPLIT: (T,) first state row of each tile
+    const float2* __restrict__ block_state,     // SPLIT: (B, 256) from composite_forward
+    const float* __restrict__ suffix_in) {      // SPLIT: (B, 256) from suffix_kernel
+  static_assert(FAST || !SPLIT, "the split walk is the log-space replay of the fast family");
   using L = Layout<NCH>;
   constexpr int kStride = L::kStride;
   constexpr int kRow = L::kRow;
@@ -322,10 +486,18 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Shared<NCH>& sm = *reinterpret_cast<Shared<NCH>*>(smem_raw);
 
+  ScanBlock b;
+  if constexpr (SPLIT) {
+    if (!find_block(tile_ranges, block_offsets, num_tiles, static_cast<int>(blockIdx.x), b)) return;
+  } else {
+    b.tile = static_cast<int>(blockIdx.x);
+    b.lo = b.start = tile_ranges[b.tile];
+    b.hi = tile_ranges[b.tile + 1];
+  }
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int tile = static_cast<int>(blockIdx.x);
+  const int tile = b.tile;
   const int tx0 = (tile % tiles_x) * kTile;
   const int ty0 = (tile / tiles_x) * kTile;
   const int px = tx0 + tid % kTile;
@@ -335,10 +507,7 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
   const float warp_y0 = static_cast<float>(ty0 + 2 * warp);
   const int pixel = py * width + px;
   const int64_t plane = static_cast<int64_t>(height) * width;
-  const int start = tile_ranges[tile];
-  const int stop = tile_ranges[tile + 1];
   const bool f16_xy = FAST && (knobs & kF16Xy);
-  const bool bf16_mm = FAST && (knobs & kBf16Mm);
   const bool bf16_grads = FAST && (knobs & kBf16Grads);
 
   const int my_last = last[pixel];
@@ -347,62 +516,59 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
 #pragma unroll
   for (int c = 0; c < NCH; ++c) {
     g[c] = g_channels[c * plane + pixel];
-    if (bf16_mm) g[c] = bf16_round(g[c]);
+    if (SPLIT) g[c] = bf16_round(g[c]);
   }
   float suffix = __fmul_rn(g_t[pixel], t);
+
+  // Above its own largest `last` a warp only stores zeros; the tile's
+  // largest `last` bounds the walk.
+  int warp_last;
+  const int end = tile_last(my_last, b.start, sm.end, warp_last);
+  const int start = b.lo;
+  const int walk_end = min(b.hi, end);
+
+  // Pairs no pixel composited get zero rows.
+  for (int p = max(start, end) + tid; p < b.hi; p += kPixels) {
+    float* row = d_rows + order[p] * kStride;
+#pragma unroll
+    for (int r = 0; r < kStride; ++r) row[r] = 0.0f;
+  }
+  if (walk_end <= start) return;
+
   Replay replay;
-  const int64_t state_base =
-      bf16_mm ? (static_cast<int64_t>(block_offsets[tile]) - start / kScanBlock) * kPixels + tid : 0;
-  auto pair_partials = [&](const float4 (&row)[kRow / 4], const Hit& h, int pos, float* part) {
-    if (FAST && bf16_mm) {
-      partials_log<NCH>(row, h, g, pos, replay, suffix, block_state, state_base, part);
+  const float2* entry = nullptr;
+  if constexpr (SPLIT) {
+    // The later blocks' suffix32, from the tile's last walked block down.
+    const int64_t row0 = block_offsets[tile];
+    entry = block_state + (row0 + b.index) * kPixels + tid;
+    suffix = __fadd_rn(suffix, 0.0f);
+    // Loaded eight at a time, so that the loads overlap; added in order.
+    for (int k = (end - 1) / kScanBlock - b.start / kScanBlock; k > b.index; k -= 8) {
+      float v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = k - j > b.index ? suffix_in[(row0 + k - j) * kPixels + tid] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (k - j > b.index) suffix = __fadd_rn(suffix, v[j]);
+      }
+    }
+  }
+  auto pair_partials = [&](const float4 (&row)[kRow / 4], const Hit& h, float* part) {
+    if constexpr (SPLIT) {
+      partials_log<NCH>(row, h, g, replay, suffix, entry, part);
     } else {
       partials<NCH>(row, h, g, t, suffix, part);
     }
   };
 
-  // Above its own largest `last` a warp only stores zeros; the tile's
-  // largest `last` bounds the walk.
-  const int warp_last = __reduce_max_sync(kFull, my_last);
-  if (lane == 0) sm.end[warp] = warp_last;
-  __syncthreads();
-  int end = start;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) end = max(end, sm.end[w]);
-
-  // Pairs no pixel composited get zero rows.
-  for (int p = end + tid; p < stop; p += kPixels) {
-    float* row = d_rows + order[p] * kStride;
-#pragma unroll
-    for (int r = 0; r < kStride; ++r) row[r] = 0.0f;
-  }
-
   int buf = 0;
   const bool mine = (lane & 15) < kStride;
-  for (int hi = end; hi > start; hi -= kBatch, buf ^= 1) {
+  for (int hi = walk_end; hi > start; hi -= kBatch, buf ^= 1) {
     const int lo = max(start, hi - kBatch);
     const int n = hi - lo;
     if (tid < n) {
-      const float* src = attrs + static_cast<int64_t>(gids[lo + tid]) * kStride;
-      float a[kRow];
-#pragma unroll
-      for (int r = 0; r < kRow; ++r) a[r] = r < kStride ? src[r] : 0.0f;
-      if (f16_xy) {
-        const float ox = static_cast<float>(tx0), oy = static_cast<float>(ty0);
-        a[0] = __fadd_rn(__half2float(__float2half_rn(__fsub_rn(a[0], ox))), ox);
-        a[1] = __fadd_rn(__half2float(__float2half_rn(__fsub_rn(a[1], oy))), oy);
-      }
-      if (bf16_mm) {
-#pragma unroll
-        for (int r = 6; r < kStride; ++r) a[r] = bf16_round(a[r]);
-      }
-      const float2 rows = footprint_rows(a);
-      a[kFootprint] = rows.x;
-      a[kFootprint + 1] = rows.y;
-#pragma unroll
-      for (int i = 0; i < kRow / 4; ++i) {
-        sm.attr[tid][i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
-      }
+      stage_row<NCH>(attrs, gids[lo + tid], static_cast<float>(tx0), static_cast<float>(ty0), f16_xy, SPLIT,
+                     sm.attr[tid]);
       sm.dst[buf][tid] = order[lo + tid];
     }
     __syncthreads();
@@ -414,6 +580,7 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
         const int kb = has_b ? k - 1 : k;
         float sum = 0.0f;
         if (lo + kb < warp_last) {
+          // Footprint rows (z, w) against the warp's rows y0 and y0 + 1.
           // Footprint rows (z, w) against the warp's rows y0 and y0 + 1.
           const float4 fa = sm.attr[k][kFootprint / 4];
           const float4 fb = sm.attr[kb][kFootprint / 4];
@@ -434,8 +601,8 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
                 rb[i] = sm.attr[kb][i];
               }
               float part[32];
-              pair_partials(ra, ha, lo + k, part);
-              pair_partials(rb, hb, lo + kb, part + 16);
+              pair_partials(ra, ha, part);
+              pair_partials(rb, hb, part + 16);
               sum = warp_sum32(part, lane);
             }
           }
@@ -457,7 +624,7 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
 #pragma unroll
               for (int i = 2; i < kRow / 4; ++i) ra[i] = sm.attr[k][i];
               float part[32];
-              pair_partials(ra, ha, lo + k, part);
+              pair_partials(ra, ha, part);
               sum = warp_sum32(part, lane);
             }
           }
@@ -477,23 +644,36 @@ __global__ void __launch_bounds__(kPixels, 2) composite_backward_kernel(
   }
 }
 
-template <int NCH, bool FAST>
+// Launches one instantiation: SPLIT runs suffix_kernel and then the split
+// walk over the block state's `capacity` rows, writing the scratch
+// `suffix` (capacity, 256) in between; otherwise one block per tile.
+template <int NCH, bool FAST, bool SPLIT>
 cudaError_t launch(int num_tiles, const void* gids, const void* tile_ranges, const void* order,
                    const void* attrs, int tiles_x, int height, int width, const void* last,
                    const void* t_final, const void* g_channels, const void* g_t, void* d_rows,
-                   int knobs, const void* block_offsets, const void* block_state, cudaStream_t stream) {
-  auto kernel = composite_backward_kernel<NCH, FAST>;
+                   int knobs, const void* block_offsets, const void* block_state, int capacity,
+                   void* suffix, cudaStream_t stream) {
+  auto kernel = composite_backward_kernel<NCH, FAST, SPLIT>;
   constexpr int kBytes = static_cast<int>(sizeof(Shared<NCH>));
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return err;
-  kernel<<<num_tiles, kPixels, kBytes, stream>>>(
-      static_cast<const int32_t*>(gids), static_cast<const int32_t*>(tile_ranges),
-      static_cast<const int64_t*>(order), static_cast<const float*>(attrs), tiles_x, height,
-      width, static_cast<const int32_t*>(last), static_cast<const float*>(t_final),
-      static_cast<const float*>(g_channels), static_cast<const float*>(g_t),
-      static_cast<float*>(d_rows), knobs, static_cast<const int32_t*>(block_offsets),
-      static_cast<const float2*>(block_state));
+  const auto* ids = static_cast<const int32_t*>(gids);
+  const auto* ranges = static_cast<const int32_t*>(tile_ranges);
+  const auto* rows = static_cast<const float*>(attrs);
+  const auto* offsets = static_cast<const int32_t*>(block_offsets);
+  const auto* state = static_cast<const float2*>(block_state);
+  if constexpr (SPLIT) {
+    suffix_kernel<NCH><<<capacity, kPixels, 0, stream>>>(
+        ids, ranges, rows, num_tiles, tiles_x, width, static_cast<const int32_t*>(last),
+        static_cast<const float*>(g_channels), static_cast<int64_t>(height) * width, knobs, offsets, state,
+        static_cast<float*>(suffix));
+  }
+  kernel<<<SPLIT ? capacity : num_tiles, kPixels, kBytes, stream>>>(
+      ids, ranges, static_cast<const int64_t*>(order), rows, num_tiles, tiles_x, height, width,
+      static_cast<const int32_t*>(last), static_cast<const float*>(t_final),
+      static_cast<const float*>(g_channels), static_cast<const float*>(g_t), static_cast<float*>(d_rows), knobs,
+      offsets, state, static_cast<const float*>(suffix));
   return cudaSuccess;
 }
 
@@ -507,9 +687,9 @@ extern "C" int composite_backward(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (num_tiles > 0) {
-#define LAUNCH(N)                                                                                  \
-  launch<N, false>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last, t_final, \
-                   g_channels, g_t, d_rows, 0, nullptr, nullptr, s)
+#define LAUNCH(N)                                                                                         \
+  launch<N, false, false>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last, t_final, \
+                          g_channels, g_t, d_rows, 0, nullptr, nullptr, 0, nullptr, s)
     switch (n_channels) {
       case 4:
         err = LAUNCH(4);
@@ -533,22 +713,28 @@ extern "C" int composite_backward(
 }
 
 // The fast family, at composite_fast_channels' counts (5, 8 and 12);
-// `knobs` is kF16Xy | kBf16Mm | kBf16Grads, and bf16_mm reads the block
-// state that composite_forward_fast wrote.
+// `knobs` is kF16Xy | kBf16Mm | kBf16Grads. bf16_mm reads the block state
+// (block_offsets, block_state of `capacity` rows) that
+// composite_forward_fast wrote and takes the split walk, with `suffix`
+// (capacity, 256 floats) as its scratch: two launches.
 extern "C" int composite_backward_fast(
     int n_channels, int knobs, int num_tiles, const void* gids, const void* tile_ranges,
     const void* order, const void* attrs, int tiles_x, int height, int width, const void* last,
     const void* t_final, const void* g_channels, const void* g_t, const void* block_offsets,
-    const void* block_state, void* d_rows, void* stream) {
+    const void* block_state, int capacity, void* suffix, void* d_rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
-  if ((knobs & kBf16Mm) && (block_offsets == nullptr || block_state == nullptr)) {
+  const bool split = (knobs & kBf16Mm) != 0;
+  if (split && (block_offsets == nullptr || block_state == nullptr || suffix == nullptr || capacity <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles > 0) {
-#define LAUNCH(N)                                                                                 \
-  launch<N, true>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last, t_final, \
-                  g_channels, g_t, d_rows, knobs, block_offsets, block_state, s)
+#define LAUNCH(N)                                                                                           \
+  (split ? launch<N, true, true>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,    \
+                                 t_final, g_channels, g_t, d_rows, knobs, block_offsets, block_state,         \
+                                 capacity, suffix, s)                                                        \
+         : launch<N, true, false>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,   \
+                                  t_final, g_channels, g_t, d_rows, knobs, nullptr, nullptr, 0, nullptr, s))
     switch (n_channels) {
       case 5:
         err = LAUNCH(5);

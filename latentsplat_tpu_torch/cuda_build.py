@@ -39,7 +39,7 @@ _SIGNATURES = {
     "composite_fast_channels": ([_I], _I),
     "composite_forward_fast": ([_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
     "composite_backward": ([_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
-    "composite_backward_fast": ([_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "composite_backward_fast": ([_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P], _I),
     "reduce_pairs": ([_I, _I, _P, _P, _P, _P], _I),
 }
 

@@ -610,7 +610,11 @@ def composite_backward(
     respect to each pair's attributes: (P, 6 + n_ch), rows x, y, conic
     a/b/c, opacity, channels, in Gaussian-major order (the sorted pair at
     position i lands in row order[i]). The knobs must be the forward's;
-    bf16_mm needs the `blocks` that the forward filled."""
+    bf16_mm needs the `blocks` that the forward filled, and splits the walk
+    at the scan blocks: two CUDA launches (each scan block's suffix sums
+    into a (B, PIX) float32 scratch, then one block per scan block), which
+    `launch_counts` and `launches_by_variant` count as one launch of this
+    wrapper. Without bf16_mm, one launch walks each tile serially."""
     h, w = image_shape
     num_tiles = (h // TILE) * (w // TILE)
     n_ch = attrs.shape[1] - 6
@@ -647,8 +651,14 @@ def composite_backward(
     if variant == "exact":
         rc = lib.composite_backward(n_ch, *args, d_rows.data_ptr(), _stream())
     else:
+        capacity, scratch = 0, None
+        if blocks is not None:
+            capacity = blocks[1].shape[0]
+            scratch = torch.empty((capacity, PIX), dtype=torch.float32, device=attrs.device)
         rc = lib.composite_backward_fast(n_ch, _knob_bits(f16_xy, bf16_mm, bf16_grads), *args,
-                                         *_block_pointers(blocks), d_rows.data_ptr(), _stream())
+                                         *_block_pointers(blocks), capacity,
+                                         scratch.data_ptr() if scratch is not None else None,
+                                         d_rows.data_ptr(), _stream())
     check(rc, f"composite_backward ({variant})")
     _count("composite_backward", n_ch, variant)
     return d_rows

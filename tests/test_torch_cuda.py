@@ -477,11 +477,15 @@ BACKWARD_VARIANTS = {"fast": {"f16_xy": True, "bf16_mm": True, "bf16_grads": Tru
 
 
 def fast_inputs(seed, size, device, n_channels):
-    """Pairs and attribute rows as composite_tiled prepares them at "fast"."""
+    """Pairs and attribute rows as composite_tiled prepares them at "fast";
+    some tile spans 6 scan blocks or more, so that the backward's split
+    walk (bf16_mm) runs several blocks a tile."""
     tiles = size // 16
     sg = screen_gaussians(seed, 20000, size, device, n_channels=n_channels)
     gids, ranges, order, _ = tile_pairs(sg, (size, size), CAP, "fast")
     attrs = quantize_attributes(pack_attributes(sg), precision_knobs("fast"), depth_code_bits(tiles * tiles)[1])
+    starts, stops = ranges[:-1].long(), ranges[1:].long()
+    assert int(((stops - 1) // kernels.SCAN_BLOCK - starts // kernels.SCAN_BLOCK + 1).max()) >= 6
     return tiles, gids, ranges, order, attrs
 
 
@@ -544,6 +548,37 @@ def test_composite_backward_fast_variants_match_reference(cuda, variant, n_chann
         bound = bound + 2.0**-7 * ref.abs()
     assert ((d - ref).abs() <= bound).all()
     assert torch.equal(d, kernels.composite_backward(*args, **knobs, blocks=blocks))
+
+
+def test_split_walk_takes_bf16_mm_only(cuda):
+    # The backward's C entry point needs the block state and the split
+    # walk's suffix scratch under bf16_mm, and refuses a call without them;
+    # without bf16_mm it walks each tile serially and needs neither. The
+    # wrapper counts one launch per call either way.
+    size = 64
+    tiles, gids, ranges, order, attrs = fast_inputs(size + 7, size, cuda, 7)
+    blocks = kernels.block_state(ranges, gids.shape[0])
+    out, t_final, last = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size), f16_xy=True,
+                                                   bf16_mm=True, blocks=blocks)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    g_out = torch.randn(out.shape, generator=g, device=cuda)
+    g_t = torch.randn(t_final.shape, generator=g, device=cuda)
+    args = (gids, ranges, order, attrs, tiles, (size, size), last, t_final, g_out, g_t)
+    lib = kernels.load_library()
+    d_rows = torch.empty((gids.shape[0], attrs.shape[1]), device=cuda)
+    pointers = (tiles * tiles, gids.data_ptr(), ranges.data_ptr(), order.data_ptr(), attrs.data_ptr(), tiles, size,
+                size, last.data_ptr(), t_final.data_ptr(), g_out.data_ptr(), g_t.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    serial = kernels._knob_bits(True, False, True)
+    assert lib.composite_backward_fast(8, serial, *pointers, None, None, 0, None, d_rows.data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(d_rows, kernels.composite_backward(*args, f16_xy=True, bf16_grads=True))
+    split = kernels._knob_bits(True, True, True)
+    assert lib.composite_backward_fast(8, split, *pointers, blocks[0].data_ptr(), blocks[1].data_ptr(), 0, None,
+                                       d_rows.data_ptr(), stream) != 0
+    before = variant_launches("composite_backward", "fast", 8)
+    kernels.composite_backward(*args, f16_xy=True, bf16_mm=True, bf16_grads=True, blocks=blocks)
+    assert variant_launches("composite_backward", "fast", 8) == before + 1
 
 
 def test_fast_render_runs_the_fast_variants(cuda):
