@@ -3,18 +3,22 @@
     python3 chip_smoke.py [--seed N] [--profile DIR] [--parent DIR]
 
 1. Builds the CUDA kernels from latentsplat_tpu_torch/csrc (sm_90a).
-2. Kernel phase: on the Gaussians of the flagship model's first target
-   view, holds each forward kernel against its plain PyTorch version (ids,
-   keys, tile ranges and each pixel's last contributor exactly; channels
-   and transmittance within 1e-5), times both with CUDA events (a
-   kernel's device time with the host queued ahead; duplicate_with_keys'
-   launch alone with L2 flushed, and its wrapper with the host's read of
-   the pair total) and counts on the card the (pair, pixel) and (pair,
-   warp) work the view needs, from which each kernel's bound follows.
-   With --parent DIR, builds the forward kernels of the checkout DIR,
-   holds them against this tree's and times both in turns on the same
-   inputs (and the fast family's, in the fast phase).
-3. Backward kernel phase: on the same view, with a seeded random
+   With --parent DIR, first runs TURN_CODE (bench_render's views/s, ms a
+   view and peak at fast and exact, the slice's decoder seconds,
+   bench_train --full --batch 2's seconds a step and peak) in the checkout
+   DIR and in this tree, in turns (parent, this tree, this tree, parent),
+   each in its own process.
+2. Kernel phase: on a pass of the flagship model's 4 target views (the
+   items of one render call, each view's own pair count), holds each
+   forward kernel against its plain PyTorch version (ids, keys, each
+   view's pair total, tile ranges and each pixel's last contributor
+   exactly; channels and transmittance within 1e-5), times both with CUDA
+   events (a kernel's device time with the host queued ahead, per launch
+   and per view; duplicate_with_keys' launch alone with L2 flushed, and
+   its wrapper with the host's one read of the per-view pair totals) and
+   counts on the card the (pair, pixel) and (pair, warp) work the pass
+   needs, from which each kernel's bound follows.
+3. Backward kernel phase: on the same pass, with a seeded random
    cotangent, holds composite_backward against its plain version (within
    1e-4 of each gradient column's largest value; bit-identical on a
    second launch) and reduce_pairs against its plain version run on the CPU
@@ -23,8 +27,9 @@
 4. Slice phase: serves one batch (1 scene, 2 context and 4 target views at
    256x256, probabilistic) through `render_full` on the flagship re10k
    model at full width with seeded random weights, checks the output and
-   that both forward kernels ran on that path.
-4b. Fast phase (model.decoder.precision=fast): at view 0, the pairs and
+   that both forward kernels ran on that path once, in one pass of the 4
+   target views with one host read.
+4b. Fast phase (model.decoder.precision=fast): on the kernel phase's pass, the pairs and
    rows composite_tiled prepares at "fast"; composite_forward's coef
    (serving) and fast (training, writing the block state) variants and
    composite_backward's fast variant (on the fast forward's outputs and
@@ -33,20 +38,24 @@
    largest value, the block state exactly; backward: 1e-4 of each column's
    largest value or one bfloat16 step of the value, the same bits again),
    timed and their work counted, with the shape of the fast backward's
-   split walk (pairs and scan blocks a tile, the thread blocks it runs);
-   with --parent DIR, the checkout's coef and fast forwards and fast
-   backward beside this tree's on the same inputs (forward: `last`, T and
-   the block state equal, channels 1e-5; backward: the same bits), timed
-   in turns (parent, this tree, this tree, parent); then `render_full` at
+   split walk (pairs and scan blocks a tile, counted from each view's
+   first pair, the thread blocks it runs); then `render_full` at
    precision fast on the slice batch: finite outputs, the coef variant
-   launched once a target view and no exact composite, the render's PSNR
+   launched once (one pass) and no exact composite, the render's PSNR
    against exact.
 5. Depth phase: on the slice's Gaussians, composite_forward at 4 channels
-   (render_depth's payload) against its plain version and timed at view 0;
-   the splatting decoder in each depth mode (depth, disparity,
-   relative_disparity, log) over the 4 target views, with finite depths,
-   the 4-channel launches, each mode's time per view and the invariant
-   depth x disparity >= mask^2.
+   (render_depth's payload) against its plain version and timed on a pass
+   of the 4 target views; the splatting decoder in each depth mode (depth,
+   disparity, relative_disparity, log) over the 4 target views, with
+   finite depths, one 4-channel launch in each special mode, each mode's
+   time per view and the invariant depth x disparity >= mask^2.
+5b. Pass phase: bench_render's 64 views in one pass against one item a
+   pass (api.PASS_ROWS patched to 1), at exact and fast serving: the
+   outputs and pair counts the same bits, one launch of each forward
+   kernel and one host read (also counted by torch.cuda's sync debug
+   mode) against 64; then a train render of 2 scenes x 4 views at exact
+   and fast: the forward the same bits, every input's gradient within
+   1e-4 of its largest value (fast: or one bfloat16 step).
 6. Train phase: 3 VAE-GAN train steps of the flagship re10k model at full
    width (random weights for the generator, the PatchGAN discriminator and
    LPIPS) on one batch of 2 scenes, 2 context + 4 target views at 256x256,
@@ -54,8 +63,8 @@
    gradient norms, the adaptive weight in [0, 1], changed parameters of
    both nets and that all four kernels ran; prints seconds per step, a
    stage split and the peak memory. Then 2 steps at precision fast: finite
-   logs, the fast forward and backward variants 8 times a step and no
-   exact composite.
+   logs, the fast forward and backward variants once a step (the step's
+   2 x 4 target views are one pass) and no exact composite.
 7. Trainer phase: the program's entry point, `latentsplat_tpu_torch.main.main`,
    on the flagship model at full width and the synthetic dataset at
    256x256: train from step 0 (2 steps, a validation with the wobble and
@@ -90,15 +99,16 @@
    batch, 2 train steps and `main` in test mode, whose benchmark.json holds
    autoencoder_encoder; (s3) variational=latents: composite_forward and
    composite_backward at 12 channels and reduce_pairs at rows of 18 against
-   their plain versions and timed at view 0, the fast family's variants at
-   12 channels as in the fast phase, then 2 train steps, a render without
-   gradient and 1 train step at precision fast (4 coef, 8 fast forward and
-   backward launches); (s4)
+   their plain versions and timed on a pass of the 4 target views, the fast
+   family's variants at 12 channels as in the fast phase, then 2 train
+   steps, a render without gradient and 1 train step at precision fast (1
+   coef, 1 fast forward and 1 fast backward launch: one pass each); (s4)
    model.remat with decoder.remat under the policies nothing, dots and
    vae:off,lpips:off against the plain step on the same batch and noise
    (generator/total within 1e-6 relative, each gradient leaf within 1e-6
-   of its largest value or 4x the plain step's own repeat difference; 8 + 8
-   forward launches a step), and the peak memory of each setting and of no
+   of its largest value or 4x the plain step's own repeat difference; 1 + 1
+   forward launches a step: the pass and its recomputation), and the peak
+   memory of each setting and of no
    remat in one process, on one state, batch and noise, at the forward's
    end, after each probe backward and in the final backward: `nothing`
    must have the smallest peak and `dots` one at or below no remat's;
@@ -149,7 +159,8 @@
    in the precision's variant, the --full --batch 2 peak below 80 GB);
    bench_render, 64 views of 393,216 Gaussians at 256x256 at precision fast
    (the headline) and exact (duplicate_with_keys and composite_forward<8>
-   launched exactly 64 x 6 times at each, coef and exact, no pair dropped,
+   launched exactly 6 times at each, coef and exact, one pass of the 64
+   views a call, with one host read a call; no pair dropped,
    value_fast, value_exact and fast_vs_exact_psnr_db finite);
    bench_precision_knobs --views 8 (every mode finite); bench_render_stages,
    bench_enc_stages and bench_train_stages (finite positive times);
@@ -161,7 +172,8 @@
    128x128, seed 0) with the whole VAE-GAN objective and sh_l2 at 0.01 for
    150 steps, cuDNN's TF32 on as in `main`: every logged loss finite, the
    render PSNR of steps 140-149 at least 8 dB above steps 0-9, each kernel
-   launched 4 times a step; prints the PSNR curve at every 10th step.
+   launched once a step (4 target views, one pass); prints the PSNR curve
+   at every 10th step.
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (device ms, plain ms, the bound and its share, the library call's
@@ -219,6 +231,16 @@ def backward_composited_ops(n_ch: int) -> int:
 TRAIN_STEP = 125000
 FORWARD_KERNELS = ("duplicate_with_keys", "composite_forward")
 ALL_KERNELS = (*FORWARD_KERNELS, "composite_backward", "reduce_pairs")
+# The flagship's Gaussians at 256x256: 2 context views x 256^2 pixels x 3.
+FLAGSHIP_GAUSSIANS = 2 * 256 * 256 * 3
+
+
+def passes(items: int, gaussians: int = FLAGSHIP_GAUSSIANS) -> int:
+    """The passes of a render call of `items` (scene, view) items
+    (api.pass_ranges): one launch of each kernel and one host read a pass."""
+    from latentsplat_tpu_torch.ops.rasterize.api import pass_ranges
+
+    return len(pass_ranges(items, gaussians))
 SMALL_OVERRIDES = [
     "model.encoder.backbone.model=dino_vits8",
     "model.encoder.d_feature=32",
@@ -367,67 +389,82 @@ def slice_gaussians(model, batch, seed: int, flatten: bool = False):
         return shimmed, gaussians.flatten() if flatten else gaussians.sample(gen)
 
 
-def first_view(model, batch, seed: int, depth_payload: bool = False, flatten: bool = False):
-    """The screen Gaussians of the slice's first target view, as `render`
-    gives them to the compositor: the SH colors and features towards the
-    camera, or (`depth_payload`) each Gaussian's camera-space z as the
-    3-channel DC color of `render_depth`; then (sg, (h, w))."""
+def target_views(model, batch, seed: int, depth_payload: bool = False, flatten: bool = False):
+    """The screen Gaussians of the slice's target views as one pass (the
+    items' axis first), as `render` gives them to the compositor: the SH
+    colors and features towards each camera, or (`depth_payload`) each
+    Gaussian's camera-space z as the 3-channel DC color of `render_depth`;
+    then (sg, (h, w))."""
     from latentsplat_tpu_torch.geometry.projection import homogenize_points, invert_se3
     from latentsplat_tpu_torch.ops.rasterize.api import view_channels
     from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_screen
 
     shimmed, gaussians = slice_gaussians(model, batch, seed, flatten)
     target = shimmed["target"]
-    ext, intr, near = target["extrinsics"][0, 0], target["intrinsics"][0, 0], target["near"][0, 0]
+    ext, intr, near = target["extrinsics"][0], target["intrinsics"][0], target["near"][0]
     h, w = target["image"].shape[2:4]
-    means = gaussians.means[0]
+    n = ext.shape[0]
+    means = gaussians.means[0].expand(n, -1, -1)
     with torch.no_grad():
         if depth_payload:
-            z = torch.einsum("ij,gj->gi", invert_se3(ext), homogenize_points(means))[:, 2]
-            channels = view_channels(means, z[:, None, None].expand(-1, 3, 1), None, ext[:3, 3], use_sh=False)
+            z = torch.einsum("vij,vgj->vgi", invert_se3(ext), homogenize_points(means))[..., 2]
+            channels = z[..., None].expand(*z.shape, 3)
         else:
-            channels = view_channels(means, gaussians.color_harmonics[0], gaussians.feature_harmonics[0], ext[:3, 3])
+            channels = view_channels(means, gaussians.color_harmonics[0], gaussians.feature_harmonics[0], ext[:, :3, 3])
         s = 1.0 / near
         ext_s = ext.clone()
-        ext_s[:3, 3] *= s
+        ext_s[:, :3, 3] *= s[:, None]
         sg = project_gaussians_to_screen(
-            means * s, gaussians.covariances[0] * (s * s), gaussians.opacities[0], channels, ext_s, intr, (h, w),
+            means * s[:, None, None], gaussians.covariances[0] * (s * s)[:, None, None, None],
+            gaussians.opacities[0].expand(n, -1), channels, ext_s, intr, (h, w),
         )
     return sg, (h, w)
 
 
-def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[dict, list[dict]]:
+def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
+    """The forward kernels on a pass of the slice's target views (each
+    view's own pair count): duplicate_with_keys (ids and keys exactly, the
+    per-item pair totals against the counts), the sort's ranges, and
+    composite_forward (`last` exactly, T and each channel within
+    KERNEL_ATOL) against their plain versions, timed, with the work the
+    pass needs counted on the card."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.ops.rasterize.tiled import pack_attributes, sort_pairs, tile_rects
 
-    sg, (h, w) = first_view(model, batch, seed)
+    sg, (h, w) = target_views(model, batch, seed)
+    n_items = sg.radius.shape[0]
     channels = sg.channels
     tiles_x, tiles_y = w // 16, h // 16
+    n_tiles = n_items * tiles_x * tiles_y
     counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y)
-    depth = sg.depth.contiguous()
-    g_count, p_count = sg.num_gaussians, int(counts.sum())
-    print(f"kernel phase: {g_count} Gaussians, {p_count} pairs, "
-          f"{channels.shape[-1] + 1} channels, {tiles_x * tiles_y} tiles")
+    depth = sg.depth.reshape(-1).contiguous()
+    g_count, p_count = counts.shape[0], int(counts.sum())
+    counted = counts.reshape(n_items, -1).sum(dim=1).tolist()
+    print(f"kernel phase: a pass of {n_items} views, {g_count} (item, Gaussian) rows, {p_count} pairs "
+          f"(per view {counted}), {channels.shape[-1] + 1} channels, {n_tiles} tiles")
+    if len(set(counted)) < n_items:
+        raise AssertionError(f"kernel phase: the pass's views should differ in pair count, got {counted}")
 
     # duplicate_with_keys
-    gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9)
+    gids, keys, pairs = kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9, n_items)
     ref_gids, ref_keys = kernels.duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, 9)
     torch.cuda.synchronize()
-    if not (torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys)):
-        raise AssertionError("duplicate_with_keys disagrees with its plain version")
+    if not (torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys)) or pairs.tolist() != counted:
+        raise AssertionError("duplicate_with_keys disagrees with its plain version or the counts")
     dup_err = max((gids - ref_gids).abs().max().item(), (keys - ref_keys).abs().max().item())
-    sorted_gids, ranges, order = sort_pairs(gids, keys, tiles_x * tiles_y)
-    ref_sorted, ref_ranges, _ = sort_pairs(ref_gids, ref_keys, tiles_x * tiles_y)
+    sorted_gids, ranges, order = sort_pairs(gids, keys, n_tiles)
+    ref_sorted, ref_ranges, _ = sort_pairs(ref_gids, ref_keys, n_tiles)
     if not (torch.equal(sorted_gids, ref_sorted) and torch.equal(ranges, ref_ranges)):
         raise AssertionError("sorted pairs or tile ranges differ")
     # The kernel's launch alone, as the wrapper makes it once the pair total
     # is known, with L2 flushed; then the whole wrapper, whose read of the
-    # total waits on the device.
+    # per-item totals waits on the device.
     flush = torch.empty(FLUSH_BYTES // 4, device=depth.device)
     offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
     dup_args = (offsets, mask, base, nx, depth, tiles_x, torch.empty_like(gids), torch.empty_like(keys))
     dup_ms = device_ms(lambda: kernels._launch_duplicate_with_keys(*dup_args), flush=flush)
-    dup_wrapper_ms = cuda_ms(lambda: kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9), 20)
+    dup_wrapper_ms = cuda_ms(lambda: kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9, n_items),
+                             20)
     dup_plain_ms = cuda_ms(
         lambda: kernels.duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, 9), 5
     )
@@ -441,7 +478,8 @@ def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[di
     print(f"duplicate_with_keys: exact match; {dup_ms:.4f} ms (device, L2 flushed), {dup_warm_ms:.4f} warm, "
           f"wrapper {dup_wrapper_ms:.4f} ms (host read included: {dup_wrapper_ms - dup_ms:.4f} ms more) vs "
           f"plain {dup_plain_ms:.4f} ms; a one-element fill {device_ms(tiny.zero_):.4f} ms, a copy of as many "
-          f"bytes {device_ms(lambda: copy_dst.copy_(copy_src), flush=flush):.4f} ms (L2 flushed)")
+          f"bytes {device_ms(lambda: copy_dst.copy_(copy_src), flush=flush):.4f} ms (L2 flushed); per view "
+          f"{dup_ms / n_items:.4f} ms, wrapper {dup_wrapper_ms / n_items:.4f} ms")
 
     # composite_forward
     attrs = pack_attributes(sg)
@@ -459,24 +497,24 @@ def kernel_phase(model, batch, seed: int, parent: str | None = None) -> tuple[di
         raise AssertionError(f"composite_forward disagrees with its plain version beyond {KERNEL_ATOL}")
     if last_mismatch:
         raise AssertionError("composite_forward's last contributors differ from its plain version's")
+    err = max(err_ch, err_t)
     comp_ms = device_ms(lambda: kernels.composite_forward(*comp_args))
     comp_plain_ms = cuda_ms(lambda: kernels.composite_forward_reference(*comp_args), 3)
-    print(f"composite_forward: {comp_ms:.4f} ms (device) vs plain {comp_plain_ms:.4f} ms")
+    print(f"composite_forward: {comp_ms:.4f} ms (device) vs plain {comp_plain_ms:.4f} ms; per view "
+          f"{comp_ms / n_items:.4f} ms")
     view = {"gids": sorted_gids, "ranges": ranges, "order": order, "counts": counts, "attrs": attrs,
-            "tiles_x": tiles_x, "shape": (h, w), "t_final": out[1], "last": out[2]}
+            "tiles_x": tiles_x, "shape": (h, w), "t_final": out[1], "last": out[2], "items": n_items}
     view["work"] = work = counted_work(view)
     print(f"composite_forward: {comp_ms * 1e6 / work['forward_tile_walk_max']:.1f} ns per pair of the "
           f"longest tile walk")
-    if parent:
-        parent_comparison(parent, dup_args, (gids, keys), comp_args, out, flush)
     return view, [
         # Mask, base, nx and depth of each Gaussian, one exclusive offset per
         # block of 512 Gaussians, and 12 bytes per pair written.
         entry("duplicate_with_keys", "duplicate_with_keys.cu", "latentsplat_tpu/ops/rasterize/expand.py:159",
               float(dup_err), dup_ms, dup_plain_ms,
               n_bytes=16 * g_count + 8 * math.ceil(g_count / 512) + 12 * p_count, n_ops=0,
-              wrapper_ms=dup_wrapper_ms),
-        forward_entry(max(err_ch, err_t), comp_ms, comp_plain_ms, view),
+              wrapper_ms=dup_wrapper_ms, views=n_items),
+        forward_entry(err, comp_ms, comp_plain_ms, view),
     ]
 
 
@@ -490,12 +528,12 @@ def forward_entry(err: float, ms: float, plain_ms: float, view: dict, variant: s
 
     attrs, ranges, work = view["attrs"], view["ranges"], view["work"]
     p_count, (g_count, row) = view["gids"].shape[0], attrs.shape
-    n_ch, plane = row - 6, view["shape"][0] * view["shape"][1]
+    n_ch, plane = row - 6, view["items"] * view["shape"][0] * view["shape"][1]
     record = entry("composite_forward", "composite_forward.cu", "latentsplat_tpu/ops/rasterize/pallas_kernels.py:399",
                    err, ms, plain_ms,
                    n_bytes=4 * p_count + 4 * ranges.numel() + 4 * row * g_count + 4 * (n_ch + 2) * plane + extra_bytes,
                    n_ops=EVAL_OPS * work["forward_evaluations"] + forward_composited_ops(n_ch) * work["composited"],
-                   channels=n_ch)
+                   channels=n_ch, views=view["items"])
     return {**record, "variant": variant} if variant != "exact" else record
 
 
@@ -509,12 +547,13 @@ def backward_entry(err: float, ms: float, plain_ms: float, view: dict, variant: 
 
     attrs, ranges, work = view["attrs"], view["ranges"], view["work"]
     p_count, n_ch = view["gids"].shape[0], attrs.shape[1] - 6
-    plane = view["shape"][0] * view["shape"][1]
+    plane = view["items"] * view["shape"][0] * view["shape"][1]
     record = entry("composite_backward", "composite_backward.cu", "latentsplat_tpu/ops/rasterize/pallas_kernels.py:667",
                    err, ms, plain_ms,
                    n_bytes=4 * p_count + 4 * ranges.numel() + 8 * p_count + 4 * (n_ch + 6) * attrs.shape[0]
                    + 4 * (n_ch + 3) * plane + 4 * (n_ch + 6) * p_count + extra_bytes,
-                   n_ops=EVAL_OPS * work["backward_evaluations"] + backward_composited_ops(n_ch) * work["composited"])
+                   n_ops=EVAL_OPS * work["backward_evaluations"] + backward_composited_ops(n_ch) * work["composited"],
+                   views=view["items"])
     return {**record, "variant": variant} if variant != "exact" else record
 
 
@@ -530,29 +569,31 @@ def depth_view(sg, shape: tuple[int, int]) -> dict:
 
     h, w = shape
     tiles_x, tiles_y = w // 16, h // 16
+    n_items = sg.radius.shape[0]
     counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y)
-    depth = sg.depth.contiguous()
-    gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9)
+    depth = sg.depth.reshape(-1).contiguous()
+    gids, keys, _ = kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9, n_items)
     ref_gids, ref_keys = kernels.duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, 9)
-    sorted_gids, ranges, order = sort_pairs(gids, keys, tiles_x * tiles_y)
-    ref_sorted, ref_ranges, _ = sort_pairs(ref_gids, ref_keys, tiles_x * tiles_y)
+    sorted_gids, ranges, order = sort_pairs(gids, keys, n_items * tiles_x * tiles_y)
+    ref_sorted, ref_ranges, _ = sort_pairs(ref_gids, ref_keys, n_items * tiles_x * tiles_y)
     if not (torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys) and torch.equal(sorted_gids, ref_sorted)
             and torch.equal(ranges, ref_ranges)):
         raise AssertionError("duplicate_with_keys or the sort disagrees with its plain version")
     attrs = pack_attributes(sg)
     _, t_final, last = kernels.composite_forward(sorted_gids, ranges, attrs, tiles_x, shape)
     return {"gids": sorted_gids, "ranges": ranges, "order": order, "counts": counts, "attrs": attrs,
-            "tiles_x": tiles_x, "shape": shape, "t_final": t_final, "last": last}
+            "tiles_x": tiles_x, "shape": shape, "t_final": t_final, "last": last, "items": n_items}
 
 
 def held_forward(out: tuple, ref: tuple, label: str) -> float:
     """composite_forward's outputs against its plain version's: `last`
-    exactly, T within KERNEL_ATOL and each channel within KERNEL_ATOL of its
-    largest value; raises, else returns the largest error."""
+    exactly, T within KERNEL_ATOL and each item's each channel within
+    KERNEL_ATOL of its largest value; raises, else returns the largest
+    error."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
-    scale = ref[0].abs().amax(dim=(1, 2)).clamp(min=1e-30)
-    err_ch = ((out[0] - ref[0]).abs().amax(dim=(1, 2)) / scale).max().item()
+    scale = ref[0].abs().amax(dim=(2, 3)).clamp(min=1e-30)            # each item's each channel
+    err_ch = ((out[0] - ref[0]).abs().amax(dim=(2, 3)) / scale).max().item()
     err_t = (out[1] - ref[1]).abs().max().item()
     last_mismatch = int((out[2] != ref[2]).sum())
     saturated = (ref[1] < kernels.TRANSMITTANCE_MIN).float().mean().item()
@@ -580,9 +621,11 @@ def check_forward(view: dict, label: str) -> float:
 def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
     """render_depth on the slice's Gaussians: composite_forward at 4
     channels (render_depth's 3-channel payload + the expected depth) held
-    against its plain version and timed at view 0; then `DecoderSplatting`
-    in each depth mode over the 4 target views (the counted run), finite
-    depths, each mode's render_depth time per view, and the invariant
+    against its plain version and timed on a pass of the 4 target views;
+    then `DecoderSplatting` in each depth mode over the 4 target views (the
+    counted run: render_depth is one pass, one 4-channel launch, in each of
+    the 3 special modes), finite depths, each mode's render_depth time per
+    view, and the invariant
     depth x disparity >= mask^2 (Cauchy-Schwarz over the same composite
     weights). Returns the 4-channel composite_forward's record and the
     launches of the counted run ({kernel: n} and composite_forward's by
@@ -590,9 +633,9 @@ def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
     from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.ops.rasterize.api import render_depth
 
-    sg, shape = first_view(model, batch, seed, depth_payload=True)
+    sg, shape = target_views(model, batch, seed, depth_payload=True)
     view = depth_view(sg, shape)
-    err = check_forward(view, "depth phase, view 0")
+    err = check_forward(view, "depth phase, a pass of the target views")
     args = (view["gids"], view["ranges"], view["attrs"], view["tiles_x"], shape)
     ms = device_ms(lambda: kernels.composite_forward(*args))
     plain_ms = cuda_ms(lambda: kernels.composite_forward_reference(*args), 3)
@@ -621,8 +664,8 @@ def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
     launches = dict(kernels.launch_counts)
     launches["composite_forward_by_channels"] = dict(kernels.composite_forward_launches)
     print(f"depth phase launches (4 modes x {n_views} views): {launches}")
-    if launches["composite_forward_by_channels"].get(4) != (len(DEPTH_MODES) - 1) * n_views:
-        raise AssertionError("render_depth did not composite each view once at 4 channels in each special mode")
+    if launches["composite_forward_by_channels"].get(4) != (len(DEPTH_MODES) - 1) * passes(n_views):
+        raise AssertionError("render_depth did not composite its views in one pass at 4 channels in each special mode")
     with torch.no_grad():
         for mode, out in outs.items():
             d = out.depth
@@ -646,16 +689,17 @@ def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
 
 
 def backward_kernel_phase(view: dict, seed: int) -> list[dict]:
-    """composite_backward and reduce_pairs at the shapes of one flagship
-    view, against their plain versions, with a seeded random cotangent."""
+    """composite_backward and reduce_pairs on the kernel phase's pass of
+    flagship views, against their plain versions, with a seeded random
+    cotangent."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
     gids, ranges, order, attrs, tiles_x, shape = (
         view[k] for k in ("gids", "ranges", "order", "attrs", "tiles_x", "shape"))
     device = attrs.device
     gen = torch.Generator(device=device).manual_seed(seed + 1)
-    g_out = torch.randn((attrs.shape[1] - 6, *shape), generator=gen, device=device)
-    g_t = torch.randn(shape, generator=gen, device=device)
+    g_out = torch.randn((view["items"], attrs.shape[1] - 6, *shape), generator=gen, device=device)
+    g_t = torch.randn((view["items"], *shape), generator=gen, device=device)
     args = (gids, ranges, order, attrs, tiles_x, shape, view["last"], view["t_final"], g_out, g_t)
     d_rows = kernels.composite_backward(*args)
     ref = kernels.composite_backward_reference(*args)
@@ -732,7 +776,7 @@ def backward_kernel_phase(view: dict, seed: int) -> list[dict]:
         backward_entry((d_rows - ref).abs().max().item(), bwd_ms, bwd_plain_ms, view),
         entry("reduce_pairs", "reduce_pairs.cu", "latentsplat_tpu/ops/rasterize/expand.py:254", red_err,
               red_ms, red_plain_ms, n_bytes=4 * row * p_count + 8 * g_count + 4 * row * g_count, n_ops=0,
-              library_ms=library_ms),
+              library_ms=library_ms, views=view["items"]),
     ]
 
 
@@ -764,10 +808,11 @@ def split_report(view: dict, blocks, label: str) -> None:
     ranges, tiles_x, shape = view["ranges"], view["tiles_x"], view["shape"]
     starts, stops = ranges[:-1].long(), ranges[1:].long()
     pairs = (stops - starts).float()
-    first = starts // kernels.SCAN_BLOCK
-    n_blocks = torch.where(stops > starts, (stops - 1) // kernels.SCAN_BLOCK - first + 1, 0)
+    item_first = kernels.item_starts(ranges, tiles_x * (shape[0] // kernels.TILE))
+    first = (starts - item_first) // kernels.SCAN_BLOCK
+    n_blocks = torch.where(stops > starts, (stops - 1 - item_first) // kernels.SCAN_BLOCK - first + 1, 0)
     end = kernels.tile(view["last"], tiles_x, shape[0] // kernels.TILE).long().amax(dim=1)
-    walked = torch.where(end > starts, (end - 1) // kernels.SCAN_BLOCK - first + 1, 0)
+    walked = torch.where(end > starts, (end - 1 - item_first) // kernels.SCAN_BLOCK - first + 1, 0)
     report = {
         "pairs_per_tile_mean": pairs.mean().item(), "pairs_per_tile_p99": torch.quantile(pairs, 0.99).item(),
         "pairs_per_tile_max": int(pairs.max()), "blocks_per_tile_mean": n_blocks.float().mean().item(),
@@ -796,8 +841,9 @@ def kernel_times(fn, n: int = 10) -> dict:
     return {name: us / 1e3 / n for name, (us, _) in times.items()}
 
 
-def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str, parent: str | None = None) -> list[dict]:
-    """The fast family's kernel variants on the screen Gaussians `sg`, with
+def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str) -> list[dict]:
+    """The fast family's kernel variants on a pass of screen Gaussians `sg`
+    (the items' axis first), with
     the pairs and rows `composite_tiled` prepares at "fast" (the wider cull,
     the truncated depth order, bf16 conic and opacity, 12-bit channels, the
     code's depth): composite_forward's coef (serving) and fast (training,
@@ -809,20 +855,21 @@ def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str, parent
     step of the value, and the same bits again) and timed (the plain
     version once, by CUDA events: seconds at these shapes); the work each
     needs counted on the card; the backward's split walk described
-    (`split_report`) and its two launches timed apart (`kernel_times`);
-    with `parent`, `parent_fast_comparison`. Returns their records
-    (launches come later)."""
+    (`split_report`) and its two launches timed apart (`kernel_times`).
+    Returns their records (launches come later)."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.ops.rasterize.tiled import (
         depth_code_bits, pack_attributes, precision_knobs, quantize_attributes, tile_pairs)
 
     h, w = shape
     tiles_x = w // 16
-    gids, ranges, order, counts = tile_pairs(sg, shape, 9, "fast")
-    attrs = quantize_attributes(pack_attributes(sg), precision_knobs("fast"), depth_code_bits(tiles_x * (h // 16))[1])
+    n_items = sg.radius.shape[0]
+    gids, ranges, order, counts, pairs = tile_pairs(sg, shape, 9, "fast")
+    attrs = quantize_attributes(pack_attributes(sg), precision_knobs("fast"), depth_code_bits(tiles_x * (h // 16))[1],
+                                n_items)
     base = (gids, ranges, attrs, tiles_x, shape)
     n_ch = attrs.shape[1] - 6
-    print(f"{label}: fast pairs {gids.shape[0]}, {n_ch} channels")
+    print(f"{label}: fast pairs {gids.shape[0]} (per view {pairs.tolist()}), {n_ch} channels")
     records = []
 
     out = kernels.composite_forward(*base, coef=True)
@@ -830,12 +877,12 @@ def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str, parent
     err = held_forward(out, ref, f"{label}: composite_forward (coef)")
     ms = device_ms(lambda: kernels.composite_forward(*base, coef=True))
     view = {"gids": gids, "ranges": ranges, "order": order, "counts": counts, "attrs": attrs, "tiles_x": tiles_x,
-            "shape": shape, "t_final": out[1], "last": out[2]}
+            "shape": shape, "t_final": out[1], "last": out[2], "items": n_items}
     view["work"] = counted_work(view)
     print(f"{label}: composite_forward (coef) {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms")
     records.append(forward_entry(err, ms, plain_ms, view, "coef"))
 
-    blocks = kernels.block_state(ranges, gids.shape[0])
+    blocks = kernels.block_state(ranges, gids.shape[0], tiles_x * (h // 16))
     blocks[1].zero_()
     ref_blocks = (blocks[0], torch.zeros_like(blocks[1]))
     fast = dict(f16_xy=True, bf16_mm=True)
@@ -854,8 +901,8 @@ def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str, parent
     split_report(view, blocks, label)
 
     gen = torch.Generator(device=attrs.device).manual_seed(seed + 1)
-    g_out = torch.randn((n_ch, *shape), generator=gen, device=attrs.device)
-    g_t = torch.randn(shape, generator=gen, device=attrs.device)
+    g_out = torch.randn((n_items, n_ch, *shape), generator=gen, device=attrs.device)
+    g_t = torch.randn((n_items, *shape), generator=gen, device=attrs.device)
     args = (gids, ranges, order, attrs, tiles_x, shape, out[2], out[1], g_out, g_t)
     knobs = dict(f16_xy=True, bf16_mm=True, bf16_grads=True, blocks=blocks)
     d_rows = kernels.composite_backward(*args, **knobs)
@@ -880,124 +927,22 @@ def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str, parent
     print(f"{label}: composite_backward (fast) by launch (torch.profiler, device ms a call): {passes}; "
           f"the trace's kernels: {sorted(name[:60] for name in times)}")
     records[-1].update(passes)
-    if parent:
-        parent_fast_comparison(parent, base, blocks, out, (g_out, g_t), order)
     for record in records:
         record["channels"] = n_ch
     return records
 
 
-def parent_fast_comparison(parent: str, base: tuple, blocks: tuple, out: tuple, cotangents: tuple,
-                           order: torch.Tensor) -> None:
-    """Builds the checkout `parent`'s composite kernels (its fast entry
-    points have the C interfaces from before the split walk:
-    composite_backward_fast without its capacity and scratch), holds them
-    against this tree's on the fast phase's inputs (`base`; the fast
-    forward's outputs `out` and block state `blocks`; the cotangents) and
-    times both in turns (parent, this tree, this tree, parent): the coef
-    and fast forwards (`last`, T and the block state equal, channels within
-    KERNEL_ATOL of each channel's largest value) and the fast backward (the
-    same bits)."""
-    import ctypes
-
-    from latentsplat_tpu_torch import cuda_build
-    from latentsplat_tpu_torch.ops.rasterize import kernels
-
-    lib_path = cuda_build.BUILD_DIR.parent / "parent_fast" / "libparent_fast.so"
-    start = time.perf_counter()
-    cuda_build.compile_library([Path(parent) / "latentsplat_tpu_torch" / "csrc" / f
-                                for f in ("composite_forward.cu", "composite_backward.cu")], lib_path)
-    print(f"parent composite kernels from {parent} built in {time.perf_counter() - start:.2f} s")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    old = ctypes.CDLL(str(lib_path))
-    old.composite_forward_fast.argtypes = [i, i, i, i, p, p, p, i, i, i, p, p, p, p, p, p]
-    old.composite_forward_fast.restype = i
-    old.composite_backward_fast.argtypes = [i, i, i, p, p, p, p, i, i, i, p, p, p, p, p, p, p, p]
-    old.composite_backward_fast.restype = i
-
-    gids, ranges, attrs, tiles_x, (h, w) = base
-    n_ch, num_tiles = attrs.shape[1] - 6, ranges.numel() - 1
-    stream = torch.cuda.current_stream().cuda_stream
-    fast_bits = kernels._knob_bits(True, True)
-    grad_bits = kernels._knob_bits(True, True, True)
-
-    def parent_forward(coef: bool, outputs: tuple, state=None):
-        def run():
-            cuda_build.check(old.composite_forward_fast(
-                n_ch, int(coef), fast_bits, num_tiles, gids.data_ptr(), ranges.data_ptr(), attrs.data_ptr(),
-                tiles_x, h, w, *(x.data_ptr() for x in outputs), *((blocks[0].data_ptr(), state.data_ptr())
-                                                                     if state is not None else (None, None)),
-                stream), "parent composite_forward_fast")
-        return run
-
-    last, t_final = out[2], out[1]
-    g_out, g_t = cotangents
-    old_rows = torch.empty((gids.shape[0], attrs.shape[1]), device=attrs.device)
-
-    def old_backward():
-        cuda_build.check(old.composite_backward_fast(
-            n_ch, grad_bits, num_tiles, gids.data_ptr(), ranges.data_ptr(), order.data_ptr(), attrs.data_ptr(),
-            tiles_x, h, w, last.data_ptr(), t_final.data_ptr(), g_out.data_ptr(), g_t.data_ptr(),
-            blocks[0].data_ptr(), blocks[1].data_ptr(), old_rows.data_ptr(), stream), "parent composite_backward_fast")
-
-    def tree_backward():
-        return kernels.composite_backward(gids, ranges, order, attrs, tiles_x, (h, w), last, t_final, g_out, g_t,
-                                          f16_xy=True, bf16_mm=True, bf16_grads=True, blocks=blocks)
-
-    def outputs():
-        return (torch.empty((n_ch, h, w), device=attrs.device), torch.empty((h, w), device=attrs.device),
-                torch.empty((h, w), dtype=torch.int32, device=attrs.device))
-
-    timings = {}
-    for coef in (True, False):
-        name = "coef" if coef else "fast"
-        state, mine_state = (None, None) if coef else (torch.zeros_like(blocks[1]), torch.zeros_like(blocks[1]))
-        theirs = outputs()
-        runs = {"parent": parent_forward(coef, theirs, state),
-                "this tree": lambda: kernels.composite_forward(
-                    *base, f16_xy=True, bf16_mm=True, coef=coef,
-                    blocks=(blocks[0], mine_state) if mine_state is not None else None)}
-        runs["parent"]()
-        mine = runs["this tree"]()
-        torch.cuda.synchronize()
-        scale = mine[0].abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-30)
-        err = ((theirs[0] - mine[0]).abs() / scale).max().item()
-        exact = (torch.equal(theirs[1], mine[1]) and torch.equal(theirs[2], mine[2])
-                 and (state is None or torch.equal(state, mine_state)))
-        print(f"parent vs this tree, composite_forward ({name}): `last`, T and block state equal {exact}, channels "
-              f"max error relative to each channel's largest value {err:.3e}, the same bits "
-              f"{exact and torch.equal(theirs[0], mine[0])}")
-        if not exact or err > KERNEL_ATOL:
-            raise AssertionError(f"the parent's composite_forward ({name}) and this tree's disagree")
-        timings[f"composite_forward ({name})"] = [
-            (turn, device_ms(runs[turn])) for turn in ("parent", "this tree", "this tree", "parent")]
-
-    old_backward()
-    rows = tree_backward()
-    torch.cuda.synchronize()
-    same = torch.equal(old_rows, rows)
-    print(f"parent vs this tree, composite_backward (fast): {int((old_rows != rows).sum())} of {rows.numel()} "
-          f"elements differ, the same bits {same}")
-    if not same:
-        raise AssertionError("the parent's composite_backward (fast) and this tree's disagree")
-    timings["composite_backward (fast)"] = [
-        (turn, device_ms(old_backward if turn == "parent" else tree_backward))
-        for turn in ("parent", "this tree", "this tree", "parent")]
-    for key, values in timings.items():
-        print(f"parent vs this tree, {key} (device ms, {card()}): " + ", ".join(f"{turn} {v:.4f}" for turn, v in values))
-
-
-def fast_serve_phase(model, batch, seed: int, parent: str | None = None) -> tuple[list[dict], dict]:
-    """The fast precision on the flagship: the kernel variants at view 0
-    (`fast_kernel_checks`, 8 channels), then `render_full` at
-    model.decoder.precision=fast on the slice batch (the counted run): the
-    coefficient-layout forward once a target view and no exact composite,
+def fast_serve_phase(model, batch, seed: int) -> tuple[list[dict], dict]:
+    """The fast precision on the flagship: the kernel variants on a pass of
+    the target views (`fast_kernel_checks`, 8 channels), then `render_full`
+    at model.decoder.precision=fast on the slice batch (the counted run):
+    the coefficient-layout forward once a pass and no exact composite,
     finite outputs of the slice's shapes, and the render's PSNR against the
     exact one on the same noise. Returns the records and the launches."""
     from latentsplat_tpu_torch.model.latentsplat import render_full
 
-    sg, shape = first_view(model, batch, seed)
-    records = fast_kernel_checks(sg, shape, seed, "fast phase, view 0", parent)
+    sg, shape = target_views(model, batch, seed)
+    records = fast_kernel_checks(sg, shape, seed, "fast phase, the target views")
     del sg
     gen = torch.Generator(device=batch["target"]["image"].device)
     exact = render_full(model, batch, generator=gen.manual_seed(seed))
@@ -1017,8 +962,8 @@ def fast_serve_phase(model, batch, seed: int, parent: str | None = None) -> tupl
     for key in ("image", "render", "depth"):
         if out[key].shape != exact[key].shape or not torch.isfinite(out[key]).all():
             raise AssertionError(f"fast phase: {key} of shape {tuple(out[key].shape)} or non-finite")
-    expected = {"composite_forward": {"coef": {8: n_target}}, "composite_backward": {}}
-    if launches["by_variant"] != expected or launches["duplicate_with_keys"] != n_target:
+    expected = {"composite_forward": {"coef": {8: passes(n_target)}}, "composite_backward": {}}
+    if launches["by_variant"] != expected or launches["duplicate_with_keys"] != passes(n_target):
         raise AssertionError(f"fast phase: render_full launched {launches}, not {expected}")
     mse = {k: (out[k].clamp(0, 1) - exact[k].clamp(0, 1)).square().mean().item() for k in ("render", "image")}
     print(f"fast phase: render_full at precision fast {seconds:.4f} s (host clock, synchronized); render PSNR "
@@ -1026,79 +971,6 @@ def fast_serve_phase(model, batch, seed: int, parent: str | None = None) -> tupl
           f"{-10 * math.log10(max(mse['image'], 1e-12)):.3f} dB; pairs per view {out['num_pairs'].reshape(-1).tolist()} "
           f"(exact {exact['num_pairs'].reshape(-1).tolist()}); launches {launches['by_variant']}")
     return records, launches
-
-
-def parent_comparison(parent: str, dup_args: tuple, dup_out: tuple, comp_args: tuple, comp_out: tuple,
-                      flush: torch.Tensor) -> None:
-    """Builds the forward kernels of the checkout `parent` (the same C
-    interfaces as this tree's), holds their outputs against this tree's
-    (ids, keys and last contributors exactly, channels and T within
-    KERNEL_ATOL) and times both on the same inputs in turns (parent, this
-    tree, this tree, parent): duplicate_with_keys' launch with L2 flushed,
-    composite_forward as the kernel phase times it."""
-    import ctypes
-
-    from latentsplat_tpu_torch import cuda_build
-    from latentsplat_tpu_torch.ops.rasterize import kernels
-
-    sources = [Path(parent) / "latentsplat_tpu_torch" / "csrc" / f
-               for f in ("duplicate_with_keys.cu", "composite_forward.cu")]
-    lib_path = cuda_build.BUILD_DIR.parent / "parent_kernels" / "libparent.so"
-    start = time.perf_counter()
-    cuda_build.compile_library(sources, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.duplicate_with_keys.argtypes = [i, p, p, p, p, p, i, p, p, p]
-    lib.composite_forward.argtypes = [i, i, p, p, p, i, i, i, p, p, p, p]
-    lib.duplicate_with_keys.restype = lib.composite_forward.restype = i
-    print(f"parent kernels from {parent} built in {time.perf_counter() - start:.2f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  parent ptxas:", line.strip())
-
-    stream = torch.cuda.current_stream().cuda_stream
-    offsets, mask, base, nx, depth, tiles_x, _, _ = dup_args
-    old_ids, old_keys = (torch.empty_like(x) for x in dup_out)
-
-    def parent_duplicate():
-        cuda_build.check(lib.duplicate_with_keys(
-            offsets.shape[0], offsets.data_ptr(), mask.data_ptr(), base.data_ptr(), nx.data_ptr(),
-            depth.data_ptr(), tiles_x, old_ids.data_ptr(), old_keys.data_ptr(), stream),
-            "parent duplicate_with_keys")
-
-    gids, ranges, attrs, _, (h, w) = comp_args
-    old_out = tuple(torch.empty_like(x) for x in comp_out)
-
-    def parent_composite():
-        cuda_build.check(lib.composite_forward(
-            attrs.shape[1] - 6, ranges.numel() - 1, gids.data_ptr(), ranges.data_ptr(), attrs.data_ptr(),
-            tiles_x, h, w, *(x.data_ptr() for x in old_out), stream), "parent composite_forward")
-
-    parent_duplicate()
-    parent_composite()
-    torch.cuda.synchronize()
-    if not (torch.equal(old_ids, dup_out[0]) and torch.equal(old_keys, dup_out[1])):
-        raise AssertionError("the parent's duplicate_with_keys and this tree's disagree")
-    errs = [(a - b).abs().max().item() for a, b in zip(old_out[:2], comp_out[:2])]
-    same = all(torch.equal(a, b) for a, b in zip(old_out, comp_out))
-    print(f"parent vs this tree: duplicate_with_keys ids and keys equal; composite_forward max |channels "
-          f"diff| {errs[0]:.3e}, max |T diff| {errs[1]:.3e}, last equal "
-          f"{torch.equal(old_out[2], comp_out[2])}, the same bits {same}")
-    if not (max(errs) <= KERNEL_ATOL and torch.equal(old_out[2], comp_out[2])):
-        raise AssertionError("the parent's composite_forward and this tree's disagree")
-    timings = {"duplicate_with_keys": [], "composite_forward": []}
-    for turn in ("parent", "this tree", "this tree", "parent"):
-        if turn == "parent":
-            dup = device_ms(parent_duplicate, flush=flush)
-            comp = device_ms(parent_composite)
-        else:
-            dup = device_ms(lambda: kernels._launch_duplicate_with_keys(*dup_args), flush=flush)
-            comp = device_ms(lambda: kernels.composite_forward(*comp_args))
-        timings["duplicate_with_keys"].append((turn, dup))
-        timings["composite_forward"].append((turn, comp))
-    for key, values in timings.items():
-        print(f"parent vs this tree, {key} (device ms" + (", L2 flushed" if key == "duplicate_with_keys" else "")
-              + "): " + ", ".join(f"{turn} {v:.4f}" for turn, v in values))
 
 
 def slice_phase(model, batch, seed: int, profile_dir: str | None = None) -> dict:
@@ -1119,9 +991,11 @@ def slice_phase(model, batch, seed: int, profile_dir: str | None = None) -> dict
     render_full(model, batch, generator=gen.manual_seed(seed))    # warm-up
     for key in kernels.launch_counts:
         kernels.launch_counts[key] = 0
+    reads = dict(kernels.host_reads)
     out = render_full(model, batch, generator=gen.manual_seed(seed), timer=timer)
     torch.cuda.synchronize()
     launches = dict(kernels.launch_counts)
+    reads = {k: kernels.host_reads[k] - v for k, v in reads.items()}
     image = out["image"]
     n_target = batch["target"]["image"].shape[1]
     expected = (1, n_target, *batch["target"]["image"].shape[2:4], 3)
@@ -1130,8 +1004,10 @@ def slice_phase(model, batch, seed: int, profile_dir: str | None = None) -> dict
     for key in ("image", "render", "depth"):
         if not torch.isfinite(out[key]).all():
             raise AssertionError(f"non-finite values in {key}")
-    if min(launches[k] for k in FORWARD_KERNELS) < 1:
-        raise AssertionError(f"a kernel of the serving path did not run: {launches}")
+    n_passes = passes(n_target)
+    if any(launches[k] != n_passes for k in FORWARD_KERNELS) or reads["duplicate_with_keys"] != n_passes:
+        raise AssertionError(f"the serving path launched {launches} with host reads {reads}, not one each a pass "
+                             f"({n_passes})")
     pairs = out["num_pairs"].reshape(-1).tolist()
     print(f"slice: image {tuple(image.shape)}, mean {image.mean().item():.4f}, "
           f"render mean {out['render'].mean().item():.4f}, pairs per view {pairs}")
@@ -1139,7 +1015,7 @@ def slice_phase(model, batch, seed: int, profile_dir: str | None = None) -> dict
           + ", ".join(f"{k} {v:.4f}" for k, v in stage_s.items())
           + f"; per target view: render {stage_s['decoder'] / n_target:.4f}, "
           f"VAE decode {stage_s['autoencoder_decoder'] / n_target:.4f}")
-    print(f"slice launches: {launches}")
+    print(f"slice launches: {launches}; host reads {reads} ({n_passes} pass of {n_target} views)")
     if profile_dir:
         from latentsplat_tpu_torch.model.latentsplat import render_full
 
@@ -1264,14 +1140,15 @@ def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: in
     print(f"train peak memory allocated: {peak / 2**30:.3f} GiB")
     print(f"train launches: {launches}")
     # Then two steps at precision fast (the counted run of the fast
-    # family's training variants): 8 forward and backward launches a step.
+    # family's training variants): the step renders its 2 x 4 target views
+    # in one pass, one forward and one backward launch a step.
     state.model.decoder.cfg.precision = "fast"
     try:
         state, _, _, _, fast_launches = timed_steps("train phase at precision fast", state, train_step, batch,
                                                     seed + 4, 2)
     finally:
         state.model.decoder.cfg.precision = "exact"
-    n = 2 * scenes * 4
+    n = 2 * passes(scenes * 4)
     expected = {"composite_forward": {"fast": {8: n}}, "composite_backward": {"fast": {8: n}}}
     if fast_launches["by_variant"] != expected or fast_launches["reduce_pairs"] != n:
         raise AssertionError(f"train phase at precision fast: launches {fast_launches}, not {expected}")
@@ -1451,9 +1328,10 @@ def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, di
     print(f"trainer phase launches: (a)+(b) {fit_launches}, (c) {test_launches}")
     if min(fit_launches[k] for k in kernels.launch_counts) < 1:
         raise AssertionError(f"a kernel did not run in the trainer's fit: {fit_launches}")
-    # 4 train steps of 2 scenes x 4 target views, the validation's two passes
-    # over 4 views, two videos of 30 views and two tests of 4 x 48 views.
-    expected = 4 * 2 * 4 + 2 * 4 + 2 * 30 + 2 * 4 * 48
+    # 4 train steps of 2 scenes x 4 target views, the validation's two
+    # renders of 4 views, two videos of 30 views and two tests of 4 scenes
+    # of 48 views: a render call's views are its passes.
+    expected = 4 * passes(2 * 4) + 2 * passes(4) + 2 * passes(30) + 2 * 4 * passes(48)
     if any(fit_launches[k] != expected for k in FORWARD_KERNELS):
         raise AssertionError(f"the trainer's fit launched the forward kernels {fit_launches}, not {expected} times")
     if min(test_launches[k] for k in FORWARD_KERNELS) < 1:
@@ -1499,17 +1377,17 @@ def watch_videos(videos: list):
 
 def check_videos(videos: list, run: Path, size: int = 256) -> None:
     """Both videos of (a)'s validation: 58 finite frames (the size x size
-    image over its depth in color, 2 pixels apart), each view through both forward
-    kernels once, and the file the logger wrote (an mp4 with ffmpeg, else
-    the frames as PNGs)."""
+    image over its depth in color, 2 pixels apart), the 30 views in one pass
+    of both forward kernels, and the file the logger wrote (an mp4 with
+    ffmpeg, else the frames as PNGs)."""
     if [v["mode"] for v in videos] != ["wobble", "interpolation"]:
         raise AssertionError(f"(a) rendered the videos {[v['mode'] for v in videos]}")
     for v in videos:
         frames = v["frames"]
         if len(frames) != 58 or any(f.shape != (2 * size + 2, size, 3) or not np.isfinite(f).all() for f in frames):
             raise AssertionError(f"video {v['mode']}: {len(frames)} frames, shapes {sorted({f.shape for f in frames})}")
-        if any(v["launches"][k] != 30 for k in FORWARD_KERNELS):
-            raise AssertionError(f"video {v['mode']}: launches {v['launches']}, not 30 of each forward kernel")
+        if any(v["launches"][k] != passes(30) for k in FORWARD_KERNELS):
+            raise AssertionError(f"video {v['mode']}: launches {v['launches']}, not {passes(30)} of each forward kernel")
         mp4 = run / "local" / "video" / v["mode"] / f"{v['step']:0>6}.mp4"
         pngs = sorted(mp4.with_suffix("").glob("*.png"))
         if not (mp4.exists() or len(pngs) == 58):
@@ -1788,8 +1666,8 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
         if len(own_pngs) != 6 or own_pngs != converted_pngs:
             raise AssertionError(f"(i) the converted checkpoint served other PNGs ({len(converted_pngs)} "
                                  f"against {len(own_pngs)}, {sum(own_pngs.get(k) != v for k, v in converted_pngs.items())} differ)")
-        if on_card and any(launches[k] != 6 for k in FORWARD_KERNELS):
-            raise AssertionError(f"(i) forward kernel launches {launches}, not 6 each")
+        if on_card and any(launches[k] != 2 * passes(3) for k in FORWARD_KERNELS):
+            raise AssertionError(f"(i) forward kernel launches {launches}, not {2 * passes(3)} each (a pass a scene)")
         print(f"  (i) convert_checkpoint: {counts}; serving the converted file: 6 PNGs bit for bit those of the "
               f"model's own checkpoint, launches {launches}")
 
@@ -1803,7 +1681,7 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
 
         def spy_composite(sg, shape, background, cap, *args, **kwargs):
             result = composite_tiled(sg, shape, background, cap, *args, **kwargs)
-            records.append({"cap": cap, "pairs": result[3], "sg": sg})
+            records.append({"cap": cap, "pairs": int(result[3].sum()), "sg": sg})
             return result
 
         def timed_orthographic(*args, **kwargs):
@@ -1839,12 +1717,12 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
         # same pairs (the covering cap keeps every slot), and timed.
         widest = max(records, key=lambda r: r["cap"])
         sg, cap = widest["sg"], widest["cap"]
-        depth = sg.depth.contiguous()
+        depth = sg.depth.reshape(-1).contiguous()
         flush = torch.empty(FLUSH_BYTES // 4, device=device) if on_card else None
         pairs, out["duplicate_ms"] = [], {}
         for slots in (cap, MAX_TILES_PER_GAUSSIAN):
             counts_, base, nx, mask = tile_rects(sg, size // 16, size // 16, slots)
-            ids, keys = kernels.duplicate_with_keys(counts_, mask, base, nx, depth, size // 16, slots)
+            ids, keys, _ = kernels.duplicate_with_keys(counts_, mask, base, nx, depth, size // 16, slots)
             ref_ids, ref_keys = kernels.duplicate_with_keys_reference(counts_, mask, base, nx, depth, size // 16, slots)
             if not (torch.equal(ids, ref_ids) and torch.equal(keys, ref_keys)):
                 raise AssertionError(f"(ii) duplicate_with_keys ({mask.dtype} mask, cap {slots}) differs from its plain version")
@@ -1932,8 +1810,8 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
         images = [load_image(p) for p in pngs]
         if len(pngs) != 6 or any(i.shape != (size, 3 * size + 16, 3) for i in images):
             raise AssertionError(f"(iv) render_uncertainty wrote {[i.shape for i in images]}")
-        if on_card and any(launches[k] != 6 for k in FORWARD_KERNELS):
-            raise AssertionError(f"(iv) render_uncertainty launches {launches}, not 6 each")
+        if on_card and any(launches[k] != 2 * passes(3) for k in FORWARD_KERNELS):
+            raise AssertionError(f"(iv) render_uncertainty launches {launches}, not {2 * passes(3)} each")
         root = tmp / "re10k"
         jpeg_tools().write_re10k_root(root, scenes=2, frames=48)
         start = time.perf_counter()
@@ -2461,13 +2339,15 @@ def switch_encode_latents(seed: int, device, size: int = 256) -> None:
           + f"; launches {launches}")
     if set(bench) != {"autoencoder_encoder", "encoder", "decoder", "autoencoder_decoder"} or len(pngs) != 6:
         raise AssertionError(f"(s2) test mode: tags {sorted(bench)}, {len(pngs)} PNGs")
-    if launches["composite_forward"] != 6:
-        raise AssertionError(f"(s2) test mode: composite_forward ran {launches['composite_forward']} times, not 6")
+    if launches["composite_forward"] != 2 * passes(3):
+        raise AssertionError(f"(s2) test mode: composite_forward ran {launches['composite_forward']} times, "
+                             f"not {2 * passes(3)} (a pass a scene)")
 
 
 def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict]:
-    """(s3) variational=latents: at view 0 composite_forward and
-    composite_backward at 12 channels and reduce_pairs at rows of 18 against
+    """(s3) variational=latents: on a pass of the target views
+    composite_forward and composite_backward at 12 channels and reduce_pairs
+    at rows of 18 against
     their plain versions, timed beside their bounds, and the fast family's
     variants at 12 channels (`fast_kernel_checks`); then 2 train steps, a
     render without gradient and 1 train step at precision fast. Returns the
@@ -2479,11 +2359,11 @@ def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict
     cfg = load_config("re10k", ["model.variational=latents"])
     state, _, train_step = switch_state(cfg, seed, device)
     model = state.model.eval()
-    sg, shape = first_view(model, make_batch(np.random.default_rng(seed), 2, 4, size, device), seed, flatten=True)
+    sg, shape = target_views(model, make_batch(np.random.default_rng(seed), 2, 4, size, device), seed, flatten=True)
     view = depth_view(sg, shape)
     if view["attrs"].shape[1] != 18:
         raise AssertionError(f"(s3): rows of {view['attrs'].shape[1]}, not 6 + 12")
-    err = check_forward(view, "switches (s3) view 0")
+    err = check_forward(view, "switches (s3) target views")
     args = (view["gids"], view["ranges"], view["attrs"], view["tiles_x"], shape)
     ms = device_ms(lambda: kernels.composite_forward(*args))
     plain_ms = cuda_ms(lambda: kernels.composite_forward_reference(*args), 3)
@@ -2494,7 +2374,7 @@ def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict
     records += backward_kernel_phase(view, seed)
     records[1]["channels"] = 12
     records[2]["row"] = 18
-    fast_records = fast_kernel_checks(sg, shape, seed, "switches (s3) view 0")
+    fast_records = fast_kernel_checks(sg, shape, seed, "switches (s3) target views")
     del view, sg
     serve_batch = make_batch(np.random.default_rng(seed), 2, 4, size, device)
     model.train()
@@ -2502,13 +2382,14 @@ def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict
     _, _, _, _, launches = timed_steps("switches (s3) variational=latents train", state, train_step, batch,
                                        seed + 3, 2)
     by_channels = launches["composite_forward_by_channels"]
-    if by_channels.get(12) != 2 * 8 or launches["composite_backward"] != 2 * 8 or launches["reduce_pairs"] != 2 * 8:
-        raise AssertionError(f"(s3): the 12-channel kernels ran {launches}, not 8 times a step")
+    n = 2 * passes(2 * 4)
+    if by_channels.get(12) != n or launches["composite_backward"] != n or launches["reduce_pairs"] != n:
+        raise AssertionError(f"(s3): the 12-channel kernels ran {launches}, not once a pass, {n} in 2 steps")
     # At precision fast: the decoder without gradient on a batch's mean and
     # logvar Gaussians, as the step renders them (the coef variant once a
-    # target view; render_full, like the JAX package's, samples the
-    # Gaussians and serves no `latents` model), and one train step (the
-    # fast variants 8 times), whose launches the 12-channel fast rows take.
+    # pass; render_full, like the JAX package's, samples the Gaussians and
+    # serves no `latents` model), and one train step (the fast variants
+    # once a pass), whose launches the 12-channel fast rows take.
     model.decoder.cfg.precision = "fast"
     try:
         model.eval()
@@ -2528,8 +2409,8 @@ def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict
         model.decoder.cfg.precision = "exact"
     if not all(torch.isfinite(x).all() for x in (served.color, served.feature_posterior.mean, served.depth)):
         raise AssertionError("(s3) at precision fast: non-finite render")
-    expected = ({"composite_forward": {"coef": {12: 4}}, "composite_backward": {}},
-                {"composite_forward": {"fast": {12: 8}}, "composite_backward": {"fast": {12: 8}}})
+    expected = ({"composite_forward": {"coef": {12: passes(4)}}, "composite_backward": {}},
+                {"composite_forward": {"fast": {12: passes(8)}}, "composite_backward": {"fast": {12: passes(8)}}})
     if (serve_launches["by_variant"], fast_launches["by_variant"]) != expected:
         raise AssertionError(f"(s3) at precision fast: launches {serve_launches['by_variant']} serving, "
                              f"{fast_launches['by_variant']} training, not {expected}")
@@ -2626,8 +2507,10 @@ def switch_remat_bf16(seed: int, device, size: int = 256) -> None:
               f"of its largest value ({leaf}); bit-identical {all(torch.equal(out[n], plain[n]) for n in plain)}")
         if abs(total - plain_total) > 1e-6 * abs(plain_total) or err > max(1e-6, 4 * floor_err):
             raise AssertionError(f"(s4) remat {policy} differs from the plain step")
-        if launches["composite_forward"] != 16 or launches["duplicate_with_keys"] != 16:
-            raise AssertionError(f"(s4) remat {policy}: {launches['composite_forward']} forward launches, not 8 + 8")
+        n = 2 * passes(2 * 4)
+        if launches["composite_forward"] != n or launches["duplicate_with_keys"] != n:
+            raise AssertionError(f"(s4) remat {policy}: {launches['composite_forward']} forward launches, not {n}: "
+                                 "the pass and its recomputation")
         del out
     mcfg.remat, mcfg.remat_policy = False, "nothing"
     model.decoder.cfg.remat = False
@@ -2811,7 +2694,7 @@ def small_input_check(seed: int, device) -> None:
 
 def small_depth_backward_check(seed: int, device) -> None:
     """composite_backward at 4 channels (render_depth's payload) against its
-    plain version on the narrow model's first view at 32x32, with a seeded
+    plain version on a pass of the narrow model's 2 target views at 32x32, with a seeded
     random cotangent: 1e-4 of each gradient column's largest value, the
     same bits on a second launch; reduce_pairs over its rows (10 floats)
     exactly against its plain version on the CPU."""
@@ -2819,13 +2702,15 @@ def small_depth_backward_check(seed: int, device) -> None:
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
     model = build_model(load_config("re10k", SMALL_OVERRIDES), seed, device)
-    sg, shape = first_view(model, make_batch(np.random.default_rng(seed), 2, 2, 32, device), seed, depth_payload=True)
+    sg, shape = target_views(model, make_batch(np.random.default_rng(seed), 2, 2, 32, device), seed,
+                             depth_payload=True)
     view = depth_view(sg, shape)
     check_forward(view, "small input")
     gen = torch.Generator(device=device).manual_seed(seed + 2)
+    n = view["items"]
     args = (view["gids"], view["ranges"], view["order"], view["attrs"], view["tiles_x"], shape, view["last"],
-            view["t_final"], torch.randn((4, *shape), generator=gen, device=device),
-            torch.randn(shape, generator=gen, device=device))
+            view["t_final"], torch.randn((n, 4, *shape), generator=gen, device=device),
+            torch.randn((n, *shape), generator=gen, device=device))
     d_rows = kernels.composite_backward(*args)
     ref = kernels.composite_backward_reference(*args)
     torch.cuda.synchronize()
@@ -3394,6 +3279,218 @@ def parallel_phase(seed: int, device, trainer_output: Path) -> dict:
     return record
 
 
+# -- the parent's end-to-end numbers beside this tree's --------------------------
+
+# One turn, run in a fresh process from a checkout's root with its own
+# package on the path: bench_render (64 views of 393,216 Gaussians at
+# 256x256; views/s, ms a view and peak memory at fast and exact), the
+# slice's decoder seconds (render_full on chip_smoke's slice batch, the
+# median of 5 after a warm-up) and bench_train --full --batch 2 (seconds a
+# step, peak). It calls only what the parent's checkout has too.
+TURN_CODE = """
+import json, statistics, tempfile, time
+from contextlib import contextmanager
+import numpy as np
+import torch
+import chip_smoke as cs
+from latentsplat_tpu_torch.config import load_config
+from latentsplat_tpu_torch.model.latentsplat import render_full
+from latentsplat_tpu_torch.scripts import bench_train
+from latentsplat_tpu_torch.scripts.bench_render import make_scene, time_render
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+device = torch.device("cuda")
+out = {}
+scene = make_scene(0, device=device)
+n = scene["extrinsics"].shape[1]
+for precision in ("fast", "exact"):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time_render(scene, 256, precision=precision)
+    out[precision] = {"views_per_s": n / t["median_s"], "ms_per_view": 1e3 * t["median_s"] / n,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+del scene
+model = cs.build_model(load_config("re10k"), 0, device)
+batch = cs.make_batch(np.random.default_rng(0), 2, 4, 256, device)
+decoder = []
+
+@contextmanager
+def timer(name):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    if name == "decoder":
+        decoder.append(time.perf_counter() - start)
+
+gen = torch.Generator(device=device)
+for i in range(6):
+    render_full(model, batch, generator=gen.manual_seed(i), timer=timer)
+out["decoder_s"] = statistics.median(decoder[1:])
+del model, batch
+torch.cuda.empty_cache()
+torch.backends.cudnn.allow_tf32 = True
+with tempfile.TemporaryDirectory() as tmp:
+    record = bench_train.main(["--full", "--batch", "2", "--out-dir", tmp], device=device)
+out["full_step_s"] = 1.0 / record["value"]
+out["full_peak_gib"] = record["peak_gib"]
+print("TURN " + json.dumps(out))
+"""
+
+
+def parent_turns(parent: str) -> list:
+    """TURN_CODE in the checkout `parent` and in this tree, in turns
+    (parent, this tree, this tree, parent), each in its own process;
+    prints and returns each turn's numbers."""
+    roots = {"parent": Path(parent).resolve(), "this tree": Path(__file__).resolve().parent}
+    turns = []
+    for turn in ("parent", "this tree", "this tree", "parent"):
+        root = roots[turn]
+        proc = subprocess.run([sys.executable, "-c", TURN_CODE], cwd=root, capture_output=True, text=True,
+                              env={**os.environ, "PYTHONPATH": str(root)}, timeout=1200)
+        line = next((x for x in proc.stdout.splitlines() if x.startswith("TURN ")), None)
+        if proc.returncode or line is None:
+            raise AssertionError(f"--parent: the {turn}'s turn failed: {proc.stderr[-4000:]}")
+        turns.append((turn, json.loads(line[5:])))
+        print(f"parent vs this tree on {card()}, turn {len(turns)} ({turn}): {line[5:]}")
+    return turns
+
+
+# -- the pass phase --------------------------------------------------------------
+
+
+def pass_phase(seed: int, device) -> dict:
+    """A render call's items in one pass against one item a pass (the bound
+    api.PASS_ROWS patched to 1): bench_render's 64 views of 393,216
+    Gaussians at 256x256, at exact and at fast (serving, the coef
+    variant), without gradient: color, feature, mask, depth and num_pairs
+    the same bits, one pass and one host read (kernels.host_reads, and the
+    synchronizing calls that torch.cuda's sync debug mode reports) against
+    64 and 64; then a train render of 2 scenes x 4 views of that scene
+    (the second scene's opacities scaled by 0.9) with gradient at exact
+    and fast: the forward the same bits, each input's gradient within
+    BACKWARD_RTOL of its largest value (fast: or one bfloat16 step of the
+    value), the per-item passes summing a scene's gradient over its views
+    in another order. Each one-pass render's peak of allocated memory
+    above what was allocated before it, over its (item, Gaussian) rows,
+    is printed: what api.PASS_ROWS is sized from. Returns the seconds of
+    each render and these bytes a row."""
+    import warnings
+
+    from latentsplat_tpu_torch.ops.rasterize import api, kernels
+    from latentsplat_tpu_torch.scripts.bench_render import make_scene
+
+    scene = make_scene(seed, device=device)
+    names = ("color", "feature", "mask", "depth")
+    out = {}
+
+    def call(precision: str, one_item: bool, inputs: dict, grad: bool):
+        old = api.PASS_ROWS
+        api.PASS_ROWS = 1 if one_item else old
+        reset_launches()
+        reads = dict(kernels.host_reads)
+        try:
+            sync(device)
+            start = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught, torch.set_grad_enabled(grad):
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    result = api.render(
+                        inputs["extrinsics"], inputs["intrinsics"], inputs["near"], inputs["far"], (256, 256),
+                        inputs["background_color"], inputs["gaussian_means"], inputs["gaussian_covariances"],
+                        inputs["gaussian_opacities"], inputs["gaussian_color_sh"], inputs["gaussian_feature_sh"],
+                        precision=precision)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            sync(device)
+            seconds = time.perf_counter() - start
+        finally:
+            api.PASS_ROWS = old
+        syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+        reads = {k: kernels.host_reads[k] - v for k, v in reads.items()}
+        return result, seconds, read_launches(), reads, syncs
+
+    def row_bytes(base: int, rows: int) -> float:
+        return (torch.cuda.max_memory_allocated(device) - base) / rows
+
+    gaussians = scene["gaussian_means"].shape[1]
+    for precision in ("exact", "fast"):
+        with torch.no_grad():
+            sync(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            one, one_s, one_launches, one_reads, one_syncs = call(precision, False, scene, False)
+            out[f"{precision}_pass_bytes_a_row"] = row_bytes(base, scene["extrinsics"].shape[1] * gaussians)
+            per, per_s, per_launches, per_reads, per_syncs = call(precision, True, scene, False)
+        n_views = scene["extrinsics"].shape[1]
+        same = {k: torch.equal(getattr(one, k), getattr(per, k)) for k in (*names, "num_pairs")}
+        print(f"pass phase, {precision}: {n_views} views in one pass {one_s:.4f} s (launches "
+              f"{one_launches['duplicate_with_keys']}, host reads {one_reads}, synchronizing calls {one_syncs}), one "
+              f"item a pass {per_s:.4f} s (launches {per_launches['duplicate_with_keys']}, host reads {per_reads}, "
+              f"synchronizing calls {per_syncs}); the same bits {same}; pairs per view "
+              f"{one.num_pairs.reshape(-1).tolist()[:8]}...; one pass's peak "
+              f"{out[f'{precision}_pass_bytes_a_row']:.1f} B a (item, Gaussian) row")
+        if not all(same.values()):
+            raise AssertionError(f"pass phase, {precision}: one pass and one item a pass differ: {same}")
+        if (one_launches["duplicate_with_keys"], one_launches["composite_forward"], one_reads["duplicate_with_keys"],
+                one_syncs) != (1, 1, 1, 1):
+            raise AssertionError(f"pass phase, {precision}: one pass launched {one_launches} with host reads "
+                                 f"{one_reads} and {one_syncs} synchronizing calls, not one each")
+        if (per_launches["composite_forward"], per_reads["duplicate_with_keys"], per_syncs) != (n_views,) * 3:
+            raise AssertionError(f"pass phase, {precision}: one item a pass launched {per_launches} with host "
+                                 f"reads {per_reads} and {per_syncs} synchronizing calls, not {n_views} each")
+        out[f"{precision}_one_pass_s"], out[f"{precision}_one_item_a_pass_s"] = one_s, per_s
+        del one, per
+
+    # The train render: 2 scenes x 4 views with gradient.
+    train = {}
+    for k, v in scene.items():
+        if k in ("extrinsics", "intrinsics", "near", "far"):
+            train[k] = torch.cat([v[:, :4], v[:, 4:8]])             # 2 scenes of 4 views
+        else:
+            train[k] = torch.cat([v, v * 0.9 if k == "gaussian_opacities" else v])
+    del scene
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    for precision in ("exact", "fast"):
+        grads = []
+        for one_item in (False, True):
+            inputs = {k: v.clone().requires_grad_(v.dtype.is_floating_point and k not in ("near", "far"))
+                      for k, v in train.items()}
+            sync(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
+            result, seconds, launches, reads, _ = call(precision, one_item, inputs, True)
+            weights = [torch.randn(getattr(result, k).shape, generator=gen.manual_seed(seed + i), device=device)
+                       for i, k in enumerate(names)]
+            loss = sum((getattr(result, k) * w).sum() for k, w in zip(names, weights))
+            leaves = [k for k, v in inputs.items() if v.requires_grad]
+            grads.append((result, dict(zip(leaves, torch.autograd.grad(loss, [inputs[k] for k in leaves])))))
+            peak = ""
+            if not one_item:
+                out[f"train_{precision}_pass_bytes_a_row"] = row_bytes(base, train["near"].numel() * gaussians)
+                peak = f", peak {out[f'train_{precision}_pass_bytes_a_row']:.1f} B a (item, Gaussian) row"
+            print(f"pass phase, train render at {precision}, {'one item a pass' if one_item else 'one pass'}: "
+                  f"{seconds:.4f} s forward, launches {launches['composite_forward']}, host reads {reads}{peak}")
+        (one, g_one), (per, g_per) = grads
+        same = {k: torch.equal(getattr(one, k), getattr(per, k)) for k in (*names, "num_pairs")}
+        errs = {}
+        for k, g in g_one.items():
+            scale = g.abs().max().clamp(min=1e-30)
+            slack = BACKWARD_RTOL * scale + (BF16_STEP * g_per[k].abs() if precision == "fast" else 0.0)
+            errs[k] = ((g - g_per[k]).abs().max() / scale).item()
+            if ((g - g_per[k]).abs() > slack).any():
+                raise AssertionError(f"pass phase, train render at {precision}: the gradient of {k} differs by "
+                                     f"{errs[k]:.3e} of its largest value")
+        print(f"pass phase, train render at {precision}: forward the same bits {same}; gradients, largest difference "
+              f"relative to each input's largest value: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        if not all(same.values()):
+            raise AssertionError(f"pass phase, train render at {precision}: the forwards differ: {same}")
+        del grads, one, per, g_one, g_per
+    return out
+
+
 # -- the bench phase -------------------------------------------------------------
 
 BENCH_TRAIN_RUNS = {"default": [], "full_b2": ["--full", "--batch", "2"],
@@ -3407,14 +3504,16 @@ def bench_phase(seed: int, device) -> dict:
     (128x128 batch 1; --full --batch 2; --full --batch 2 --bf16; --fast at
     128x128 batch 1), each with finite positive steps/s and FLOPs and its
     kernels launched exactly as often as its steps need, in the variant its
-    precision takes (8 a step of 2 x 4 views for the backward kernels and,
-    under model.decoder.remat, twice as many for the forward ones, which
-    render each view again in the backward), --full --batch 2's peak below
-    the card's 80 GB; bench_render (64 views of 393,216 Gaussians at
-    256x256, fast then exact) with duplicate_with_keys and composite_forward<8>
-    launched exactly 64 x 6 times at each precision (coef, then exact) in
-    its warm-ups and 5 timed calls (its operation count and PSNR, which
-    launch more, run after), no pair dropped, finite value_fast, value_exact
+    precision takes (a step renders its batch x 4 target views in one pass:
+    one launch a step of the backward kernels and, under
+    model.decoder.remat, two of the forward ones, which render the pass
+    again in the backward), --full --batch 2's peak below the card's 80 GB;
+    bench_render (64 views of 393,216 Gaussians at 256x256, fast then
+    exact, one pass a call) with duplicate_with_keys and
+    composite_forward<8> launched exactly 6 times at each precision (coef,
+    then exact) in its warm-up and 5 timed calls, and one host read a call
+    (its operation count and PSNR, which launch more, run after), no pair
+    dropped, finite value_fast, value_exact
     and fast_vs_exact_psnr_db; bench_precision_knobs --views 8 with every
     mode finite; the three stage benches with finite positive stage
     times; bench_trace_step's top kernels, with device self time within
@@ -3422,6 +3521,7 @@ def bench_phase(seed: int, device) -> dict:
     sharing the card. Records go to a temp dir. Returns each run's
     launches."""
     from latentsplat_tpu_torch.entry import dryrun_multichip
+    from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.scripts.bench_enc_stages import main as enc_stages
     from latentsplat_tpu_torch.scripts.bench_precision_knobs import MODES as PRECISION_KNOB_MODES
     from latentsplat_tpu_torch.scripts.bench_precision_knobs import main as precision_knobs_bench
@@ -3442,9 +3542,9 @@ def bench_phase(seed: int, device) -> dict:
             result = train_bench([*argv, "--out-dir", records], device=device)
             sync(device)
             launches[label] = read_launches()
-            per_view = result["steps_run"] * result["batch"] * 4
-            expected = {"duplicate_with_keys": per_view * (2 if result["decoder_remat"] else 1),
-                        "composite_backward": per_view, "reduce_pairs": per_view}
+            per_step = result["steps_run"] * passes(result["batch"] * 4, 2 * result["size"] ** 2 * 3)
+            expected = {"duplicate_with_keys": per_step * (2 if result["decoder_remat"] else 1),
+                        "composite_backward": per_step, "reduce_pairs": per_step}
             expected["composite_forward"] = expected["duplicate_with_keys"]
             got = {k: launches[label][k] for k in expected}
             print(f"bench phase: bench_train {' '.join(argv) or '(default)'}: {result['value']!r} steps/s, peak "
@@ -3462,11 +3562,15 @@ def bench_phase(seed: int, device) -> dict:
 
         scene = make_scene(seed, device=device)
         reset_launches()
+        reads = dict(kernels.host_reads)
         timings = {p: time_render(scene, 256, precision=p) for p in RENDER_PRECISIONS}
         sync(device)
         launches["render"] = read_launches()
+        reads = {k: kernels.host_reads[k] - v for k, v in reads.items()}
         n_calls, n_views = 1 + len(timings["fast"]["seconds"]), scene["extrinsics"].shape[1]
-        n = n_calls * n_views
+        n = n_calls * passes(n_views, scene["gaussian_means"].shape[1])
+        if reads != {"duplicate_with_keys": 2 * n, "covering_cap": 0}:
+            raise AssertionError(f"bench_render: host reads {reads}, not one a pass ({2 * n})")
         expected = {"duplicate_with_keys": 2 * n, "composite_forward": 2 * n, "composite_backward": 0,
                     "reduce_pairs": 0}
         by_variant = {"composite_forward": {"coef": {8: n}, "exact": {8: n}}, "composite_backward": {}}
@@ -3479,7 +3583,7 @@ def bench_phase(seed: int, device) -> dict:
               f"a view), value_exact {render['value_exact']!r} views/s ({render['ms_per_view_exact']!r} ms), "
               f"fast_vs_exact_psnr_db {render['fast_vs_exact_psnr_db']!r}, {render['pairs_per_view_mean']!r} pairs a "
               f"fast view ({render['pairs_per_view_mean_exact']!r} exact), render_mfu {render['render_mfu']!r}; "
-              f"launches {by_variant} in {n_calls} calls of {n_views} views at each precision")
+              f"launches {by_variant} and host reads {reads} in {n_calls} calls of {n_views} views at each precision")
         if not all(math.isfinite(render[k]) and render[k] > 0
                    for k in ("value", "value_exact", "render_flops_per_view", "fast_vs_exact_psnr_db")):
             raise AssertionError(f"bench_render: {render}")
@@ -3518,8 +3622,8 @@ def convergence_phase(seed: int, device) -> dict:
     """The port's convergence run (scripts.convergence) for CONVERGENCE_STEPS
     steps at 128x128 with sh_l2 at 0.01: every logged loss finite, the
     render PSNR of the last 10 steps at least CONVERGENCE_GAIN_DB above the
-    first 10, and each kernel launched 4 times a step (1 scene x 4 target
-    views, no remat at 128x128). The run takes PyTorch's TF32 default for cuDNN
+    first 10, and each kernel launched once a step (1 scene x 4 target
+    views in one pass, no remat at 128x128). The run takes PyTorch's TF32 default for cuDNN
     (on), as `main` does; the other phases turn it off. Prints the PSNR
     curve at every 10th step; returns the launches over the run."""
     from latentsplat_tpu_torch.scripts import convergence
@@ -3552,9 +3656,10 @@ def convergence_phase(seed: int, device) -> dict:
           f"(gate {CONVERGENCE_GAIN_DB} dB)")
     if not gain >= CONVERGENCE_GAIN_DB:
         raise AssertionError(f"convergence phase: render PSNR gained {gain:.3f} dB, under {CONVERGENCE_GAIN_DB}")
-    wrong = {k: launches[k] for k in ALL_KERNELS if launches[k] != 4 * steps}
+    n = steps * passes(4, 2 * size * size * 3)
+    wrong = {k: launches[k] for k in ALL_KERNELS if launches[k] != n}
     if wrong:
-        raise AssertionError(f"convergence phase: launches {wrong}, not {4 * steps} each")
+        raise AssertionError(f"convergence phase: launches {wrong}, not {n} each")
     return launches
 
 
@@ -3563,7 +3668,7 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", metavar="DIR", help="also profile one render_full and one train step into DIR")
     parser.add_argument("--parent", metavar="DIR",
-                        help="also time the forward kernels of the checkout DIR beside this tree's")
+                        help="also measure the checkout DIR's render and train step beside this tree's, in turns")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3584,16 +3689,21 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
+    if args.parent:
+        parent_turns(args.parent)
     cfg = load_config("re10k")
     model = build_model(cfg, args.seed, device)
     batch = make_batch(np.random.default_rng(args.seed), 2, 4, 256, device)
-    view, results = kernel_phase(model, batch, args.seed, args.parent)
+    view, results = kernel_phase(model, batch, args.seed)
     results += backward_kernel_phase(view, args.seed)
     del view
     serve_launches = slice_phase(model, batch, args.seed, args.profile)
-    fast_records, fast_serve_launches = fast_serve_phase(model, batch, args.seed, args.parent)
+    fast_records, fast_serve_launches = fast_serve_phase(model, batch, args.seed)
     depth_record, depth_launches = depth_phase(model, batch, args.seed)
     del model
+    torch.cuda.empty_cache()
+    pass_phase(args.seed, device)
+    torch.cuda.empty_cache()
     train_launches, fast_train_launches = train_phase(cfg, args.seed, device, args.profile)
     trainer_output = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_output_"))
     fit_launches, test_launches = trainer_phase(args.seed, device, trainer_output)

@@ -93,6 +93,15 @@
 // Each pixel's per-pair values, each warp's sum and the 8 warps' sum in
 // warp order are those of the serial walk, so the rows are the same bits;
 // the longest chain is one block's 128 pairs, not a tile's thousands.
+//
+// One launch replays a pass: the N (scene, view) items of a render call,
+// with tiles n T + t (T = one view's tile count) and one tile-sorted pair
+// array, as composite_forward composited it. A block splits its tile id
+// into (item n, local tile t), replays at item n's own pixel coordinates
+// and reads item n's planes of `last`, T_final and the cotangents
+// ((N, ...) each); the scan blocks are counted from the item's first pair
+// (tile_ranges[n T]), so every row has the bits of a launch over that
+// item alone.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -347,17 +356,19 @@ __device__ __forceinline__ void stage_row(const float* __restrict__ attrs, int g
   for (int i = 0; i < L::kRow / 4; ++i) dst[i] = make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
 }
 
-// The scan block of block-state row `row`: its tile (the last tile whose
-// first row is <= row, by binary search of `offsets`), its index in the
-// tile and its pair range [lo, hi). False for a row no tile uses.
+// The scan block of block-state row `row`: its pass tile (the last of the
+// pass's n_tiles tiles whose first row is <= row, by binary search of
+// `offsets`), its index in the tile, its pair range [lo, hi) and its
+// item's first pair (the tile's item: tile / num_tiles). False for a row
+// no tile uses.
 struct ScanBlock {
-  int tile, index, lo, hi, start;
+  int tile, index, lo, hi, start, first;
 };
 
 __device__ __forceinline__ bool find_block(const int32_t* __restrict__ tile_ranges,
-                                           const int32_t* __restrict__ offsets, int num_tiles, int row,
-                                           ScanBlock& b) {
-  int lo = 0, hi = num_tiles;   // offsets[0] == 0 <= row
+                                           const int32_t* __restrict__ offsets, int n_tiles, int num_tiles,
+                                           int row, ScanBlock& b) {
+  int lo = 0, hi = n_tiles;   // offsets[0] == 0 <= row
   while (hi - lo > 1) {
     const int mid = (lo + hi) >> 1;
     if (offsets[mid] <= row) {
@@ -367,13 +378,14 @@ __device__ __forceinline__ bool find_block(const int32_t* __restrict__ tile_rang
     }
   }
   const int start = tile_ranges[lo], stop = tile_ranges[lo + 1];
-  const int first = start / kScanBlock;
+  b.first = tile_ranges[lo / num_tiles * num_tiles];
+  const int first = (start - b.first) / kScanBlock;
   b.tile = lo;
   b.index = row - offsets[lo];
-  if (stop <= start || b.index > (stop - 1) / kScanBlock - first) return false;
+  if (stop <= start || b.index > (stop - 1 - b.first) / kScanBlock - first) return false;
   b.start = start;
-  b.lo = max(start, (first + b.index) * kScanBlock);
-  b.hi = min(stop, (first + b.index + 1) * kScanBlock);
+  b.lo = max(start, b.first + (first + b.index) * kScanBlock);
+  b.hi = min(stop, b.first + (first + b.index + 1) * kScanBlock);
   return true;
 }
 
@@ -397,7 +409,7 @@ __device__ __forceinline__ int tile_last(int my_last, int start, int* scratch, i
 template <int NCH>
 __global__ void __launch_bounds__(kPixels) suffix_kernel(
     const int32_t* __restrict__ gids, const int32_t* __restrict__ tile_ranges,
-    const float* __restrict__ attrs, int num_tiles, int tiles_x, int width,
+    const float* __restrict__ attrs, int items, int num_tiles, int tiles_x, int width,
     const int32_t* __restrict__ last, const float* __restrict__ g_channels, int64_t plane, int knobs,
     const int32_t* __restrict__ block_offsets, const float2* __restrict__ block_state,
     float* __restrict__ suffix_out) {
@@ -407,13 +419,15 @@ __global__ void __launch_bounds__(kPixels) suffix_kernel(
   const int row = static_cast<int>(blockIdx.x);
   ScanBlock b;
   // A tile's first scan block has no earlier block to read its sums.
-  if (!find_block(tile_ranges, block_offsets, num_tiles, row, b) || b.index == 0) return;
+  if (!find_block(tile_ranges, block_offsets, items * num_tiles, num_tiles, row, b) || b.index == 0) return;
   const int tid = static_cast<int>(threadIdx.x);
-  const int tx0 = (b.tile % tiles_x) * kTile;
-  const int ty0 = (b.tile / tiles_x) * kTile;
+  const int item = b.tile / num_tiles;
+  const int tile = b.tile - item * num_tiles;
+  const int tx0 = (tile % tiles_x) * kTile;
+  const int ty0 = (tile / tiles_x) * kTile;
   const int px = tx0 + tid % kTile;
   const int py = ty0 + tid / kTile;
-  const int pixel = py * width + px;
+  const int64_t pixel = item * plane + py * width + px;
   const float fx = static_cast<float>(px), fy = static_cast<float>(py);
   const float warp_y0 = static_cast<float>(ty0 + 2 * (tid >> 5));
   const int my_last = last[pixel];
@@ -427,7 +441,9 @@ __global__ void __launch_bounds__(kPixels) suffix_kernel(
   }
   float g[NCH];
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) g[c] = bf16_round(g_channels[c * plane + pixel]);
+  for (int c = 0; c < NCH; ++c) {
+    g[c] = bf16_round(g_channels[(static_cast<int64_t>(item) * NCH + c) * plane + py * width + px]);
+  }
   const float2* entry = block_state + static_cast<int64_t>(row) * kPixels + tid;
   __syncthreads();
 
@@ -467,15 +483,15 @@ __global__ void __launch_bounds__(kPixels, SPLIT ? 3 : 2) composite_backward_ker
     const int32_t* __restrict__ gids,         // (P,) depth-sorted within each tile
     const int32_t* __restrict__ tile_ranges,  // (T + 1,)
     const int64_t* __restrict__ order,        // (P,) sorted position -> Gaussian-major position
-    const float* __restrict__ attrs,          // (G, 6 + NCH)
-    int num_tiles, int tiles_x, int height, int width,
-    const int32_t* __restrict__ last,         // (H, W) exclusive end of contributing pairs
-    const float* __restrict__ t_final,        // (H, W)
-    const float* __restrict__ g_channels,     // (NCH, H, W) cotangent of the channels
-    const float* __restrict__ g_t,            // (H, W) cotangent of T_final
+    const float* __restrict__ attrs,          // (N G, 6 + NCH)
+    int items, int num_tiles, int tiles_x, int height, int width,   // num_tiles: T, one view's
+    const int32_t* __restrict__ last,         // (N, H, W) exclusive end of contributing pairs
+    const float* __restrict__ t_final,        // (N, H, W)
+    const float* __restrict__ g_channels,     // (N, NCH, H, W) cotangent of the channels
+    const float* __restrict__ g_t,            // (N, H, W) cotangent of T_final
     float* __restrict__ d_rows,               // (P, 6 + NCH) Gaussian-major
     int knobs,                                // FAST: kF16Xy | kBf16Grads (| kBf16Mm when SPLIT)
-    const int32_t* __restrict__ block_offsets,  // SPLIT: (T,) first state row of each tile
+    const int32_t* __restrict__ block_offsets,  // SPLIT: (N T,) first state row of each tile
     const float2* __restrict__ block_state,     // SPLIT: (B, 256) from composite_forward
     const float* __restrict__ suffix_in) {      // SPLIT: (B, 256) from suffix_kernel
   static_assert(FAST || !SPLIT, "the split walk is the log-space replay of the fast family");
@@ -488,7 +504,9 @@ __global__ void __launch_bounds__(kPixels, SPLIT ? 3 : 2) composite_backward_ker
 
   ScanBlock b;
   if constexpr (SPLIT) {
-    if (!find_block(tile_ranges, block_offsets, num_tiles, static_cast<int>(blockIdx.x), b)) return;
+    if (!find_block(tile_ranges, block_offsets, items * num_tiles, num_tiles, static_cast<int>(blockIdx.x), b)) {
+      return;
+    }
   } else {
     b.tile = static_cast<int>(blockIdx.x);
     b.lo = b.start = tile_ranges[b.tile];
@@ -497,7 +515,8 @@ __global__ void __launch_bounds__(kPixels, SPLIT ? 3 : 2) composite_backward_ker
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int tile = b.tile;
+  const int item = b.tile / num_tiles;
+  const int tile = b.tile - item * num_tiles;
   const int tx0 = (tile % tiles_x) * kTile;
   const int ty0 = (tile / tiles_x) * kTile;
   const int px = tx0 + tid % kTile;
@@ -505,8 +524,9 @@ __global__ void __launch_bounds__(kPixels, SPLIT ? 3 : 2) composite_backward_ker
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
   const float warp_y0 = static_cast<float>(ty0 + 2 * warp);
-  const int pixel = py * width + px;
   const int64_t plane = static_cast<int64_t>(height) * width;
+  const int64_t pixel = item * plane + py * width + px;
+  const float* const g_pixel = g_channels + static_cast<int64_t>(item) * NCH * plane + (py * width + px);
   const bool f16_xy = FAST && (knobs & kF16Xy);
   const bool bf16_grads = FAST && (knobs & kBf16Grads);
 
@@ -515,7 +535,7 @@ __global__ void __launch_bounds__(kPixels, SPLIT ? 3 : 2) composite_backward_ker
   float g[NCH];
 #pragma unroll
   for (int c = 0; c < NCH; ++c) {
-    g[c] = g_channels[c * plane + pixel];
+    g[c] = g_pixel[c * plane];
     if (SPLIT) g[c] = bf16_round(g[c]);
   }
   float suffix = __fmul_rn(g_t[pixel], t);
@@ -539,11 +559,11 @@ __global__ void __launch_bounds__(kPixels, SPLIT ? 3 : 2) composite_backward_ker
   const float2* entry = nullptr;
   if constexpr (SPLIT) {
     // The later blocks' suffix32, from the tile's last walked block down.
-    const int64_t row0 = block_offsets[tile];
+    const int64_t row0 = block_offsets[b.tile];
     entry = block_state + (row0 + b.index) * kPixels + tid;
     suffix = __fadd_rn(suffix, 0.0f);
     // Loaded eight at a time, so that the loads overlap; added in order.
-    for (int k = (end - 1) / kScanBlock - b.start / kScanBlock; k > b.index; k -= 8) {
+    for (int k = (end - 1 - b.first) / kScanBlock - (b.start - b.first) / kScanBlock; k > b.index; k -= 8) {
       float v[8];
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] = k - j > b.index ? suffix_in[(row0 + k - j) * kPixels + tid] : 0.0f;
@@ -648,7 +668,7 @@ __global__ void __launch_bounds__(kPixels, SPLIT ? 3 : 2) composite_backward_ker
 // walk over the block state's `capacity` rows, writing the scratch
 // `suffix` (capacity, 256) in between; otherwise one block per tile.
 template <int NCH, bool FAST, bool SPLIT>
-cudaError_t launch(int num_tiles, const void* gids, const void* tile_ranges, const void* order,
+cudaError_t launch(int items, int num_tiles, const void* gids, const void* tile_ranges, const void* order,
                    const void* attrs, int tiles_x, int height, int width, const void* last,
                    const void* t_final, const void* g_channels, const void* g_t, void* d_rows,
                    int knobs, const void* block_offsets, const void* block_state, int capacity,
@@ -665,12 +685,12 @@ cudaError_t launch(int num_tiles, const void* gids, const void* tile_ranges, con
   const auto* state = static_cast<const float2*>(block_state);
   if constexpr (SPLIT) {
     suffix_kernel<NCH><<<capacity, kPixels, 0, stream>>>(
-        ids, ranges, rows, num_tiles, tiles_x, width, static_cast<const int32_t*>(last),
+        ids, ranges, rows, items, num_tiles, tiles_x, width, static_cast<const int32_t*>(last),
         static_cast<const float*>(g_channels), static_cast<int64_t>(height) * width, knobs, offsets, state,
         static_cast<float*>(suffix));
   }
-  kernel<<<SPLIT ? capacity : num_tiles, kPixels, kBytes, stream>>>(
-      ids, ranges, static_cast<const int64_t*>(order), rows, num_tiles, tiles_x, height, width,
+  kernel<<<SPLIT ? capacity : items * num_tiles, kPixels, kBytes, stream>>>(
+      ids, ranges, static_cast<const int64_t*>(order), rows, items, num_tiles, tiles_x, height, width,
       static_cast<const int32_t*>(last), static_cast<const float*>(t_final),
       static_cast<const float*>(g_channels), static_cast<const float*>(g_t), static_cast<float*>(d_rows), knobs,
       offsets, state, static_cast<const float*>(suffix));
@@ -679,16 +699,17 @@ cudaError_t launch(int num_tiles, const void* gids, const void* tile_ranges, con
 
 }  // namespace
 
-// Instantiated for the channel counts of composite_forward (4, 5, 8 and 12).
+// Instantiated for the channel counts of composite_forward (4, 5, 8 and 12);
+// a pass of `items` views of num_tiles tiles each.
 extern "C" int composite_backward(
-    int n_channels, int num_tiles, const void* gids, const void* tile_ranges, const void* order,
+    int n_channels, int items, int num_tiles, const void* gids, const void* tile_ranges, const void* order,
     const void* attrs, int tiles_x, int height, int width, const void* last, const void* t_final,
     const void* g_channels, const void* g_t, void* d_rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
-  if (num_tiles > 0) {
+  if (items > 0 && num_tiles > 0) {
 #define LAUNCH(N)                                                                                         \
-  launch<N, false, false>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last, t_final, \
+  launch<N, false, false>(items, num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last, t_final, \
                           g_channels, g_t, d_rows, 0, nullptr, nullptr, 0, nullptr, s)
     switch (n_channels) {
       case 4:
@@ -718,7 +739,7 @@ extern "C" int composite_backward(
 // composite_forward_fast wrote and takes the split walk, with `suffix`
 // (capacity, 256 floats) as its scratch: two launches.
 extern "C" int composite_backward_fast(
-    int n_channels, int knobs, int num_tiles, const void* gids, const void* tile_ranges,
+    int n_channels, int knobs, int items, int num_tiles, const void* gids, const void* tile_ranges,
     const void* order, const void* attrs, int tiles_x, int height, int width, const void* last,
     const void* t_final, const void* g_channels, const void* g_t, const void* block_offsets,
     const void* block_state, int capacity, void* suffix, void* d_rows, void* stream) {
@@ -728,12 +749,12 @@ extern "C" int composite_backward_fast(
   if (split && (block_offsets == nullptr || block_state == nullptr || suffix == nullptr || capacity <= 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_tiles > 0) {
+  if (items > 0 && num_tiles > 0) {
 #define LAUNCH(N)                                                                                           \
-  (split ? launch<N, true, true>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,    \
+  (split ? launch<N, true, true>(items, num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,    \
                                  t_final, g_channels, g_t, d_rows, knobs, block_offsets, block_state,         \
                                  capacity, suffix, s)                                                        \
-         : launch<N, true, false>(num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,   \
+         : launch<N, true, false>(items, num_tiles, gids, tile_ranges, order, attrs, tiles_x, height, width, last,   \
                                   t_final, g_channels, g_t, d_rows, knobs, nullptr, nullptr, 0, nullptr, s))
     switch (n_channels) {
       case 5:

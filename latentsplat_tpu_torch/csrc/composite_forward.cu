@@ -70,6 +70,16 @@
 //   5-term dot product and an expf; as on the TPU there is no power > 0
 //   guard. COEF implies f16_xy and bf16_mm.
 // Those paths are rounded explicitly too, in the plain version's order.
+//
+// One launch composites a pass: the N (scene, view) items of a render
+// call, whose tiles are numbered n T + t (T = one view's tile count) and
+// whose pairs form one tile-sorted array. A block splits its tile id into
+// (item n, local tile t), composites at the pixel coordinates of item n's
+// own view (coordinates of a stacked image would lose bits in
+// pixel - mean) and writes item n's planes of the (N, NCH, H, W) channels
+// and (N, H, W) transmittance and `last`. Under bf16_mm the scan blocks
+// are counted from the item's first pair (tile_ranges[n T]), so each
+// item's values are those of a launch over that item alone.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -213,7 +223,7 @@ struct LogState {
   int block = -1;
 };
 
-// Adds one pair (staged row `row`, position pos) at alpha under bf16_mm;
+// Adds one pair (staged row `row`, position pos in its item) at alpha under bf16_mm;
 // on leaving a block, writes its (lt, bf16 sum) to `state` (if not null)
 // at state_base + block * 256, the pixel's entry of the block's row.
 // Returns whether the pixel stops.
@@ -270,14 +280,14 @@ __device__ __forceinline__ void composite(const float4 (&row)[kRow<NCH> / 4], fl
 template <int NCH, bool FAST, bool COEF>
 __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_kernel(
     const int32_t* __restrict__ gids,         // (P,) depth-sorted within each tile
-    const int32_t* __restrict__ tile_ranges,  // (T + 1,) pair range of each tile
-    const float* __restrict__ attrs,          // (G, 6 + NCH): x, y, a, b, c, opacity, channels
-    int tiles_x, int height, int width,
-    float* __restrict__ out_channels,         // (NCH, H, W)
-    float* __restrict__ out_transmittance,    // (H, W)
-    int32_t* __restrict__ out_last,           // (H, W) exclusive end of contributing pairs
+    const int32_t* __restrict__ tile_ranges,  // (N T + 1,) pair range of each tile of the pass
+    const float* __restrict__ attrs,          // (N G, 6 + NCH): x, y, a, b, c, opacity, channels
+    int num_tiles, int tiles_x, int height, int width,   // num_tiles: T, one view's
+    float* __restrict__ out_channels,         // (N, NCH, H, W)
+    float* __restrict__ out_transmittance,    // (N, H, W)
+    int32_t* __restrict__ out_last,           // (N, H, W) exclusive end of contributing pairs
     int knobs,                                // FAST: kF16Xy | kBf16Mm
-    const int32_t* __restrict__ block_offsets,  // FAST, bf16_mm: (T,) first state row of each tile
+    const int32_t* __restrict__ block_offsets,  // FAST, bf16_mm: (N T,) first state row of each tile
     float2* __restrict__ block_state) {       // FAST, bf16_mm: (B, 256) or null
   static_assert(FAST || !COEF, "the coefficient layout is a fast-family variant");
   constexpr int kStride = 6 + NCH;
@@ -290,8 +300,10 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_ke
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int tile = static_cast<int>(blockIdx.x) / (kAcross * kAcross);
+  const int item_tile = static_cast<int>(blockIdx.x) / (kAcross * kAcross);
   const int quarter = static_cast<int>(blockIdx.x) % (kAcross * kAcross);
+  const int item = item_tile / num_tiles;
+  const int tile = item_tile - item * num_tiles;
   const int tx0 = (tile % tiles_x) * kTile;
   const int ty0 = (tile / tiles_x) * kTile;
   const int x0 = tx0 + (quarter % kAcross) * kQuarter;
@@ -300,19 +312,22 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_ke
   const int py = y0 + warp * kWarpRows + lane / kQuarter;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
-  const int start = tile_ranges[tile];
-  const int end = tile_ranges[tile + 1];
+  const int start = tile_ranges[item_tile];
+  const int end = tile_ranges[item_tile + 1];
   const bool f16_xy = COEF || (FAST && (knobs & kF16Xy));
   const bool bf16_mm = COEF || (FAST && (knobs & kBf16Mm));
   // COEF: this pixel's tile-relative basis [px^2, px, py^2, py, px py].
   const float rx = static_cast<float>(px - tx0), ry = static_cast<float>(py - ty0);
   const float basis[5] = {rx * rx, rx, ry * ry, ry, rx * ry};
-  // bf16_mm: this pixel's entries of the block state.
+  // bf16_mm: the item's first pair, from which scan blocks are counted,
+  // and this pixel's entries of the block state.
+  const int item_first = bf16_mm ? tile_ranges[item * num_tiles] : 0;
   float2* const state = bf16_mm ? block_state : nullptr;
   const int64_t state_base =
-      state != nullptr ? (static_cast<int64_t>(block_offsets[tile]) - start / kScanBlock) * (kTile * kTile) +
-                             (py - ty0) * kTile + (px - tx0)
-                       : 0;
+      state != nullptr
+          ? (static_cast<int64_t>(block_offsets[item_tile]) - (start - item_first) / kScanBlock) * (kTile * kTile) +
+                (py - ty0) * kTile + (px - tx0)
+          : 0;
 
   // Stages the row `a` of pair `batch + tid` into half `buf`.
   auto stage = [&](float (&a)[kPad], int buf) {
@@ -352,7 +367,7 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_ke
   // Adds the pair at position pos (staged row `row`) at alpha.
   auto add = [&](const float4 (&row)[kPad / 4], float alpha, int pos) {
     if (FAST && bf16_mm) {
-      done = composite_log<NCH>(row, alpha, pos, ls, acc, state, state_base);
+      done = composite_log<NCH>(row, alpha, pos - item_first, ls, acc, state, state_base);
     } else {
       composite<NCH>(row, alpha, t, acc);
       done = t < kTransmittanceMin;
@@ -419,22 +434,23 @@ __global__ void __launch_bounds__(kThreads, 512 / kThreads) composite_forward_ke
     }
     t = expf(__fadd_rn(ls.lt, ls.sum32));
   }
-  const int pixel = py * width + px;
   const int64_t plane = static_cast<int64_t>(height) * width;
+  const int64_t pixel = item * plane + py * width + px;
+  float* const channels = out_channels + static_cast<int64_t>(item) * NCH * plane + (py * width + px);
 #pragma unroll
-  for (int c = 0; c < NCH; ++c) out_channels[c * plane + pixel] = acc[c];
+  for (int c = 0; c < NCH; ++c) channels[c * plane] = acc[c];
   out_transmittance[pixel] = t;
   out_last[pixel] = last;
 }
 
 template <int NCH, bool FAST, bool COEF>
-void launch(int num_tiles, const void* gids, const void* tile_ranges, const void* attrs,
+void launch(int items, int num_tiles, const void* gids, const void* tile_ranges, const void* attrs,
             int tiles_x, int height, int width, void* channels, void* transmittance,
             void* last, int knobs, const void* block_offsets, void* block_state, cudaStream_t stream) {
   constexpr int kQuarters = (kTile / kQuarter) * (kTile / kQuarter);
-  composite_forward_kernel<NCH, FAST, COEF><<<num_tiles * kQuarters, kThreads, 0, stream>>>(
+  composite_forward_kernel<NCH, FAST, COEF><<<items * num_tiles * kQuarters, kThreads, 0, stream>>>(
       static_cast<const int32_t*>(gids), static_cast<const int32_t*>(tile_ranges),
-      static_cast<const float*>(attrs), tiles_x, height, width,
+      static_cast<const float*>(attrs), num_tiles, tiles_x, height, width,
       static_cast<float*>(channels), static_cast<float*>(transmittance),
       static_cast<int32_t*>(last), knobs, static_cast<const int32_t*>(block_offsets),
       static_cast<float2*>(block_state));
@@ -451,27 +467,28 @@ extern "C" int composite_forward_channels(int index) {
   return index < static_cast<int>(sizeof(kChannels) / sizeof(int)) ? kChannels[index] : -1;
 }
 
+// A pass of `items` views of num_tiles tiles each (see the header).
 extern "C" int composite_forward(
-    int n_channels, int num_tiles, const void* gids, const void* tile_ranges,
+    int n_channels, int items, int num_tiles, const void* gids, const void* tile_ranges,
     const void* attrs, int tiles_x, int height, int width, void* channels,
     void* transmittance, void* last, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_tiles > 0) {
+  if (items > 0 && num_tiles > 0) {
     switch (n_channels) {
       case 4:
-        launch<4, false, false>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+        launch<4, false, false>(items, num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
                                 transmittance, last, 0, nullptr, nullptr, s);
         break;
       case 5:
-        launch<5, false, false>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+        launch<5, false, false>(items, num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
                                 transmittance, last, 0, nullptr, nullptr, s);
         break;
       case 8:
-        launch<8, false, false>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+        launch<8, false, false>(items, num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
                                 transmittance, last, 0, nullptr, nullptr, s);
         break;
       case 12:
-        launch<12, false, false>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
+        launch<12, false, false>(items, num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels,
                                  transmittance, last, 0, nullptr, nullptr, s);
         break;
       default:
@@ -494,15 +511,15 @@ extern "C" int composite_fast_channels(int index) {
 // block_state (with block_offsets) receives the backward's per-block
 // state, or is null when no backward follows.
 extern "C" int composite_forward_fast(
-    int n_channels, int coef, int knobs, int num_tiles, const void* gids, const void* tile_ranges,
+    int n_channels, int coef, int knobs, int items, int num_tiles, const void* gids, const void* tile_ranges,
     const void* attrs, int tiles_x, int height, int width, void* channels, void* transmittance,
     void* last, const void* block_offsets, void* block_state, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_tiles > 0) {
+  if (items > 0 && num_tiles > 0) {
 #define LAUNCH_FAST(N)                                                                              \
-  (coef ? launch<N, true, true>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels, \
+  (coef ? launch<N, true, true>(items, num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels, \
                                 transmittance, last, knobs, block_offsets, block_state, s)            \
-        : launch<N, true, false>(num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels, \
+        : launch<N, true, false>(items, num_tiles, gids, tile_ranges, attrs, tiles_x, height, width, channels, \
                                  transmittance, last, knobs, block_offsets, block_state, s))
     switch (n_channels) {
       case 5:

@@ -32,6 +32,11 @@
 // The caller sorts keys stably; pairs are written Gaussian-major,
 // slot-ascending, so equal depths break ties by Gaussian index, like the
 // JAX package's stable ranks.
+//
+// One launch serves a pass, the N (scene, view) items of a render call:
+// item n's Gaussians are rows n G .. n G + G - 1 of the inputs and its
+// rect origins (`base`) are pass tile ids n T + t, so the ids and tiles
+// written are the pass's own and one sort orders every item's pairs.
 
 #include <cstdint>
 #include <cuda_runtime.h>

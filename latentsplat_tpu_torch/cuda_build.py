@@ -34,12 +34,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "duplicate_with_keys": ([_I, _P, _P, _P, _P, _P, _I, _P, _P, _P], _I),
     "duplicate_with_keys64": ([_I, _P, _P, _P, _P, _P, _I, _P, _P, _P], _I),
-    "composite_forward": ([_I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
+    "composite_forward": ([_I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P], _I),
     "composite_forward_channels": ([_I], _I),
     "composite_fast_channels": ([_I], _I),
-    "composite_forward_fast": ([_I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
-    "composite_backward": ([_I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
-    "composite_backward_fast": ([_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P], _I),
+    "composite_forward_fast": ([_I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
+    "composite_backward": ([_I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P], _I),
+    "composite_backward_fast": (
+        [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P], _I),
     "reduce_pairs": ([_I, _I, _P, _P, _P, _P], _I),
 }
 

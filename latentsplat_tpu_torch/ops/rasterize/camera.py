@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import torch
 
-from ...geometry.projection import invert_se3
 from .types import ScreenGaussians
 
 ALPHA_THRESHOLD = 1.0 / 255.0
@@ -20,28 +19,42 @@ NEAR_CULL_Z = 0.2
 COV2D_BLUR = 0.3
 
 
+def world_to_camera(extrinsics: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(R^T (..., 3, 3), -R^T t (..., 3)) of cam-to-world transforms
+    (..., 4, 4), the product summed in index order elementwise (a batched
+    matrix product's rounding could vary with the batch)."""
+    rot = extrinsics[..., :3, :3].transpose(-1, -2)
+    t = extrinsics[..., :3, 3]
+    trans = -(rot[..., 0] * t[..., 0:1] + rot[..., 1] * t[..., 1:2] + rot[..., 2] * t[..., 2:3])
+    return rot, trans
+
+
 def project_gaussians_to_screen(
-    means: torch.Tensor,        # (G, 3) world
-    covariances: torch.Tensor,  # (G, 3, 3) world
-    opacities: torch.Tensor,    # (G,)
-    channels: torch.Tensor,     # (G, C)
-    extrinsics: torch.Tensor,   # (4, 4) cam-to-world
-    intrinsics: torch.Tensor,   # (3, 3) normalized
+    means: torch.Tensor,        # (..., G, 3) world
+    covariances: torch.Tensor,  # (..., G, 3, 3) world
+    opacities: torch.Tensor,    # (..., G)
+    channels: torch.Tensor,     # (..., G, C)
+    extrinsics: torch.Tensor,   # (..., 4, 4) cam-to-world
+    intrinsics: torch.Tensor,   # (..., 3, 3) normalized
     image_shape: tuple[int, int],
 ) -> ScreenGaussians:
+    """Projects each item's Gaussians through its camera; the leading axes
+    (...) are the items of a pass (none for one view). Every operation is
+    elementwise or a sum of three, so an item's values do not depend on the
+    other items."""
     h, w = image_shape
-    w2c = invert_se3(extrinsics)
-    rot = w2c[:3, :3]
+    rot, trans = world_to_camera(extrinsics)
+    rot, trans = rot[..., None, :, :], trans[..., None, :]    # against the G axis
 
-    m0, m1, m2 = means[:, 0], means[:, 1], means[:, 2]
-    p_x = rot[0, 0] * m0 + rot[0, 1] * m1 + rot[0, 2] * m2 + w2c[0, 3]
-    p_y = rot[1, 0] * m0 + rot[1, 1] * m1 + rot[1, 2] * m2 + w2c[1, 3]
-    z = rot[2, 0] * m0 + rot[2, 1] * m1 + rot[2, 2] * m2 + w2c[2, 3]
+    m0, m1, m2 = means[..., 0], means[..., 1], means[..., 2]
+    p_x = rot[..., 0, 0] * m0 + rot[..., 0, 1] * m1 + rot[..., 0, 2] * m2 + trans[..., 0]
+    p_y = rot[..., 1, 0] * m0 + rot[..., 1, 1] * m1 + rot[..., 1, 2] * m2 + trans[..., 1]
+    z = rot[..., 2, 0] * m0 + rot[..., 2, 1] * m1 + rot[..., 2, 2] * m2 + trans[..., 2]
 
-    fx = intrinsics[0, 0] * w
-    fy = intrinsics[1, 1] * h
-    cx = intrinsics[0, 2] * w
-    cy = intrinsics[1, 2] * h
+    fx = intrinsics[..., 0, 0, None] * w
+    fy = intrinsics[..., 1, 1, None] * h
+    cx = intrinsics[..., 0, 2, None] * w
+    cy = intrinsics[..., 1, 2, None] * h
 
     safe_z = torch.where(z > 1e-6, z, torch.full_like(z, 1e-6))
     mean2d = torch.stack([fx * p_x / safe_z + cx - 0.5, fy * p_y / safe_z + cy - 0.5], dim=-1)
@@ -57,11 +70,11 @@ def project_gaussians_to_screen(
     j02 = -fx * tx * inv_z2
     j11 = fy * inv_z
     j12 = -fy * ty * inv_z2
-    t0 = j00[:, None] * rot[0][None] + j02[:, None] * rot[2][None]
-    t1 = j11[:, None] * rot[1][None] + j12[:, None] * rot[2][None]
-    s0, s1, s2 = covariances[:, 0, :], covariances[:, 1, :], covariances[:, 2, :]
-    st0 = t0[:, 0:1] * s0 + t0[:, 1:2] * s1 + t0[:, 2:3] * s2
-    st1 = t1[:, 0:1] * s0 + t1[:, 1:2] * s1 + t1[:, 2:3] * s2
+    t0 = j00[..., None] * rot[..., 0, :] + j02[..., None] * rot[..., 2, :]
+    t1 = j11[..., None] * rot[..., 1, :] + j12[..., None] * rot[..., 2, :]
+    s0, s1, s2 = covariances[..., 0, :], covariances[..., 1, :], covariances[..., 2, :]
+    st0 = t0[..., 0:1] * s0 + t0[..., 1:2] * s1 + t0[..., 2:3] * s2
+    st1 = t1[..., 0:1] * s0 + t1[..., 1:2] * s1 + t1[..., 2:3] * s2
     c00 = (t0 * st0).sum(dim=-1) + COV2D_BLUR
     c01 = (t0 * st1).sum(dim=-1)
     c11 = (t1 * st1).sum(dim=-1) + COV2D_BLUR
@@ -80,8 +93,8 @@ def project_gaussians_to_screen(
     radius = torch.ceil(3.0 * torch.sqrt(torch.clamp(lambda1, min=0.0)))
 
     valid = (z > NEAR_CULL_Z) & det_ok & (opacities > ALPHA_THRESHOLD)
-    valid &= (mean2d[:, 0] + radius >= -0.5) & (mean2d[:, 0] - radius <= w - 0.5)
-    valid &= (mean2d[:, 1] + radius >= -0.5) & (mean2d[:, 1] - radius <= h - 0.5)
+    valid &= (mean2d[..., 0] + radius >= -0.5) & (mean2d[..., 0] - radius <= w - 0.5)
+    valid &= (mean2d[..., 1] + radius >= -0.5) & (mean2d[..., 1] - radius <= h - 0.5)
 
     zero = torch.zeros_like(radius)
     radius = torch.where(valid, radius, zero)
@@ -93,7 +106,7 @@ def project_gaussians_to_screen(
     two_lo = 2.0 * torch.clamp(log_op, min=0.0)
     ext_x = torch.minimum(radius, torch.sqrt(two_lo * torch.clamp(c00, min=0.0)) + 0.01)
     ext_y = torch.minimum(radius, torch.sqrt(two_lo * torch.clamp(c11, min=0.0)) + 0.01)
-    extent = torch.where(valid[:, None], torch.stack([ext_x, ext_y], dim=-1), 0.0)
+    extent = torch.where(valid[..., None], torch.stack([ext_x, ext_y], dim=-1), 0.0)
 
     return ScreenGaussians(
         mean2d=mean2d, conic=conic, depth=z, radius=radius, opacity=opacity,

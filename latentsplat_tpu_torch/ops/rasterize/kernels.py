@@ -9,6 +9,16 @@
 * `reduce_pairs` (csrc/reduce_pairs.cu) replaces
   latentsplat_tpu/ops/rasterize/expand.py::reduce_by_counts.
 
+Every kernel works on a pass: the (scene, view) items of one render call,
+laid out one after another. Item n's Gaussians are rows n G .. n G + G - 1
+of the per-Gaussian inputs (pair ids n G + g), its tiles are n T .. n T +
+T - 1 of the pass's N T tiles (T = one view's tile count), and its pairs
+are one contiguous, tile-sorted segment of the pair array. The composite
+kernels split a tile id into (item, local tile), so that pixel coordinates
+stay those of the item's own view, and write outputs with a leading item
+axis: channels (N, n_ch, H, W), transmittance and `last` (N, H, W). A pass
+of one item is the same code with N = 1.
+
 A wrapper given CPU tensors runs the `*_reference` version; given CUDA
 tensors it launches the kernel or raises. `launch_counts` counts kernel
 launches (not reference calls); `launches_by_channels` splits the three
@@ -16,7 +26,10 @@ compositing kernels' by the channel count they were launched for
 (`reduce_pairs`: its row's width less the 6 attributes), and
 `composite_forward_launches` is the forward compositor's part of it;
 `launches_by_variant` splits the two composite kernels' by variant (see
-`variant_name`) and channel count.
+`variant_name`) and channel count. `host_reads` counts the reads of device
+values by the host on the card's path, by site: one a pass in
+`duplicate_with_keys` (the per-item pair totals), and one a pass in
+`tiled.covering_cap` where a render sizes its slot cap (orthographic).
 
 The composite kernels take the per-pair knobs of the JAX package's fast
 precision family (latentsplat_tpu/ops/rasterize/tiled.py): `f16_xy`, the
@@ -32,7 +45,8 @@ Under `bf16_mm` the compositor works in log space, as the TPU kernels did:
 a pair's transmittance is exp of the float32 sum of log1p(-alpha) over the
 earlier SCAN_BLOCK-blocks (blocks of 128 positions of the tile-sorted pair
 array) plus the bfloat16-rounded log1p(-alpha) of the earlier pairs in its
-own block. The forward writes each pixel's (log T at the block's start,
+own block. The blocks are counted from each item's first pair, so that an
+item's values are those of a pass of that item alone. The forward writes each pixel's (log T at the block's start,
 bfloat16 sum within it) for every block where it composited a pair into
 `blocks` (`block_state`); the backward reads them back, so that it
 recovers the forward's transmittances with the forward's rounding.
@@ -72,6 +86,7 @@ launches_by_channels: dict[str, dict[int, int]] = {
     "composite_forward": {}, "composite_backward": {}, "reduce_pairs": {},
 }
 composite_forward_launches = launches_by_channels["composite_forward"]
+host_reads = {"duplicate_with_keys": 0, "covering_cap": 0}
 launches_by_variant: dict[str, dict[str, dict[int, int]]] = {"composite_forward": {}, "composite_backward": {}}
 
 
@@ -144,34 +159,43 @@ def duplicate_with_keys_reference(
 
 
 def duplicate_with_keys(
-    counts: torch.Tensor,   # (G,) int32 pairs per Gaussian (popcount of mask)
-    mask: torch.Tensor,     # (G,) int32 (cap <= 32) or int64 (cap <= 64) surviving rect slots
-    base: torch.Tensor,     # (G,) int32 tile id of the rect origin
-    nx: torch.Tensor,       # (G,) int32 rect width in tiles
-    depth: torch.Tensor,    # (G,) float32 camera-space depth (> 0 where counts > 0)
+    counts: torch.Tensor,   # (N G,) int32 pairs per Gaussian (popcount of mask)
+    mask: torch.Tensor,     # (N G,) int32 (cap <= 32) or int64 (cap <= 64) surviving rect slots
+    base: torch.Tensor,     # (N G,) int32 pass tile id of the rect origin (n T + local tile)
+    nx: torch.Tensor,       # (N G,) int32 rect width in tiles
+    depth: torch.Tensor,    # (N G,) float32 camera-space depth (> 0 where counts > 0)
     tiles_x: int,
     cap: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """One (Gaussian id, key = tile << 32 | depth bits) pair per surviving
-    tile, Gaussian-major. The pair buffer is sized exactly (one host read)."""
+    items: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One (pass Gaussian id, key = tile << 32 | depth bits) pair per
+    surviving tile, Gaussian-major, and each of the `items` items' pair
+    total ((N,) int64 on the CPU). The pair buffer is sized exactly from
+    one host read of the per-item totals."""
+    g = counts.shape[0]
+    if items < 1 or g % items:
+        raise ValueError(f"duplicate_with_keys: {g} Gaussians do not split into {items} items")
     if not _on_cuda(counts, mask, base, nx, depth):
-        return duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, cap)
+        gids, keys = duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, cap)
+        return gids, keys, counts.long().reshape(items, -1).sum(dim=1)
     for t, name in ((counts, "counts"), (base, "base"), (nx, "nx")):
         _check(t, name, torch.int32, 1)
     _check(mask, "mask", torch.int64 if mask.dtype == torch.int64 else torch.int32, 1)
     if cap > mask_bits(mask.dtype):
         raise ValueError(f"duplicate_with_keys: a {mask.dtype} mask holds {mask_bits(mask.dtype)} slots, cap is {cap}")
     _check(depth, "depth", torch.float32, 1)
-    g = counts.shape[0]
     if not all(t.shape[0] == g for t in (mask, base, nx, depth)):
         raise ValueError("duplicate_with_keys: per-Gaussian inputs differ in length")
-    # torch.sort needs the exact pair count: the one wait on the device.
+    # torch.sort needs the exact pair count: the pass's one wait on the
+    # device, which reads every item's running total at once.
     offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
-    total = int(offsets[-1]) if g else 0
+    ends = offsets.reshape(items, -1)[:, -1].cpu() if g else torch.zeros(items, dtype=torch.int64)
+    host_reads["duplicate_with_keys"] += 1
+    total = int(ends[-1])
     gids = torch.empty((total,), dtype=torch.int32, device=counts.device)
     keys = torch.empty((total,), dtype=torch.int64, device=counts.device)
     _launch_duplicate_with_keys(offsets, mask, base, nx, depth, tiles_x, gids, keys)
-    return gids, keys
+    return gids, keys, torch.diff(ends, prepend=ends.new_zeros(1))
 
 
 def _launch_duplicate_with_keys(
@@ -197,7 +221,8 @@ def _launch_duplicate_with_keys(
 
 
 def _tile_pixels(num_tiles: int, tiles_x: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pixel-center coordinates (T, PIX) of every tile, row-major in the tile."""
+    """Pixel-center coordinates (T, PIX) of every tile of one view,
+    row-major in the tile."""
     tile = torch.arange(num_tiles, device=device)[:, None]
     p = torch.arange(PIX, device=device)[None, :]
     px = (tile % tiles_x) * TILE + p % TILE
@@ -205,20 +230,40 @@ def _tile_pixels(num_tiles: int, tiles_x: int, device) -> tuple[torch.Tensor, to
     return px.float(), py.float()
 
 
+def pass_items(tile_ranges: torch.Tensor, image_shape: tuple[int, int]) -> tuple[int, int]:
+    """(items N, tiles T of one view) of a pass's (N T + 1,) tile ranges;
+    raises when they do not match the image."""
+    h, w = image_shape
+    if h % TILE or w % TILE:
+        raise ValueError(f"image dims must be multiples of {TILE}, got {image_shape}")
+    num_tiles = (h // TILE) * (w // TILE)
+    n_tiles = tile_ranges.shape[0] - 1
+    if tile_ranges.dim() != 1 or n_tiles < num_tiles or n_tiles % num_tiles:
+        raise ValueError(f"{n_tiles} tile ranges are no whole number of {image_shape} views")
+    return n_tiles // num_tiles, num_tiles
+
+
+def item_starts(tile_ranges: torch.Tensor, num_tiles: int) -> torch.Tensor:
+    """(N T,) int64: the first pair position of each tile's item (that of
+    its item's first tile), from which the scan blocks are counted."""
+    first = tile_ranges[:-1:num_tiles].long()
+    return first.repeat_interleave(num_tiles)
+
+
 def untile(x: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
-    """(T, ..., PIX) per-tile values -> (..., H, W)."""
+    """(N T, ..., PIX) per-tile values of a pass -> (N, ..., H, W)."""
     rest = x.shape[1:-1]
-    x = x.reshape(tiles_y, tiles_x, *rest, TILE, TILE)
-    x = x.movedim((0, 1), (-4, -2))          # (..., tiles_y, TILE, tiles_x, TILE)
-    return x.reshape(*rest, tiles_y * TILE, tiles_x * TILE)
+    x = x.reshape(-1, tiles_y, tiles_x, *rest, TILE, TILE)
+    x = x.movedim((1, 2), (-4, -2))          # (N, ..., tiles_y, TILE, tiles_x, TILE)
+    return x.reshape(x.shape[0], *rest, tiles_y * TILE, tiles_x * TILE)
 
 
 def tile(x: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
-    """(..., H, W) -> (T, ..., PIX), the inverse of `untile`."""
-    rest = x.shape[:-2]
-    x = x.reshape(*rest, tiles_y, TILE, tiles_x, TILE)
-    x = x.movedim((-4, -2), (0, 1))          # (tiles_y, tiles_x, ..., TILE, TILE)
-    return x.reshape(tiles_y * tiles_x, *rest, PIX)
+    """(N, ..., H, W) -> (N T, ..., PIX), the inverse of `untile`."""
+    rest = x.shape[1:-2]
+    x = x.reshape(x.shape[0], *rest, tiles_y, TILE, tiles_x, TILE)
+    x = x.movedim((-4, -2), (1, 2))          # (N, tiles_y, tiles_x, ..., TILE, TILE)
+    return x.reshape(-1, *rest, PIX)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -248,25 +293,42 @@ def _coef_power(xr, yr, ca, cb, cc, op, pxr, pyr) -> torch.Tensor:
     return out + c[5]
 
 
-def block_state(tile_ranges: torch.Tensor, num_pairs: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The bf16_mm compositor's per-block state buffers for these pairs:
-    (offsets (T,) int32, state (B, PIX, 2) float32). Tile t's scan blocks
-    (the SCAN_BLOCK-aligned blocks its pairs meet, in order) are rows
+def block_state(tile_ranges: torch.Tensor, num_pairs: int, num_tiles: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16_mm compositor's per-block state buffers for a pass's pairs
+    (`num_tiles` tiles a view): (offsets (N T,) int32, state (B, PIX, 2)
+    float32). Tile t's scan blocks (the SCAN_BLOCK-aligned blocks of its
+    item's pair segment that its pairs meet, in order) are rows
     offsets[t], offsets[t] + 1, ... of `state`; B is num_pairs //
-    SCAN_BLOCK + 2 T, which bounds their number without a host read. The
+    SCAN_BLOCK + 2 N T, which bounds their number without a host read. The
     forward fills, for each (block, pixel) where the pixel composited a
     pair, the log transmittance at the block's start and the bfloat16 sum
     of its log1p(-alpha) terms in the block; other entries stay unwritten."""
     starts, stops = tile_ranges[:-1].long(), tile_ranges[1:].long()
-    n = torch.where(stops > starts, (stops - 1) // SCAN_BLOCK - starts // SCAN_BLOCK + 1, 0)
+    first = item_starts(tile_ranges, num_tiles)
+    n = torch.where(stops > starts, (stops - 1 - first) // SCAN_BLOCK - (starts - first) // SCAN_BLOCK + 1, 0)
     offsets = (torch.cumsum(n, 0) - n).to(torch.int32)
     capacity = num_pairs // SCAN_BLOCK + 2 * starts.shape[0]
     return offsets, torch.empty((capacity, PIX, 2), dtype=torch.float32, device=tile_ranges.device)
 
 
-def _block_rows(blocks, starts: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Row of `blocks`' state of each tile's block holding position pos (T,)."""
-    return blocks[0].long() + pos // SCAN_BLOCK - starts // SCAN_BLOCK
+def _block_rows(offsets: torch.Tensor, starts: torch.Tensor, first: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Row of the block state of each tile's block holding position pos;
+    `offsets` are the tiles' first rows (`block_state`), `first` their
+    items' first pairs."""
+    return offsets + (pos - first) // SCAN_BLOCK - (starts - first) // SCAN_BLOCK
+
+
+def _longest_first(lengths: torch.Tensor) -> tuple[torch.Tensor, list[int]]:
+    """The plain versions' tile order, longest first (stable), and for each
+    step j the number of tiles with more than j pairs: the prefix of that
+    order a step touches. A step masks the tiles it touches by their own
+    length too, so that any order and any longer prefix (all tiles every
+    step) give the same bits."""
+    tile_order = torch.argsort(lengths, descending=True, stable=True)
+    ascending = lengths.sort().values
+    steps = int(ascending[-1]) if lengths.numel() else 0
+    longer = lengths.numel() - torch.searchsorted(ascending, torch.arange(steps, device=lengths.device), right=True)
+    return tile_order, longer.tolist()
 
 
 def _pair_rows(attrs, gids, idx, tile_ids, tiles_x, f16_xy):
@@ -287,18 +349,25 @@ def composite_forward_reference(
     tiles_x: int, image_shape: tuple[int, int], *, f16_xy: bool = False, bf16_mm: bool = False,
     coef: bool = False, blocks: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of `composite_forward`: all tiles advance together, one
-    pair position per step, with the kernel's per-pixel rules and rounding
-    order."""
+    """Plain version of `composite_forward`: all tiles of the pass advance
+    together, one pair position per step, with the kernel's per-pixel rules
+    and rounding order. The tiles are stepped longest first, so that a step
+    touches only the tiles that still have pairs (a prefix,
+    `_longest_first`)."""
     h, w = image_shape
-    num_tiles = tile_ranges.shape[0] - 1
+    items, tiles = pass_items(tile_ranges, image_shape)
+    num_tiles = items * tiles
     n_ch = attrs.shape[1] - 6
     device = attrs.device
     starts = tile_ranges[:-1].long()
     lengths = tile_ranges[1:].long() - starts
-    px, py = _tile_pixels(num_tiles, tiles_x, device)
-    tile_ids = torch.arange(num_tiles, device=device)
+    tile_order, active = _longest_first(lengths)
+    starts, lengths, first, px, py, tile_ids = (
+        x[tile_order] for x in (starts, lengths, item_starts(tile_ranges, tiles),
+                                *(x.repeat(items, 1) for x in _tile_pixels(tiles, tiles_x, device)),
+                                torch.arange(num_tiles, device=device) % tiles))
     pxr, pyr = px % TILE, py % TILE
+    offsets = blocks[0].long()[tile_order] if blocks is not None else None
 
     t = torch.ones((num_tiles, PIX), device=device)
     acc = torch.zeros((num_tiles, n_ch, PIX), device=device)
@@ -311,53 +380,53 @@ def composite_forward_reference(
     block16 = torch.zeros_like(lt)
     current = torch.full((num_tiles, PIX), -1, dtype=torch.long, device=device)
     pixel = torch.arange(PIX, device=device)[None, :].expand(num_tiles, PIX)
-    n_steps = int(lengths.max()) if num_tiles else 0
-    for j in range(n_steps):
-        live = (j < lengths)[:, None]
-        pos = starts + j
+    for j, k in enumerate(active):
+        live = (j < lengths[:k])[:, None]
+        pos = starts[:k] + j
         idx = pos.clamp(max=max(gids.shape[0] - 1, 0))
-        a, xr, yr = _pair_rows(attrs, gids, idx, tile_ids, tiles_x, f16_xy or coef)
+        a, xr, yr = _pair_rows(attrs, gids, idx, tile_ids[:k], tiles_x, f16_xy or coef)
         x, y, ca, cb, cc, op = (a[:, i : i + 1] for i in range(6))
         if coef:
-            alpha = torch.clamp(torch.exp(_coef_power(xr, yr, ca, cb, cc, op, pxr, pyr)), max=ALPHA_CLAMP)
-            use = live & ~done & (alpha >= ALPHA_THRESHOLD)
+            alpha = torch.clamp(torch.exp(_coef_power(xr, yr, ca, cb, cc, op, pxr[:k], pyr[:k])), max=ALPHA_CLAMP)
+            use = live & ~done[:k] & (alpha >= ALPHA_THRESHOLD)
         else:
-            dx = px - x
-            dy = py - y
+            dx = px[:k] - x
+            dy = py[:k] - y
             power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
             alpha = torch.clamp(op * torch.exp(power), max=ALPHA_CLAMP)
-            use = live & ~done & (power <= 0.0) & (alpha >= ALPHA_THRESHOLD)
+            use = live & ~done[:k] & (power <= 0.0) & (alpha >= ALPHA_THRESHOLD)
         alpha = torch.where(use, alpha, 0.0)
         if bf16_mm or coef:
-            block = (pos // SCAN_BLOCK)[:, None].expand(num_tiles, PIX)
-            enter = use & (block != current)
-            lt = torch.where(enter, lt + block32, lt)
-            block32 = torch.where(enter, 0.0, block32)
-            block16 = torch.where(enter, 0.0, block16)
-            current = torch.where(enter, block, current)
+            block = ((pos - first[:k]) // SCAN_BLOCK)[:, None].expand(k, PIX)
+            enter = use & (block != current[:k])
+            lt[:k] = torch.where(enter, lt[:k] + block32[:k], lt[:k])
+            block32[:k] = torch.where(enter, 0.0, block32[:k])
+            block16[:k] = torch.where(enter, 0.0, block16[:k])
+            current[:k] = torch.where(enter, block, current[:k])
             la = torch.log1p(-alpha)
-            weight = _bf16(alpha * torch.exp(lt + block16))
-            acc = torch.where(use[:, None], acc + _bf16(a[:, 6:, None]) * weight[:, None, :], acc)
-            block32 = torch.where(use, block32 + la, block32)
-            block16 = torch.where(use, block16 + _bf16(la), block16)
-            done = done | (use & (lt + block32 < LOG_TRANSMITTANCE_MIN))
+            weight = _bf16(alpha * torch.exp(lt[:k] + block16[:k]))
+            acc[:k] = torch.where(use[:, None], acc[:k] + _bf16(a[:, 6:, None]) * weight[:, None, :], acc[:k])
+            block32[:k] = torch.where(use, block32[:k] + la, block32[:k])
+            block16[:k] = torch.where(use, block16[:k] + _bf16(la), block16[:k])
+            done[:k] |= use & (lt[:k] + block32[:k] < LOG_TRANSMITTANCE_MIN)
             if blocks is not None:
-                rows = _block_rows(blocks, starts, pos)[:, None].expand(num_tiles, PIX)
-                blocks[1][rows[use], pixel[use]] = torch.stack([lt[use], block16[use]], dim=1)
+                rows = _block_rows(offsets[:k], starts[:k], first[:k], pos)[:, None].expand(k, PIX)
+                blocks[1][rows[use], pixel[:k][use]] = torch.stack([lt[:k][use], block16[:k][use]], dim=1)
         else:
-            weight = alpha * t
-            acc = torch.where(use[:, None], acc + a[:, 6:, None] * weight[:, None, :], acc)
-            t = torch.where(use, t * (1.0 - alpha), t)
-            done = done | (use & (t < TRANSMITTANCE_MIN))
-        last = torch.where(use, starts[:, None] + j + 1, last)
+            weight = alpha * t[:k]
+            acc[:k] = torch.where(use[:, None], acc[:k] + a[:, 6:, None] * weight[:, None, :], acc[:k])
+            t[:k] = torch.where(use, t[:k] * (1.0 - alpha), t[:k])
+            done[:k] |= use & (t[:k] < TRANSMITTANCE_MIN)
+        last[:k] = torch.where(use, starts[:k, None] + j + 1, last[:k])
     if bf16_mm or coef:
         t = torch.exp(lt + block32)
 
     tiles_y = h // TILE
+    back = torch.argsort(tile_order)
     return (
-        untile(acc, tiles_x, tiles_y),
-        untile(t, tiles_x, tiles_y),
-        untile(last.to(torch.int32), tiles_x, tiles_y),
+        untile(acc[back], tiles_x, tiles_y),
+        untile(t[back], tiles_x, tiles_y),
+        untile(last[back].to(torch.int32), tiles_x, tiles_y),
     )
 
 
@@ -431,9 +500,9 @@ def _check_channels(name: str, n_ch: int, variant: str) -> None:
 
 
 def composite_forward(
-    gids: torch.Tensor,          # (P,) int32 Gaussian id of each pair, sorted by (tile, depth)
-    tile_ranges: torch.Tensor,   # (T + 1,) int32 start of each tile's pairs
-    attrs: torch.Tensor,         # (G, 6 + n_ch) float32: x, y, conic a/b/c, opacity, channels
+    gids: torch.Tensor,          # (P,) int32 pass Gaussian id of each pair, sorted by (tile, depth)
+    tile_ranges: torch.Tensor,   # (N T + 1,) int32 start of each tile's pairs
+    attrs: torch.Tensor,         # (N G, 6 + n_ch) float32: x, y, conic a/b/c, opacity, channels
     tiles_x: int,
     image_shape: tuple[int, int],
     *,
@@ -442,16 +511,15 @@ def composite_forward(
     coef: bool = False,
     blocks: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Composite every tile front to back. Returns channels (n_ch, H, W),
-    final transmittance (H, W) and each pixel's exclusive end of
-    contributing pairs (H, W) int32. The knobs are the module docstring's;
-    `coef` implies f16_xy and bf16_mm. Under bf16_mm, `blocks`
-    (`block_state`) receives the per-block state the backward needs."""
+    """Composite every tile of the pass front to back. Returns channels
+    (N, n_ch, H, W), final transmittance (N, H, W) and each pixel's
+    exclusive end of contributing pairs (N, H, W) int32, a position in the
+    pass's pair array. The knobs are the module docstring's; `coef` implies
+    f16_xy and bf16_mm. Under bf16_mm, `blocks` (`block_state`) receives
+    the per-block state the backward needs."""
     h, w = image_shape
-    if h % TILE or w % TILE:
-        raise ValueError(f"image dims must be multiples of {TILE}, got {image_shape}")
-    num_tiles = (h // TILE) * (w // TILE)
-    if tile_ranges.shape != (num_tiles + 1,) or tiles_x != w // TILE:
+    items, num_tiles = pass_items(tile_ranges, image_shape)
+    if tiles_x != w // TILE:
         raise ValueError("composite_forward: tile_ranges do not match the image")
     if coef:
         f16_xy = bf16_mm = True
@@ -468,18 +536,18 @@ def composite_forward(
     _check_channels("composite_forward", n_ch, variant)
     if blocks is not None:
         _check_blocks(blocks, tile_ranges, gids.shape[0], "composite_forward")
-    channels = torch.empty((n_ch, h, w), dtype=torch.float32, device=attrs.device)
-    transmittance = torch.empty((h, w), dtype=torch.float32, device=attrs.device)
-    last = torch.empty((h, w), dtype=torch.int32, device=attrs.device)
+    channels = torch.empty((items, n_ch, h, w), dtype=torch.float32, device=attrs.device)
+    transmittance = torch.empty((items, h, w), dtype=torch.float32, device=attrs.device)
+    last = torch.empty((items, h, w), dtype=torch.int32, device=attrs.device)
     lib = load_library()
     outputs = (tiles_x, h, w, channels.data_ptr(), transmittance.data_ptr(), last.data_ptr())
     if variant == "exact":
         rc = lib.composite_forward(
-            n_ch, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(), attrs.data_ptr(), *outputs, _stream(),
+            n_ch, items, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(), attrs.data_ptr(), *outputs, _stream(),
         )
     else:
         rc = lib.composite_forward_fast(
-            n_ch, int(coef), _knob_bits(f16_xy, bf16_mm), num_tiles, gids.data_ptr(), tile_ranges.data_ptr(),
+            n_ch, int(coef), _knob_bits(f16_xy, bf16_mm), items, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(),
             attrs.data_ptr(), *outputs, *_block_pointers(blocks), _stream(),
         )
     check(rc, f"composite_forward ({variant})")
@@ -496,26 +564,32 @@ def composite_backward_reference(
     t_final: torch.Tensor, g_channels: torch.Tensor, g_t: torch.Tensor, *, f16_xy: bool = False,
     bf16_mm: bool = False, bf16_grads: bool = False, blocks: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
-    """Plain version of `composite_backward`: all tiles step together, one
-    pair position per step, back to front, with the kernel's per-pixel
-    rules. Only running (T, PIX) state is kept, never a graph of the
-    forward. Rows are written at their Gaussian-major positions."""
+    """Plain version of `composite_backward`: all tiles of the pass step
+    together, one pair position per step, back to front, with the kernel's
+    per-pixel rules; a step touches only the tiles that still have pairs
+    below their largest `last` (`_longest_first`). Only running (N T, PIX)
+    state is kept, never a graph of the forward. Rows are written at their
+    Gaussian-major positions."""
     h, w = image_shape
     tiles_y = h // TILE
-    num_tiles = tile_ranges.shape[0] - 1
+    items, tiles = pass_items(tile_ranges, image_shape)
+    num_tiles = items * tiles
     n_ch = attrs.shape[1] - 6
     device = attrs.device
+    last_t = tile(last, tiles_x, tiles_y).long()                # (N T, PIX)
     starts = tile_ranges[:-1].long()
-    px, py = _tile_pixels(num_tiles, tiles_x, device)
-    tile_ids = torch.arange(num_tiles, device=device)
-    last_t = tile(last, tiles_x, tiles_y).long()                # (T, PIX)
-    t = tile(t_final, tiles_x, tiles_y).clone()
-    g = tile(g_channels, tiles_x, tiles_y)                      # (T, n_ch, PIX)
-    suffix = tile(g_t, tiles_x, tiles_y) * t
-    d_pairs = torch.zeros((gids.shape[0], 6 + n_ch), device=device)
     lengths = last_t.max(dim=1).values - starts if num_tiles else starts
-    n_steps = int(lengths.max()) if num_tiles else 0
+    tile_order, active = _longest_first(lengths)
+    starts, lengths, first, px, py, tile_ids, last_t = (
+        x[tile_order] for x in (starts, lengths, item_starts(tile_ranges, tiles),
+                                *(x.repeat(items, 1) for x in _tile_pixels(tiles, tiles_x, device)),
+                                torch.arange(num_tiles, device=device) % tiles, last_t))
+    t = tile(t_final, tiles_x, tiles_y)[tile_order]
+    g = tile(g_channels, tiles_x, tiles_y)[tile_order]          # (N T, n_ch, PIX)
+    suffix = tile(g_t, tiles_x, tiles_y)[tile_order] * t
+    d_pairs = torch.zeros((gids.shape[0], 6 + n_ch), device=device)
     if bf16_mm:
+        offsets = blocks[0].long()[tile_order]
         # The suffix of later blocks (float32), the current block's float32
         # and bfloat16 sums of later contributions, the block's index, its
         # start's log T and the bfloat16 sum of its log1p(-alpha) terms up
@@ -526,62 +600,62 @@ def composite_backward_reference(
         lt = torch.zeros_like(suffix)
         prefix16 = torch.zeros_like(suffix)
         g16 = _bf16(g)
-    for j in range(n_steps - 1, -1, -1):
-        live = j < lengths
-        pos = starts + j
-        a, _, _ = _pair_rows(attrs, gids, pos.clamp(max=max(gids.shape[0] - 1, 0)), tile_ids, tiles_x, f16_xy)
+    for j in range(len(active) - 1, -1, -1):
+        k = active[j]
+        pos = starts[:k] + j
+        a, _, _ = _pair_rows(attrs, gids, pos.clamp(max=max(gids.shape[0] - 1, 0)), tile_ids[:k], tiles_x, f16_xy)
         x, y, ca, cb, cc, op = (a[:, i : i + 1] for i in range(6))
-        dx = px - x
-        dy = py - y
+        dx = px[:k] - x
+        dy = py[:k] - y
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
         e = torch.exp(torch.clamp(power, max=0.0))   # power > 0 is dropped below
         raw = op * e
         alpha = torch.clamp(raw, max=ALPHA_CLAMP)
-        use = live[:, None] & (pos[:, None] < last_t) & (power <= 0.0) & (alpha >= ALPHA_THRESHOLD)
+        use = (pos[:, None] < last_t[:k]) & (power <= 0.0) & (alpha >= ALPHA_THRESHOLD)
         alpha = torch.where(use, alpha, 0.0)
         one_minus = 1.0 - alpha
         if bf16_mm:
-            block = (pos // SCAN_BLOCK)[:, None].expand(num_tiles, PIX)
-            enter = use & (block != current)
-            suffix = torch.where(enter, suffix + suffix32, suffix)
-            suffix32 = torch.where(enter, 0.0, suffix32)
-            suffix16 = torch.where(enter, 0.0, suffix16)
-            current = torch.where(enter, block, current)
-            state = blocks[1][_block_rows(blocks, starts, pos).clamp(0, blocks[1].shape[0] - 1)]   # (T, PIX, 2)
-            lt = torch.where(enter, state[..., 0], lt)
-            prefix16 = torch.where(enter, state[..., 1], prefix16)
-            prefix16 = torch.where(use, prefix16 - _bf16(torch.log1p(-alpha)), prefix16)
-            t_before = torch.exp(lt + prefix16)
+            block = ((pos - first[:k]) // SCAN_BLOCK)[:, None].expand(k, PIX)
+            enter = use & (block != current[:k])
+            suffix[:k] = torch.where(enter, suffix[:k] + suffix32[:k], suffix[:k])
+            suffix32[:k] = torch.where(enter, 0.0, suffix32[:k])
+            suffix16[:k] = torch.where(enter, 0.0, suffix16[:k])
+            current[:k] = torch.where(enter, block, current[:k])
+            state = blocks[1][_block_rows(offsets[:k], starts[:k], first[:k], pos).clamp(0, blocks[1].shape[0] - 1)]
+            lt[:k] = torch.where(enter, state[..., 0], lt[:k])
+            prefix16[:k] = torch.where(enter, state[..., 1], prefix16[:k])
+            prefix16[:k] = torch.where(use, prefix16[:k] - _bf16(torch.log1p(-alpha)), prefix16[:k])
+            t_before = torch.exp(lt[:k] + prefix16[:k])
             weight = alpha * t_before
             c16 = _bf16(a[:, 6:])
-            cg = c16[:, 0:1] * g16[:, 0]
+            cg = c16[:, 0:1] * g16[:k, 0]
             for c in range(1, n_ch):
-                cg = cg + c16[:, c : c + 1] * g16[:, c]
-            d_alpha = cg * t_before - (suffix + suffix16) / one_minus
+                cg = cg + c16[:, c : c + 1] * g16[:k, c]
+            d_alpha = cg * t_before - (suffix[:k] + suffix16[:k]) / one_minus
         else:
-            t_before = t / one_minus
+            t_before = t[:k] / one_minus
             weight = alpha * t_before
-            cg = (a[:, 6:, None] * g).sum(dim=1)                    # (T, PIX)
-            d_alpha = cg * t_before - suffix / one_minus
+            cg = (a[:, 6:, None] * g[:k]).sum(dim=1)               # (k, PIX)
+            d_alpha = cg * t_before - suffix[:k] / one_minus
         d_alpha = torch.where(use & (raw < ALPHA_CLAMP), d_alpha, 0.0)
         d_pow = d_alpha * alpha
         parts = torch.stack([
             (ca * dx + cb * dy) * d_pow, (cc * dy + cb * dx) * d_pow,
             -0.5 * dx * dx * d_pow, -dx * dy * d_pow, -0.5 * dy * dy * d_pow, d_alpha * e,
-        ], dim=1)                                               # (T, 6, PIX)
+        ], dim=1)                                               # (k, 6, PIX)
         if bf16_mm:
-            parts = torch.cat([_bf16(parts), _bf16(weight)[:, None, :] * g16], dim=1)
+            parts = torch.cat([_bf16(parts), _bf16(weight)[:, None, :] * g16[:k]], dim=1)
         else:
-            parts = torch.cat([parts, weight[:, None, :] * g], dim=1)
-        rows = parts.sum(dim=-1)
-        d_pairs[pos[live]] = rows[live]
+            parts = torch.cat([parts, weight[:, None, :] * g[:k]], dim=1)
+        live = j < lengths[:k]
+        d_pairs[pos[live]] = parts.sum(dim=-1)[live]
         if bf16_mm:
             contribution = weight * cg
-            suffix32 = torch.where(use, suffix32 + contribution, suffix32)
-            suffix16 = torch.where(use, suffix16 + _bf16(contribution), suffix16)
+            suffix32[:k] = torch.where(use, suffix32[:k] + contribution, suffix32[:k])
+            suffix16[:k] = torch.where(use, suffix16[:k] + _bf16(contribution), suffix16[:k])
         else:
-            suffix = torch.where(use, suffix + weight * cg, suffix)
-            t = torch.where(use, t_before, t)
+            suffix[:k] = torch.where(use, suffix[:k] + weight * cg, suffix[:k])
+            t[:k] = torch.where(use, t_before, t[:k])
     if bf16_grads:
         d_pairs = _bf16(d_pairs)
     d_rows = torch.empty_like(d_pairs)
@@ -591,15 +665,15 @@ def composite_backward_reference(
 
 def composite_backward(
     gids: torch.Tensor,          # (P,) int32, as given to composite_forward
-    tile_ranges: torch.Tensor,   # (T + 1,) int32
+    tile_ranges: torch.Tensor,   # (N T + 1,) int32
     order: torch.Tensor,         # (P,) int64 sorted position -> Gaussian-major position
-    attrs: torch.Tensor,         # (G, 6 + n_ch) float32
+    attrs: torch.Tensor,         # (N G, 6 + n_ch) float32
     tiles_x: int,
     image_shape: tuple[int, int],
-    last: torch.Tensor,          # (H, W) int32 from composite_forward
-    t_final: torch.Tensor,       # (H, W) float32 from composite_forward
-    g_channels: torch.Tensor,    # (n_ch, H, W) float32 cotangent of the channels
-    g_t: torch.Tensor,           # (H, W) float32 cotangent of T_final
+    last: torch.Tensor,          # (N, H, W) int32 from composite_forward
+    t_final: torch.Tensor,       # (N, H, W) float32 from composite_forward
+    g_channels: torch.Tensor,    # (N, n_ch, H, W) float32 cotangent of the channels
+    g_t: torch.Tensor,           # (N, H, W) float32 cotangent of T_final
     *,
     f16_xy: bool = False,
     bf16_mm: bool = False,
@@ -616,12 +690,14 @@ def composite_backward(
     `launch_counts` and `launches_by_variant` count as one launch of this
     wrapper. Without bf16_mm, one launch walks each tile serially."""
     h, w = image_shape
-    num_tiles = (h // TILE) * (w // TILE)
+    items, num_tiles = pass_items(tile_ranges, image_shape)
     n_ch = attrs.shape[1] - 6
-    if tile_ranges.shape != (num_tiles + 1,) or tiles_x != w // TILE:
+    if tiles_x != w // TILE:
         raise ValueError("composite_backward: tile_ranges do not match the image")
-    if g_channels.shape != (n_ch, h, w) or g_t.shape != (h, w):
+    if g_channels.shape != (items, n_ch, h, w) or g_t.shape != (items, h, w):
         raise ValueError("composite_backward: cotangents do not match the image")
+    if last.shape != (items, h, w) or t_final.shape != (items, h, w):
+        raise ValueError("composite_backward: the forward's outputs do not match the image")
     if order.shape != gids.shape:
         raise ValueError("composite_backward: order and gids differ in length")
     if bf16_mm != (blocks is not None):
@@ -635,10 +711,10 @@ def composite_backward(
     _check(tile_ranges, "tile_ranges", torch.int32, 1)
     _check(order, "order", torch.int64, 1)
     _check(attrs, "attrs", torch.float32, 2)
-    _check(last, "last", torch.int32, 2)
-    _check(t_final, "t_final", torch.float32, 2)
-    _check(g_channels, "g_channels", torch.float32, 3)
-    _check(g_t, "g_t", torch.float32, 2)
+    _check(last, "last", torch.int32, 3)
+    _check(t_final, "t_final", torch.float32, 3)
+    _check(g_channels, "g_channels", torch.float32, 4)
+    _check(g_t, "g_t", torch.float32, 3)
     variant = variant_name(f16_xy, bf16_mm, bf16_grads=bf16_grads)
     _check_channels("composite_backward", n_ch, variant)
     if blocks is not None:
@@ -646,8 +722,8 @@ def composite_backward(
     # The kernel writes every row, those of pairs no pixel used as zeros.
     d_rows = torch.empty((gids.shape[0], 6 + n_ch), dtype=torch.float32, device=attrs.device)
     lib = load_library()
-    args = (num_tiles, gids.data_ptr(), tile_ranges.data_ptr(), order.data_ptr(), attrs.data_ptr(), tiles_x, h, w,
-            last.data_ptr(), t_final.data_ptr(), g_channels.data_ptr(), g_t.data_ptr())
+    args = (items, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(), order.data_ptr(), attrs.data_ptr(), tiles_x,
+            h, w, last.data_ptr(), t_final.data_ptr(), g_channels.data_ptr(), g_t.data_ptr())
     if variant == "exact":
         rc = lib.composite_backward(n_ch, *args, d_rows.data_ptr(), _stream())
     else:

@@ -1,16 +1,23 @@
 """Tiled rasterization (counterpart of latentsplat_tpu/ops/rasterize/tiled.py),
 forward and backward, at each of the JAX package's precisions.
 
-Pipeline per view: per-Gaussian tile rects with the exact ellipse-tile cull
-(`tile_rects`, a port of the JAX `_tile_rects`), pair duplication with
-int64 (tile << 32 | depth bits) keys (`duplicate_with_keys` kernel), one
-stable library sort, tile ranges by searchsorted, and per-tile compositing
-(`composite_forward` kernel). The backward (`_PairComposite`, the
-counterpart of the JAX `_pair_composite` custom_vjp) replays each tile
-back to front (`composite_backward` kernel), writing each pair's gradient
-row at its Gaussian-major position, and sums each Gaussian's contiguous
-pair rows (`reduce_pairs` kernel); like the JAX package, the cull and the sort
-carry no gradient. At "exact" the channels stay float32 end to end.
+Pipeline per pass (the (scene, view) items of a render call, each with its
+own screen Gaussians; the JAX package maps over them inside one program):
+per-Gaussian tile rects with the exact ellipse-tile cull (`tile_rects`, a
+port of the JAX `_tile_rects`) over every item at once, pair duplication
+with int64 (tile << 32 | depth bits) keys (`duplicate_with_keys` kernel,
+item n's tiles numbered n T + t), one stable library sort, tile ranges by
+one searchsorted, and per-tile compositing (`composite_forward` kernel):
+one launch of each kernel and one host read a pass. Each item's values
+are those of a pass of that item alone: the depth code keeps the bits that
+one view's tile count leaves free, the 12-bit channel scale is the item's
+own, and the kernels count scan blocks from the item's first pair. The
+backward (`_PairComposite`, the counterpart of the JAX `_pair_composite`
+custom_vjp) replays each tile back to front (`composite_backward` kernel),
+writing each pair's gradient row at its Gaussian-major position, and sums
+each Gaussian's contiguous pair rows (`reduce_pairs` kernel); like the JAX
+package, the cull and the sort carry no gradient. At "exact" the channels
+stay float32 end to end.
 
 `precision` selects the JAX package's fast family by the values it
 computes (`Knobs`): "fast" applies every knob, "fast_nocoef" all but the
@@ -25,9 +32,11 @@ the JAX custom VJP does; the per-pair ones are the composite kernels'.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
+from . import kernels
 from .kernels import (
     TILE,
     block_state,
@@ -117,30 +126,37 @@ def truncated_depth(depth: torch.Tensor, code_shift: int, midpoint: bool = False
     return bits.view(torch.float32)
 
 
-def quantize_attributes(attrs: torch.Tensor, knobs: Knobs, code_shift: int) -> torch.Tensor:
-    """The per-Gaussian value knobs applied to `pack_attributes` rows: conic
-    and opacity rounded to bfloat16; each channel (not the depth) in 12-bit
-    fixed point over its largest magnitude among all the view's Gaussians
-    (at least 1e-8); the depth read back from its code."""
+def quantize_attributes(attrs: torch.Tensor, knobs: Knobs, code_shift: int, items: int = 1) -> torch.Tensor:
+    """The per-Gaussian value knobs applied to a pass's `pack_attributes`
+    rows (`items` items of equal length): conic and opacity rounded to
+    bfloat16; each channel (not the depth) in 12-bit fixed point over its
+    largest magnitude among the item's Gaussians (at least 1e-8); the depth
+    read back from its code."""
     if not (knobs.bf16_conic or knobs.q12_channels or knobs.depth_value):
         return attrs
     out = attrs.clone()
     if knobs.bf16_conic:
         out[:, 2:6] = attrs[:, 2:6].to(torch.bfloat16).float()
     if knobs.q12_channels and attrs.shape[0]:
-        c = attrs[:, 6:-1]
-        s = torch.clamp(c.abs().amax(dim=0), min=1e-8)
+        c = attrs[:, 6:-1].reshape(items, -1, attrs.shape[1] - 7)
+        s = torch.clamp(c.abs().amax(dim=1, keepdim=True), min=1e-8)
         q = torch.clamp(torch.round((c / s * 0.5 + 0.5) * 4095.0), 0.0, 4095.0)
-        out[:, 6:-1] = (q / 4095.0 * 2.0 - 1.0) * s
+        out[:, 6:-1] = ((q / 4095.0 * 2.0 - 1.0) * s).reshape(attrs.shape[0], -1)
     if knobs.depth_value:
         out[:, -1] = truncated_depth(attrs[:, -1], code_shift, midpoint=True)
     return out
 
 
+def items_of(sg: ScreenGaussians) -> int:
+    """The number of items of a pass's screen Gaussians (the leading axes
+    before G; one for a single view's)."""
+    return math.prod(sg.radius.shape[:-1])
+
+
 def _rects(sg: ScreenGaussians, tiles_x: int, tiles_y: int):
     """Per-Gaussian tile rect of the threshold-aware extents: (tx0, ty0, nx, ny) int32."""
-    mx, my = sg.mean2d[:, 0], sg.mean2d[:, 1]
-    ex, ey = sg.extent[:, 0], sg.extent[:, 1]
+    mx, my = sg.mean2d[..., 0], sg.mean2d[..., 1]
+    ex, ey = sg.extent[..., 0], sg.extent[..., 1]
 
     def tile_index(v, n):
         return torch.clamp(torch.floor(v / TILE), 0, n - 1).to(torch.int32)
@@ -159,17 +175,20 @@ def dense_extent(sg: ScreenGaussians) -> torch.Tensor:
     det = torch.clamp(a * c - b * b, min=1e-30)
     two_lo = 2.0 * torch.clamp(torch.log(255.0 * torch.clamp(sg.opacity, min=1e-12)) + 1e-3, min=0.0)
     extent = torch.stack([torch.sqrt(two_lo * c / det), torch.sqrt(two_lo * a / det)], dim=-1) * 1.001 + 0.01
-    return torch.where((sg.radius > 0.0)[:, None], extent, 0.0)
+    return torch.where((sg.radius > 0.0)[..., None], extent, 0.0)
 
 
 def covering_cap(sg: ScreenGaussians, image_shape: tuple[int, int]) -> int:
-    """The least cap that keeps every rect slot of every live Gaussian: the
-    largest rect, in tiles (at least 1; one host read). Raises above
-    MAX_TILES_PER_GAUSSIAN, which the slot mask cannot hold."""
+    """The least cap that keeps every rect slot of every live Gaussian of
+    every item of the pass: the largest rect, in tiles (at least 1; one
+    host read). Raises above MAX_TILES_PER_GAUSSIAN, which the slot mask
+    cannot hold."""
     h, w = image_shape
     _, _, nx, ny = _rects(sg, w // TILE, h // TILE)
     sizes = torch.where(sg.radius > 0.0, nx * ny, torch.zeros_like(nx))
     largest = max(int(sizes.max()), 1) if sizes.numel() else 1
+    if sizes.is_cuda:
+        kernels.host_reads["covering_cap"] += 1
     if largest > MAX_TILES_PER_GAUSSIAN:
         raise ValueError(
             f"a Gaussian's tile rect spans {largest} tiles of {image_shape}; the slot mask "
@@ -182,8 +201,10 @@ def tile_rects(
     sg: ScreenGaussians, tiles_x: int, tiles_y: int, cap: int = DEFAULT_MAX_TILES_PER_GAUSSIAN,
     cull_margin: float = CULL_MARGIN,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-Gaussian (counts, base, nx, mask): int32, but for `mask`, which
-    is int32 up to a cap of 32 slots and int64 above (up to 64).
+    """Per-Gaussian (counts, base, nx, mask) of a pass, flattened to (N G,):
+    int32, but for `mask`, which is int32 up to a cap of 32 slots and int64
+    above (up to 64). `base` is the pass tile id n T + t of item n's rect
+    origin (T = tiles_x tiles_y), and N T for a dead Gaussian.
 
     The tile rect spans the threshold-aware extents. Its first `cap` slots,
     row-major, are kept, and then a slot survives only if the minimum of the
@@ -195,12 +216,13 @@ def tile_rects(
     assert 1 <= cap <= MAX_TILES_PER_GAUSSIAN
     mask_dtype = torch.int32 if cap <= mask_bits(torch.int32) else torch.int64
     num_tiles = tiles_x * tiles_y
+    items = items_of(sg)
     alive = sg.radius > 0.0
-    mx, my = sg.mean2d[:, 0], sg.mean2d[:, 1]
+    mx, my = sg.mean2d[..., 0], sg.mean2d[..., 1]
     tx0, ty0, nx, ny = _rects(sg, tiles_x, tiles_y)
     rect_counts = torch.clamp(nx * ny, max=cap)
 
-    ca, cb, cc = sg.conic[:, 0], sg.conic[:, 1], sg.conic[:, 2]
+    ca, cb, cc = sg.conic[..., 0], sg.conic[..., 1], sg.conic[..., 2]
     thresh = torch.log(255.0 * torch.clamp(sg.opacity, min=1e-12)) + cull_margin
     ca_s = torch.clamp(ca, min=1e-12)
     cc_s = torch.clamp(cc, min=1e-12)
@@ -236,17 +258,20 @@ def tile_rects(
     live = alive & (surv > 0)
     zero = torch.zeros_like(surv)
     counts = torch.where(live, surv, zero)
-    base = torch.where(live, ty0 * tiles_x + tx0, torch.full_like(surv, num_tiles))
+    item_tile = (torch.arange(items, dtype=torch.int32, device=surv.device) * num_tiles).reshape(
+        *surv.shape[:-1], 1)
+    base = torch.where(live, ty0 * tiles_x + tx0 + item_tile, torch.full_like(surv, items * num_tiles))
     nx_safe = torch.where(live, nx, torch.ones_like(nx))
     mask = torch.where(live, mask, torch.zeros_like(mask))
-    return counts, base, nx_safe, mask
+    return counts.reshape(-1), base.reshape(-1), nx_safe.reshape(-1), mask.reshape(-1)
 
 
 def sort_pairs(
     gids: torch.Tensor, keys: torch.Tensor, num_tiles: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Stable sort by (tile, depth); returns sorted gids, (T + 1,) tile
-    ranges and the sort's order (sorted position -> Gaussian-major position)."""
+    """Stable sort by (tile, depth) of a pass's pairs (num_tiles = N T);
+    returns sorted gids, (N T + 1,) tile ranges and the sort's order
+    (sorted position -> Gaussian-major position)."""
     keys_sorted, order = torch.sort(keys, stable=True)
     tiles = keys_sorted >> 32
     boundaries = torch.arange(num_tiles + 1, device=keys.device, dtype=tiles.dtype)
@@ -255,22 +280,24 @@ def sort_pairs(
 
 
 def pack_attributes(sg: ScreenGaussians) -> torch.Tensor:
-    """(G, 6 + C + 1): x, y, conic a/b/c, opacity, channels, depth."""
-    return torch.cat(
-        [sg.mean2d, sg.conic, sg.opacity[:, None], sg.channels, sg.depth[:, None]], dim=1
-    ).contiguous()
+    """(N G, 6 + C + 1): x, y, conic a/b/c, opacity, channels, depth, item
+    n's rows at n G."""
+    rows = torch.cat([sg.mean2d, sg.conic, sg.opacity[..., None], sg.channels, sg.depth[..., None]], dim=-1)
+    return rows.reshape(-1, rows.shape[-1]).contiguous()
 
 
 class _PairComposite(torch.autograd.Function):
-    """Per-Gaussian attribute rows -> composited channels (n_ch, H, W) and
-    final transmittance (H, W), over pairs that are already duplicated and
-    sorted. The value knobs quantize the rows the kernels read; the
-    gradient reaches `attrs` unquantized (straight through)."""
+    """A pass's per-Gaussian attribute rows -> composited channels
+    (N, n_ch, H, W) and final transmittance (N, H, W), over pairs that are
+    already duplicated and sorted. The value knobs quantize the rows the
+    kernels read; the gradient reaches `attrs` unquantized (straight
+    through)."""
 
     @staticmethod
     def forward(ctx, attrs, gids, tile_ranges, order, counts, tiles_x, image_shape, knobs, code_shift, want_grad):
-        rows = quantize_attributes(attrs, knobs, code_shift)
-        blocks = block_state(tile_ranges, gids.shape[0]) if knobs.bf16_mm and want_grad else None
+        items, num_tiles = kernels.pass_items(tile_ranges, image_shape)
+        rows = quantize_attributes(attrs, knobs, code_shift, items)
+        blocks = block_state(tile_ranges, gids.shape[0], num_tiles) if knobs.bf16_mm and want_grad else None
         out, t_final, last = composite_forward(
             gids, tile_ranges, rows, tiles_x, image_shape, f16_xy=knobs.f16_xy, bf16_mm=knobs.bf16_mm,
             coef=knobs.coef and not want_grad, blocks=blocks,
@@ -296,14 +323,16 @@ class _PairComposite(torch.autograd.Function):
 def tile_pairs(
     sg: ScreenGaussians, image_shape: tuple[int, int], max_tiles_per_gaussian: int = DEFAULT_MAX_TILES_PER_GAUSSIAN,
     precision: str = "exact",
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The pairs `composite_tiled` composites at `precision`, duplicated and
-    sorted (no gradient): (gids, tile ranges, order, counts). The fast
-    family refuses a tile count whose depth code keeps fewer than
-    MIN_DEPTH_CODE_BITS bits."""
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pairs `composite_tiled` composites at `precision` for a pass's
+    screen Gaussians, duplicated and sorted (no gradient): (gids, tile
+    ranges (N T + 1,), order, counts, each item's pair total (N,) int64 on
+    the CPU). The fast family refuses a view whose tile count leaves a
+    depth code of fewer than MIN_DEPTH_CODE_BITS bits."""
     h, w = image_shape
     assert h % TILE == 0 and w % TILE == 0, "image dims must be multiples of 16"
     tiles_x, tiles_y = w // TILE, h // TILE
+    items = items_of(sg)
     knobs = precision_knobs(precision)
     code_bits, code_shift = depth_code_bits(tiles_x * tiles_y)
     if is_fast(precision) and code_bits < MIN_DEPTH_CODE_BITS:
@@ -312,32 +341,38 @@ def tile_pairs(
     cull_margin = FAST_CULL_MARGIN if knobs.wide_cull else CULL_MARGIN
     with torch.no_grad():
         counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y, max_tiles_per_gaussian, cull_margin)
-        depth = truncated_depth(sg.depth, code_shift) if knobs.tie_depth else sg.depth.contiguous()
-        gids, keys = duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, max_tiles_per_gaussian)
-        gids, tile_ranges, order = sort_pairs(gids, keys, tiles_x * tiles_y)
-    return gids, tile_ranges, order, counts
+        depth = sg.depth.reshape(-1)
+        depth = truncated_depth(depth, code_shift) if knobs.tie_depth else depth.contiguous()
+        gids, keys, pairs = duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, max_tiles_per_gaussian, items)
+        gids, tile_ranges, order = sort_pairs(gids, keys, items * tiles_x * tiles_y)
+    return gids, tile_ranges, order, counts, pairs
 
 
 def composite_tiled(
     sg: ScreenGaussians,
     image_shape: tuple[int, int],
-    background: torch.Tensor,      # (C,)
+    background: torch.Tensor,      # (..., C), one row an item
     max_tiles_per_gaussian: int = DEFAULT_MAX_TILES_PER_GAUSSIAN,
     precision: str = "exact",
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
-    """Returns (channels (C, H, W), mask (H, W), expected depth (H, W),
-    number of tile pairs), the contract of `composite_dense` plus the pair
-    count. Differentiable in sg.mean2d, conic, opacity, channels, depth and
-    in `background`. `precision` is one of PRECISIONS; "fast" serves (no
-    gradient wanted) through the coefficient layout."""
-    gids, tile_ranges, order, counts = tile_pairs(sg, image_shape, max_tiles_per_gaussian, precision)
-    tiles_x = image_shape[1] // TILE
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Composites a pass: screen Gaussians with leading item axes (...)
+    before G (none for one view). Returns (channels (..., C, H, W), mask
+    (..., H, W), expected depth (..., H, W), each item's number of tile
+    pairs (...) int64 on the CPU), the contract of `composite_dense` plus
+    the pair counts. Differentiable in sg.mean2d, conic, opacity, channels,
+    depth and in `background`. `precision` is one of PRECISIONS; "fast"
+    serves (no gradient wanted) through the coefficient layout."""
+    lead = sg.radius.shape[:-1]
+    gids, tile_ranges, order, counts, pairs = tile_pairs(sg, image_shape, max_tiles_per_gaussian, precision)
+    h, w = image_shape
+    tiles_x = w // TILE
     attrs = pack_attributes(sg)
     want_grad = torch.is_grad_enabled() and attrs.requires_grad
     out, t_final = _PairComposite.apply(
         attrs, gids, tile_ranges, order, counts, tiles_x, image_shape, precision_knobs(precision),
-        depth_code_bits(tiles_x * (image_shape[0] // TILE))[1], want_grad,
+        depth_code_bits(tiles_x * (h // TILE))[1], want_grad,
     )
     c = sg.num_channels
-    channels = out[:c] + background[:, None, None] * t_final[None]
-    return channels, 1.0 - t_final, out[c], gids.shape[0]
+    channels = out[:, :c] + background.reshape(-1, c, 1, 1) * t_final[:, None]
+    return (channels.reshape(*lead, c, h, w), (1.0 - t_final).reshape(*lead, h, w),
+            out[:, c].reshape(*lead, h, w), pairs.reshape(lead))

@@ -10,8 +10,9 @@ import torch
 
 @dataclass
 class ScreenGaussians:
-    """One view's Gaussians after projection and culling; every tensor has
-    the leading Gaussian axis G."""
+    """One view's Gaussians after projection and culling, or a pass's: every
+    tensor has the Gaussian axis G, after the items' axes (...) of a pass.
+    The shapes below are one view's."""
 
     mean2d: torch.Tensor     # (G, 2) pixel coordinates (pixel i center = i)
     conic: torch.Tensor      # (G, 3) upper triangle (a, b, c) of the inverse 2D covariance
@@ -23,7 +24,7 @@ class ScreenGaussians:
 
     @property
     def num_gaussians(self) -> int:
-        return self.mean2d.shape[0]
+        return self.mean2d.shape[-2]
 
     @property
     def num_channels(self) -> int:

@@ -26,8 +26,9 @@ _C4 = [2.5033429417967046, -1.7701307697799304, 0.9461746957575601,
        0.47308734787878004, -1.7701307697799304, 0.6258357354491761]
 
 
-def _sh_basis_impl(dirs, degree: int, xp):
-    """Backend-generic (numpy or torch) SH basis evaluation."""
+def _sh_basis_terms(dirs, degree: int, xp) -> list:
+    """Backend-generic (numpy or torch) SH basis evaluation: the
+    (degree + 1)**2 basis values, each of the shape dirs.shape[:-1]."""
     assert 0 <= degree <= 4
     x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
     out = [_C0 * xp.ones_like(x)]
@@ -65,7 +66,11 @@ def _sh_basis_impl(dirs, degree: int, xp):
             _C4[7] * yz * (zz - 3 * xx),
             _C4[8] * (zz * (zz - 3 * xx) - xx * (3 * zz - xx)),
         ]
-    return xp.stack(out, -1)
+    return out
+
+
+def _sh_basis_impl(dirs, degree: int, xp):
+    return xp.stack(_sh_basis_terms(dirs, degree, xp), -1)
 
 
 def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
@@ -74,11 +79,19 @@ def sh_basis(dirs: torch.Tensor, degree: int) -> torch.Tensor:
 
 
 def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
-    """sh (..., C, n_coeffs) at unit dirs (..., 3) -> (..., C)."""
+    """sh (..., C, n_coeffs) at unit dirs (..., 3) -> (..., C). The terms
+    are added in coefficient order, elementwise, so that a value does not
+    depend on how many others share the call (a matrix product's rounding
+    could); each term reads its coefficients and basis values contiguous
+    (coefficient-major)."""
     coeff = (degree + 1) ** 2
     assert sh.shape[-1] >= coeff
-    basis = sh_basis(dirs, degree)
-    return torch.einsum("...cn,...n->...c", sh[..., :coeff], basis)
+    basis = _sh_basis_terms(dirs, degree, torch)
+    coefficients = sh[..., :coeff].movedim(-1, 0).contiguous()      # (coeff, ..., C)
+    out = coefficients[0] * basis[0][..., None]
+    for k in range(1, coeff):
+        out = out + coefficients[k] * basis[k][..., None]
+    return out
 
 
 def _rotation_constants(degree: int) -> tuple[np.ndarray, np.ndarray]:

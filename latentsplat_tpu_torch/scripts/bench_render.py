@@ -188,7 +188,7 @@ def warp_blocks(x: torch.Tensor) -> torch.Tensor:
 
 
 def composite_work(view: dict) -> dict:
-    """The (pair, pixel) work this view's inputs need, counted on its
+    """The (pair, pixel) work this view's (or pass's) inputs need, counted on its
     device: the forward's evaluations (each pixel up to its `last` if it
     saturated, else to its tile's end), the backward's (each pixel up to
     its `last`), the composited (pair, pixel) combinations and the pairs
@@ -204,16 +204,17 @@ def composite_work(view: dict) -> dict:
     the forward's cull must drop no such pair."""
     gids, ranges, attrs, tiles_x, (h, w) = (view[k] for k in ("gids", "ranges", "attrs", "tiles_x", "shape"))
     tiles_y = h // kernels.TILE
-    num_tiles = tiles_x * tiles_y
+    num_tiles = ranges.shape[0] - 1                                              # N T, N items of T tiles
     n_warps = kernels.PIX // 32
     device = attrs.device
     starts, stops = ranges[:-1].long(), ranges[1:].long()
-    last = kernels.tile(view["last"], tiles_x, tiles_y).long()                   # (T, 256)
+    last = kernels.tile(view["last"], tiles_x, tiles_y).long()                   # (N T, 256)
     saturated = kernels.tile(view["t_final"], tiles_x, tiles_y) < kernels.TRANSMITTANCE_MIN
     forward_end = torch.where(saturated, last, stops[:, None])                   # each pixel's stop
-    warp_end = warp_blocks(forward_end).max(dim=2).values                        # (T, 8)
-    px, py = kernels._tile_pixels(num_tiles, tiles_x, device)
-    # Top-left pixel of each forward warp's 4x8 block, (T, 8).
+    warp_end = warp_blocks(forward_end).max(dim=2).values                        # (N T, 8)
+    px, py = (x.repeat(num_tiles // (tiles_x * tiles_y), 1) for x in kernels._tile_pixels(tiles_x * tiles_y, tiles_x,
+                                                                                            device))
+    # Top-left pixel of each forward warp's 4x8 block, (N T, 8).
     warp_x0 = warp_blocks(px).amin(dim=2)
     warp_y0 = warp_blocks(py).amin(dim=2)
     pair_tile = torch.repeat_interleave(torch.arange(num_tiles, device=device), stops - starts)
@@ -268,7 +269,7 @@ def view_work(scene: dict, size: int, j: int, precision: str = "exact") -> tuple
     knobs = precision_knobs(precision)
     with torch.no_grad():
         sg = screen_view(scene, size, j, precision=precision)
-        gids, ranges, _, _ = tile_pairs(sg, (size, size), 9, precision)
+        gids, ranges, _, _, _ = tile_pairs(sg, (size, size), 9, precision)
         attrs = quantize_attributes(pack_attributes(sg), knobs, depth_code_bits(tiles * tiles)[1])
         _, t_final, last = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size), f16_xy=knobs.f16_xy,
                                                      bf16_mm=knobs.bf16_mm, coef=knobs.coef)

@@ -25,6 +25,7 @@ from latentsplat_tpu.ops.rasterize.pallas_kernels import (
 from latentsplat_tpu_torch.ops.gaussians import build_covariance
 from latentsplat_tpu_torch.ops.rasterize import kernels
 from latentsplat_tpu_torch.ops.rasterize.api import render
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 H = W = 32
 TILES = 2
@@ -146,15 +147,15 @@ def test_composite_backward_reference_writes_zero_rows(case):
     t_ranges, t_attrs = torch.from_numpy(ranges), torch.from_numpy(attrs)
     _, t_final, last = kernels.composite_forward_reference(gids, t_ranges, t_attrs, TILES, (H, W))
     rng = np.random.default_rng(4)
-    g_out = torch.from_numpy(rng.standard_normal((attrs.shape[1] - 6, H, W)).astype(np.float32))
-    g_t = torch.from_numpy(rng.standard_normal((H, W)).astype(np.float32))
+    g_out = torch.from_numpy(rng.standard_normal((1, attrs.shape[1] - 6, H, W)).astype(np.float32))
+    g_t = torch.from_numpy(rng.standard_normal((1, H, W)).astype(np.float32))
     d_rows = kernels.composite_backward_reference(
         gids, t_ranges, order, t_attrs, TILES, (H, W), last, t_final, g_out, g_t
     )
     assert d_rows.shape == (p, attrs.shape[1])
     if case == "no_pairs":
         return
-    assert int(last[:16, :16].max()) == 2                 # tile 0 saturates after 2 pairs
+    assert int(last[0, :16, :16].max()) == 2              # tile 0 saturates after 2 pairs
     sorted_rows = d_rows[order]
     assert (sorted_rows[2:8] == 0).all()
     assert (sorted_rows[:2].abs().sum(dim=1) > 0).all() and (sorted_rows[8:].abs().sum(dim=1) > 0).all()

@@ -14,6 +14,7 @@ from latentsplat_tpu.config import load_config as jax_load_config
 from latentsplat_tpu_torch.config import PRESET_DIR, load_config, parse_yaml
 
 from tests.test_trainer import TINY_OVERRIDES
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 PRESETS = sorted(Path(JAX_PRESET_DIR).rglob("*.yaml"))
 EXPERIMENTS = [None] + sorted(p.stem for p in (Path(JAX_PRESET_DIR) / "experiment").glob("*.yaml"))

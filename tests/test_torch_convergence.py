@@ -10,6 +10,7 @@ import pytest
 
 from bench_convergence import overfit_batch as jax_overfit_batch
 from latentsplat_tpu_torch.scripts import convergence
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 # The flagship's structure at small width (chip_smoke.SMALL_OVERRIDES).
 SMALL = [

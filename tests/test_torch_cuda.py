@@ -66,7 +66,7 @@ def test_duplicate_with_keys_matches_reference(cuda, size):
     sg = screen_gaussians(size, 20000, size, cuda, n_wide=200, n_dead=500)
     counts, base, nx, mask = tile_rects(sg, tiles, tiles, CAP)
     before = kernels.launch_counts["duplicate_with_keys"]
-    gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, tiles, CAP)
+    gids, keys, _ = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, tiles, CAP)
     ref_gids, ref_keys = kernels.duplicate_with_keys_reference(counts, mask, base, nx, sg.depth, tiles, CAP)
     torch.cuda.synchronize()
     assert kernels.launch_counts["duplicate_with_keys"] == before + 1
@@ -86,7 +86,7 @@ def test_duplicate_with_keys_full_masks(cuda, n):
     base = torch.from_numpy(rng.integers(0, 4096, n).astype(np.int32))
     depth = torch.from_numpy(rng.uniform(0.1, 100.0, n).astype(np.float32))
     args = [x.to(cuda) for x in (counts, mask, base, nx, depth)]
-    gids, keys = kernels.duplicate_with_keys(*args, 64, 32)
+    gids, keys, _ = kernels.duplicate_with_keys(*args, 64, 32)
     ref_gids, ref_keys = kernels.duplicate_with_keys_reference(*args, 64, 32)
     torch.cuda.synchronize()
     assert torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys)
@@ -101,7 +101,7 @@ def test_duplicate_with_keys_64_bit_masks(cuda, cap):
     counts, base, nx, mask = tile_rects(sg, 16, 16, cap)
     assert mask.dtype == torch.int64 and int(counts.max()) > 32
     before = kernels.launch_counts["duplicate_with_keys"]
-    gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, 16, cap)
+    gids, keys, _ = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, 16, cap)
     ref_gids, ref_keys = kernels.duplicate_with_keys_reference(counts, mask, base, nx, sg.depth, 16, cap)
     torch.cuda.synchronize()
     assert kernels.launch_counts["duplicate_with_keys"] == before + 1
@@ -119,7 +119,7 @@ def test_duplicate_with_keys_64_bit_masks(cuda, cap):
     base = torch.from_numpy(rng.integers(0, 4096, n).astype(np.int32))
     depth = torch.from_numpy(rng.uniform(0.1, 100.0, n).astype(np.float32))
     args = [x.to(cuda) for x in (counts, mask, base, nx, depth)]
-    gids, keys = kernels.duplicate_with_keys(*args, 64, cap)
+    gids, keys, _ = kernels.duplicate_with_keys(*args, 64, cap)
     ref_gids, ref_keys = kernels.duplicate_with_keys_reference(*args, 64, cap)
     torch.cuda.synchronize()
     assert torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys)
@@ -138,7 +138,7 @@ def test_composite_forward_matches_reference(cuda, size):
     tiles = size // 16
     sg = screen_gaussians(size + 1, 20000, size, cuda)
     counts, base, nx, mask = tile_rects(sg, tiles, tiles, CAP)
-    gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, tiles, CAP)
+    gids, keys, _ = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, tiles, CAP)
     gids, ranges, _ = sort_pairs(gids, keys, tiles * tiles)
     attrs = pack_attributes(sg)
     before = kernels.launch_counts["composite_forward"]
@@ -159,7 +159,7 @@ def test_composite_forward_four_channels_matches_reference(cuda):
     sg = screen_gaussians(size + 3, 20000, size, cuda, n_channels=3)
     sg.channels = sg.depth[:, None].expand(-1, 3).contiguous()
     counts, base, nx, mask = tile_rects(sg, tiles, tiles, CAP)
-    gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, tiles, CAP)
+    gids, keys, _ = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, tiles, CAP)
     gids, ranges, _ = sort_pairs(gids, keys, tiles * tiles)
     attrs = pack_attributes(sg)
     assert attrs.shape[1] == 6 + 4
@@ -168,7 +168,7 @@ def test_composite_forward_four_channels_matches_reference(cuda):
     ref = kernels.composite_forward_reference(gids, ranges, attrs, tiles, (size, size))
     torch.cuda.synchronize()
     assert kernels.composite_forward_launches[4] == before + 1
-    scale = ref[0].abs().amax(dim=(1, 2), keepdim=True)
+    scale = ref[0].abs().amax(dim=(2, 3), keepdim=True)
     assert ((out[0] - ref[0]).abs() / scale).max().item() <= 1e-5
     torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=0)
     assert torch.equal(out[2], ref[2])
@@ -194,7 +194,7 @@ def test_render_depth_tiled_matches_dense(cuda, mode):
     gaussians = [x[None].to(cuda) for x in (means, covs, opacities)]
     before = kernels.composite_forward_launches.get(4, 0)
     tiled = render_depth(*args, (64, 64), *gaussians, mode=mode)
-    assert kernels.composite_forward_launches[4] == before + 2
+    assert kernels.composite_forward_launches[4] == before + 1     # both views in one pass
     dense = render_depth(*args, (64, 64), *gaussians, mode=mode, backend="dense")
     assert torch.isfinite(tiled).all()
     assert ((tiled - dense).abs().max() / dense.abs().max()).item() <= 2e-3
@@ -303,7 +303,7 @@ def backward_inputs(seed, size, device, n=20000, n_channels=4):
     tiles = size // 16
     sg = screen_gaussians(seed, n, size, device, n_channels=n_channels)
     counts, base, nx, mask = tile_rects(sg, tiles, tiles, CAP)
-    gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, tiles, CAP)
+    gids, keys, _ = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, tiles, CAP)
     gids, ranges, order = sort_pairs(gids, keys, tiles * tiles)
     attrs = pack_attributes(sg)
     out, t_final, last = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size))
@@ -437,7 +437,7 @@ def test_wrappers_check_inputs(cuda):
         kernels.duplicate_with_keys(counts.long(), mask, base, nx, sg.depth, 2, CAP)
     with pytest.raises(ValueError):
         kernels.duplicate_with_keys(counts, mask.cpu(), base, nx, sg.depth, 2, CAP)
-    gids, keys = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, 2, CAP)
+    gids, keys, _ = kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, 2, CAP)
     gids, ranges, _ = sort_pairs(gids, keys, 4)
     attrs = pack_attributes(sg)
     with pytest.raises(ValueError):   # 3 channels: no instantiation
@@ -448,7 +448,7 @@ def test_wrappers_check_inputs(cuda):
     assert np.isfinite(out.cpu().numpy()).all()
     order = torch.arange(gids.shape[0], device=cuda)
     with pytest.raises(ValueError):   # cotangent of the wrong shape
-        kernels.composite_backward(gids, ranges, order, attrs, 2, (32, 32), last, t_final, out[:1], t_final)
+        kernels.composite_backward(gids, ranges, order, attrs, 2, (32, 32), last, t_final, out[:, :1], t_final)
     with pytest.raises(ValueError):   # a CPU tensor among CUDA ones
         kernels.composite_backward(gids, ranges, order, attrs, 2, (32, 32), last, t_final.cpu(), out, t_final)
     with pytest.raises(ValueError):   # order of the wrong length
@@ -482,7 +482,7 @@ def fast_inputs(seed, size, device, n_channels):
     walk (bf16_mm) runs several blocks a tile."""
     tiles = size // 16
     sg = screen_gaussians(seed, 20000, size, device, n_channels=n_channels)
-    gids, ranges, order, _ = tile_pairs(sg, (size, size), CAP, "fast")
+    gids, ranges, order, _, _ = tile_pairs(sg, (size, size), CAP, "fast")
     attrs = quantize_attributes(pack_attributes(sg), precision_knobs("fast"), depth_code_bits(tiles * tiles)[1])
     starts, stops = ranges[:-1].long(), ranges[1:].long()
     assert int(((stops - 1) // kernels.SCAN_BLOCK - starts // kernels.SCAN_BLOCK + 1).max()) >= 6
@@ -503,7 +503,7 @@ def test_composite_forward_fast_variants_match_reference(cuda, variant, n_channe
     knobs = FORWARD_VARIANTS[variant]
     blocks = ref_blocks = None
     if knobs.get("bf16_mm"):
-        blocks = kernels.block_state(ranges, gids.shape[0])
+        blocks = kernels.block_state(ranges, gids.shape[0], tiles * tiles)
         blocks[1].zero_()
         ref_blocks = (blocks[0], torch.zeros_like(blocks[1]))
     before = variant_launches("composite_forward", variant, n_channels + 1)
@@ -512,7 +512,7 @@ def test_composite_forward_fast_variants_match_reference(cuda, variant, n_channe
     torch.cuda.synchronize()
     assert variant_launches("composite_forward", variant, n_channels + 1) == before + 1
     assert (ref[1] < kernels.TRANSMITTANCE_MIN).any(), "scene never saturates"
-    scale = ref[0].abs().amax(dim=(1, 2), keepdim=True)
+    scale = ref[0].abs().amax(dim=(2, 3), keepdim=True)
     assert ((out[0] - ref[0]).abs() / scale).max().item() <= 1e-5
     torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=0)
     assert torch.equal(out[2], ref[2])
@@ -531,7 +531,7 @@ def test_composite_backward_fast_variants_match_reference(cuda, variant, n_chann
     tiles, gids, ranges, order, attrs = fast_inputs(size + 6, size, cuda, n_channels)
     knobs = BACKWARD_VARIANTS[variant]
     mm = knobs.get("bf16_mm", False)
-    blocks = kernels.block_state(ranges, gids.shape[0]) if mm else None
+    blocks = kernels.block_state(ranges, gids.shape[0], tiles * tiles) if mm else None
     out, t_final, last = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size),
                                                    f16_xy=knobs.get("f16_xy", False), bf16_mm=mm, blocks=blocks)
     g = torch.Generator(device=cuda).manual_seed(size)
@@ -557,7 +557,7 @@ def test_split_walk_takes_bf16_mm_only(cuda):
     # wrapper counts one launch per call either way.
     size = 64
     tiles, gids, ranges, order, attrs = fast_inputs(size + 7, size, cuda, 7)
-    blocks = kernels.block_state(ranges, gids.shape[0])
+    blocks = kernels.block_state(ranges, gids.shape[0], tiles * tiles)
     out, t_final, last = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size), f16_xy=True,
                                                    bf16_mm=True, blocks=blocks)
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -566,7 +566,7 @@ def test_split_walk_takes_bf16_mm_only(cuda):
     args = (gids, ranges, order, attrs, tiles, (size, size), last, t_final, g_out, g_t)
     lib = kernels.load_library()
     d_rows = torch.empty((gids.shape[0], attrs.shape[1]), device=cuda)
-    pointers = (tiles * tiles, gids.data_ptr(), ranges.data_ptr(), order.data_ptr(), attrs.data_ptr(), tiles, size,
+    pointers = (1, tiles * tiles, gids.data_ptr(), ranges.data_ptr(), order.data_ptr(), attrs.data_ptr(), tiles, size,
                 size, last.data_ptr(), t_final.data_ptr(), g_out.data_ptr(), g_t.data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
     serial = kernels._knob_bits(True, False, True)
@@ -610,3 +610,117 @@ def test_fast_render_runs_the_fast_variants(cuda):
     four = screen_gaussians(12, 500, size, cuda, n_channels=3)
     with pytest.raises(ValueError, match="built for"), torch.no_grad():
         composite_tiled(four, (size, size), torch.zeros(3, device=cuda), precision="fast")
+
+
+# -- passes: the (scene, view) items of a render call in one launch ----------------
+
+
+PASS_GAUSSIANS = 20000
+
+
+def pass_inputs(seed, size, device, n_channels, precision="exact", n_items=4):
+    """A pass of `n_items` views of one scene from cameras that differ (each
+    view its own pair count), prepared as composite_tiled prepares them at
+    `precision`: the screen Gaussians (items first), the sorted pairs, the
+    quantized attribute rows."""
+    g = torch.Generator().manual_seed(seed)
+    n = PASS_GAUSSIANS
+    z = torch.rand(n, generator=g) * 4 + 2
+    means = torch.cat([(torch.rand(n, 2, generator=g) * 1.2 - 0.6) * z[:, None], z[:, None]], dim=1)
+    covs = build_covariance(torch.rand(n, 3, generator=g) * 0.2 + 0.05,
+                            torch.nn.functional.normalize(torch.randn(n, 4, generator=g), dim=-1))
+    ext = torch.eye(4).repeat(n_items, 1, 1)
+    ext[:, 0, 3] = torch.linspace(-0.6, 0.6, n_items)
+    ext[:, 2, 3] = torch.linspace(0.0, 1.0, n_items)
+    intr = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]]).expand(n_items, 3, 3)
+    sg = project_gaussians_to_screen(means.expand(n_items, n, 3), covs.expand(n_items, n, 3, 3),
+                                     (torch.rand(n, generator=g) * 0.65 + 0.3).expand(n_items, n),
+                                     torch.rand(n_items, n, n_channels, generator=g), ext, intr, (size, size))
+    sg = type(sg)(**{k: v.to(device) for k, v in vars(sg).items()})
+    tiles = size // 16
+    gids, ranges, order, counts, pairs = tile_pairs(sg, (size, size), CAP, precision)
+    attrs = quantize_attributes(pack_attributes(sg), precision_knobs(precision), depth_code_bits(tiles * tiles)[1],
+                                n_items)
+    assert len(set(pairs.tolist())) == n_items, pairs
+    return sg, tiles, gids, ranges, order, counts, attrs
+
+
+@pytest.mark.parametrize("variant", ["exact", "coef", "fast"])
+def test_pass_of_views_matches_reference(cuda, variant):
+    # A pass of 4 views: every kernel and variant against its plain version
+    # on the pass, under the bounds of the one-view tests above.
+    size = 64
+    precision = "exact" if variant == "exact" else "fast"
+    sg, tiles, gids, ranges, order, counts, attrs = pass_inputs(size + 8, size, cuda, 7, precision)
+    knobs = {"exact": {}, "coef": {"coef": True}, "fast": {"f16_xy": True, "bf16_mm": True}}[variant]
+    blocks = ref_blocks = None
+    if variant == "fast":
+        blocks = kernels.block_state(ranges, gids.shape[0], tiles * tiles)
+        blocks[1].zero_()
+        ref_blocks = (blocks[0], torch.zeros_like(blocks[1]))
+    args = (gids, ranges, attrs, tiles, (size, size))
+    out = kernels.composite_forward(*args, **knobs, blocks=blocks)
+    ref = kernels.composite_forward_reference(*args, **knobs, blocks=ref_blocks)
+    torch.cuda.synchronize()
+    assert out[0].shape == (4, 8, size, size) and out[2].shape == (4, size, size)
+    scale = ref[0].abs().amax(dim=(2, 3), keepdim=True)
+    assert ((out[0] - ref[0]).abs() / scale).max().item() <= 1e-5
+    torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=0)
+    assert torch.equal(out[2], ref[2])
+    if blocks is not None:
+        assert (blocks[1][..., 1] != 0).any() and torch.equal(blocks[1], ref_blocks[1])
+    if variant == "coef":
+        return
+    g = torch.Generator(device=cuda).manual_seed(size)
+    g_out = torch.randn(out[0].shape, generator=g, device=cuda)
+    g_t = torch.randn(out[1].shape, generator=g, device=cuda)
+    bwd = {"exact": {}, "fast": {"f16_xy": True, "bf16_mm": True, "bf16_grads": True}}[variant]
+    bargs = (gids, ranges, order, attrs, tiles, (size, size), out[2], out[1], g_out, g_t)
+    d = kernels.composite_backward(*bargs, **bwd, blocks=blocks)
+    d_ref = kernels.composite_backward_reference(*bargs, **bwd, blocks=blocks)
+    torch.cuda.synchronize()
+    bound = 1e-4 * d_ref.abs().amax(dim=0).clamp(min=1e-12)
+    if variant == "fast":
+        bound = bound + 2.0**-7 * d_ref.abs()
+    assert ((d - d_ref).abs() <= bound).all()
+    offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
+    assert torch.equal(kernels.reduce_pairs(d, offsets).cpu(), kernels.reduce_pairs_reference(d.cpu(), offsets.cpu()))
+
+
+@pytest.mark.parametrize("variant", ["exact", "coef", "fast"])
+def test_pass_of_views_equals_one_view_launches(cuda, variant):
+    # Each item of a pass gets the bits of a launch over that item alone:
+    # the forward's outputs (`last` less the item's first pair), the block
+    # state's entries and the backward's rows.
+    size = 64
+    precision = "exact" if variant == "exact" else "fast"
+    sg, tiles, gids, ranges, order, counts, attrs = pass_inputs(size + 9, size, cuda, 7, precision)
+    knobs = {"exact": {}, "coef": {"coef": True}, "fast": {"f16_xy": True, "bf16_mm": True}}[variant]
+    mm = variant == "fast"
+    blocks = kernels.block_state(ranges, gids.shape[0], tiles * tiles) if mm else None
+    out = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size), **knobs, blocks=blocks)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    g_out = torch.randn(out[0].shape, generator=g, device=cuda)
+    g_t = torch.randn(out[1].shape, generator=g, device=cuda)
+    bwd = {"exact": {}, "coef": None, "fast": {"f16_xy": True, "bf16_mm": True, "bf16_grads": True}}[variant]
+    if bwd is not None:
+        rows = kernels.composite_backward(gids, ranges, order, attrs, tiles, (size, size), out[2], out[1], g_out, g_t,
+                                          **bwd, blocks=blocks)
+        sorted_rows = rows[order]
+    per_item = attrs.shape[0] // 4
+    for n in range(4):
+        item = type(sg)(**{k: v[n] for k, v in vars(sg).items()})
+        i_gids, i_ranges, i_order, _, _ = tile_pairs(item, (size, size), CAP, precision)
+        lo, hi = int(ranges[n * tiles * tiles]), int(ranges[(n + 1) * tiles * tiles])
+        assert torch.equal(i_gids, gids[lo:hi] - n * per_item)
+        assert torch.equal(i_ranges, ranges[n * tiles * tiles : (n + 1) * tiles * tiles + 1] - lo)
+        i_attrs = attrs[n * per_item : (n + 1) * per_item]
+        i_blocks = kernels.block_state(i_ranges, i_gids.shape[0], tiles * tiles) if mm else None
+        i_out = kernels.composite_forward(i_gids, i_ranges, i_attrs, tiles, (size, size), **knobs, blocks=i_blocks)
+        assert torch.equal(i_out[0][0], out[0][n]) and torch.equal(i_out[1][0], out[1][n])
+        assert torch.equal(i_out[2][0], out[2][n] - lo)
+        if bwd is not None:
+            i_rows = kernels.composite_backward(i_gids, i_ranges, i_order, i_attrs, tiles, (size, size), i_out[2],
+                                                i_out[1], g_out[n : n + 1].contiguous(), g_t[n : n + 1].contiguous(),
+                                                **bwd, blocks=i_blocks)
+            assert torch.equal(i_rows[i_order], sorted_rows[lo:hi])

@@ -35,6 +35,7 @@ from latentsplat_tpu_torch.training.trainer import Trainer, strip_batch, to_devi
 from tests.test_loader import CurriculumDataset, DyingDataset, RangeDataset
 from tests.test_trainer import TINY_OVERRIDES
 from tests.torch_jpeg_tools import write_co3d_tree, write_re10k_root
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 # The tiny trainer configuration on one device: the port trains on one card.
 TINY = [o for o in TINY_OVERRIDES if not o.startswith("trainer.num_devices")] + ["trainer.num_devices=1"]

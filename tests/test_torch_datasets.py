@@ -33,6 +33,7 @@ from tests.test_co3d import _frame, _write_tree
 from tests.test_re10k_chunks import _make_chunks
 from tests.test_torch_data import TINY
 from tests.torch_jpeg_tools import write_re10k_root
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CAMERA_ATOL = 1e-6
 

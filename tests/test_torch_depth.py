@@ -21,6 +21,7 @@ from latentsplat_tpu_torch.model.types import Gaussians
 from latentsplat_tpu_torch.ops.rasterize.api import render, render_depth
 
 from tests.test_torch_rasterize import make_scene
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 MODES = ["depth", "disparity", "relative_disparity", "log"]
 SIZE = 32

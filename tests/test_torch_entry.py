@@ -18,6 +18,7 @@ from latentsplat_tpu_torch import entry
 from latentsplat_tpu_torch.scripts import bench_train
 
 from tests.test_torch_convergence import SMALL
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("args", [(1, 2, 2, 64, 64, 0), (2, 2, 1, 32, 32, 3), (3, 1, 4, 16, 24, 7),

@@ -35,6 +35,7 @@ from latentsplat_tpu_torch.weights import params_from_jax
 from tests.test_evaluation import _arc_cameras
 from tests.test_torch_data import TINY
 from tests.test_torch_training import random_leaves
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

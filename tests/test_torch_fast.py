@@ -39,6 +39,7 @@ from latentsplat_tpu_torch.weights import params_from_jax
 from tests.test_torch_rasterize import H, make_scene, project_both
 from tests.test_torch_step import SIZE, make_views, random_leaves
 from tests.test_torch_switches_step import model_cfg
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 FIELDS = ("mean2d", "conic", "opacity", "channels", "depth")
 # Port against JAX at the same precision: every rounding is reproduced, so

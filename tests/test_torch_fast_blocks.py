@@ -34,6 +34,7 @@ from latentsplat_tpu_torch.ops.rasterize.tiled import (
 )
 
 from tests.test_torch_rasterize import H, make_scene, project_both
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 TILES = H // kernels.TILE
 BLOCK = kernels.SCAN_BLOCK
@@ -59,7 +60,7 @@ def pairs(scene):
     """The pairs, their Gaussian-major order and the attribute rows that
     composite_tiled composites at "fast"."""
     _, t_sg = scene
-    gids, ranges, order, _ = tile_pairs(t_sg, (H, H), 9, "fast")
+    gids, ranges, order, _, _ = tile_pairs(t_sg, (H, H), 9, "fast")
     attrs = quantize_attributes(pack_attributes(t_sg), precision_knobs("fast"), depth_code_bits(TILES * TILES)[1])
     return gids, ranges, order, attrs
 
@@ -164,7 +165,7 @@ def fast_forward(pairs, f16_xy=True):
     """The forward's `last`, T and block state at bf16_mm (with f16_xy or
     without), and seeded cotangents."""
     gids, ranges, _, attrs = pairs
-    blocks = kernels.block_state(ranges, gids.shape[0])
+    blocks = kernels.block_state(ranges, gids.shape[0], TILES * TILES)
     out, t_final, last = kernels.composite_forward(gids, ranges, attrs, TILES, (H, H), f16_xy=f16_xy, bf16_mm=True,
                                                    blocks=blocks)
     rng = np.random.default_rng(4)

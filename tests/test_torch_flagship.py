@@ -48,6 +48,7 @@ from latentsplat_tpu_torch.entry import entry
 from latentsplat_tpu_torch.weights import params_from_jax
 
 from tests.test_torch_slice import OUTPUT_ATOL, random_leaves
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 SIZE = 64
 OVERRIDE = f"dataset.image_shape=[{SIZE},{SIZE}]"

@@ -14,6 +14,7 @@ from hypothesis import strategies as st
 
 from latentsplat_tpu_torch.ops.rasterize import kernels
 from latentsplat_tpu_torch.ops.rasterize.camera import ALPHA_CLAMP, ALPHA_THRESHOLD
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 # Pixels checked: those within EDGE of the box's edges and the drawn ones,
 # all within REACH of the image origin.

@@ -31,6 +31,7 @@ from tests.torch_jpeg_tools import (
     sha256,
     smooth_frame,
 )
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 FRAMES = sorted({**RE10K_FRAMES, **CO3D_FRAMES})
 MANIFEST = json.loads((FIXTURE_DIR / "manifest.json").read_text())

@@ -52,6 +52,7 @@ from latentsplat_tpu_torch.weights import params_from_jax
 
 from tests.test_torch_data import TINY
 from tests.test_torch_rasterize import BIG, BIG_TILES, make_scene, project_both
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 # The JAX package's tiled-versus-dense tolerance (tests/test_rasterize.py:132-134).
 RENDER_ATOL = 2e-4

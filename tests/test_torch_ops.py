@@ -20,6 +20,7 @@ from latentsplat_tpu_torch.geometry import project_rays
 from latentsplat_tpu_torch.model.encodings import positional_encoding
 from latentsplat_tpu_torch.ops import distributions, sh
 from latentsplat_tpu_torch.ops.resize import resize_antialias
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def unit(rng, shape):

@@ -37,6 +37,7 @@ from latentsplat_tpu_torch.paper.common import comparison_grid, plain_grid
 from latentsplat_tpu_torch.paper.table import make_latex_table
 from latentsplat_tpu_torch.visualization.annotation import draw_label
 from latentsplat_tpu_torch.visualization.layout import resize
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 TABLE_CASES = {
     "ranks_and_arrows": ({"Ours": [25.0, 0.12], "Baseline": [23.1, 0.15]}, ["PSNR", "LPIPS"], [2, 3], [1, -1]),

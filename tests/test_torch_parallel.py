@@ -72,6 +72,7 @@ from tests.torch_jpeg_tools import write_co3d_tree
 from tests.test_torch_step_quick import LOSSES, SIZE
 from tests.test_torch_training import random_leaves
 from tests.test_train_step_quick import _full_cfgs
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 CPU2 = ["cpu", "cpu"]
 JOIN_S = 300          # each spawn's join time limit

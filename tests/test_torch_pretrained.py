@@ -37,6 +37,7 @@ from tests.test_pretrained import (
     make_torch_patchgan,
 )
 from tests.test_torch_data import TINY
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402  (the released layout's inverse key map)

@@ -33,6 +33,7 @@ from latentsplat_tpu_torch.ops.rasterize.tiled import (
     sort_pairs,
     tile_rects,
 )
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 H = W = 32
 TILES_X = TILES_Y = 2
@@ -198,13 +199,13 @@ class TestCompositeForward:
             tiles_y=TILES_Y, interpret=True,
         )
         j_tiles = np.asarray(j_tiles)
-        j_channels = kernels.untile(torch.from_numpy(j_tiles[:, :n_ch]), TILES_X, TILES_Y).numpy()
-        j_t = kernels.untile(torch.from_numpy(j_tiles[:, n_ch]), TILES_X, TILES_Y).numpy()
+        j_channels = kernels.untile(torch.from_numpy(j_tiles[:, :n_ch]), TILES_X, TILES_Y)[0].numpy()
+        j_t = kernels.untile(torch.from_numpy(j_tiles[:, n_ch]), TILES_X, TILES_Y)[0].numpy()
 
-        channels, t, last = composite_forward_reference(
+        channels, t, last = (x[0] for x in composite_forward_reference(
             torch.arange(attrs.shape[0], dtype=torch.int32), torch.from_numpy(ranges),
             torch.from_numpy(attrs), TILES_X, (H, W),
-        )
+        ))
         channels, t = channels.numpy(), t.numpy()
         stopped = t < kernels.TRANSMITTANCE_MIN
         assert stopped.any() and (~stopped).any()

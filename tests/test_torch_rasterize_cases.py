@@ -19,6 +19,7 @@ from latentsplat_tpu_torch.ops.rasterize.tiled import composite_tiled, tile_rect
 from latentsplat_tpu_torch.ops.rasterize.types import ScreenGaussians
 
 from tests.test_rasterize import EXTRINSICS, INTRINSICS, make_gaussians
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def both(arrays, shape):

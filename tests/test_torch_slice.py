@@ -20,6 +20,7 @@ from latentsplat_tpu.training.trainer import Trainer
 from latentsplat_tpu_torch.config import load_config
 from latentsplat_tpu_torch.model.latentsplat import LatentSplat, render_full
 from latentsplat_tpu_torch.weights import params_from_jax
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 SMALL = [
     "model.encoder.backbone.model=dino_vits8",

@@ -46,6 +46,7 @@ from latentsplat_tpu_torch.weights import params_from_jax
 
 from tests.test_train_step import make_losses
 from tests.test_train_step_quick import _full_cfgs
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.slow
 

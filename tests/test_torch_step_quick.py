@@ -26,6 +26,7 @@ from latentsplat_tpu_torch.training import step as tstep
 from latentsplat_tpu_torch.training.optim import build_optimizers
 
 from tests.test_train_step_quick import _full_cfgs
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 STEP = 125000
 SIZE = 32

@@ -29,6 +29,7 @@ from latentsplat_tpu_torch.weights import params_from_jax
 
 from tests.test_torch_switches_step import STEP, build, jax_step, model_cfg, port_step, torch_batch
 from tests.test_torch_trainer import GAN
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 LOSSES = {
     "target_render_image": LossGroupCfg(nll=[LossCfg(name="mse", weight=1.0)]),

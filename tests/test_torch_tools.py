@@ -27,6 +27,7 @@ from latentsplat_tpu_torch.model.encoder.alt_depth import AttentionDistribution,
 from latentsplat_tpu_torch.weights import params_from_jax
 
 from tests.test_torch_training import random_leaves
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def test_profiler_trace_holds_the_annotated_span(tmp_path):

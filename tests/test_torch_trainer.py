@@ -39,6 +39,7 @@ from latentsplat_tpu_torch.visualization.annotation import add_label, draw_label
 from latentsplat_tpu_torch.weights import params_from_jax
 
 from tests.test_torch_data import TINY
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")

@@ -33,6 +33,7 @@ from latentsplat_tpu_torch.model.discriminator.patch_gan import DiscriminatorPat
 from latentsplat_tpu_torch.ops import distributions as td
 from latentsplat_tpu_torch.training.optim import build_optimizers
 from latentsplat_tpu_torch.weights import adam_state_from_jax, params_from_jax
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def random_leaves(shapes, rng):

@@ -23,6 +23,7 @@ from latentsplat_tpu_torch.weights import params_from_jax
 
 from tests.test_torch_trainer import tiny_cfg
 from tests.test_torch_data import TINY
+from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-6
 
