@@ -652,7 +652,7 @@ def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
     size = model.scaled_size(model.scale_factor, target["image"].shape[2:4])
     for key in kernels.launch_counts:
         kernels.launch_counts[key] = 0
-    kernels.composite_forward_launches.clear()
+    kernels.launches_by_channels["composite_forward"].clear()
     outs, seconds = {}, {}
     with torch.no_grad():
         for mode in DEPTH_MODES:
@@ -662,7 +662,7 @@ def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             seconds[mode] = time.perf_counter() - start
     launches = dict(kernels.launch_counts)
-    launches["composite_forward_by_channels"] = dict(kernels.composite_forward_launches)
+    launches["composite_forward_by_channels"] = dict(kernels.launches_by_channels["composite_forward"])
     print(f"depth phase launches (4 modes x {n_views} views): {launches}")
     if launches["composite_forward_by_channels"].get(4) != (len(DEPTH_MODES) - 1) * passes(n_views):
         raise AssertionError("render_depth did not composite its views in one pass at 4 channels in each special mode")
@@ -1244,7 +1244,7 @@ def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, di
 
         for key in kernels.launch_counts:
             kernels.launch_counts[key] = 0
-        kernels.composite_forward_launches.clear()
+        kernels.launches_by_channels["composite_forward"].clear()
         videos = []
         with watch_videos(videos):
             run_a = call("a", "mode=train", f"checkpointing.load={init}", "trainer.max_steps=2",
@@ -1278,7 +1278,7 @@ def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, di
         run_b = call("b", "mode=train", f"checkpointing.load={resume}", "checkpointing.resume=true",
                      f"trainer.max_steps={TRAIN_STEP + 2}")
         fit_launches = dict(kernels.launch_counts)
-        fit_launches["composite_forward_by_channels"] = dict(kernels.composite_forward_launches)
+        fit_launches["composite_forward_by_channels"] = dict(kernels.launches_by_channels["composite_forward"])
         resume.unlink()
         train_b = read_records(run_b)
         if [r["step"] for r in train_b] != [TRAIN_STEP + 1, TRAIN_STEP + 2]:
@@ -1313,12 +1313,12 @@ def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, di
             raise AssertionError("the evaluation index does not hold one entry of 3 targets for each scene")
         for key in kernels.launch_counts:
             kernels.launch_counts[key] = 0
-        kernels.composite_forward_launches.clear()
+        kernels.launches_by_channels["composite_forward"].clear()
         evaluation = {"name": "evaluation", "index_path": str(index)}
         call("c", "mode=test", f"checkpointing.load={ckpt_a}", "wandb.name=evaluation",
              f"dataset.view_sampler={json.dumps(evaluation)}")
         test_launches = dict(kernels.launch_counts)
-        test_launches["composite_forward_by_channels"] = dict(kernels.composite_forward_launches)
+        test_launches["composite_forward_by_channels"] = dict(kernels.launches_by_channels["composite_forward"])
         means_c = check_test_output(tmp / "c" / "test" / "evaluation", 4 * 3)
         evaluation_phase(seed, device, dict(data, view_sampler=evaluation), tmp / "c" / "test" / "evaluation", tmp)
         if keep is not None:
@@ -1858,7 +1858,8 @@ def read_launches() -> dict:
     composite kernels' by variant and channel count under "by_variant"."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
-    return {**kernels.launch_counts, "composite_forward_by_channels": dict(kernels.composite_forward_launches),
+    return {**kernels.launch_counts,
+            "composite_forward_by_channels": dict(kernels.launches_by_channels["composite_forward"]),
             "by_channels": {k: dict(v) for k, v in kernels.launches_by_channels.items()},
             "by_variant": {k: {variant: dict(c) for variant, c in v.items()}
                            for k, v in kernels.launches_by_variant.items()}}

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import host_build
+from ..misc.profiler import host_read
 
 
 def _rescale_image(image: np.ndarray, shape: tuple[int, int],
@@ -123,9 +124,10 @@ def apply_patch_shim(batch: dict, patch_size: int) -> dict:
         row = (h - h_new) // 2
         col = (w - w_new) // 2
         image = views["image"][..., row : row + h_new, col : col + w_new, :]
-        scale = views["intrinsics"].new_tensor(
-            [[w / w_new, 1.0, 1.0], [1.0, h / h_new, 1.0], [1.0, 1.0, 1.0]]
-        )
+        with host_read("patch_shim"):
+            scale = views["intrinsics"].new_tensor(
+                [[w / w_new, 1.0, 1.0], [1.0, h / h_new, 1.0], [1.0, 1.0, 1.0]]
+            )
         return {**views, "image": image, "intrinsics": views["intrinsics"] * scale}
 
     return {**batch, "context": per_views(batch["context"]), "target": per_views(batch["target"])}

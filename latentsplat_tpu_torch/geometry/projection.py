@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..misc.profiler import host_read
+
 _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 
@@ -29,7 +31,8 @@ def invert_se3(extrinsics: torch.Tensor) -> torch.Tensor:
     rot_inv = extrinsics[..., :3, :3].transpose(-1, -2)
     t_inv = -rot_inv @ extrinsics[..., :3, 3:]
     top = torch.cat([rot_inv, t_inv], dim=-1)
-    bottom = extrinsics.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(*top.shape[:-2], 1, 4)
+    with host_read("invert_se3"):
+        bottom = extrinsics.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(*top.shape[:-2], 1, 4)
     return torch.cat([top, bottom], dim=-2)
 
 

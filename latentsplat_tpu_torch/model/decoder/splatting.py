@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ...misc.profiler import host_read
 from ...ops.distributions import DiagonalGaussian
 from ...ops.rasterize.api import DepthRenderingMode, render, render_depth
 from ...ops.rasterize.tiled import precision_knobs
@@ -58,7 +59,8 @@ class DecoderSplatting:
         return_features: bool = True,
     ) -> DecoderOutput:
         b = extrinsics.shape[0]
-        background = torch.tensor(self.background_color, device=extrinsics.device)
+        with host_read("background"):
+            background = torch.tensor(self.background_color, device=extrinsics.device)
         out = render(
             extrinsics, intrinsics, near, far, image_shape, background.expand(b, 3),
             gaussians.means, gaussians.covariances, gaussians.opacities,

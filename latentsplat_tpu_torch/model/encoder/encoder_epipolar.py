@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...geometry import sample_image_grid
+from ...misc.profiler import host_read, span
 from ...ops.distributions import DiagonalGaussian
 from ..types import VariationalGaussians
 from .backbone import BackboneCfg, get_backbone
@@ -110,72 +111,76 @@ class EncoderEpipolar(nn.Module):
         image = context["image"]
         b, v = image.shape[:2]
 
-        if features is None:
-            features = image
-        features = self.backbone(features.reshape(b * v, *features.shape[-3:]))
-        h, w = features.shape[1:3]
-        features = self.backbone_projection(F.relu(features))
-        features = features.reshape(b, v, h, w, cfg.d_feature)
+        with span("encoder.backbone"):
+            if features is None:
+                features = image
+            features = self.backbone(features.reshape(b * v, *features.shape[-3:]))
+            h, w = features.shape[1:3]
+            features = self.backbone_projection(F.relu(features))
+            features = features.reshape(b, v, h, w, cfg.d_feature)
 
-        if cfg.use_epipolar_transformer:
-            features, _ = self.epipolar_transformer(
-                features, context["extrinsics"], context["intrinsics"],
-                context["near"], context["far"],
+        with span("encoder.epipolar"):
+            if cfg.use_epipolar_transformer:
+                features, _ = self.epipolar_transformer(
+                    features, context["extrinsics"], context["intrinsics"],
+                    context["near"], context["far"],
+                )
+
+            if hasattr(self, "high_resolution_skip") and (h, w) == tuple(image.shape[2:4]):
+                skip = self.high_resolution_skip(
+                    image.reshape(b * v, h, w, -1).permute(0, 3, 1, 2)
+                )
+                features = features + F.relu(skip).permute(0, 2, 3, 1).reshape(
+                    b, v, h, w, cfg.d_feature
+                )
+
+        with span("encoder.gaussians"):
+            features = features.reshape(b, v, h * w, cfg.d_feature)
+            gpp = 1 if deterministic else cfg.gaussians_per_pixel
+            depths, densities = self.depth_predictor(
+                features, context["near"], context["far"], deterministic, gpp,
+                generator=generator, noise=depth_noise,
             )
 
-        if hasattr(self, "high_resolution_skip") and (h, w) == tuple(image.shape[2:4]):
-            skip = self.high_resolution_skip(
-                image.reshape(b * v, h, w, -1).permute(0, 3, 1, 2)
+            raw = self.to_gaussians(F.relu(features))
+            raw = raw.reshape(b, v, h * w, cfg.num_surfaces, 2 + self.adapter.d_in)
+
+            xy_ray, _ = sample_image_grid((h, w), image.device)
+            xy_ray = xy_ray.reshape(h * w, 1, 2)
+            offset_xy = torch.sigmoid(raw[..., :2])
+            with host_read("pixel_size"):
+                pixel_size = torch.tensor([1.0 / w, 1.0 / h], device=image.device)
+            xy_ray = xy_ray[None, None] + (offset_xy - 0.5) * pixel_size
+
+            gaussians = self.adapter(
+                context["extrinsics"][:, :, None, None, None],
+                context["intrinsics"][:, :, None, None, None],
+                xy_ray[:, :, :, :, None],
+                depths,
+                self.map_pdf_to_opacity(densities, global_step) / cfg.gaussians_per_pixel,
+                raw[..., None, 2:],
+                (h, w),
             )
-            features = features + F.relu(skip).permute(0, 2, 3, 1).reshape(
-                b, v, h, w, cfg.d_feature
+
+            if cfg.predict_opacity:
+                opacity_multiplier = torch.sigmoid(self.to_opacity(F.relu(features)))[..., None]
+            else:
+                opacity_multiplier = 1.0
+
+            def flatten_g(x):
+                # (b, v, r, srf, spp, ...) -> (b, v*r*srf*spp, ...)
+                return x.reshape(b, -1, *x.shape[5:])
+
+            feature_harmonics = flatten_g(gaussians.feature_harmonics)
+            feature_dist = (
+                DiagonalGaussian.from_params(feature_harmonics, dim=-2)
+                if self.variational
+                else DiagonalGaussian(feature_harmonics)
             )
-
-        features = features.reshape(b, v, h * w, cfg.d_feature)
-        gpp = 1 if deterministic else cfg.gaussians_per_pixel
-        depths, densities = self.depth_predictor(
-            features, context["near"], context["far"], deterministic, gpp,
-            generator=generator, noise=depth_noise,
-        )
-
-        raw = self.to_gaussians(F.relu(features))
-        raw = raw.reshape(b, v, h * w, cfg.num_surfaces, 2 + self.adapter.d_in)
-
-        xy_ray, _ = sample_image_grid((h, w), image.device)
-        xy_ray = xy_ray.reshape(h * w, 1, 2)
-        offset_xy = torch.sigmoid(raw[..., :2])
-        pixel_size = torch.tensor([1.0 / w, 1.0 / h], device=image.device)
-        xy_ray = xy_ray[None, None] + (offset_xy - 0.5) * pixel_size
-
-        gaussians = self.adapter(
-            context["extrinsics"][:, :, None, None, None],
-            context["intrinsics"][:, :, None, None, None],
-            xy_ray[:, :, :, :, None],
-            depths,
-            self.map_pdf_to_opacity(densities, global_step) / cfg.gaussians_per_pixel,
-            raw[..., None, 2:],
-            (h, w),
-        )
-
-        if cfg.predict_opacity:
-            opacity_multiplier = torch.sigmoid(self.to_opacity(F.relu(features)))[..., None]
-        else:
-            opacity_multiplier = 1.0
-
-        def flatten_g(x):
-            # (b, v, r, srf, spp, ...) -> (b, v*r*srf*spp, ...)
-            return x.reshape(b, -1, *x.shape[5:])
-
-        feature_harmonics = flatten_g(gaussians.feature_harmonics)
-        feature_dist = (
-            DiagonalGaussian.from_params(feature_harmonics, dim=-2)
-            if self.variational
-            else DiagonalGaussian(feature_harmonics)
-        )
-        return VariationalGaussians(
-            means=flatten_g(gaussians.means),
-            covariances=flatten_g(gaussians.covariances),
-            opacities=flatten_g(opacity_multiplier * gaussians.opacities),
-            color_harmonics=flatten_g(gaussians.color_harmonics),
-            feature_harmonics=feature_dist,
-        )
+            return VariationalGaussians(
+                means=flatten_g(gaussians.means),
+                covariances=flatten_g(gaussians.covariances),
+                opacities=flatten_g(opacity_multiplier * gaussians.opacities),
+                color_harmonics=flatten_g(gaussians.color_harmonics),
+                feature_harmonics=feature_dist,
+            )

@@ -20,6 +20,7 @@ from ...misc.heterogeneous_pairings import (
     generate_heterogeneous_index,
     generate_heterogeneous_index_transpose,
 )
+from ...misc.profiler import host_read
 
 
 class EpipolarSampling(NamedTuple):
@@ -45,9 +46,10 @@ def sample_epipolar_features(
     device = features.device
     _, index_v = generate_heterogeneous_index(v)
     t_v, t_ov = generate_heterogeneous_index_transpose(v)
-    index_v = torch.as_tensor(index_v, device=device)
-    t_v = torch.as_tensor(t_v, device=device)
-    t_ov = torch.as_tensor(t_ov, device=device)
+    with host_read("epipolar_index"):
+        index_v = torch.as_tensor(index_v, device=device)
+        t_v = torch.as_tensor(t_v, device=device)
+        t_ov = torch.as_tensor(t_ov, device=device)
 
     xy, _ = sample_image_grid((h, w), device)
     xy_flat = xy.reshape(-1, 2)

@@ -13,6 +13,7 @@ from torch import nn
 
 from ...geometry import depth_to_relative_disparity, get_depth
 from ...misc.heterogeneous_pairings import generate_heterogeneous_index
+from ...misc.profiler import host_read
 from ..encodings import positional_encoding
 from ..transformer import Transformer
 from .epipolar_sampler import EpipolarSampling, sample_epipolar_features
@@ -85,7 +86,8 @@ class EpipolarTransformer(nn.Module):
         q = sampling.features
         if c.num_octaves > 0:
             _, index_v = generate_heterogeneous_index(v)
-            index_v = torch.as_tensor(index_v, device=features.device)
+            with host_read("epipolar_index"):
+                index_v = torch.as_tensor(index_v, device=features.device)
             depths = get_depth(
                 sampling.origins[:, :, None, :, None],
                 sampling.directions[:, :, None, :, None],

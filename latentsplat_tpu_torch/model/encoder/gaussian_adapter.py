@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ...geometry import get_world_rays
+from ...misc.profiler import host_read
 from ...ops.gaussians import build_covariance
 from ...ops.sh import rotate_sh
 
@@ -77,7 +78,8 @@ class GaussianAdapter:
         scales = cfg.gaussian_scale_min + (
             cfg.gaussian_scale_max - cfg.gaussian_scale_min
         ) * torch.sigmoid(scales)
-        pixel_size = torch.tensor([1.0 / w, 1.0 / h], device=scales.device)
+        with host_read("pixel_size"):
+            pixel_size = torch.tensor([1.0 / w, 1.0 / h], device=scales.device)
         multiplier = self.get_scale_multiplier(intrinsics, pixel_size)
         scales = scales * depths[..., None] * multiplier[..., None]
 
@@ -88,12 +90,12 @@ class GaussianAdapter:
         feature_sh = feature_sh.reshape(
             *feature_sh.shape[:-1], self.n_feature_channels, self.d_feature_sh
         )
-        color_sh = color_sh.expand(*opacities.shape, 3, self.d_color_sh) * (
-            self.color_sh_mask.to(device)
-        )
+        with host_read("sh_masks"):
+            color_mask, feature_mask = self.color_sh_mask.to(device), self.feature_sh_mask.to(device)
+        color_sh = color_sh.expand(*opacities.shape, 3, self.d_color_sh) * color_mask
         feature_sh = feature_sh.expand(
             *opacities.shape, self.n_feature_channels, self.d_feature_sh
-        ) * self.feature_sh_mask.to(device)
+        ) * feature_mask
 
         covariances = build_covariance(scales, rotations)
         c2w = extrinsics[..., :3, :3]

@@ -8,12 +8,15 @@ import math
 
 import torch
 
+from ..misc.profiler import host_read
+
 
 def positional_encoding(samples: torch.Tensor, num_octaves: int) -> torch.Tensor:
     """(..., d) -> (..., d * num_octaves * 2)."""
     octaves = torch.arange(num_octaves, dtype=torch.float32, device=samples.device)
     frequencies = 2.0 * math.pi * 2.0**octaves
-    phases = torch.tensor([0.0, 0.5 * math.pi], dtype=torch.float32, device=samples.device)
+    with host_read("positional_encoding"):
+        phases = torch.tensor([0.0, 0.5 * math.pi], dtype=torch.float32, device=samples.device)
     angle = samples[..., None, None] * frequencies[:, None] + phases
     out = torch.sin(angle)
     return out.reshape(*samples.shape[:-1], samples.shape[-1] * num_octaves * 2)

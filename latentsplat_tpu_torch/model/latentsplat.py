@@ -13,7 +13,6 @@ decode with skip connections.
 
 from __future__ import annotations
 
-from contextlib import nullcontext
 from fractions import Fraction
 from typing import Optional
 
@@ -22,6 +21,7 @@ from torch import nn
 
 from ..dataset.shims import apply_bounds_shim, apply_patch_shim
 from ..misc.fraction_utils import get_integer
+from ..misc.profiler import span
 from ..ops.resize import resize_antialias
 from .autoencoder.identity import AutoencoderId
 from .autoencoder.kl import AutoencoderKL
@@ -119,28 +119,25 @@ def render_full(
     In probabilistic mode randomness comes from `generator`, or from
     `noise` = {"depth": uniform (b, v, r, srf, spp), "gaussians": normal like
     the feature-SH mean, "latent": normal (b, v, h, w, c), "context_latent":
-    normal like the context latents (`encode_latents`)}. `timer`, if given,
-    is a context-manager factory called with the stage name
-    ("autoencoder_encoder" under `encode_latents`, "encoder", "decoder",
-    "autoencoder_decoder").
+    normal like the context latents (`encode_latents`)}. The call is the
+    root span `render_full`; `timer`, if given, is a context-manager factory
+    called with the stage name ("autoencoder_encoder" under
+    `encode_latents`, "encoder", "decoder", "autoencoder_decoder") inside
+    the stage's span.
     """
     noise = noise or {}
-
-    def stage(name):
-        return timer(name) if timer is not None else nullcontext()
-
-    with torch.no_grad():
+    with span("render_full", interval=False), torch.no_grad():
         batch = model.data_shim(batch)
         target = batch["target"]
         features = None
         if model.cfg.encode_latents:
-            with stage("autoencoder_encoder"):
+            with span("autoencoder_encoder", timer):
                 posterior = model.autoencoder.encode(batch["context"]["image"])
                 features = (
                     posterior.mode() if deterministic
                     else posterior.sample(generator, noise.get("context_latent"))
                 )
-        with stage("encoder"):
+        with span("encoder", timer):
             gaussians = model.encoder(
                 batch["context"], 0, deterministic=deterministic, generator=generator,
                 depth_noise=noise.get("depth"), features=features,
@@ -150,12 +147,12 @@ def render_full(
                 else gaussians.sample(generator, noise.get("gaussians"))
             )
         size = tuple(get_integer(model.scale_factor * s) for s in target["image"].shape[-3:-1])
-        with stage("decoder"):
+        with span("decoder", timer):
             rendered = model.decoder(
                 lowered, target["extrinsics"], target["intrinsics"],
                 target["near"], target["far"], size,
             )
-        with stage("autoencoder_decoder"):
+        with span("autoencoder_decoder", timer):
             posterior = rendered.feature_posterior
             latent = (
                 posterior.mode() if deterministic

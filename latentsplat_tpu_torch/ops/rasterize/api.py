@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...geometry.conversions import depth_to_relative_disparity
 from ...geometry.projection import homogenize_points, invert_se3
+from ...misc.profiler import span
 from ..sh import eval_sh
 from .camera import project_gaussians_to_screen
 from .dense import composite_dense
@@ -150,27 +151,28 @@ def _render(
         def gather(x):   # a scene-level tensor's rows of the pass's items
             return torch.cat([x[s : s + 1].expand(c, *x.shape[1:]) for s, c in segments])
 
-        means, covs, opacities, background = map(gather, (means, covs, opacities, background))
-        if item_payload:
-            channels = item_payload[0]
-        else:
-            # Each scene's SH tables against its run of items' cameras.
-            parts, i = [], 0
-            for s, c in segments:
-                color, feature = (sh[name][s] if name in sh else None for name in ("color", "feature"))
-                parts.append(view_channels(means[i : i + c], color, feature, ext[i : i + c, :3, 3], use_sh))
-                i += c
-            channels = torch.cat(parts)
-        fill = torch.zeros(channels.shape[0], channels.shape[-1], device=channels.device)
-        fill[:, :n_color] = background[:, :n_color]
-        if scale_invariant:
-            scale = 1.0 / near_n
-            ext_s = ext.clone()
-            ext_s[:, :3, 3] = ext[:, :3, 3] * scale[:, None]
-            means_s, covs_s = means * scale[:, None, None], covs * (scale * scale)[:, None, None, None]
-        else:
-            ext_s, means_s, covs_s = ext, means, covs
-        sg = project_gaussians_to_screen(means_s, covs_s, opacities, channels, ext_s, intr, image_shape)
+        with span("render.shade"):
+            means, covs, opacities, background = map(gather, (means, covs, opacities, background))
+            if item_payload:
+                channels = item_payload[0]
+            else:
+                # Each scene's SH tables against its run of items' cameras.
+                parts, i = [], 0
+                for s, c in segments:
+                    color, feature = (sh[name][s] if name in sh else None for name in ("color", "feature"))
+                    parts.append(view_channels(means[i : i + c], color, feature, ext[i : i + c, :3, 3], use_sh))
+                    i += c
+                channels = torch.cat(parts)
+            fill = torch.zeros(channels.shape[0], channels.shape[-1], device=channels.device)
+            fill[:, :n_color] = background[:, :n_color]
+            if scale_invariant:
+                scale = 1.0 / near_n
+                ext_s = ext.clone()
+                ext_s[:, :3, 3] = ext[:, :3, 3] * scale[:, None]
+                means_s, covs_s = means * scale[:, None, None], covs * (scale * scale)[:, None, None, None]
+            else:
+                ext_s, means_s, covs_s = ext, means, covs
+            sg = project_gaussians_to_screen(means_s, covs_s, opacities, channels, ext_s, intr, image_shape)
         if backend == "dense":
             views = [composite_dense(ScreenGaussians(**{f.name: getattr(sg, f.name)[n] for f in
                                                         dataclasses.fields(sg)}), image_shape, fill[n])
@@ -179,8 +181,9 @@ def _render(
         if backend == "tiled":
             cap = max_tiles_per_gaussian
             if cap is None:
-                sg = dataclasses.replace(sg, extent=dense_extent(sg))
-                cap = covering_cap(sg, image_shape)
+                with span("render.cull"):
+                    sg = dataclasses.replace(sg, extent=dense_extent(sg))
+                    cap = covering_cap(sg, image_shape)
             return composite_tiled(sg, image_shape, fill, cap, precision)
         raise ValueError(f"unknown backend {backend!r}")
 

@@ -23,13 +23,13 @@ A wrapper given CPU tensors runs the `*_reference` version; given CUDA
 tensors it launches the kernel or raises. `launch_counts` counts kernel
 launches (not reference calls); `launches_by_channels` splits the three
 compositing kernels' by the channel count they were launched for
-(`reduce_pairs`: its row's width less the 6 attributes), and
-`composite_forward_launches` is the forward compositor's part of it;
+(`reduce_pairs`: its row's width less the 6 attributes);
 `launches_by_variant` splits the two composite kernels' by variant (see
 `variant_name`) and channel count. `host_reads` counts the reads of device
 values by the host on the card's path, by site: one a pass in
 `duplicate_with_keys` (the per-item pair totals), and one a pass in
-`tiled.covering_cap` where a render sizes its slot cap (orthographic).
+`tiled.covering_cap` where a render sizes its slot cap (orthographic),
+each inside a `host_read.<site>` span (misc/profiler.py).
 
 The composite kernels take the per-pair knobs of the JAX package's fast
 precision family (latentsplat_tpu/ops/rasterize/tiled.py): `f16_xy`, the
@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from ...cuda_build import check, load_library
+from ...misc.profiler import host_read
 from .camera import ALPHA_CLAMP, ALPHA_THRESHOLD
 
 TILE = 16
@@ -85,7 +86,6 @@ launch_counts = {
 launches_by_channels: dict[str, dict[int, int]] = {
     "composite_forward": {}, "composite_backward": {}, "reduce_pairs": {},
 }
-composite_forward_launches = launches_by_channels["composite_forward"]
 host_reads = {"duplicate_with_keys": 0, "covering_cap": 0}
 launches_by_variant: dict[str, dict[str, dict[int, int]]] = {"composite_forward": {}, "composite_backward": {}}
 
@@ -189,7 +189,8 @@ def duplicate_with_keys(
     # torch.sort needs the exact pair count: the pass's one wait on the
     # device, which reads every item's running total at once.
     offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
-    ends = offsets.reshape(items, -1)[:, -1].cpu() if g else torch.zeros(items, dtype=torch.int64)
+    with host_read("pair_totals"):
+        ends = offsets.reshape(items, -1)[:, -1].cpu() if g else torch.zeros(items, dtype=torch.int64)
     host_reads["duplicate_with_keys"] += 1
     total = int(ends[-1])
     gids = torch.empty((total,), dtype=torch.int32, device=counts.device)

@@ -36,6 +36,7 @@ import math
 
 import torch
 
+from ...misc.profiler import host_read, span
 from . import kernels
 from .kernels import (
     TILE,
@@ -186,7 +187,8 @@ def covering_cap(sg: ScreenGaussians, image_shape: tuple[int, int]) -> int:
     h, w = image_shape
     _, _, nx, ny = _rects(sg, w // TILE, h // TILE)
     sizes = torch.where(sg.radius > 0.0, nx * ny, torch.zeros_like(nx))
-    largest = max(int(sizes.max()), 1) if sizes.numel() else 1
+    with host_read("covering_cap"):
+        largest = max(int(sizes.max()), 1) if sizes.numel() else 1
     if sizes.is_cuda:
         kernels.host_reads["covering_cap"] += 1
     if largest > MAX_TILES_PER_GAUSSIAN:
@@ -340,11 +342,14 @@ def tile_pairs(
                          f"{MIN_DEPTH_CODE_BITS} bits the {precision!r} precision needs")
     cull_margin = FAST_CULL_MARGIN if knobs.wide_cull else CULL_MARGIN
     with torch.no_grad():
-        counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y, max_tiles_per_gaussian, cull_margin)
-        depth = sg.depth.reshape(-1)
-        depth = truncated_depth(depth, code_shift) if knobs.tie_depth else depth.contiguous()
-        gids, keys, pairs = duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, max_tiles_per_gaussian, items)
-        gids, tile_ranges, order = sort_pairs(gids, keys, items * tiles_x * tiles_y)
+        with span("render.cull"):
+            counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y, max_tiles_per_gaussian, cull_margin)
+        with span("render.sort"):
+            depth = sg.depth.reshape(-1)
+            depth = truncated_depth(depth, code_shift) if knobs.tie_depth else depth.contiguous()
+            gids, keys, pairs = duplicate_with_keys(
+                counts, mask, base, nx, depth, tiles_x, max_tiles_per_gaussian, items)
+            gids, tile_ranges, order = sort_pairs(gids, keys, items * tiles_x * tiles_y)
     return gids, tile_ranges, order, counts, pairs
 
 
@@ -366,13 +371,14 @@ def composite_tiled(
     gids, tile_ranges, order, counts, pairs = tile_pairs(sg, image_shape, max_tiles_per_gaussian, precision)
     h, w = image_shape
     tiles_x = w // TILE
-    attrs = pack_attributes(sg)
-    want_grad = torch.is_grad_enabled() and attrs.requires_grad
-    out, t_final = _PairComposite.apply(
-        attrs, gids, tile_ranges, order, counts, tiles_x, image_shape, precision_knobs(precision),
-        depth_code_bits(tiles_x * (h // TILE))[1], want_grad,
-    )
-    c = sg.num_channels
-    channels = out[:, :c] + background.reshape(-1, c, 1, 1) * t_final[:, None]
+    with span("render.composite"):
+        attrs = pack_attributes(sg)
+        want_grad = torch.is_grad_enabled() and attrs.requires_grad
+        out, t_final = _PairComposite.apply(
+            attrs, gids, tile_ranges, order, counts, tiles_x, image_shape, precision_knobs(precision),
+            depth_code_bits(tiles_x * (h // TILE))[1], want_grad,
+        )
+        c = sg.num_channels
+        channels = out[:, :c] + background.reshape(-1, c, 1, 1) * t_final[:, None]
     return (channels.reshape(*lead, c, h, w), (1.0 - t_final).reshape(*lead, h, w),
             out[:, c].reshape(*lead, h, w), pairs.reshape(lead))

@@ -9,6 +9,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..misc.profiler import host_read
+
 
 @lru_cache(maxsize=64)
 def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -28,7 +30,8 @@ def resize_antialias(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     h, w = x.shape[-3], x.shape[-2]
     if (h, w) == tuple(out_hw):
         return x
-    m_h = torch.from_numpy(_resize_matrix(h, out_hw[0])).to(x.device)
-    m_w = torch.from_numpy(_resize_matrix(w, out_hw[1])).to(x.device)
+    with host_read("resize_matrix"):
+        m_h = torch.from_numpy(_resize_matrix(h, out_hw[0])).to(x.device)
+        m_w = torch.from_numpy(_resize_matrix(w, out_hw[1])).to(x.device)
     x = torch.einsum("oh,...hwc->...owc", m_h, x)
     return torch.einsum("ow,...hwc->...hoc", m_w, x)

@@ -14,6 +14,8 @@ from math import isqrt
 import numpy as np
 import torch
 
+from ..misc.profiler import host_read
+
 _C0 = 0.28209479177387814
 _C1 = 0.4886025119029199
 _C2 = [1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
@@ -110,8 +112,9 @@ _ROTATION_CONSTANTS = {degree: _rotation_constants(degree) for degree in range(1
 def sh_rotation_matrix(rotations: torch.Tensor, degree: int) -> torch.Tensor:
     """(..., 3, 3) rotations -> (..., 2l+1, 2l+1) band-l coefficient rotation."""
     dirs_np, pinv_np = _ROTATION_CONSTANTS[degree]
-    dirs = torch.as_tensor(dirs_np, dtype=rotations.dtype, device=rotations.device)
-    pinv = torch.as_tensor(pinv_np, dtype=rotations.dtype, device=rotations.device)
+    with host_read("sh_rotation"):
+        dirs = torch.as_tensor(dirs_np, dtype=rotations.dtype, device=rotations.device)
+        pinv = torch.as_tensor(pinv_np, dtype=rotations.dtype, device=rotations.device)
     rotated = torch.einsum("...ji,kj->...ki", rotations, dirs)
     b_r = sh_basis(rotated, degree)[..., degree**2 : (degree + 1) ** 2]
     return torch.einsum("mk,...ki->...mi", pinv, b_r)

@@ -23,6 +23,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..misc.profiler import host_read
+
 
 @dataclass
 class AdamCfg:
@@ -37,7 +39,8 @@ class AdamCfg:
 def _learning_rate(cfg: AdamCfg, count: torch.Tensor) -> torch.Tensor:
     """optax.linear_schedule(lr * start_factor -> lr over warm_up_steps)."""
     if cfg.warm_up_steps <= 0:
-        return torch.tensor(cfg.lr, device=count.device)
+        with host_read("learning_rate"):
+            return torch.tensor(cfg.lr, device=count.device)
     init = cfg.lr * cfg.warm_up_start_factor
     c = count.clamp(0, cfg.warm_up_steps).float()
     frac = 1.0 - c / cfg.warm_up_steps

@@ -50,7 +50,6 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
-from contextlib import nullcontext
 from dataclasses import dataclass
 from fractions import Fraction
 from typing import Callable, Dict, Optional, Tuple
@@ -65,6 +64,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..evaluation.metrics import compute_psnr
 from ..loss.losses import LossGroup, adaptive_gan_weight
+from ..misc.profiler import span
 from ..model.latentsplat import LatentSplat, discriminate
 from ..model.types import GroundTruth, Prediction
 from .optim import ChainedAdam, global_norm
@@ -559,16 +559,13 @@ def generator_grads(
     global batch's probes under `reduce`); the gradients and the total are
     this process's, of nll + sum(w * g); the logs are the global batch's."""
     reduce = reduce or LocalReduce()
-    def stage(name):
-        return timer(name) if timer is not None else nullcontext()
-
     params = dict(state.model.named_parameters())
-    with stage("generator_forward"):
+    with span("generator_forward", timer):
         nll, gan_nll, gan_g, logs, fakes = generator_forward(
             state, losses, flags, batch, step, generator, noise
         )
         logs = reduce.logs(logs)
-    with stage("generator_backward"):
+    with span("generator_backward", timer):
         leaf = {"last": state.model.last_layer()}
         weights = []
         for nll_i, g_i in zip(gan_nll, gan_g):
@@ -606,9 +603,10 @@ def make_train_step(
     reduce: Optional[LocalReduce] = None,
 ):
     """Returns train_step(state, batch, step, generator=None, noise=None,
-    timer=None) -> (state, logs); `timer(name)`, if given, is a context
-    manager around the stages "generator_forward", "generator_backward",
-    "generator_update" and "discriminator". Under `reduce` the gradients
+    timer=None) -> (state, logs), a call the root span `train_step`;
+    `timer(name)`, if given, is a context manager around the stages
+    "generator_forward", "generator_backward", "generator_update" and
+    "discriminator", inside each stage's span. Under `reduce` the gradients
     are averaged over the global batch before the norms and the update, and
     the guards and the discriminator's gate read the global losses, so that
     every rank takes the same branch."""
@@ -617,9 +615,10 @@ def make_train_step(
     def train_step(state: TrainState, batch: dict, step: int,
                    generator: Optional[torch.Generator] = None, noise: Optional[dict] = None,
                    timer=None):
-        def stage(name):
-            return timer(name) if timer is not None else nullcontext()
+        with span("train_step", interval=False):
+            return _train_step(state, batch, step, generator, noise, timer)
 
+    def _train_step(state, batch, step, generator, noise, timer):
         flags = make_step_flags(losses, step)
         grads, gen_loss, logs, fakes = generator_grads(
             state, losses, flags, batch, step, generator, noise, timer, reduce
@@ -634,7 +633,7 @@ def make_train_step(
                 g for n, g in grads.items() if n.split(".")[0] == group
             )
 
-        with stage("generator_update"):
+        with span("generator_update", timer):
             finite = torch.isfinite(gen_loss)
             ok = finite
             if skip_loss_spike_factor is not None:
@@ -657,7 +656,7 @@ def make_train_step(
         del grads
 
         if flags.disc:
-            with stage("discriminator"):
+            with span("discriminator", timer):
                 d_loss, d_logs = discriminator_loss(state, losses, flags, batch, step, fakes)
                 d_grads = reduce.mean_grads(_grads(d_loss, dict(state.discriminator.named_parameters())))
                 d_loss = reduce.mean(d_loss.detach())

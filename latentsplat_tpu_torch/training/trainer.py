@@ -50,6 +50,7 @@ from ..loss.losses import LossGroup
 from ..loss.lpips import LPIPS
 from ..misc.benchmarker import Benchmarker
 from ..misc.image_io import save_image
+from ..misc.profiler import host_read, span
 from ..model.discriminator.patch_gan import DiscriminatorPatchGan
 from ..model.latentsplat import LatentSplat, render_full
 from ..parallel.mesh import Mesh, make_parallel_train_step, replicate_state, single_mesh
@@ -380,20 +381,26 @@ class Trainer:
     def test(self, state_or_params, name: str = "latentsplat_tpu") -> None:
         """Render every test scene, write its target views as
         <test.output_path>/<name>/<scene>/<context indices>/color/NNNNNN.png,
-        then benchmark.json and peak_memory.json beside them."""
+        then benchmark.json and peak_memory.json beside them. Each test
+        batch is a `test_request` span holding `render_full` and the writes
+        (`test_request.write`): under `misc.profiler.trace` they land in its
+        Chrome trace and in `misc.profiler.records()`."""
         cfg = self.cfg
         model = self._generator(state_or_params)
         out_root = Path(cfg.test.output_path) / name
         with _closing(self._loader("test", 1, repeat=False)) as loader:
             for batch in loader:
-                scene = batch["scene"][0] if isinstance(batch["scene"], list) else batch["scene"]
-                generator = torch.Generator(self.device).manual_seed(cfg.seed + 3)
-                out = self._render_full_timed(
-                    model, to_device(strip_batch(batch), self.device), generator, False, self.benchmarker
-                )
-                images = out["image"][0].cpu().numpy()
-                ctx_str = "_".join(str(int(i)) for i in np.sort(batch["context"]["index"][0]))
-                for v, index in enumerate(batch["target"]["index"][0]):
-                    save_image(images[v], out_root / scene / ctx_str / "color" / f"{int(index):0>6}.png")
+                with span("test_request", interval=False):
+                    scene = batch["scene"][0] if isinstance(batch["scene"], list) else batch["scene"]
+                    generator = torch.Generator(self.device).manual_seed(cfg.seed + 3)
+                    out = self._render_full_timed(
+                        model, to_device(strip_batch(batch), self.device), generator, False, self.benchmarker
+                    )
+                    with span("test_request.write", interval=False):
+                        with host_read("test_images"):
+                            images = out["image"][0].cpu().numpy()
+                        ctx_str = "_".join(str(int(i)) for i in np.sort(batch["context"]["index"][0]))
+                        for v, index in enumerate(batch["target"]["index"][0]):
+                            save_image(images[v], out_root / scene / ctx_str / "color" / f"{int(index):0>6}.png")
         self.benchmarker.dump(out_root / "benchmark.json")
         self.benchmarker.dump_memory(out_root / "peak_memory.json")

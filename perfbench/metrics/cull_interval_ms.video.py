@@ -1,0 +1,11 @@
+"""Milliseconds a request spends in the rasterizer's `render.cull` span
+(ops/rasterize/tiled.py::tile_rects, and the covering cap where a render
+sizes one): the span's interval on the stream, from the two CUDA events
+the program records at its ends, idle time inside it included. Where the
+host paces the region, it follows the host, not the device's work there."""
+
+from perfbench import spans
+
+
+def read(summary: dict):
+    return spans.per_unit(summary, "render_full", "render.cull", "device_ms")

@@ -163,11 +163,11 @@ def test_composite_forward_four_channels_matches_reference(cuda):
     gids, ranges, _ = sort_pairs(gids, keys, tiles * tiles)
     attrs = pack_attributes(sg)
     assert attrs.shape[1] == 6 + 4
-    before = kernels.composite_forward_launches.get(4, 0)
+    before = kernels.launches_by_channels["composite_forward"].get(4, 0)
     out = kernels.composite_forward(gids, ranges, attrs, tiles, (size, size))
     ref = kernels.composite_forward_reference(gids, ranges, attrs, tiles, (size, size))
     torch.cuda.synchronize()
-    assert kernels.composite_forward_launches[4] == before + 1
+    assert kernels.launches_by_channels["composite_forward"][4] == before + 1
     scale = ref[0].abs().amax(dim=(2, 3), keepdim=True)
     assert ((out[0] - ref[0]).abs() / scale).max().item() <= 1e-5
     torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=0)
@@ -192,9 +192,9 @@ def test_render_depth_tiled_matches_dense(cuda, mode):
     intr = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]]).expand(1, 2, 3, 3)
     args = [x.to(cuda) for x in (ext, intr, torch.ones(1, 2), torch.full((1, 2), 100.0))]
     gaussians = [x[None].to(cuda) for x in (means, covs, opacities)]
-    before = kernels.composite_forward_launches.get(4, 0)
+    before = kernels.launches_by_channels["composite_forward"].get(4, 0)
     tiled = render_depth(*args, (64, 64), *gaussians, mode=mode)
-    assert kernels.composite_forward_launches[4] == before + 1     # both views in one pass
+    assert kernels.launches_by_channels["composite_forward"][4] == before + 1     # both views in one pass
     dense = render_depth(*args, (64, 64), *gaussians, mode=mode, backend="dense")
     assert torch.isfinite(tiled).all()
     assert ((tiled - dense).abs().max() / dense.abs().max()).item() <= 2e-3
