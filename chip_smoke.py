@@ -18,6 +18,12 @@
    its wrapper with the host's one read of the per-view pair totals) and
    counts on the card the (pair, pixel) and (pair, warp) work the pass
    needs, from which each kernel's bound follows.
+2b. Tile-cull phase: the tile_cull kernel (tiled.tile_rects on the card)
+   against its plain version (tiled.tile_rects_reference) on the video
+   cell's pass (30 views) and the train step's pass (8 views) of
+   bench_render's 393,216-Gaussian scene at 256x256: counts, base, nx and
+   mask the same bits, one launch each; the kernel's device ms with L2
+   flushed and warm, its bound (bytes) and share, the plain version's ms.
 3. Backward kernel phase: on the same pass, with a seeded random
    cotangent, holds composite_backward against its plain version (within
    1e-4 of each gradient column's largest value; bit-identical on a
@@ -229,7 +235,7 @@ def backward_composited_ops(n_ch: int) -> int:
     of their sum over the tile's pixels."""
     return 3 * n_ch + 29 + (6 + n_ch)
 TRAIN_STEP = 125000
-FORWARD_KERNELS = ("duplicate_with_keys", "composite_forward")
+FORWARD_KERNELS = ("tile_cull", "duplicate_with_keys", "composite_forward")
 ALL_KERNELS = (*FORWARD_KERNELS, "composite_backward", "reduce_pairs")
 # The flagship's Gaussians at 256x256: 2 context views x 256^2 pixels x 3.
 FLAGSHIP_GAUSSIANS = 2 * 256 * 256 * 3
@@ -516,6 +522,74 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
               wrapper_ms=dup_wrapper_ms, views=n_items),
         forward_entry(err, comp_ms, comp_plain_ms, view),
     ]
+
+
+# Bytes a (Gaussian, view) row of the tile cull moves: mean2d, extent,
+# conic, opacity and radius read; counts, base, nx and an int32 mask
+# written. Operations: 40 a rect slot over the 9 slots of the main path's
+# cap (the raster_roofline metric's count), the most a row can take.
+CULL_ROW_BYTES = 4 * (2 + 2 + 3 + 1 + 1) + 4 * 4
+CULL_ROW_OPS = 9 * 40
+# The tile-cull phase's passes: the video cell's 30 views and the train
+# step's 2 scenes x 4 target views.
+CULL_PASSES = (("video", 30), ("train", 8))
+
+
+def cull_pass_gaussians(scene: dict, size: int = 256):
+    """The screen Gaussians of all of `scene`'s views as one pass, as
+    api.render projects them (the scene scaled by 1/near), with one
+    channel of zeros: the cull reads no channel."""
+    from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_screen
+
+    n, g = scene["extrinsics"].shape[1], scene["gaussian_means"].shape[1]
+    s = 1.0 / scene["near"][0]
+    ext = scene["extrinsics"][0].clone()
+    ext[:, :3, 3] *= s[:, None]
+    with torch.no_grad():
+        return project_gaussians_to_screen(
+            scene["gaussian_means"][0] * s[:, None, None],
+            scene["gaussian_covariances"][0] * (s * s)[:, None, None, None],
+            scene["gaussian_opacities"][0].expand(n, -1), scene["gaussian_means"].new_zeros(n, g, 1), ext,
+            scene["intrinsics"][0], (size, size),
+        )
+
+
+def tile_cull_phase(seed: int, device) -> list[dict]:
+    """tile_cull against its plain version on CULL_PASSES of bench_render's
+    393,216-Gaussian scene at 256x256 (cap 9, the exact margin): the four
+    outputs the same bits in one launch; its device ms with L2 flushed (a
+    render finds the projection's outputs in L2 only in part) and warm,
+    its bound and share, and the plain version's ms."""
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+    from latentsplat_tpu_torch.ops.rasterize.tiled import tile_rects, tile_rects_reference
+    from latentsplat_tpu_torch.scripts.bench_render import make_scene
+
+    flush = torch.empty(FLUSH_BYTES // 4, device=device)
+    records = []
+    for label, n_views in CULL_PASSES:
+        sg = cull_pass_gaussians(make_scene(seed, n_views=n_views, device=device))
+        args = (sg, 16, 16)
+        before = kernels.launch_counts["tile_cull"]
+        out = tile_rects(*args)
+        ref = tile_rects_reference(*args)
+        torch.cuda.synchronize()
+        if kernels.launch_counts["tile_cull"] != before + 1:
+            raise AssertionError(f"tile_cull ({label}): {kernels.launch_counts['tile_cull'] - before} launches, not 1")
+        differ = {name: int((a != b).sum()) for name, a, b in zip(("counts", "base", "nx", "mask"), out, ref)}
+        if any(differ.values()) or any(a.dtype != b.dtype for a, b in zip(out, ref)):
+            raise AssertionError(f"tile_cull ({label}) differs from its plain version in {differ} rows")
+        rows, pairs = out[0].shape[0], int(out[0].sum())
+        ms = device_ms(lambda: tile_rects(*args), flush=flush)
+        warm_ms = device_ms(lambda: tile_rects(*args))
+        plain_ms = cuda_ms(lambda: tile_rects_reference(*args), 5)
+        print(f"tile_cull ({label}, {n_views} views, {rows} rows, {pairs} pairs): the same bits; {ms:.4f} ms "
+              f"(device, L2 flushed), {warm_ms:.4f} warm, plain {plain_ms:.4f} ms; per view {ms / n_views:.4f} ms")
+        records.append(entry(
+            "tile_cull", "tile_cull.cu", "none: latentsplat_tpu/ops/rasterize/tiled.py::_tile_rects is jnp", 0.0,
+            ms, plain_ms, n_bytes=CULL_ROW_BYTES * rows, n_ops=CULL_ROW_OPS * rows, warm_ms=warm_ms,
+            views=n_views, pass_label=label, pairs=pairs))
+        del sg, out, ref
+    return records
 
 
 def forward_entry(err: float, ms: float, plain_ms: float, view: dict, variant: str = "exact",
@@ -1835,7 +1909,7 @@ def launches_at(launches: dict, entry: dict) -> int:
     backward phases' rows are the flagship's 8 channels) and the two
     composite kernels' at the row's variant ("exact" unless it names one)."""
     name = entry["name"]
-    if name == "duplicate_with_keys":
+    if name not in launches["by_channels"]:
         return launches[name]
     channels = entry.get("channels", entry.get("row", 14) - 6)
     if name in launches["by_variant"]:
@@ -3435,11 +3509,12 @@ def pass_phase(seed: int, device) -> dict:
               f"{out[f'{precision}_pass_bytes_a_row']:.1f} B a (item, Gaussian) row")
         if not all(same.values()):
             raise AssertionError(f"pass phase, {precision}: one pass and one item a pass differ: {same}")
-        if (one_launches["duplicate_with_keys"], one_launches["composite_forward"], one_reads["duplicate_with_keys"],
-                one_syncs) != (1, 1, 1, 1):
+        if (one_launches["tile_cull"], one_launches["duplicate_with_keys"], one_launches["composite_forward"],
+                one_reads["duplicate_with_keys"], one_syncs) != (1, 1, 1, 1, 1):
             raise AssertionError(f"pass phase, {precision}: one pass launched {one_launches} with host reads "
                                  f"{one_reads} and {one_syncs} synchronizing calls, not one each")
-        if (per_launches["composite_forward"], per_reads["duplicate_with_keys"], per_syncs) != (n_views,) * 3:
+        if (per_launches["tile_cull"], per_launches["composite_forward"], per_reads["duplicate_with_keys"],
+                per_syncs) != (n_views,) * 4:
             raise AssertionError(f"pass phase, {precision}: one item a pass launched {per_launches} with host "
                                  f"reads {per_reads} and {per_syncs} synchronizing calls, not {n_views} each")
         out[f"{precision}_one_pass_s"], out[f"{precision}_one_item_a_pass_s"] = one_s, per_s
@@ -3546,7 +3621,7 @@ def bench_phase(seed: int, device) -> dict:
             per_step = result["steps_run"] * passes(result["batch"] * 4, 2 * result["size"] ** 2 * 3)
             expected = {"duplicate_with_keys": per_step * (2 if result["decoder_remat"] else 1),
                         "composite_backward": per_step, "reduce_pairs": per_step}
-            expected["composite_forward"] = expected["duplicate_with_keys"]
+            expected["composite_forward"] = expected["tile_cull"] = expected["duplicate_with_keys"]
             got = {k: launches[label][k] for k in expected}
             print(f"bench phase: bench_train {' '.join(argv) or '(default)'}: {result['value']!r} steps/s, peak "
                   f"{result['peak_gib']!r} GiB, {result['train_flops_per_step']!r} FLOPs a step, train_mfu "
@@ -3572,8 +3647,8 @@ def bench_phase(seed: int, device) -> dict:
         n = n_calls * passes(n_views, scene["gaussian_means"].shape[1])
         if reads != {"duplicate_with_keys": 2 * n, "covering_cap": 0}:
             raise AssertionError(f"bench_render: host reads {reads}, not one a pass ({2 * n})")
-        expected = {"duplicate_with_keys": 2 * n, "composite_forward": 2 * n, "composite_backward": 0,
-                    "reduce_pairs": 0}
+        expected = {"tile_cull": 2 * n, "duplicate_with_keys": 2 * n, "composite_forward": 2 * n,
+                    "composite_backward": 0, "reduce_pairs": 0}
         by_variant = {"composite_forward": {"coef": {8: n}, "exact": {8: n}}, "composite_backward": {}}
         if {k: launches["render"][k] for k in expected} != expected or launches["render"]["by_variant"] != by_variant:
             raise AssertionError(f"bench_render: launches {launches['render']}, not {expected} ({by_variant})")
@@ -3696,6 +3771,7 @@ def main() -> int:
     model = build_model(cfg, args.seed, device)
     batch = make_batch(np.random.default_rng(args.seed), 2, 4, 256, device)
     view, results = kernel_phase(model, batch, args.seed)
+    results += tile_cull_phase(args.seed, device)
     results += backward_kernel_phase(view, args.seed)
     del view
     serve_launches = slice_phase(model, batch, args.seed, args.profile)

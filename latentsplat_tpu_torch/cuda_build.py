@@ -30,6 +30,7 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of each exported function: (argument types, result type).
 _SIGNATURES = {
     "duplicate_with_keys": ([_I, _P, _P, _P, _P, _P, _I, _P, _P, _P], _I),
@@ -42,6 +43,7 @@ _SIGNATURES = {
     "composite_backward_fast": (
         [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P], _I),
     "reduce_pairs": ([_I, _I, _P, _P, _P, _P], _I),
+    "tile_cull": ([_I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
 }
 
 _library = None

@@ -9,6 +9,10 @@
 * `reduce_pairs` (csrc/reduce_pairs.cu) replaces
   latentsplat_tpu/ops/rasterize/expand.py::reduce_by_counts.
 
+A fifth, `tile_cull` (csrc/tile_cull.cu), replaces no TPU kernel: it is
+the tile cull of tiled.py::tile_rects, whose wrapper and plain version
+live there.
+
 Every kernel works on a pass: the (scene, view) items of one render call,
 laid out one after another. Item n's Gaussians are rows n G .. n G + G - 1
 of the per-Gaussian inputs (pair ids n G + g), its tiles are n T .. n T +
@@ -21,9 +25,9 @@ of one item is the same code with N = 1.
 
 A wrapper given CPU tensors runs the `*_reference` version; given CUDA
 tensors it launches the kernel or raises. `launch_counts` counts kernel
-launches (not reference calls); `launches_by_channels` splits the three
-compositing kernels' by the channel count they were launched for
-(`reduce_pairs`: its row's width less the 6 attributes);
+launches (not reference calls), `tile_cull`'s too; `launches_by_channels`
+splits the three compositing kernels' by the channel count they were
+launched for (`reduce_pairs`: its row's width less the 6 attributes);
 `launches_by_variant` splits the two composite kernels' by variant (see
 `variant_name`) and channel count. `host_reads` counts the reads of device
 values by the host on the card's path, by site: one a pass in
@@ -82,6 +86,7 @@ FOOTPRINT_DET_MIN = 1e-3
 
 launch_counts = {
     "duplicate_with_keys": 0, "composite_forward": 0, "composite_backward": 0, "reduce_pairs": 0,
+    "tile_cull": 0,
 }
 launches_by_channels: dict[str, dict[int, int]] = {
     "composite_forward": {}, "composite_backward": {}, "reduce_pairs": {},

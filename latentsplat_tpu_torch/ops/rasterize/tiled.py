@@ -4,20 +4,20 @@ forward and backward, at each of the JAX package's precisions.
 Pipeline per pass (the (scene, view) items of a render call, each with its
 own screen Gaussians; the JAX package maps over them inside one program):
 per-Gaussian tile rects with the exact ellipse-tile cull (`tile_rects`, a
-port of the JAX `_tile_rects`) over every item at once, pair duplication
-with int64 (tile << 32 | depth bits) keys (`duplicate_with_keys` kernel,
-item n's tiles numbered n T + t), one stable library sort, tile ranges by
-one searchsorted, and per-tile compositing (`composite_forward` kernel):
-one launch of each kernel and one host read a pass. Each item's values
-are those of a pass of that item alone: the depth code keeps the bits that
-one view's tile count leaves free, the 12-bit channel scale is the item's
-own, and the kernels count scan blocks from the item's first pair. The
-backward (`_PairComposite`, the counterpart of the JAX `_pair_composite`
-custom_vjp) replays each tile back to front (`composite_backward` kernel),
-writing each pair's gradient row at its Gaussian-major position, and sums
-each Gaussian's contiguous pair rows (`reduce_pairs` kernel); like the JAX
-package, the cull and the sort carry no gradient. At "exact" the channels
-stay float32 end to end.
+port of the JAX `_tile_rects`; `tile_cull` kernel) over every item at once,
+pair duplication with int64 (tile << 32 | depth bits) keys
+(`duplicate_with_keys` kernel, item n's tiles numbered n T + t), one stable
+library sort, tile ranges by one searchsorted, and per-tile compositing
+(`composite_forward` kernel): one launch of each kernel and one host read a
+pass. Each item's values are those of a pass of that item alone: the depth
+code keeps the bits that one view's tile count leaves free, the 12-bit
+channel scale is the item's own, and the kernels count scan blocks from the
+item's first pair. The backward (`_PairComposite`, the counterpart of the
+JAX `_pair_composite` custom_vjp) replays each tile back to front
+(`composite_backward` kernel), writing each pair's gradient row at its
+Gaussian-major position, and sums each Gaussian's contiguous pair rows
+(`reduce_pairs` kernel); like the JAX package, the cull and the sort carry
+no gradient. At "exact" the channels stay float32 end to end.
 
 `precision` selects the JAX package's fast family by the values it
 computes (`Knobs`): "fast" applies every knob, "fast_nocoef" all but the
@@ -36,6 +36,7 @@ import math
 
 import torch
 
+from ...cuda_build import check, load_library
 from ...misc.profiler import host_read, span
 from . import kernels
 from .kernels import (
@@ -214,7 +215,45 @@ def tile_rects(
     log(255 * opacity) + cull_margin (else every alpha there falls below the
     threshold). `mask` has bit s set for each surviving slot s and `counts`
     is its popcount; dead Gaussians get counts 0 and mask 0.
+
+    Given CPU tensors it runs `tile_rects_reference`; given CUDA tensors it
+    launches the `tile_cull` kernel (one launch a pass, the same bits) or
+    raises.
     """
+    assert 1 <= cap <= MAX_TILES_PER_GAUSSIAN
+    inputs = (sg.mean2d, sg.extent, sg.conic, sg.opacity, sg.radius)
+    if not kernels._on_cuda(*inputs):
+        return tile_rects_reference(sg, tiles_x, tiles_y, cap, cull_margin)
+    gaussians = sg.radius.shape[-1]
+    rows = items_of(sg) * gaussians
+    flat = []
+    for t, name, width in zip(inputs, ("mean2d", "extent", "conic", "opacity", "radius"), (2, 2, 3, 1, 1)):
+        if t.dtype != torch.float32 or t.numel() != rows * width:
+            raise ValueError(f"tile_rects: {name} must be float32 with {width} value(s) a row of "
+                             f"{tuple(sg.radius.shape)}, got {t.dtype} {tuple(t.shape)}")
+        t = t.detach().reshape(-1).contiguous()
+        flat.append(t if t.data_ptr() % 8 == 0 else t.clone())   # float2 loads of mean2d and extent
+    if rows >= 2**31:
+        raise ValueError(f"tile_rects: {rows} rows exceed the kernel's int32 index")
+    mask_dtype = torch.int32 if cap <= mask_bits(torch.int32) else torch.int64
+    counts, base, nx = (torch.empty(rows, dtype=torch.int32, device=sg.radius.device) for _ in range(3))
+    mask = torch.empty(rows, dtype=mask_dtype, device=sg.radius.device)
+    rc = load_library().tile_cull(
+        rows, gaussians, tiles_x, tiles_y, cap, cull_margin, *(t.data_ptr() for t in flat),
+        counts.data_ptr(), base.data_ptr(), nx.data_ptr(), mask.data_ptr(), kernels._stream(),
+    )
+    check(rc, "tile_cull")
+    kernels.launch_counts["tile_cull"] += 1
+    return counts, base, nx, mask
+
+
+def tile_rects_reference(
+    sg: ScreenGaussians, tiles_x: int, tiles_y: int, cap: int = DEFAULT_MAX_TILES_PER_GAUSSIAN,
+    cull_margin: float = CULL_MARGIN,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of `tile_rects` (the `tile_cull` kernel), on any
+    device: the JAX `_tile_rects` in PyTorch, whose float32 operations, in
+    this order, the kernel repeats bit for bit."""
     assert 1 <= cap <= MAX_TILES_PER_GAUSSIAN
     mask_dtype = torch.int32 if cap <= mask_bits(torch.int32) else torch.int64
     num_tiles = tiles_x * tiles_y

@@ -140,7 +140,7 @@ def render_scene(scene: dict, size: int, i: int = 0, precision: str = "exact"):
 def counted_pairs(scene: dict, size: int, i: int = 0, precision: str = "exact") -> list:
     """Each view's pair total as the tile cull counts it at `precision`'s
     margin (what duplicate_with_keys allocates), opacities scaled by
-    1 - 1e-6 i. Launches no kernel."""
+    1 - 1e-6 i. Launches only the tile cull, once a view."""
     tiles = size // kernels.TILE
     margin = FAST_CULL_MARGIN if precision_knobs(precision).wide_cull else CULL_MARGIN
     with torch.no_grad():

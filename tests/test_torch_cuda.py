@@ -16,6 +16,8 @@ from latentsplat_tpu_torch.ops.rasterize import kernels
 from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_screen
 from latentsplat_tpu_torch.ops.rasterize.dense import composite_dense
 from latentsplat_tpu_torch.ops.rasterize.tiled import (
+    CULL_MARGIN,
+    FAST_CULL_MARGIN,
     composite_tiled,
     depth_code_bits,
     pack_attributes,
@@ -24,6 +26,7 @@ from latentsplat_tpu_torch.ops.rasterize.tiled import (
     sort_pairs,
     tile_pairs,
     tile_rects,
+    tile_rects_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -130,6 +133,108 @@ def test_duplicate_with_keys_refuses_a_cap_beyond_the_mask(cuda):
     counts, base, nx, mask = tile_rects(sg, 4, 4, CAP)
     with pytest.raises(ValueError, match="holds 32 slots, cap is 40"):
         kernels.duplicate_with_keys(counts, mask, base, nx, sg.depth, 4, 40)
+
+
+# Conics given to the first rows of every item of a cull pass, all wide
+# splats: a degenerate (rank 1) and a zero conic, a NaN and an infinite one.
+SPECIAL_CONICS = ((1.0, 1.0, 1.0), (0.0, 0.0, 0.0), (float("nan"), 0.5, 1.0), (float("inf"), 0.0, float("inf")))
+
+
+def cull_pass(seed, n, shape, device, items=1, n_wide=0, n_dead=0):
+    """A pass of `items` views (each camera shifted sideways) of n projected
+    Gaussians at `shape`; the first n_wide are wide, the last n_dead behind
+    the cameras, and rows 0-3 of every item get SPECIAL_CONICS."""
+    g = torch.Generator().manual_seed(seed)
+    z = torch.rand(n, generator=g) * 4 + 2
+    xy = (torch.rand(n, 2, generator=g) * 1.2 - 0.6) * z[:, None]
+    means = torch.cat([xy, z[:, None]], dim=1)
+    scales = torch.rand(n, 3, generator=g) * 0.2 + 0.05
+    scales[:n_wide] *= 12.0
+    means[:n_wide, :2] *= 0.2
+    means[n - n_dead :, 2] *= -1.0
+    quats = torch.nn.functional.normalize(torch.randn(n, 4, generator=g), dim=-1)
+    extrinsics = torch.eye(4).repeat(items, 1, 1)
+    extrinsics[:, 0, 3] = torch.linspace(-0.3, 0.3, items)
+    sg = project_gaussians_to_screen(
+        means, build_covariance(scales, quats), torch.rand(n, generator=g) * 0.65 + 0.3, torch.rand(items, n, 1),
+        extrinsics, torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]]).expand(items, 3, 3), shape,
+    )
+    sg.conic[:, : len(SPECIAL_CONICS)] = torch.tensor(SPECIAL_CONICS)
+    assert (sg.radius[:, : len(SPECIAL_CONICS)] > 0).all()
+    return type(sg)(**{k: v.to(device) for k, v in vars(sg).items()})
+
+
+def assert_cull_matches_reference(sg, tiles_x, tiles_y, cap=CAP, margin=CULL_MARGIN):
+    """The kernel's four outputs equal the plain version's bit for bit, in
+    one launch; returns the kernel's outputs."""
+    before = kernels.launch_counts["tile_cull"]
+    out = tile_rects(sg, tiles_x, tiles_y, cap, margin)
+    ref = tile_rects_reference(sg, tiles_x, tiles_y, cap, margin)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["tile_cull"] == before + 1
+    for name, a, b in zip(("counts", "base", "nx", "mask"), out, ref):
+        assert a.dtype == b.dtype and torch.equal(a, b), f"{name}: {int((a != b).sum())} rows differ"
+    return out
+
+
+@pytest.mark.parametrize("margin", [CULL_MARGIN, FAST_CULL_MARGIN])
+@pytest.mark.parametrize("cap", [1, 9, 32, 33, 64])
+def test_tile_cull_matches_reference(cuda, cap, margin):
+    # Int32 masks up to 32 slots, int64 above; dead rows and the special
+    # conics in each of 3 items; rects of wide splats beyond every cap.
+    sg = cull_pass(cap, 20000, (256, 256), cuda, items=3, n_wide=2000, n_dead=500)
+    counts, base, nx, mask = assert_cull_matches_reference(sg, 16, 16, cap, margin)
+    assert mask.dtype == (torch.int32 if cap <= 32 else torch.int64)
+    assert int(counts.max()) == cap and (base == 3 * 256).sum() >= 3 * 500
+
+
+@pytest.mark.parametrize("shape", [(128, 256), (256, 128)])
+def test_tile_cull_non_square_grids(cuda, shape):
+    # 16 x 8 and 8 x 16 tiles: rows and columns of the rect decode apart.
+    sg = cull_pass(7, 20000, shape, cuda, items=2, n_wide=500, n_dead=100)
+    assert_cull_matches_reference(sg, shape[1] // 16, shape[0] // 16)
+    assert_cull_matches_reference(sg, shape[1] // 16, shape[0] // 16, 40, FAST_CULL_MARGIN)
+
+
+def test_tile_cull_video_pass(cuda):
+    # The video cell's pass: 30 views of bench_render's 393,216 Gaussians.
+    from latentsplat_tpu_torch.scripts.bench_render import make_scene
+
+    scene = make_scene(0, n_views=30, device=cuda)
+    n, g = 30, scene["gaussian_means"].shape[1]
+    s = 1.0 / scene["near"][0]
+    ext = scene["extrinsics"][0].clone()
+    ext[:, :3, 3] *= s[:, None]
+    sg = project_gaussians_to_screen(
+        scene["gaussian_means"][0] * s[:, None, None], scene["gaussian_covariances"][0] * (s * s)[:, None, None, None],
+        scene["gaussian_opacities"][0].expand(n, -1), torch.zeros(n, g, 1, device=cuda), ext,
+        scene["intrinsics"][0], (256, 256),
+    )
+    counts = assert_cull_matches_reference(sg, 16, 16)[0]
+    assert counts.shape == (n * g,) and int(counts.sum()) > n * g // 2
+
+
+def test_tile_cull_one_launch_a_render_pass(cuda):
+    # A render call of 3 views is one pass: one cull, one duplication.
+    from latentsplat_tpu_torch.scripts.bench_render import make_scene, render_scene
+
+    scene = make_scene(1, side=64, n_views=3, device=cuda)
+    before = dict(kernels.launch_counts)
+    render_scene(scene, 256)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["tile_cull"] == before["tile_cull"] + 1
+    assert kernels.launch_counts["duplicate_with_keys"] == before["duplicate_with_keys"] + 1
+
+
+def test_tile_cull_checks_inputs(cuda):
+    sg = cull_pass(8, 100, (64, 64), cuda)
+    with pytest.raises(ValueError, match="mean2d must be float32"):
+        tile_rects(type(sg)(**{**vars(sg), "mean2d": sg.mean2d.double()}), 4, 4)
+    with pytest.raises(ValueError, match="all be on the CPU or all on CUDA"):
+        tile_rects(type(sg)(**{**vars(sg), "radius": sg.radius.cpu()}), 4, 4)
+    # A misaligned view of mean2d is copied for the kernel's float2 loads.
+    wide = torch.cat([torch.zeros(1, 1, device=cuda), sg.mean2d.reshape(1, -1)], dim=1)
+    assert_cull_matches_reference(type(sg)(**{**vars(sg), "mean2d": wide[0, 1:].reshape(sg.mean2d.shape)}), 4, 4)
 
 
 @pytest.mark.parametrize("size", [32, 256])

@@ -7,6 +7,10 @@ dense oracle and the JAX tiled forward. The CUDA kernels themselves are held
 against the plain versions on the card in tests/test_torch_cuda.py.
 """
 
+import ctypes
+import dataclasses
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +23,9 @@ from latentsplat_tpu.ops.rasterize.expand import GW, OUT_BLOCK, expand_by_counts
 from latentsplat_tpu.ops.rasterize.pallas_kernels import CHUNK, composite_pairs_fwd, pad_attr_rows
 from latentsplat_tpu.ops.rasterize.tiled import _tile_rects as j_tile_rects
 from latentsplat_tpu.ops.rasterize.tiled import composite_tiled as j_composite_tiled
+from latentsplat_tpu_torch import cuda_build
 from latentsplat_tpu_torch.ops.gaussians import build_covariance
-from latentsplat_tpu_torch.ops.rasterize import kernels
+from latentsplat_tpu_torch.ops.rasterize import kernels, tiled
 from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_screen
 from latentsplat_tpu_torch.ops.rasterize.dense import composite_dense
 from latentsplat_tpu_torch.ops.rasterize.kernels import (
@@ -28,6 +33,8 @@ from latentsplat_tpu_torch.ops.rasterize.kernels import (
     duplicate_with_keys_reference,
 )
 from latentsplat_tpu_torch.ops.rasterize.tiled import (
+    CULL_MARGIN,
+    FAST_CULL_MARGIN,
     composite_tiled,
     pack_attributes,
     sort_pairs,
@@ -93,21 +100,135 @@ class TestProjection:
         np.testing.assert_allclose(t_sg.conic.numpy(), np.asarray(j_sg.conic), rtol=1e-4, atol=1e-5)
 
 
+# The cull's cases run at 128x128 (8x8 tiles), where wide splats' rects span
+# up to all 64 tiles: every cap up to the int64 mask's 64 slots is reached.
+CULL_SIZE = 128
+CULL_TILES = CULL_SIZE // 16
+# JAX's _tile_rects holds at most 24 slots (its mask rides the expansion as
+# an exact float32).
+JAX_MAX_CAP = 24
+# Rows given special conics, all wide splats: a degenerate (rank 1) and a
+# zero conic, a NaN and an infinite one.
+SPECIAL_CONICS = {0: (1.0, 1.0, 1.0), 1: (0.0, 0.0, 0.0), 2: (np.nan, 0.5, 1.0), 3: (np.inf, 0.0, np.inf)}
+
+
+def cull_scene(seed=3):
+    """(JAX, port) screen Gaussians at CULL_SIZE: 300 of them, 20 dead
+    (behind the camera), 12 wide, the first rows with SPECIAL_CONICS."""
+    j_sg, t_sg = project_both(make_scene(seed, 300, n_dead=20, n_wide=12), CULL_SIZE)
+    conic = t_sg.conic.numpy().copy()
+    for row, value in SPECIAL_CONICS.items():
+        conic[row] = value
+    assert (t_sg.radius[list(SPECIAL_CONICS)] > 0).all()
+    return j_sg.replace(conic=jnp.asarray(conic)), dataclasses.replace(t_sg, conic=torch.from_numpy(conic))
+
+
+def slot_cull_f64(t_sg, tiles, cap, margin):
+    """(G, cap) whether each rect slot of each live Gaussian survives the
+    cull, decided in float64 from its float32 tile offsets, and how far
+    (relative) its quadratic form's minimum lies from the threshold: an
+    evaluation independent of both the JAX and the port's arithmetic."""
+    mean, ext = t_sg.mean2d.numpy(), t_sg.extent.numpy()
+    ca, cb, cc = (t_sg.conic.numpy()[:, k].astype(np.float64) for k in range(3))
+
+    def tile_index(v):
+        return np.clip(np.floor(v / np.float32(16)), 0, tiles - 1)
+
+    tx0, ty0 = tile_index(mean[:, 0] - ext[:, 0]), tile_index(mean[:, 1] - ext[:, 1])
+    nx, ny = tile_index(mean[:, 0] + ext[:, 0]) - tx0 + 1, tile_index(mean[:, 1] + ext[:, 1]) - ty0 + 1
+    thresh = np.log(255.0 * np.maximum(t_sg.opacity.numpy().astype(np.float64), 1e-12)) + margin
+    ca_s, cc_s = np.maximum(ca, 1e-12), np.maximum(cc, 1e-12)
+
+    def q(dx, dy):
+        return 0.5 * ca * dx * dx + cb * dx * dy + 0.5 * cc * dy * dy
+
+    bits, gap = np.zeros((len(ca), cap), bool), np.zeros((len(ca), cap))
+    with np.errstate(invalid="ignore", divide="ignore"):
+        for s in range(cap):
+            row = np.floor((s + 0.5) / nx)
+            dx0 = ((tx0 + s - row * nx) * np.float32(16) - mean[:, 0]).astype(np.float32).astype(np.float64)
+            dy0 = ((ty0 + row) * np.float32(16) - mean[:, 1]).astype(np.float32).astype(np.float64)
+            dx1, dy1 = dx0 + 15, dy0 + 15
+            q_min = np.minimum(
+                np.minimum(q(dx0, np.minimum(np.maximum(-cb * dx0 / cc_s, dy0), dy1)),
+                           q(dx1, np.minimum(np.maximum(-cb * dx1 / cc_s, dy0), dy1))),
+                np.minimum(q(np.minimum(np.maximum(-cb * dy0 / ca_s, dx0), dx1), dy0),
+                           q(np.minimum(np.maximum(-cb * dy1 / ca_s, dx0), dx1), dy1)))
+            q_min = np.where((dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0), 0.0, q_min)
+            bits[:, s] = (s < nx * ny) & (q_min <= thresh) & (t_sg.radius.numpy() > 0)
+            gap[:, s] = np.where(s < nx * ny, np.abs(q_min - thresh) / (1.0 + np.abs(thresh)), np.inf)
+    return bits, np.nan_to_num(gap, nan=np.inf)
+
+
+def mask_bits_of(mask, cap):
+    """(G, cap) bool: bit s of each mask."""
+    m = mask.numpy().astype(np.int64).view(np.uint64)
+    return ((m[:, None] >> np.arange(cap, dtype=np.uint64)[None, :]) & np.uint64(1)).astype(bool)
+
+
 class TestTileRects:
-    def test_matches_jax(self):
-        # Integer bookkeeping: exact. JAX gives empty Gaussians one invalid
-        # pair; the port gives them none.
-        j_sg, t_sg = project_both(make_scene(3, 300, n_dead=20, n_wide=10), BIG)
-        j_counts, j_base, j_nx, j_mask = map(np.asarray, j_tile_rects(j_sg, BIG_TILES, BIG_TILES, CAP))
-        counts, base, nx, mask = (x.numpy() for x in tile_rects(t_sg, BIG_TILES, BIG_TILES, CAP))
-        live = j_base < BIG_TILES**2
-        assert live.sum() > 0 and (~live).sum() >= 20
-        assert (j_nx[:10] == BIG_TILES).all()     # wide splats span more than CAP tiles
-        np.testing.assert_array_equal(counts[live], j_counts[live])
-        np.testing.assert_array_equal(base[live], j_base[live])
-        np.testing.assert_array_equal(nx[live], j_nx[live])
-        np.testing.assert_array_equal(mask[live], j_mask[live])
-        assert (counts[~live] == 0).all() and (mask[~live] == 0).all()
+    @pytest.mark.parametrize("margin", [CULL_MARGIN, FAST_CULL_MARGIN])
+    @pytest.mark.parametrize("cap", [1, 9, 32, 33, 64])
+    def test_matches_jax(self, cap, margin):
+        # Integer bookkeeping: exact, against JAX's slots (up to its 24); the
+        # slots beyond against a float64 evaluation wherever it decides them
+        # clearly. JAX gives empty Gaussians one invalid pair; the port gives
+        # them none. Dead rows, degenerate and NaN/inf conics included.
+        j_sg, t_sg = cull_scene()
+        j_cap = min(cap, JAX_MAX_CAP)
+        j_counts, j_base, j_nx, j_mask = map(np.asarray, j_tile_rects(j_sg, CULL_TILES, CULL_TILES, j_cap, margin))
+        counts, base, nx, mask = tile_rects(t_sg, CULL_TILES, CULL_TILES, cap, margin)
+        assert mask.dtype == (torch.int32 if cap <= 32 else torch.int64)
+        bits = mask_bits_of(mask, cap)
+        np.testing.assert_array_equal(counts.numpy(), bits.sum(axis=1))
+        j_live = j_base < CULL_TILES**2
+        live = counts.numpy() > 0
+        assert j_live.sum() > 0 and (~live).sum() >= 20
+        assert (j_nx[len(SPECIAL_CONICS):12] >= 4).all()   # wide splats span many tiles
+        j_bits = mask_bits_of(torch.from_numpy(j_mask.copy()), j_cap)
+        np.testing.assert_array_equal(bits[j_live, :j_cap], j_bits[j_live])
+        assert not bits[~j_live, :j_cap].any()
+        both = live & j_live
+        np.testing.assert_array_equal(base.numpy()[both], j_base[both])
+        np.testing.assert_array_equal(nx.numpy()[both], j_nx[both])
+        assert (counts.numpy()[~live] == 0).all() and (mask.numpy()[~live] == 0).all()
+        assert (base.numpy()[~live] == CULL_TILES**2).all() and (nx.numpy()[~live] == 1).all()
+        f64_bits, gap = slot_cull_f64(t_sg, CULL_TILES, cap, margin)
+        clear = gap > 1e-4
+        np.testing.assert_array_equal(bits[clear], f64_bits[clear])
+        if cap > JAX_MAX_CAP:
+            high = bits[:, JAX_MAX_CAP:]
+            assert high.any() and (~high[live]).any()
+        # The special rows: the zero conic keeps every slot of its rect; the
+        # NaN and infinite ones at most the slot whose box holds the mean.
+        assert counts[1] == np.isfinite(gap[1]).sum() > 0
+        assert bits[2].sum() <= 1 and bits[3].sum() <= 1
+
+    def test_cpu_path_runs_the_plain_version(self, monkeypatch):
+        # On the CPU tile_rects is tile_rects_reference: no kernel library is
+        # loaded and no launch is counted.
+        def refuse():
+            raise AssertionError("the CPU path loaded the kernel library")
+
+        monkeypatch.setattr(tiled, "load_library", refuse)
+        _, t_sg = cull_scene()
+        before = kernels.launch_counts["tile_cull"]
+        for cap in (9, 40):
+            got = tile_rects(t_sg, CULL_TILES, CULL_TILES, cap)
+            want = tiled.tile_rects_reference(t_sg, CULL_TILES, CULL_TILES, cap)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert kernels.launch_counts["tile_cull"] == before == 0
+
+    def test_the_library_declares_tile_cull(self):
+        # The ctypes signature matches the C entry point, argument by
+        # argument: pointers, ints and the float margin.
+        argtypes, restype = cuda_build._SIGNATURES["tile_cull"]
+        source = (cuda_build.CSRC_DIR / "tile_cull.cu").read_text()
+        params = [p.split("//")[0].strip() for p in
+                  re.search(r'extern "C" int tile_cull\(([^)]*)\)', source).group(1).split(",")]
+        kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+        assert restype is ctypes.c_int and len(argtypes) == len(params) == 16
+        assert [a for a in argtypes] == [ctypes.c_void_p if "*" in p else kinds[p.split()[0]] for p in params]
 
 
 def jax_pairs(j_sg, tiles):
