@@ -24,6 +24,15 @@
    bench_render's 393,216-Gaussian scene at 256x256: counts, base, nx and
    mask the same bits, one launch each; the kernel's device ms with L2
    flushed and warm, its bound (bytes) and share, the plain version's ms.
+2c. VAE phase: the video cell's decode (30 views at 256x256, the
+   published kl_f8 decoder with skips, three seeds) in channels-last with
+   the group_norm_silu kernel against the frozen NCHW copy of the module
+   (perfbench/reference) with TF32 off, within 1e-5 of the image's rms,
+   one kernel launch for each of the decoder's 30 norms; the kernel's
+   forward and backward (SiLU on) at the top-level norm (30, 128, 256,
+   256), float32 and bfloat16, held to the card tests' limits against
+   nn.GroupNorm + F.silu in float64 (y, dx, dgamma, dbeta) and timed with
+   L2 flushed and warm beside its bound and the plain version's ms.
 3. Backward kernel phase: on the same pass, with a seeded random
    cotangent, holds composite_backward against its plain version (within
    1e-4 of each gradient column's largest value; bit-identical on a
@@ -226,6 +235,22 @@ BACKWARD_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 FLUSH_BYTES = 128 << 20
+# group_norm_silu against nn.GroupNorm + F.silu in float64 (the card tests'
+# limits): the kernel rounds x - mean and its product with rstd gamma once
+# each and SiLU's exp by ~2 ulp, so y is held to 1e-5 absolute; dx to 1e-5
+# of its largest value (the group sums' float32 rounding besides); dgamma
+# and dbeta, float32 sums of up to 2e8 products, to 1e-4 of their largest
+# value. In bfloat16 each value may also move by the one rounding of its
+# output, at most 2^-8 of it (nearly that just above a power of two, so a
+# large case reads close to 1 of its limit by construction).
+GN_FORWARD_ATOL = 1e-5
+GN_DX_RTOL = 1e-5
+GN_PARAM_RTOL = 1e-4
+BF16_ROUNDING = 2.0 ** -8
+# The video decode against the NCHW copy of the module: within this share
+# of the image's root mean square.
+VAE_DECODE_RTOL = 1e-5
+VAE_DECODE_SEEDS = 3
 
 
 def backward_composited_ops(n_ch: int) -> int:
@@ -589,6 +614,125 @@ def tile_cull_phase(seed: int, device) -> list[dict]:
             ms, plain_ms, n_bytes=CULL_ROW_BYTES * rows, n_ops=CULL_ROW_OPS * rows, warm_ms=warm_ms,
             views=n_views, pass_label=label, pairs=pairs))
         del sg, out, ref
+    return records
+
+
+def group_norm_limits(got, want, rounding: float) -> list[float]:
+    """(y, dx, dgamma, dbeta)'s largest |got - want| each over its limit:
+    `rounding` |want| plus GN_FORWARD_ATOL (y), GN_DX_RTOL (dx) or
+    GN_PARAM_RTOL (dgamma, dbeta) of want's largest value. At most 1
+    passes."""
+    atols = [GN_FORWARD_ATOL] + [rtol * float(w.abs().max()) for rtol, w in
+                                 zip((GN_DX_RTOL, GN_PARAM_RTOL, GN_PARAM_RTOL), want[1:])]
+    return [float(((a.double() - w).abs() / (rounding * w.abs() + atol)).max())
+            for a, w, atol in zip(got, want, atols)]
+
+
+def vae_phase(seed: int, device) -> list[dict]:
+    """The VAE decoder in channels-last with the group_norm_silu kernel
+    (ops/group_norm.py): the video cell's decode (30 views at 256x256, the
+    published kl_f8 decoder with skips, random weights), for
+    VAE_DECODE_SEEDS seeds of weights and inputs, against the frozen NCHW
+    copy of the module (perfbench/reference, plain nn.GroupNorm + F.silu)
+    within VAE_DECODE_RTOL of the image's root mean square (TF32 off, as
+    in every phase but the bench phase), with one forward launch for each
+    of the decoder's norms; then the
+    kernel alone at the decoder's top-level norm (30, 128, 256, 256),
+    forward and backward with SiLU, in float32 and bfloat16, each held to
+    the GN_* limits against nn.GroupNorm + F.silu in float64 and timed
+    (device ms with L2 flushed and warm) against its bound (x read and y
+    written once; x and dy read and dx written once) and the plain
+    version's ms. Records the float32 kernel's two rows."""
+    from latentsplat_tpu_torch.ops import group_norm
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+    from latentsplat_tpu_torch.scripts.bench_vae import build, decode_inputs
+    from perfbench.reference.model.autoencoder import kl as nchw
+
+    decode_errs, faults = [], []
+    for s in range(seed, seed + VAE_DECODE_SEEDS):
+        model = build(s, device)
+        ref = nchw.AutoencoderKL(nchw.AutoencoderKLCfg(skip_connections=True), d_in=3, d_skip_extra=3).to(device)
+        ref.load_state_dict(model.state_dict())
+        z, skip = decode_inputs(30, s + 1, device)
+        norms = sum(isinstance(m, torch.nn.GroupNorm) for m in model.decoder.modules())
+        with torch.no_grad():
+            before = kernels.launch_counts["group_norm_silu"]
+            out = model.decode(z, skip)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts["group_norm_silu"] - before
+            want = ref.decode(z, skip)
+            exact = ref.double().decode(z.double(), skip.double())
+        rms = float(want.pow(2).mean().sqrt())
+        err = float((out - want).abs().max()) / rms
+        decode_errs.append(err)
+        print(f"vae decode seed {s} (30 views, {norms} norms): {launches} group_norm_silu launches; max |decode - "
+              f"NCHW copy| {err:.3e} of the image's rms (limit {VAE_DECODE_RTOL}); against the copy in float64: "
+              f"this path {float((out - exact).abs().max()) / rms:.3e}, the copy in float32 "
+              f"{float((want - exact).abs().max()) / rms:.3e}")
+        if launches != norms:
+            faults.append(f"seed {s}: the decode launched group_norm_silu {launches} times for {norms} norms")
+        if err > VAE_DECODE_RTOL:
+            faults.append(f"seed {s}: the decode departs from the NCHW copy by {err:.3e} of the image's rms")
+        del model, ref, out, want, exact, z, skip
+        torch.cuda.empty_cache()
+    print(f"vae decode over {VAE_DECODE_SEEDS} seeds: max |decode - NCHW copy| / rms {decode_errs}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+
+    n, c, side, groups = 30, 128, 256, 32
+    g = torch.Generator(device=device).manual_seed(seed)
+    x32 = (torch.randn((n, c, side, side), generator=g, device=device) + 0.5).contiguous(
+        memory_format=torch.channels_last)
+    dy32 = torch.randn(x32.shape, generator=g, device=device).contiguous(memory_format=torch.channels_last)
+    weight32 = torch.rand(c, generator=g, device=device) + 0.5
+    bias32 = torch.rand(c, generator=g, device=device) - 0.5
+    flush = torch.empty(FLUSH_BYTES // 4, device=device)
+    records = []
+    for dtype, rounding in ((torch.float32, 0.0), (torch.bfloat16, BF16_ROUNDING)):
+        x, dy, weight, bias = (t.to(dtype) for t in (x32, dy32, weight32, bias32))
+        gamma, beta = weight.float(), bias.float()
+        y, mean, rstd = group_norm.forward(x, gamma, beta, groups, 1e-6, True)
+        dx, dgamma, dbeta = group_norm.backward(x, dy, gamma, beta, mean, rstd, groups, True)
+        leaves = [t.double().requires_grad_() for t in (x, weight, bias)]
+        out = group_norm.group_norm_silu_reference(*leaves, groups, 1e-6, True)
+        want = (out.detach(), *torch.autograd.grad(out, leaves, dy.double()))
+        del out, leaves
+        limits = group_norm_limits((y, dx, dgamma, dbeta), want, rounding)
+        abs_errs = [float((a.double() - w).abs().max()) for a, w in zip((y, dx), want)]
+        del want
+        torch.cuda.empty_cache()
+        tag = str(dtype).replace("torch.", "")
+        print(f"group_norm_silu {tag} at (30, 128, 256, 256) against nn.GroupNorm + F.silu in float64, largest "
+              f"|diff| over its limit (<= 1 passes): y {limits[0]:.3f}, dx {limits[1]:.3f}, dgamma {limits[2]:.3f}, "
+              f"dbeta {limits[3]:.3f}; max |diff| y {abs_errs[0]:.3e}, dx {abs_errs[1]:.3e}")
+        if max(limits) > 1.0:
+            raise AssertionError(f"group_norm_silu {tag}: {limits} of the limits against float64")
+        leaf = x.contiguous().requires_grad_()
+        w_leaf, b_leaf = weight.clone().requires_grad_(), bias.clone().requires_grad_()
+        plain = group_norm.group_norm_silu_reference(leaf, w_leaf, b_leaf, groups, 1e-6, True)
+        x_nchw = x.contiguous()
+        fwd = lambda: group_norm.forward(x, gamma, beta, groups, 1e-6, True)  # noqa: E731
+        bwd = lambda: group_norm.backward(x, dy, gamma, beta, mean, rstd, groups, True)  # noqa: E731
+        plain_fwd = lambda: group_norm.group_norm_silu_reference(x_nchw, weight, bias, groups, 1e-6, True)  # noqa: E731
+        plain_bwd = lambda: torch.autograd.grad(plain, (leaf, w_leaf, b_leaf), dy, retain_graph=True)  # noqa: E731
+        tensor = x.numel() * x.element_size()
+        for name, fn, plain_fn, n_bytes, passes, err in (
+            ("group_norm_silu", fwd, plain_fwd, 2 * tensor, 3, abs_errs[0]),
+            ("group_norm_silu_backward", bwd, plain_bwd, 3 * tensor, 5, abs_errs[1]),
+        ):
+            ms = device_ms(fn, flush=flush)
+            warm_ms = device_ms(fn)
+            plain_ms = device_ms(plain_fn, flush=flush)
+            pass_share = passes * tensor / HBM_BYTES_PER_S * 1e3 / ms
+            print(f"{name} {tag}: {ms:.4f} ms (device, L2 flushed), {warm_ms:.4f} warm, plain {plain_ms:.4f} ms; "
+                  f"{pass_share:.1%} of the bound of its {passes} tensor-passes")
+            if dtype == torch.float32:
+                records.append(entry(
+                    name, "group_norm_silu.cu", "none: the JAX package leaves GroupNorm + SiLU to XLA", err, ms,
+                    plain_ms, n_bytes=n_bytes, n_ops=0, warm_ms=warm_ms, share_of_passes=pass_share,
+                    passes=passes, shape=[n, c, side, side]))
+        del x, dy, y, dx, leaf, plain, x_nchw, fwd, bwd, plain_fwd, plain_bwd
+        torch.cuda.empty_cache()
     return records
 
 
@@ -3772,6 +3916,8 @@ def main() -> int:
     batch = make_batch(np.random.default_rng(args.seed), 2, 4, 256, device)
     view, results = kernel_phase(model, batch, args.seed)
     results += tile_cull_phase(args.seed, device)
+    results += vae_phase(args.seed, device)
+    torch.cuda.empty_cache()
     results += backward_kernel_phase(view, args.seed)
     del view
     serve_launches = slice_phase(model, batch, args.seed, args.profile)

@@ -1,0 +1,126 @@
+"""Group normalisation with SiLU after it where asked: the norms of the
+VAE (model/autoencoder/kl.py), over channels-last (NHWC) tensors.
+
+`group_norm_silu(x, norm, silu)` takes the logical (N, C, H, W) tensor and
+the `nn.GroupNorm` that holds gamma and beta. A CUDA tensor goes through
+the `group_norm_silu` kernel (csrc/group_norm_silu.cu): one launch of the
+forward (statistics, their merge, the normalisation with its SiLU) and one
+of the backward, counted in `kernels.launch_counts` as "group_norm_silu"
+and "group_norm_silu_backward". The kernel reads and writes float32 or
+bfloat16 (the `vae:bfloat16` compute dtype) and computes in float32; any
+other dtype, or a shape it does not take, raises. Its output is
+channels-last whatever the input's layout; the backward keeps the input and
+the (sample, group) mean and rstd, not the normalised tensor. A CPU tensor
+runs the plain version, `group_norm_silu_reference`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..cuda_build import check, load_library
+from .rasterize import kernels
+
+# A forward or backward pass splits each sample's rows into chunks: enough
+# blocks to fill the card (~2048 over the batch), none with fewer than
+# MIN_CHUNK_VALUES values to stream.
+TARGET_BLOCKS = 2048
+MIN_CHUNK_VALUES = 16384
+# The dtypes the kernel reads and writes: the flag it is launched with.
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def chunks_for(n: int, hw: int, c: int) -> int:
+    """Row chunks a sample of `hw` rows of `c` channels is split into."""
+    rows_min = math.ceil(MIN_CHUNK_VALUES / c)
+    return max(1, min(math.ceil(TARGET_BLOCKS / n), math.ceil(hw / rows_min)))
+
+
+def group_norm_silu_reference(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float, silu: bool
+) -> torch.Tensor:
+    """Plain version: F.group_norm, then F.silu where asked."""
+    y = F.group_norm(x, groups, weight, bias, eps)
+    return F.silu(y) if silu else y
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def forward(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float, silu: bool
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the forward kernel on a float32 or bfloat16 CUDA x (N,
+    C, H, W) in channels-last memory, float32 weight and bias: y in x's
+    dtype and channels-last memory, and the float32 (N, groups) mean and
+    rstd."""
+    n, c, h, w = x.shape
+    chunks = chunks_for(n, h * w, c)
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    partials = torch.empty((n, chunks, groups, 3), dtype=torch.float32, device=x.device)
+    mean, rstd = (torch.empty((n, groups), dtype=torch.float32, device=x.device) for _ in range(2))
+    rc = load_library().group_norm_silu_forward(
+        n, h * w, c, groups, chunks, eps, int(silu), KERNEL_DTYPES[x.dtype], x.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), y.data_ptr(), partials.data_ptr(), mean.data_ptr(), rstd.data_ptr(), _stream(x.device),
+    )
+    check(rc, "group_norm_silu")
+    kernels.launch_counts["group_norm_silu"] += 1
+    return y, mean, rstd
+
+
+def backward(
+    x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+    rstd: torch.Tensor, groups: int, silu: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the backward kernel (x and dy channels-last, of one
+    dtype; weight, bias, mean and rstd float32): dx in x's dtype and
+    channels-last memory, and the float32 dgamma and dbeta."""
+    n, c, h, w = x.shape
+    chunks = chunks_for(n, h * w, c)
+    dx = torch.empty_like(x, memory_format=torch.channels_last)
+    partials = torch.empty((n, chunks, 2, c), dtype=torch.float32, device=x.device)
+    sums = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
+    coef = torch.empty((n, groups, 2), dtype=torch.float32, device=x.device)
+    rc = load_library().group_norm_silu_backward(
+        n, h * w, c, groups, chunks, int(silu), KERNEL_DTYPES[x.dtype], x.data_ptr(), dy.data_ptr(),
+        mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(), bias.data_ptr(), dx.data_ptr(), partials.data_ptr(),
+        sums.data_ptr(), coef.data_ptr(), _stream(x.device),
+    )
+    check(rc, "group_norm_silu backward")
+    kernels.launch_counts["group_norm_silu_backward"] += 1
+    dgamma, dbeta = sums.sum(0)
+    return dx, dgamma, dbeta
+
+
+class _GroupNormSiLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups: int, eps: float, silu: bool):
+        x = x.detach().contiguous(memory_format=torch.channels_last)
+        gamma, beta = (t.detach().float().contiguous() for t in (weight, bias))
+        y, mean, rstd = forward(x, gamma, beta, groups, eps, silu)
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        ctx.groups, ctx.silu, ctx.param_dtype = groups, silu, weight.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        dx, dgamma, dbeta = backward(x, dy, gamma, beta, mean, rstd, ctx.groups, ctx.silu)
+        return dx, dgamma.to(ctx.param_dtype), dbeta.to(ctx.param_dtype), None, None, None
+
+
+def group_norm_silu(x: torch.Tensor, norm: nn.GroupNorm, silu: bool) -> torch.Tensor:
+    """`norm(x)`, then F.silu where `silu`: x (N, C, H, W), any layout."""
+    if x.device.type != "cuda":
+        return group_norm_silu_reference(x, norm.weight, norm.bias, norm.num_groups, norm.eps, silu)
+    if x.dim() != 4 or x.dtype not in KERNEL_DTYPES or norm.weight is None or norm.bias is None:
+        raise ValueError(
+            f"group_norm_silu takes a float32 or bfloat16 (N, C, H, W) tensor and an affine norm on the card, "
+            f"not {x.dtype} {tuple(x.shape)} (affine: {norm.affine})")
+    return _GroupNormSiLU.apply(x, norm.weight, norm.bias, norm.num_groups, norm.eps, silu)

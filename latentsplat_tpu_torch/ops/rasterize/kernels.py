@@ -25,7 +25,9 @@ of one item is the same code with N = 1.
 
 A wrapper given CPU tensors runs the `*_reference` version; given CUDA
 tensors it launches the kernel or raises. `launch_counts` counts kernel
-launches (not reference calls), `tile_cull`'s too; `launches_by_channels`
+launches (not reference calls), `tile_cull`'s too, and those of the
+VAE's `group_norm_silu` (ops/group_norm.py; forward and backward under
+names of their own), which are no rasterizer's; `launches_by_channels`
 splits the three compositing kernels' by the channel count they were
 launched for (`reduce_pairs`: its row's width less the 6 attributes);
 `launches_by_variant` splits the two composite kernels' by variant (see
@@ -86,7 +88,7 @@ FOOTPRINT_DET_MIN = 1e-3
 
 launch_counts = {
     "duplicate_with_keys": 0, "composite_forward": 0, "composite_backward": 0, "reduce_pairs": 0,
-    "tile_cull": 0,
+    "tile_cull": 0, "group_norm_silu": 0, "group_norm_silu_backward": 0,
 }
 launches_by_channels: dict[str, dict[int, int]] = {
     "composite_forward": {}, "composite_backward": {}, "reduce_pairs": {},

@@ -527,7 +527,9 @@ def test_tiled_gradients_match_dense_oracle(cuda):
         loss = ((img - target) ** 2).mean() + mask.mean() + 1e-3 * depth.mean()
         return torch.autograd.grad(loss, leaves)
 
-    before = dict(kernels.launch_counts)
+    # Every rasterizer kernel runs (the VAE's group_norm_silu, counted
+    # beside them, has no part here).
+    before = {k: v for k, v in kernels.launch_counts.items() if not k.startswith("group_norm_silu")}
     tiled = grads("tiled")
     assert all(kernels.launch_counts[k] > before[k] for k in before)
     for gt, gd in zip(tiled, grads("dense")):
@@ -829,3 +831,212 @@ def test_pass_of_views_equals_one_view_launches(cuda, variant):
                                                 i_out[1], g_out[n : n + 1].contiguous(), g_t[n : n + 1].contiguous(),
                                                 **bwd, blocks=i_blocks)
             assert torch.equal(i_rows[i_order], sorted_rows[lo:hi])
+
+
+# -- group_norm_silu (ops/group_norm.py) --------------------------------------------
+
+# Tolerances against float64: the kernel and PyTorch's float32 group norm
+# both round x - mean and the product with rstd gamma once each (~1e-7 of
+# values of a few units) and SiLU's exp (~2 ulp), so the forward is held
+# to 1e-5 absolute; dx to 1e-5 of its largest value (per-element work as
+# the forward, plus the group sums' rounding, ~1e-7 relative over up to
+# 2.6e5 terms); dgamma and dbeta, sums of up to 1.3e5 products over the
+# batch and rows in float32 partial sums, to 1e-4 of their largest value.
+GN_FORWARD_ATOL = 1e-5
+GN_DX_RTOL = 1e-5
+GN_PARAM_RTOL = 1e-4
+# In bfloat16 the kernel computes as in float32 from the bfloat16 inputs
+# (exact in float64) and rounds each output once: at most 2^-8 of the
+# value more (8 significant bits, round to nearest). A value just above a
+# power of two rounds by nearly that much, so a large bfloat16 case reads
+# close to 1 of its limit by construction (0.995 at the video decode's
+# top-level norm); the float32 part stays inside the float32 limits.
+BF16_ROUNDING = 2.0 ** -8
+# The VAE decoder's norms: (channels, side) for each distinct shape.
+DECODER_NORMS = [(512, 32), (512, 64), (512, 128), (256, 128), (256, 256), (128, 256)]
+
+
+def group_norm_case(channels, side, device, seed, layout=torch.channels_last, offset=False, n=2,
+                    constant_groups=True, dtype=torch.float32):
+    """Inputs of a norm of `channels` (gcd(32, C) groups) in `dtype`: x with
+    a mean off zero, two constant groups (zero variance) in sample 0 and one
+    whole constant sample, gamma and beta off 1 and 0, and a cotangent."""
+    import math
+
+    groups = math.gcd(32, channels)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, channels, side, side), generator=g) * 1.7 + 0.6
+    d = channels // groups
+    if constant_groups:
+        x[0, :d] = 2.5
+        x[0, -d:] = -0.25
+        x[-1] = 1.0 if n > 1 else x[-1]
+    weight = torch.rand(channels, generator=g) + 0.5
+    bias = torch.rand(channels, generator=g) - 0.5
+    dy = torch.randn(x.shape, generator=g)
+    x = x.to(device, dtype)
+    if offset:   # channels-last memory one value past a 16-byte boundary: the kernel's scalar path
+        buf = torch.empty(x.numel() + 1, device=device, dtype=dtype)
+        view = buf[1:].view(n, side, side, channels).permute(0, 3, 1, 2)
+        view.copy_(x)
+        x = view
+    else:
+        x = x.contiguous(memory_format=layout)
+    return x, weight.to(device, dtype), bias.to(device, dtype), dy.to(device, dtype), groups
+
+
+def group_norm_check(x, weight, bias, dy, groups, silu):
+    """The kernel's forward and backward (in x's dtype) against nn.GroupNorm
+    + F.silu in float64 (one launch each); returns each of (y, dx, dgamma,
+    dbeta)'s largest |difference| over its limit (GN_FORWARD_ATOL, or the
+    RTOL of its largest value, plus BF16_ROUNDING of each value in
+    bfloat16; at most 1 passes), and PyTorch's own float32 path's beside
+    them."""
+    from latentsplat_tpu_torch.ops.group_norm import group_norm_silu, group_norm_silu_reference
+
+    norm = torch.nn.GroupNorm(groups, x.shape[1], eps=1e-6).to(x.device, x.dtype)
+    with torch.no_grad():
+        norm.weight.copy_(weight)
+        norm.bias.copy_(bias)
+    leaves = [x.detach().clone().requires_grad_(), norm.weight, norm.bias]
+    before = dict(kernels.launch_counts)
+    y = group_norm_silu(leaves[0], norm, silu)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["group_norm_silu"] == before["group_norm_silu"] + 1
+    assert kernels.launch_counts["group_norm_silu_backward"] == before["group_norm_silu_backward"] + 1
+    assert y.is_contiguous(memory_format=torch.channels_last) and grads[0].shape == x.shape
+    assert y.dtype == x.dtype and all(g.dtype == x.dtype for g in grads)
+
+    def plain(dtype):
+        ls = [t.detach().to(dtype).requires_grad_() for t in (x, weight, bias)]
+        out = group_norm_silu_reference(*ls, groups, 1e-6, silu)
+        return (out.detach(), *torch.autograd.grad(out, ls, dy.to(dtype)))
+
+    want, plain32 = plain(torch.float64), plain(torch.float32)
+    rounding = BF16_ROUNDING if x.dtype == torch.bfloat16 else 0.0
+    atols = [GN_FORWARD_ATOL] + [rtol * float(w.abs().max()) + 1e-30
+                                 for rtol, w in zip((GN_DX_RTOL, GN_PARAM_RTOL, GN_PARAM_RTOL), want[1:])]
+    return {side: [float(((a.detach().double() - w).abs() / (rounding * w.abs() + atol)).max())
+                   for a, w, atol in zip(got, want, atols)]
+            for side, got in (("kernel", (y, *grads)), ("plain32", plain32))}
+
+
+def assert_group_norm_close(errors):
+    assert max(errors["kernel"]) <= 1.0, errors
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("channels,side", DECODER_NORMS)
+def test_group_norm_silu_decoder_shapes(cuda, channels, side, silu):
+    assert_group_norm_close(group_norm_check(*group_norm_case(channels, side, cuda, channels + side), silu))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last", "offset"])
+@pytest.mark.parametrize("silu", [True, False])
+def test_group_norm_silu_layouts(cuda, layout, silu):
+    # An NCHW input is copied to channels-last first; one 4 bytes off a
+    # 16-byte boundary takes the kernel's scalar path.
+    memory = {"contiguous": torch.contiguous_format, "channels_last": torch.channels_last}.get(layout)
+    case = group_norm_case(128, 48, cuda, 3, layout=memory or torch.channels_last, offset=layout == "offset")
+    assert_group_norm_close(group_norm_check(*case, silu))
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("channels", [6, 8, 16, 48, 1536])
+def test_group_norm_silu_narrow_and_wide(cuda, channels, silu):
+    # gcd(32, C) groups: 6 -> 2 groups of 3 (scalar path), 8 -> 8 of 1, 16
+    # -> 16 of 1, 48 -> 16 of 3 (groups straddle float4s); 1536 -> 32 of 48
+    # (384 float4 a row: one row a block of 384 threads).
+    assert_group_norm_close(group_norm_check(*group_norm_case(channels, 20, cuda, channels, n=3), silu))
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("channels,side,offset", [(128, 256, False), (512, 32, False), (48, 20, False),
+                                                  (6, 20, False), (128, 48, True)])
+def test_group_norm_silu_bfloat16(cuda, channels, side, offset, silu):
+    # The vae:bfloat16 compute dtype launches the kernel too: 8-byte loads
+    # of four bfloat16 (the top-level decoder norm, a 512-channel one, 16
+    # groups of 3), and the scalar path (6 channels; 2 bytes off an 8-byte
+    # boundary), within the float32 limits plus one bfloat16 rounding.
+    case = group_norm_case(channels, side, cuda, channels + side, offset=offset, n=3, dtype=torch.bfloat16)
+    assert_group_norm_close(group_norm_check(*case, silu))
+
+
+def test_group_norm_silu_refuses_what_the_kernel_does_not_take(cuda):
+    # On the card nothing falls back to nn.GroupNorm: another dtype, a 3-D
+    # input or a norm without gamma and beta raises, and launches nothing.
+    from latentsplat_tpu_torch.ops.group_norm import group_norm_silu
+
+    before = dict(kernels.launch_counts)
+    for dtype in (torch.float16, torch.float64):
+        norm = torch.nn.GroupNorm(8, 16, eps=1e-6).to(cuda, dtype)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            group_norm_silu(torch.randn((2, 16, 8, 8), device=cuda, dtype=dtype), norm, True)
+    norm = torch.nn.GroupNorm(8, 16, eps=1e-6).to(cuda)
+    with pytest.raises(ValueError):
+        group_norm_silu(torch.randn((2, 16, 8), device=cuda), norm, True)
+    with pytest.raises(ValueError):
+        group_norm_silu(torch.randn((2, 16, 8, 8), device=cuda), torch.nn.GroupNorm(8, 16, affine=False).to(cuda),
+                        False)
+    assert kernels.launch_counts == before
+
+
+def vae_pair(channels, device, seed=0):
+    """The port's VAE with skips and the frozen NCHW copy of it
+    (perfbench/reference), the same random weights, on the card."""
+    from latentsplat_tpu_torch.model.autoencoder.kl import AutoencoderKL, AutoencoderKLCfg
+    from perfbench.reference.model.autoencoder import kl as nchw
+
+    torch.manual_seed(seed)
+    kwargs = dict(block_out_channels=channels, layers_per_block=2, latent_channels=4, skip_connections=True)
+    ours = AutoencoderKL(AutoencoderKLCfg(**kwargs), d_in=3, d_skip_extra=3)
+    ref = nchw.AutoencoderKL(nchw.AutoencoderKLCfg(**kwargs), d_in=3, d_skip_extra=3)
+    ref.load_state_dict(ours.state_dict())
+    return ours.to(device), ref.to(device)
+
+
+def test_vae_decode_matches_nchw(cuda):
+    # The published kl_f8 decoder, 2 views at 256x256, TF32 off on both
+    # sides: within 1e-5 of the image's root mean square (cuDNN's NHWC and
+    # NCHW kernels and the two norms sum in other orders; ~1e-7 relative a
+    # layer over ~30 layers). One kernel launch for each norm.
+    ours, ref = vae_pair([128, 256, 512, 512], cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    z = torch.randn((1, 2, 32, 32, 4), generator=g, device=cuda)
+    skip = torch.randn((1, 2, 256, 256, 7), generator=g, device=cuda)
+    norms = sum(isinstance(m, torch.nn.GroupNorm) for m in ours.decoder.modules())
+    with torch.no_grad():
+        before = kernels.launch_counts["group_norm_silu"]
+        out = ours.decode(z, skip)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts["group_norm_silu"] == before + norms == before + 30
+        want = ref.decode(z, skip)
+    rms = float(want.pow(2).mean().sqrt())
+    assert float((out - want).abs().max()) <= 1e-5 * rms
+
+
+def test_vae_gradients_match_nchw(cuda):
+    # A narrow VAE with skips, decode and encode, forward and backward
+    # through the kernel against the NCHW copy through nn.GroupNorm: each
+    # gradient leaf within 1e-4 of its largest value (float32 sums in other
+    # orders; dgamma's are sums of ~1e5 terms), floored at 1e-3 of the
+    # largest leaf for leaves that are zero but for rounding (a conv bias
+    # before a group norm of one channel a group: float32 noise of ~2e-8
+    # of the largest leaf on either side).
+    ours, ref = vae_pair([32, 64], cuda)
+    grads = []
+    for model in (ours, ref):
+        g = torch.Generator(device=cuda).manual_seed(2)
+        z = torch.randn((2, 2, 32, 32, 4), generator=g, device=cuda).requires_grad_()
+        skip = torch.randn((2, 2, 64, 64, 7), generator=g, device=cuda).requires_grad_()
+        images = torch.rand((2, 64, 64, 3), generator=g, device=cuda)
+        out = model.decode(z, skip)
+        loss = (out * torch.randn(out.shape, generator=g, device=cuda)).sum() + model.encode(images).mean.square().sum()
+        loss.backward()
+        grads.append({"z": z.grad, "skip": skip.grad,
+                      **{n: p.grad for n, p in model.named_parameters() if p.grad is not None}})
+    floor = 1e-3 * max(float(v.abs().max()) for v in grads[1].values())
+    errors = {name: float((grads[0][name] - want).abs().max()) / max(float(want.abs().max()), floor)
+              for name, want in grads[1].items()}
+    assert max(errors.values()) <= 1e-4, sorted(errors.items(), key=lambda kv: -kv[1])[:5]
