@@ -24,7 +24,13 @@
    bench_render's 393,216-Gaussian scene at 256x256: counts, base, nx and
    mask the same bits, one launch each; the kernel's device ms with L2
    flushed and warm, its bound (bytes) and share, the plain version's ms.
-2c. VAE phase: the video cell's decode (30 views at 256x256, the
+2c. Shade phase: the shade_project kernel (shade.shade on the card
+   without gradient) against the plain shade (shade.shade_reference) on
+   the video cell's pass (30 views) and a serve request's pass (3 views)
+   of bench_render's scene at 256x256: every ScreenGaussians field the
+   same bits, one launch each; the kernel's device ms with L2 flushed and
+   warm, its bound (bytes) and share, the plain shade's ms.
+2d. VAE phase: the video cell's decode (30 views at 256x256, the
    published kl_f8 decoder with skips, three seeds) in channels-last with
    the group_norm_silu kernel against the frozen NCHW copy of the module
    (perfbench/reference) with TF32 off, within 1e-5 of the image's rms,
@@ -62,15 +68,17 @@
    (render_depth's payload) against its plain version and timed on a pass
    of the 4 target views; the splatting decoder in each depth mode (depth,
    disparity, relative_disparity, log) over the 4 target views, with
-   finite depths, one 4-channel launch in each special mode, each mode's
-   time per view and the invariant depth x disparity >= mask^2.
+   finite depths, one 4-channel launch in each special mode, one
+   shade_project launch a pass, each mode's time per view and the
+   invariant depth x disparity >= mask^2.
 5b. Pass phase: bench_render's 64 views in one pass against one item a
    pass (api.PASS_ROWS patched to 1), at exact and fast serving: the
    outputs and pair counts the same bits, one launch of each forward
    kernel and one host read (also counted by torch.cuda's sync debug
    mode) against 64; then a train render of 2 scenes x 4 views at exact
    and fast: the forward the same bits, every input's gradient within
-   1e-4 of its largest value (fast: or one bfloat16 step).
+   1e-4 of its largest value (fast: or one bfloat16 step), no
+   shade_project launch (the plain shade runs under autograd).
 6. Train phase: 3 VAE-GAN train steps of the flagship re10k model at full
    width (random weights for the generator, the PatchGAN discriminator and
    LPIPS) on one batch of 2 scenes, 2 context + 4 target views at 256x256,
@@ -196,7 +204,8 @@ ms, launches on the main path, in the trainer phase, in each run of the
 data phase, in each step of the inspection phase, in each rank's step of
 the parallel phase, in each run of the bench phase and over the
 convergence phase; duplicate_with_keys
-also its wrapper's ms; composite_forward once at the flagship's 8 channels,
+also its wrapper's ms; tile_cull and shade_project a row for each pass of
+their phases; composite_forward once at the flagship's 8 channels,
 once at render_depth's 4 and once at variational=latents' 12, and
 composite_backward and reduce_pairs also at 12 channels; the fast family's
 rows, marked "variant", at 8 and 12 channels: composite_forward's coef and
@@ -225,6 +234,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from latentsplat_tpu_torch.scripts.measure import device_ms
 
 KERNEL_ATOL = 1e-5
 # composite_backward sums each pair's partials over the tile in its own
@@ -260,8 +271,12 @@ def backward_composited_ops(n_ch: int) -> int:
     of their sum over the tile's pixels."""
     return 3 * n_ch + 29 + (6 + n_ch)
 TRAIN_STEP = 125000
-FORWARD_KERNELS = ("tile_cull", "duplicate_with_keys", "composite_forward")
-ALL_KERNELS = (*FORWARD_KERNELS, "composite_backward", "reduce_pairs")
+# The kernels of every render pass, with or without gradient.
+RENDER_KERNELS = ("tile_cull", "duplicate_with_keys", "composite_forward")
+# A pass without gradient adds shade_project (a render that needs
+# gradients shades in PyTorch).
+FORWARD_KERNELS = ("shade_project", *RENDER_KERNELS)
+ALL_KERNELS = (*RENDER_KERNELS, "composite_backward", "reduce_pairs")
 # The flagship's Gaussians at 256x256: 2 context views x 256^2 pixels x 3.
 FLAGSHIP_GAUSSIANS = 2 * 256 * 256 * 3
 
@@ -351,35 +366,6 @@ def cuda_ms(fn, repeats: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, repeats: int = 20, flush: torch.Tensor | None = None) -> float:
-    """Median device milliseconds of one `fn` call. All calls are queued
-    behind a sleeping kernel, so the host's time in them (checks,
-    allocation, the ctypes call) overlaps the device's and is not counted;
-    with `flush` (>= 64 MB) written before each call, L2 starts cold. `fn`
-    must not wait for the device."""
-    fn()
-    torch.cuda.synchronize()
-    cycles = 1 << 21
-    for _ in range(6):
-        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                 for _ in range(repeats)]
-        asleep = torch.cuda.Event()
-        torch.cuda._sleep(cycles)
-        asleep.record()
-        for start, end in pairs:
-            if flush is not None:
-                flush.zero_()
-            start.record()
-            fn()
-            end.record()
-        queued_ahead = not asleep.query()
-        torch.cuda.synchronize()
-        if queued_ahead:
-            return statistics.median(start.elapsed_time(end) for start, end in pairs)
-        cycles *= 4
-    raise RuntimeError("device_ms: the host never got ahead of the device")
-
-
 def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
     """Least milliseconds one H100 SXM could take: the larger of the bytes
     over HBM's rate and the operations over the float32 rate."""
@@ -427,7 +413,7 @@ def target_views(model, batch, seed: int, depth_payload: bool = False, flatten: 
     Gaussian's camera-space z as the 3-channel DC color of `render_depth`;
     then (sg, (h, w))."""
     from latentsplat_tpu_torch.geometry.projection import homogenize_points, invert_se3
-    from latentsplat_tpu_torch.ops.rasterize.api import view_channels
+    from latentsplat_tpu_torch.ops.rasterize.shade import view_channels
     from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_screen
 
     shimmed, gaussians = slice_gaussians(model, batch, seed, flatten)
@@ -614,6 +600,61 @@ def tile_cull_phase(seed: int, device) -> list[dict]:
             ms, plain_ms, n_bytes=CULL_ROW_BYTES * rows, n_ops=CULL_ROW_OPS * rows, warm_ms=warm_ms,
             views=n_views, pass_label=label, pairs=pairs))
         del sg, out, ref
+    return records
+
+
+# The shade's float32 operations a row at the flagship's SH degrees (4 and
+# 2), about: the basis, the channels' sums and the projection
+# (csrc/shade_project.cu's head). The bound is the bytes' either way.
+SHADE_ROW_OPS = 500
+# The shade phase's passes: the video cell's 30 views and a serve
+# request's 3 target views.
+SHADE_PASSES = (("video", 30), ("serve", 3))
+
+
+def shade_phase(seed: int, device) -> list[dict]:
+    """shade_project (shade.shade on the card without gradient) against the
+    plain shade (shade.shade_reference) on SHADE_PASSES of bench_render's
+    393,216-Gaussian scene at 256x256, scale-invariant: every
+    ScreenGaussians field the same bits, in one launch; the kernel's device
+    ms with L2 flushed and warm, its bound (bytes) and share, and the plain
+    shade's ms."""
+    from latentsplat_tpu_torch.ops.rasterize import kernels
+    from latentsplat_tpu_torch.ops.rasterize.shade import shade, shade_project, shade_reference
+    from latentsplat_tpu_torch.scripts.bench_render import make_scene, shade_bytes, shade_inputs
+
+    flush = torch.empty(FLUSH_BYTES // 4, device=device)
+    records = []
+    for label, n_views in SHADE_PASSES:
+        scene = make_scene(seed, n_views=n_views, device=device)
+        args = shade_inputs(scene)
+        before = kernels.launch_counts["shade_project"]
+        with torch.no_grad():
+            out = shade(*args, True, (256, 256))
+            ref = shade_reference(*args, True, (256, 256))
+        torch.cuda.synchronize()
+        if kernels.launch_counts["shade_project"] != before + 1:
+            raise AssertionError(f"shade_project ({label}): {kernels.launch_counts['shade_project'] - before} "
+                                 f"launches, not 1")
+        differ = {name: int((getattr(out, name).view(torch.int32) != getattr(ref, name).view(torch.int32)).sum())
+                  for name in vars(ref)}
+        if any(differ.values()) or any(getattr(out, k).shape != getattr(ref, k).shape for k in vars(ref)):
+            raise AssertionError(f"shade_project ({label}) differs from the plain shade in {differ} values")
+        rows, live = out.radius.numel(), int((out.radius > 0).sum())
+        del out, ref
+        with torch.no_grad():
+            ms = device_ms(lambda: shade_project(*args, (256, 256)), flush=flush)
+            warm_ms = device_ms(lambda: shade_project(*args, (256, 256)))
+            plain_ms = cuda_ms(lambda: shade_reference(*args, True, (256, 256)), 5)
+        print(f"shade_project ({label}, {n_views} views, {rows} rows, {live} with a radius): the same bits; "
+              f"{ms:.4f} ms (device, L2 flushed), {warm_ms:.4f} warm, plain {plain_ms:.4f} ms; per view "
+              f"{ms / n_views:.4f} ms")
+        records.append(entry(
+            "shade_project", "shade_project.cu",
+            "none: latentsplat_tpu/ops/sh.py::eval_sh and ops/rasterize/camera.py are jnp", 0.0, ms, plain_ms,
+            n_bytes=shade_bytes(scene), n_ops=SHADE_ROW_OPS * rows, warm_ms=warm_ms, views=n_views,
+            pass_label=label))
+        del scene, args
     return records
 
 
@@ -884,6 +925,9 @@ def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
     print(f"depth phase launches (4 modes x {n_views} views): {launches}")
     if launches["composite_forward_by_channels"].get(4) != (len(DEPTH_MODES) - 1) * passes(n_views):
         raise AssertionError("render_depth did not composite its views in one pass at 4 channels in each special mode")
+    if launches["shade_project"] != launches["duplicate_with_keys"]:
+        raise AssertionError(f"the depth modes launched shade_project {launches['shade_project']} times for "
+                             f"{launches['duplicate_with_keys']} passes")
     with torch.no_grad():
         for mode, out in outs.items():
             d = out.depth
@@ -1348,8 +1392,10 @@ def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: in
         print(f"train: {net} tensors changed {changed} of {len(before[net])}; unchanged {same[:8]}")
         if changed == 0:
             raise AssertionError(f"the {net}'s parameters did not change")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the train path did not run: {launches}")
+    # Every kernel but shade_project, which the step's render bypasses: it
+    # needs gradients, so the plain shade runs.
+    if launches["shade_project"] or min(v for k, v in launches.items() if k != "shade_project") < 1:
+        raise AssertionError(f"a kernel of the train path did not run, or shade_project did: {launches}")
     later = step_s[1:]
     print(f"train seconds per step: {[round(x, 4) for x in step_s]}; median after the first "
           f"{statistics.median(later):.4f} (host clock around synchronized steps, stage timers on)")
@@ -1549,9 +1595,13 @@ def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, di
     # 4 train steps of 2 scenes x 4 target views, the validation's two
     # renders of 4 views, two videos of 30 views and two tests of 4 scenes
     # of 48 views: a render call's views are its passes.
+    # shade_project runs in all but the train steps, whose render needs
+    # gradients.
     expected = 4 * passes(2 * 4) + 2 * passes(4) + 2 * passes(30) + 2 * 4 * passes(48)
-    if any(fit_launches[k] != expected for k in FORWARD_KERNELS):
-        raise AssertionError(f"the trainer's fit launched the forward kernels {fit_launches}, not {expected} times")
+    if (any(fit_launches[k] != expected for k in RENDER_KERNELS)
+            or fit_launches["shade_project"] != expected - 4 * passes(2 * 4)):
+        raise AssertionError(f"the trainer's fit launched the forward kernels {fit_launches}, not {expected} times "
+                             f"({expected - 4 * passes(2 * 4)} shade_project)")
     if min(test_launches[k] for k in FORWARD_KERNELS) < 1:
         raise AssertionError(f"a forward kernel did not run in the trainer's test: {test_launches}")
     print("trainer phase benchmark.json means per scene (encoder) and per view: "
@@ -2872,7 +2922,9 @@ def small_gradient_check(seed: int, device) -> None:
         "latent": torch.randn((1, 2, 32, 32, c), generator=gen, device=device),
     }
     flags = make_step_flags(losses, TRAIN_STEP)
-    before = dict(kernels.launch_counts)
+    # Every kernel but shade_project, which a render that needs gradients
+    # bypasses (the plain shade runs).
+    before = {k: v for k, v in kernels.launch_counts.items() if k != "shade_project"}
     tiled, _, _, _ = generator_grads(state, losses, flags, batch, TRAIN_STEP, noise=noise)
     if not all(kernels.launch_counts[k] > before[k] for k in before):
         raise AssertionError("the tiled gradients did not run every kernel")
@@ -3653,12 +3705,12 @@ def pass_phase(seed: int, device) -> dict:
               f"{out[f'{precision}_pass_bytes_a_row']:.1f} B a (item, Gaussian) row")
         if not all(same.values()):
             raise AssertionError(f"pass phase, {precision}: one pass and one item a pass differ: {same}")
-        if (one_launches["tile_cull"], one_launches["duplicate_with_keys"], one_launches["composite_forward"],
-                one_reads["duplicate_with_keys"], one_syncs) != (1, 1, 1, 1, 1):
+        if (one_launches["shade_project"], one_launches["tile_cull"], one_launches["duplicate_with_keys"],
+                one_launches["composite_forward"], one_reads["duplicate_with_keys"], one_syncs) != (1,) * 6:
             raise AssertionError(f"pass phase, {precision}: one pass launched {one_launches} with host reads "
                                  f"{one_reads} and {one_syncs} synchronizing calls, not one each")
-        if (per_launches["tile_cull"], per_launches["composite_forward"], per_reads["duplicate_with_keys"],
-                per_syncs) != (n_views,) * 4:
+        if (per_launches["shade_project"], per_launches["tile_cull"], per_launches["composite_forward"],
+                per_reads["duplicate_with_keys"], per_syncs) != (n_views,) * 5:
             raise AssertionError(f"pass phase, {precision}: one item a pass launched {per_launches} with host "
                                  f"reads {per_reads} and {per_syncs} synchronizing calls, not {n_views} each")
         out[f"{precision}_one_pass_s"], out[f"{precision}_one_item_a_pass_s"] = one_s, per_s
@@ -3682,6 +3734,8 @@ def pass_phase(seed: int, device) -> dict:
             torch.cuda.reset_peak_memory_stats(device)
             base = torch.cuda.memory_allocated(device)
             result, seconds, launches, reads, _ = call(precision, one_item, inputs, True)
+            if launches["shade_project"]:
+                raise AssertionError(f"pass phase, train render at {precision}: shade_project ran under autograd")
             weights = [torch.randn(getattr(result, k).shape, generator=gen.manual_seed(seed + i), device=device)
                        for i, k in enumerate(names)]
             loss = sum((getattr(result, k) * w).sum() for k, w in zip(names, weights))
@@ -3764,7 +3818,7 @@ def bench_phase(seed: int, device) -> dict:
             launches[label] = read_launches()
             per_step = result["steps_run"] * passes(result["batch"] * 4, 2 * result["size"] ** 2 * 3)
             expected = {"duplicate_with_keys": per_step * (2 if result["decoder_remat"] else 1),
-                        "composite_backward": per_step, "reduce_pairs": per_step}
+                        "composite_backward": per_step, "reduce_pairs": per_step, "shade_project": 0}
             expected["composite_forward"] = expected["tile_cull"] = expected["duplicate_with_keys"]
             got = {k: launches[label][k] for k in expected}
             print(f"bench phase: bench_train {' '.join(argv) or '(default)'}: {result['value']!r} steps/s, peak "
@@ -3791,8 +3845,8 @@ def bench_phase(seed: int, device) -> dict:
         n = n_calls * passes(n_views, scene["gaussian_means"].shape[1])
         if reads != {"duplicate_with_keys": 2 * n, "covering_cap": 0}:
             raise AssertionError(f"bench_render: host reads {reads}, not one a pass ({2 * n})")
-        expected = {"tile_cull": 2 * n, "duplicate_with_keys": 2 * n, "composite_forward": 2 * n,
-                    "composite_backward": 0, "reduce_pairs": 0}
+        expected = {"shade_project": 2 * n, "tile_cull": 2 * n, "duplicate_with_keys": 2 * n,
+                    "composite_forward": 2 * n, "composite_backward": 0, "reduce_pairs": 0}
         by_variant = {"composite_forward": {"coef": {8: n}, "exact": {8: n}}, "composite_backward": {}}
         if {k: launches["render"][k] for k in expected} != expected or launches["render"]["by_variant"] != by_variant:
             raise AssertionError(f"bench_render: launches {launches['render']}, not {expected} ({by_variant})")
@@ -3916,6 +3970,7 @@ def main() -> int:
     batch = make_batch(np.random.default_rng(args.seed), 2, 4, 256, device)
     view, results = kernel_phase(model, batch, args.seed)
     results += tile_cull_phase(args.seed, device)
+    results += shade_phase(args.seed, device)
     results += vae_phase(args.seed, device)
     torch.cuda.empty_cache()
     results += backward_kernel_phase(view, args.seed)

@@ -44,6 +44,7 @@ _SIGNATURES = {
         [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P], _I),
     "reduce_pairs": ([_I, _I, _P, _P, _P, _P], _I),
     "tile_cull": ([_I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "shade_project": ([_I] * 12 + [_P] * 16, _I),
     "group_norm_silu_forward": ([_I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     "group_norm_silu_backward": ([_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
 }

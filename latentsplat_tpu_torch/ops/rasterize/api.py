@@ -4,12 +4,14 @@ latentsplat_tpu/ops/rasterize/api.py).
 Per (scene, view) item: SH colors (+0.5, clamped at 0) and SH features
 (+0.5, no clamp) evaluated towards the camera, or their DC coefficients as
 they are with `use_sh=False`; the scene pre-normalized by 1/near when
-`scale_invariant`; EWA projection, then the tiled (CUDA) or dense (oracle)
-compositor. The JAX package maps over views and scenes inside one compiled
-program; here a call's items are rendered in passes (`pass_ranges`), each
-pass over all its items at once: one launch of each kernel, one stable
-sort and one host read a pass, and a call splits into more than one pass
-only where a pass would hold more than PASS_ROWS (item, Gaussian) rows. An
+`scale_invariant`; EWA projection (shade.py: one `shade_project` launch a
+pass on the card where no input needs a gradient), then the tiled (CUDA) or
+dense (oracle) compositor. The JAX package maps over views and scenes
+inside one compiled program; here a call's items are rendered in passes
+(`pass_ranges`), each pass over all its items at once: one launch of each
+kernel, one stable sort and one host read a pass, and a call splits into
+more than one pass only where a pass would hold more than PASS_ROWS (item,
+Gaussian) rows. An
 item's outputs are the bits a pass of that item alone gives: every
 per-item operation is elementwise or a fixed-order sum (`eval_sh` adds its
 terms in coefficient order), and a scene-level input's gradient is summed
@@ -31,7 +33,6 @@ dropped.
 from __future__ import annotations
 
 import dataclasses
-from math import isqrt
 from typing import Literal, Optional
 
 import torch
@@ -40,9 +41,8 @@ from torch.utils.checkpoint import checkpoint
 from ...geometry.conversions import depth_to_relative_disparity
 from ...geometry.projection import homogenize_points, invert_se3
 from ...misc.profiler import span
-from ..sh import eval_sh
-from .camera import project_gaussians_to_screen
 from .dense import composite_dense
+from .shade import gather, segments, shade
 from .tiled import composite_tiled, covering_cap, dense_extent, precision_knobs
 from .types import RenderOutput, ScreenGaussians
 
@@ -62,30 +62,6 @@ def pass_ranges(items: int, gaussians: int) -> list[tuple[int, int]]:
     """The [start, stop) item ranges of a call's passes, in item order."""
     per_pass = max(1, PASS_ROWS // max(1, gaussians))
     return [(n, min(n + per_pass, items)) for n in range(0, items, per_pass)]
-
-
-def view_channels(
-    means: torch.Tensor, color_sh: Optional[torch.Tensor],
-    feature_sh: Optional[torch.Tensor], camera: torch.Tensor, use_sh: bool = True,
-) -> torch.Tensor:
-    """Per-Gaussian composited payload of each item's camera position:
-    means (..., G, 3) and camera (..., 3) with the items' axes (...), one
-    scene's SH tables (G, C, K) -> (..., G, C), float32 (bfloat16 tables
-    are evaluated in float32). Without `use_sh` the DC coefficients are
-    the payload as they are."""
-    color_sh, feature_sh = (sh.float() if sh is not None else None for sh in (color_sh, feature_sh))
-    if not use_sh:
-        dc = torch.cat([sh[..., 0] for sh in (color_sh, feature_sh) if sh is not None], dim=-1)
-        return dc.expand(*means.shape[:-1], dc.shape[-1])
-    direction = means - camera[..., None, :]
-    x, y, z = direction.unbind(-1)
-    direction = direction / (torch.sqrt(x * x + y * y + z * z)[..., None] + 1e-12)
-    parts = []
-    if color_sh is not None:
-        parts.append(torch.clamp(eval_sh(isqrt(color_sh.shape[-1]) - 1, color_sh, direction) + 0.5, min=0.0))
-    if feature_sh is not None:
-        parts.append(eval_sh(isqrt(feature_sh.shape[-1]) - 1, feature_sh, direction) + 0.5)
-    return torch.cat(parts, dim=-1)
 
 
 class _FanOut(torch.autograd.Function):
@@ -113,17 +89,6 @@ class _FanOut(torch.autograd.Function):
         return None, *sums
 
 
-def _segments(start: int, stop: int, views: int) -> list[tuple[int, int]]:
-    """(scene, item count) of each scene's run of the items [start, stop)."""
-    out = []
-    for n in range(start, stop):
-        if out and out[-1][0] == n // views:
-            out[-1] = (out[-1][0], out[-1][1] + 1)
-        else:
-            out.append((n // views, 1))
-    return out
-
-
 def _render(
     extrinsics, intrinsics, near, image_shape, background_color, gaussian_means, gaussian_covariances,
     gaussian_opacities, color_sh, feature_sh, payload, scale_invariant, use_sh, backend,
@@ -146,33 +111,11 @@ def _render(
     def render_pass(start, stop, means, covs, opacities, background, *rest):
         sh = dict(zip(tables, rest))
         ext, intr, near_n, *item_payload = rest[len(tables) :]
-        segments = _segments(start, stop, v)
-
-        def gather(x):   # a scene-level tensor's rows of the pass's items
-            return torch.cat([x[s : s + 1].expand(c, *x.shape[1:]) for s, c in segments])
-
         with span("render.shade"):
-            means, covs, opacities, background = map(gather, (means, covs, opacities, background))
-            if item_payload:
-                channels = item_payload[0]
-            else:
-                # Each scene's SH tables against its run of items' cameras.
-                parts, i = [], 0
-                for s, c in segments:
-                    color, feature = (sh[name][s] if name in sh else None for name in ("color", "feature"))
-                    parts.append(view_channels(means[i : i + c], color, feature, ext[i : i + c, :3, 3], use_sh))
-                    i += c
-                channels = torch.cat(parts)
-            fill = torch.zeros(channels.shape[0], channels.shape[-1], device=channels.device)
-            fill[:, :n_color] = background[:, :n_color]
-            if scale_invariant:
-                scale = 1.0 / near_n
-                ext_s = ext.clone()
-                ext_s[:, :3, 3] = ext[:, :3, 3] * scale[:, None]
-                means_s, covs_s = means * scale[:, None, None], covs * (scale * scale)[:, None, None, None]
-            else:
-                ext_s, means_s, covs_s = ext, means, covs
-            sg = project_gaussians_to_screen(means_s, covs_s, opacities, channels, ext_s, intr, image_shape)
+            sg = shade(means, covs, opacities, sh, ext, intr, near_n, start, v,
+                       item_payload[0] if item_payload else None, scale_invariant, use_sh, image_shape)
+            fill = torch.zeros(stop - start, sg.num_channels, device=sg.channels.device)
+            fill[:, :n_color] = gather(background, segments(start, stop, v))[:, :n_color]
         if backend == "dense":
             views = [composite_dense(ScreenGaussians(**{f.name: getattr(sg, f.name)[n] for f in
                                                         dataclasses.fields(sg)}), image_shape, fill[n])

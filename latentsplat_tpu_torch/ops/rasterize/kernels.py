@@ -11,7 +11,9 @@
 
 A fifth, `tile_cull` (csrc/tile_cull.cu), replaces no TPU kernel: it is
 the tile cull of tiled.py::tile_rects, whose wrapper and plain version
-live there.
+live there. Nor does a sixth, `shade_project` (csrc/shade_project.cu): a
+pass's SH payload and projection, whose wrapper and plain version live in
+shade.py.
 
 Every kernel works on a pass: the (scene, view) items of one render call,
 laid out one after another. Item n's Gaussians are rows n G .. n G + G - 1
@@ -25,7 +27,8 @@ of one item is the same code with N = 1.
 
 A wrapper given CPU tensors runs the `*_reference` version; given CUDA
 tensors it launches the kernel or raises. `launch_counts` counts kernel
-launches (not reference calls), `tile_cull`'s too, and those of the
+launches (not reference calls), `tile_cull`'s and `shade_project`'s too,
+and those of the
 VAE's `group_norm_silu` (ops/group_norm.py; forward and backward under
 names of their own), which are no rasterizer's; `launches_by_channels`
 splits the three compositing kernels' by the channel count they were
@@ -88,7 +91,7 @@ FOOTPRINT_DET_MIN = 1e-3
 
 launch_counts = {
     "duplicate_with_keys": 0, "composite_forward": 0, "composite_backward": 0, "reduce_pairs": 0,
-    "tile_cull": 0, "group_norm_silu": 0, "group_norm_silu_backward": 0,
+    "tile_cull": 0, "shade_project": 0, "group_norm_silu": 0, "group_norm_silu_backward": 0,
 }
 launches_by_channels: dict[str, dict[int, int]] = {
     "composite_forward": {}, "composite_backward": {}, "reduce_pairs": {},

@@ -30,6 +30,15 @@ render_256px_393k_gaussians_fwd in views/sec/chip, `value` = `value_fast`,
 operations, `render_mfu`, and the newest record of bench_train in
 outputs/bench/. Sizes are arguments so that tests can shrink the scene.
 The command line runs on the card; `main(argv, device="cpu")` on the CPU.
+
+With --shade it times only the render's shade stage instead, on one pass
+of all the views (the video cell's pass: --views 30), and prints one JSON
+line (`time_shade`): the `shade_project` kernel's device ms with L2
+flushed and warm, the plain shade's (`shade_reference`), the
+kernel's least time on the card (its bytes over HBM's rate) and its share
+of it, after checking that the kernel gives the plain version's bits:
+
+    python -m latentsplat_tpu_torch.scripts.bench_render --shade --views 30
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from ..entry import arc_cameras
 from ..ops.rasterize import kernels
 from ..ops.rasterize.api import render
+from ..ops.rasterize.shade import shade_project, shade_reference
 from ..ops.rasterize.tiled import (
     CULL_MARGIN,
     FAST_CULL_MARGIN,
@@ -60,7 +70,18 @@ from ..ops.rasterize.tiled import (
     tile_rects,
 )
 from . import resolve_device
-from .measure import FP32_FLOPS, RECORD_DIR, device_name, median_seconds, screen_view, sync
+from .measure import (
+    FLUSH_BYTES,
+    FP32_FLOPS,
+    HBM_BYTES_PER_S,
+    RECORD_DIR,
+    device_ms,
+    device_name,
+    median_seconds,
+    screen_view,
+    sync,
+    timed_ms,
+)
 
 METRIC = "render_256px_393k_gaussians_fwd"
 REFERENCE_VIEWS_PER_SEC = 100.0  # bench.py's anchor: the reference CUDA rasterizer on an A100, assumed
@@ -319,6 +340,60 @@ def render_operations(scene: dict, size: int, precision: str = "exact") -> dict:
             "composite": statistics.fmean(composite)}
 
 
+def shade_inputs(scene: dict) -> tuple:
+    """`shade`'s arguments for one pass of all of the scene's views (no
+    `use_sh`): as `render` hands them to it, scale-invariant."""
+    tables = {"color": scene["gaussian_color_sh"], "feature": scene["gaussian_feature_sh"]}
+    per_item = (scene[k][0] for k in ("extrinsics", "intrinsics", "near"))
+    return (scene["gaussian_means"], scene["gaussian_covariances"], scene["gaussian_opacities"], tables, *per_item,
+            0, scene["extrinsics"].shape[1], None, True)
+
+
+def shade_bytes(scene: dict) -> int:
+    """The least bytes the shade of a pass of all views moves: each
+    Gaussian's geometry and SH tables read once, each (item, Gaussian) row's
+    ScreenGaussians fields written once (mean2d 2, conic 3, depth, radius,
+    opacity, extent 2 and the channels, float32)."""
+    g = scene["gaussian_means"].shape[1]
+    n = scene["extrinsics"].shape[1]
+    sh = sum(scene[k][0, 0].numel() for k in ("gaussian_color_sh", "gaussian_feature_sh"))
+    channels = scene["gaussian_color_sh"].shape[-2] + scene["gaussian_feature_sh"].shape[-2]
+    return 4 * (g * (3 + 9 + 1 + sh) + n * g * (10 + channels))
+
+
+def time_shade(scene: dict, size: int) -> dict:
+    """The shade kernel against the plain shade on one pass of all views:
+    raises unless every field has the plain version's bits and the kernel
+    launched once; then the kernel's device ms (`device_ms`, L2 flushed
+    before each call, and warm), the plain shade's (`timed_ms`: host clock
+    around synchronized calls, which the device paces), the bound and the
+    share."""
+    args = shade_inputs(scene)
+    before = kernels.launch_counts["shade_project"]
+    with torch.no_grad():
+        got = shade_project(*args, (size, size))
+        want = shade_reference(*args, True, (size, size))
+    device = scene["gaussian_means"].device
+    sync(device)
+    if kernels.launch_counts["shade_project"] != before + 1:
+        raise AssertionError(f"shade_project: {kernels.launch_counts['shade_project'] - before} launches, not 1")
+    differ = {k: int((getattr(got, k).view(torch.int32) != getattr(want, k).view(torch.int32)).sum())
+              for k in vars(want)}
+    if any(differ.values()):
+        raise AssertionError(f"shade_project differs from the plain shade in {differ} values")
+    flush = torch.empty(FLUSH_BYTES // 4, device=device)
+    with torch.no_grad():
+        ms = device_ms(lambda: shade_project(*args, (size, size)), flush=flush)
+        warm_ms = device_ms(lambda: shade_project(*args, (size, size)))
+        plain_ms = timed_ms(lambda _: shade_reference(*args, True, (size, size)), 5, device)
+    n_bytes = shade_bytes(scene)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"metric": "shade_project_ms", "device": device_name(device),
+            "views": scene["extrinsics"].shape[1], "gaussians": scene["gaussian_means"].shape[1], "size": size,
+            "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bytes": n_bytes, "bound_ms": bound_ms,
+            "bound_by": "bytes", "share": bound_ms / ms}
+
+
 def newest_train_record(record_dir: Path):
     """The newest train_step record that bench_train wrote to `record_dir`."""
     records = [json.loads(p.read_text()) for p in sorted(Path(record_dir).glob("train_step_*.json"))]
@@ -391,9 +466,15 @@ def main(argv=None, device=None) -> dict:
     parser.add_argument("--size", type=int, default=SIZE)
     parser.add_argument("--iters", type=int, default=ITERS)
     parser.add_argument("--records", type=Path, default=RECORD_DIR, help="where bench_train's records are")
+    parser.add_argument("--shade", action="store_true", help="time the shade kernel against the plain shade only")
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
     device = resolve_device(device, "bench_render")
     scene = make_scene(args.seed, args.side, args.views, device)
+    if args.shade:
+        result = time_shade(scene, args.size)
+        print(f"device: {result['device']}")
+        print(json.dumps(result))
+        return result
     timings = {p: time_render(scene, args.size, args.iters, p) for p in PRECISIONS}
     result = summarize(scene, args.size, timings, device, args.records)
     print(f"bench_render: {result['views']} views of {result['gaussians']} Gaussians at {args.size}x{args.size}, "

@@ -37,8 +37,10 @@ import sys
 import torch
 
 from ..entry import arc_batch, flagship_model, to_tensors
-from ..ops.rasterize import api, kernels, tiled
+from ..ops.rasterize import kernels, tiled
+from ..ops.rasterize.camera import project_gaussians_to_screen
 from ..ops.rasterize.api import render
+from ..ops.rasterize.shade import view_channels
 from ..ops.rasterize.tiled import composite_tiled
 from . import resolve_device
 from .measure import device_name, screen_view, timed_ms
@@ -69,10 +71,10 @@ def pass_stages(scene: dict, size: int, precision: str, iters: int, device: torc
     state: dict = {}
 
     def sh_terms(_):
-        state["channels"] = api.view_channels(means, *sh, ext[:, :3, 3])
+        state["channels"] = view_channels(means, *sh, ext[:, :3, 3])
 
     def project(_):
-        state["sg"] = api.project_gaussians_to_screen(
+        state["sg"] = project_gaussians_to_screen(
             means * scale[:, None, None], scene["gaussian_covariances"][0] * (scale * scale)[:, None, None, None],
             scene["gaussian_opacities"][0].expand(n, -1), state["channels"], ext_s, intr, (size, size))
 

@@ -1,6 +1,7 @@
 """What the bench scripts share (bench_render, bench_train, the stage
 benches, bench_trace_step): the card's published peaks, its name and power
-limit, synchronized median timing, the directory of their records, a
+limit, synchronized median timing, a kernel's device time with L2 cold or
+warm (`device_ms`), the directory of their records, a
 view's screen Gaussians as the render makes them, and the train shape's
 setup (the flagship, its train state, step and batch)."""
 
@@ -14,7 +15,7 @@ import torch
 
 from ..entry import arc_batch, flagship_model, to_tensors
 from ..loss.losses import LossGroup
-from ..ops.rasterize.api import view_channels
+from ..ops.rasterize.shade import view_channels
 from ..ops.rasterize.camera import project_gaussians_to_screen
 from ..ops.rasterize.tiled import precision_knobs
 from ..training.step import GROUP_NAMES, make_step_flags, make_train_step
@@ -24,6 +25,10 @@ from .convergence import device_name
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W).
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+HBM_BYTES_PER_S = 3.35e12
+# Bytes written between two timed calls to leave nothing of them in the
+# 50 MB L2.
+FLUSH_BYTES = 128 << 20
 # Where bench_train writes its records and bench_render reads the newest
 # (gitignored).
 RECORD_DIR = Path(__file__).resolve().parents[2] / "outputs" / "bench"
@@ -37,8 +42,9 @@ OBJECTIVE = [
     "loss.target_combined.discriminator={name: discriminator, loss: hinge}",
 ]
 
-__all__ = ["BF16_FLOPS", "FP32_FLOPS", "OBJECTIVE", "RECORD_DIR", "device_name", "gaussian_sum", "grad_sum",
-           "median_seconds", "screen_view", "sync", "timed_ms", "train_setup"]
+__all__ = ["BF16_FLOPS", "FLUSH_BYTES", "FP32_FLOPS", "HBM_BYTES_PER_S", "OBJECTIVE", "RECORD_DIR", "device_ms",
+           "device_name", "gaussian_sum", "grad_sum", "median_seconds", "screen_view", "sync", "timed_ms",
+           "train_setup"]
 
 
 def sync(device: torch.device) -> None:
@@ -57,6 +63,35 @@ def median_seconds(fn, iters: int, device: torch.device) -> tuple[float, list]:
         sync(device)
         times.append(time.perf_counter() - start)
     return statistics.median(times), times
+
+
+def device_ms(fn, repeats: int = 20, flush: torch.Tensor | None = None) -> float:
+    """Median device milliseconds of one `fn` call on the card. All calls
+    are queued behind a sleeping kernel, so the host's time in them
+    (checks, allocation, the ctypes call) overlaps the device's and is not
+    counted; with `flush` (>= FLUSH_BYTES) written before each call, L2
+    starts cold. `fn` must not wait for the device."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 21
+    for _ in range(6):
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(repeats)]
+        asleep = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        asleep.record()
+        for start, end in pairs:
+            if flush is not None:
+                flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        queued_ahead = not asleep.query()
+        torch.cuda.synchronize()
+        if queued_ahead:
+            return statistics.median(start.elapsed_time(end) for start, end in pairs)
+        cycles *= 4
+    raise RuntimeError("device_ms: the host never got ahead of the device")
 
 
 def timed_ms(fn, iters: int, device: torch.device) -> float:

@@ -237,6 +237,221 @@ def test_tile_cull_checks_inputs(cuda):
     assert_cull_matches_reference(type(sg)(**{**vars(sg), "mean2d": wide[0, 1:].reshape(sg.mean2d.shape)}), 4, 4)
 
 
+# -- shade_project ------------------------------------------------------------
+
+
+SCREEN_FIELDS = ("mean2d", "conic", "depth", "radius", "opacity", "channels", "extent")
+
+
+def circle_cameras(n):
+    """n cameras on a circle of radius 3 around the origin, looking at it
+    (a co3d-like inward circle): (extrinsics (n, 4, 4), intrinsics)."""
+    from latentsplat_tpu_torch.dataset.synthetic import _look_at
+
+    angles = np.linspace(0.0, 2 * np.pi, n, endpoint=False)
+    ext = np.stack([_look_at(np.array([3 * np.cos(a), 0.4 * np.sin(3 * a), 3 * np.sin(a)], np.float32),
+                             np.zeros(3, np.float32)) for a in angles])
+    intr = np.tile(np.asarray([[0.9, 0.0, 0.5], [0.0, 0.9, 0.5], [0.0, 0.0, 1.0]], np.float32), (n, 1, 1))
+    return torch.from_numpy(ext.astype(np.float32)), torch.from_numpy(intr)
+
+
+def shade_inputs(seed, cameras, scenes, views, n, device, start=0, items=None, color_k=25, feature=(4, 9),
+                 scale_invariant=True, layout="circle", payload=False):
+    """`shade`'s arguments for the pass of `items` items from `start` of
+    `scenes` scenes of `views` views each (cameras (ext, intr), one a view)
+    over n Gaussians a scene: a ball around the origin ("circle") or a
+    frustum down +z ("forward"). Rows 0-6 of every scene are the edge
+    cases: a mean in front of item 0's near plane and one behind its
+    camera, a rank-1 and a zero covariance, opacities under 1/255 and at
+    0, and a mean far outside the guard band; row 7 sits on item 0's
+    camera (a zero view direction). color_k 0 or feature None leaves that
+    table out; `payload` gives each item a 3-channel payload instead."""
+    g = torch.Generator().manual_seed(seed)
+    if layout == "circle":
+        means = torch.nn.functional.normalize(torch.randn(scenes, n, 3, generator=g), dim=-1)
+        means = means * torch.rand(scenes, n, 1, generator=g) ** (1 / 3)
+    else:
+        z = torch.rand(scenes, n, generator=g) * 4 + 2
+        xy = (torch.rand(scenes, n, 2, generator=g) * 1.2 - 0.6) * z[..., None]
+        means = torch.cat([xy, z[..., None]], dim=-1)
+    scales = torch.rand(scenes, n, 3, generator=g) * 0.05 + 0.01
+    quats = torch.nn.functional.normalize(torch.randn(scenes, n, 4, generator=g), dim=-1)
+    opacities = torch.rand(scenes, n, generator=g) * 0.7 + 0.3
+    ext, intr = cameras
+    ext, intr = ext[:views].repeat(scenes, 1, 1), intr[:views].repeat(scenes, 1, 1)
+    cam0 = ext[0, :3, 3]
+    means[:, 0] = cam0 + 0.1 * ext[0, :3, 2]                 # in front of item 0's near plane (scaled)
+    means[:, 1] = cam0 - 2.0 * ext[0, :3, 2]                 # behind item 0's camera
+    scales[:, 2] = torch.tensor([2.0, 1e-6, 1e-6])           # rank 1: |rho| clamps at 0.99
+    scales[:, 3] = 0.0                                       # zero covariance: the blur alone
+    opacities[:, 4] = 1.0 / 255.0 - 1e-4
+    opacities[:, 5] = 0.0
+    means[:, 6] = cam0 + ext[0, :3, 2] + 40.0 * ext[0, :3, 0]   # far outside item 0's guard band
+    means[:, 7] = cam0
+    covs = build_covariance(scales.reshape(-1, 3), quats.reshape(-1, 4)).reshape(scenes, n, 3, 3)
+    tables = {}
+    if color_k and not payload:
+        tables["color"] = torch.randn(scenes, n, 3, color_k, generator=g) * 0.3
+    if feature is not None and not payload:
+        tables["feature"] = torch.randn(scenes, n, *feature, generator=g) * 0.3
+    items = scenes * views - start if items is None else items
+    near = torch.rand(scenes * views, generator=g) * 0.5 + 0.5
+    per_item = [x[start : start + items] for x in (ext, intr, near)]
+    item_payload = torch.randn(items, n, 3, generator=g) if payload else None
+    on = lambda x: x.to(device) if x is not None else None  # noqa: E731
+    return (on(means), on(covs), on(opacities), {k: on(v) for k, v in tables.items()}, *map(on, per_item), start,
+            views, on(item_payload), scale_invariant)
+
+
+def assert_shade_matches_reference(inputs, image_shape, use_sh=True):
+    """`shade` on the card (one shade_project launch) against the plain
+    shade: every field the same bits, the same dtypes and shapes."""
+    from latentsplat_tpu_torch.ops.rasterize import shade
+
+    before = kernels.launch_counts["shade_project"]
+    with torch.no_grad():
+        got = shade.shade(*inputs, use_sh, image_shape)
+        want = shade.shade_reference(*inputs, use_sh, image_shape)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["shade_project"] == before + 1
+    for name in SCREEN_FIELDS:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape, name
+        differ = a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)
+        assert not differ.any(), f"{name}: {int(differ.sum())} values differ, e.g. {a[differ][:4]} / {b[differ][:4]}"
+    return got
+
+
+@pytest.mark.parametrize("scale_invariant", [True, False])
+def test_shade_project_co3d_circle(cuda, scale_invariant):
+    # 30 views on an inward circle, color SH of degree 4, 4 feature
+    # channels of degree 2 (the video cell's pass), with the edge rows.
+    inputs = shade_inputs(0, circle_cameras(30), 1, 30, 40000, cuda, scale_invariant=scale_invariant)
+    sg = assert_shade_matches_reference(inputs, (256, 256))
+    live = sg.radius > 0
+    assert 0.2 < float(live.float().mean()) < 1.0
+    assert not live[0, 0] and not live[0, 1] and not live[:, 4:6].any() and not live[0, 6]
+
+
+@pytest.mark.parametrize("scale_invariant", [True, False])
+def test_shade_project_forward_facing(cuda, scale_invariant):
+    # A re10k-like pass: 3 views on entry.arc_cameras' arc, Gaussians in a
+    # frustum in front of them, 128 x 256 pixels.
+    from latentsplat_tpu_torch.entry import arc_cameras
+
+    cameras = tuple(torch.from_numpy(x) for x in arc_cameras(3))
+    inputs = shade_inputs(1, cameras, 1, 3, 30000, cuda, scale_invariant=scale_invariant, layout="forward")
+    sg = assert_shade_matches_reference(inputs, (128, 256))
+    assert float((sg.radius > 0).float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("start, items", [(0, 8), (2, 5), (3, 1), (4, 4)])
+def test_shade_project_pass_spanning_scenes(cuda, start, items):
+    # 2 scenes x 4 views; a pass of items [start, start + items): item n
+    # reads scene (start + n) // 4's rows, one or both scenes a pass.
+    inputs = shade_inputs(2, circle_cameras(4), 2, 4, 5000, cuda, start=start, items=items)
+    assert_shade_matches_reference(inputs, (64, 64))
+
+
+@pytest.mark.parametrize("scale_invariant", [True, False])
+def test_shade_project_payload_path(cuda, scale_invariant):
+    # render_depth's path: each item's payload handed on as it is, the
+    # projection computed in the kernel.
+    inputs = shade_inputs(3, circle_cameras(6), 2, 3, 5000, cuda, payload=True, scale_invariant=scale_invariant)
+    sg = assert_shade_matches_reference(inputs, (64, 64), use_sh=False)
+    assert sg.channels is inputs[9]
+
+
+@pytest.mark.parametrize("color_k, feature", [(25, (4, 9)), (16, (12, 4)), (1, (1, 25)), (0, (4, 9)),
+                                              (25, None), (10, (3, 2)), (9, (5, 1))])
+def test_shade_project_sh_degrees(cuda, color_k, feature):
+    # Each table from degree 0 to 4, one or both, coefficient counts that
+    # are not squares (the extra terms unused), 1 to 12 feature channels.
+    inputs = shade_inputs(4, circle_cameras(5), 1, 5, 3000, cuda, color_k=color_k, feature=feature)
+    sg = assert_shade_matches_reference(inputs, (64, 64))
+    assert sg.channels.shape[-1] == (3 if color_k else 0) + (feature[0] if feature else 0)
+
+
+def test_shade_project_video_pass(cuda):
+    # bench_render's scene, 30 views of its 393,216 Gaussians in one pass.
+    from latentsplat_tpu_torch.scripts.bench_render import make_scene, shade_inputs as bench_shade_inputs
+
+    assert_shade_matches_reference(bench_shade_inputs(make_scene(0, n_views=30, device=cuda)), (256, 256))
+
+
+def test_shade_project_one_launch_a_render_pass(cuda):
+    # A no-grad render call of 3 views is one pass: one shade_project
+    # launch beside one duplicate_with_keys. Under autograd the plain shade
+    # runs (no launch), and the render's outputs are the same bits.
+    from latentsplat_tpu_torch.scripts.bench_render import make_scene, render_scene
+
+    scene = make_scene(2, side=64, n_views=3, device=cuda)
+    before = dict(kernels.launch_counts)
+    shaded = render_scene(scene, 256)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["shade_project"] == before["shade_project"] + 1
+    assert kernels.launch_counts["duplicate_with_keys"] == before["duplicate_with_keys"] + 1
+
+    from latentsplat_tpu_torch.ops.rasterize.api import render
+
+    leaves = {k: v.clone().requires_grad_() for k, v in scene.items() if k.startswith("gaussian_")}
+    before = dict(kernels.launch_counts)
+    plain = render(scene["extrinsics"], scene["intrinsics"], scene["near"], scene["far"], (256, 256),
+                   scene["background_color"], *(leaves[k] for k in ("gaussian_means", "gaussian_covariances",
+                   "gaussian_opacities", "gaussian_color_sh", "gaussian_feature_sh")))
+    (plain.color.sum() + plain.feature.sum()).backward()
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["shade_project"] == before["shade_project"]
+    assert kernels.launch_counts["duplicate_with_keys"] == before["duplicate_with_keys"] + 1
+    for name in ("color", "feature", "mask", "depth", "num_pairs"):
+        assert torch.equal(getattr(shaded, name), getattr(plain, name).detach()), name
+    assert all(torch.isfinite(v.grad).all() for v in leaves.values())
+
+
+def test_shade_project_checks_inputs(cuda):
+    from latentsplat_tpu_torch.ops.rasterize.shade import shade, shade_project
+
+    inputs = shade_inputs(5, circle_cameras(3), 1, 3, 200, cuda)
+    means, covs, opacities, tables, ext, intr, near, start, views, payload, si = inputs
+    with pytest.raises(ValueError, match="means must be float32"):
+        shade_project(means.double(), *inputs[1:], (64, 64))
+    with pytest.raises(ValueError, match="all be on the CPU or all on CUDA"):
+        shade_project(means, covs, opacities.cpu(), *inputs[3:], (64, 64))
+    with pytest.raises(ValueError, match="exceed 4"):
+        shade_project(means, covs, opacities, {"color": torch.zeros(1, 200, 3, 36, device=cuda)}, *inputs[4:],
+                      (64, 64))
+    with pytest.raises(ValueError, match="items 2 .. 4 of 1 scenes of 3 views"):
+        shade_project(*inputs[:7], 2, views, payload, si, (64, 64))
+    with pytest.raises(ValueError, match="no SH table and no payload"):
+        shade_project(means, covs, opacities, {}, *inputs[4:], (64, 64))
+    # On the card without gradient `shade` always takes the kernel, which
+    # raises on what it does not take; a table too wide for a block's
+    # shared memory fails at launch. Nothing launches.
+    before = kernels.launch_counts["shade_project"]
+    with torch.no_grad():
+        for dtype in (torch.float64, torch.bfloat16):
+            with pytest.raises(ValueError, match="color SH must be float32"):
+                shade(means, covs, opacities, {"color": tables["color"].to(dtype)}, *inputs[4:], True, (64, 64))
+        with pytest.raises(ValueError, match="exceed 4"):
+            shade(means, covs, opacities, {"color": torch.zeros(1, 200, 3, 36, device=cuda)}, *inputs[4:], True,
+                  (64, 64))
+        with pytest.raises(RuntimeError, match="shade_project: CUDA error 1 "):
+            shade(means, covs, opacities, {"feature": torch.zeros(1, 200, 200, 25, device=cuda)}, *inputs[4:],
+                  True, (64, 64))
+    assert kernels.launch_counts["shade_project"] == before
+
+
+@pytest.mark.parametrize("scale_invariant", [True, False])
+def test_shade_project_dc_payload(cuda, scale_invariant):
+    # use_sh=False (render_orthographic's): each item's scene's DC
+    # coefficients handed to the kernel as a payload, the projection
+    # computed in it.
+    inputs = shade_inputs(6, circle_cameras(4), 2, 4, 3000, cuda, start=1, items=6, color_k=1, feature=(4, 1),
+                          scale_invariant=scale_invariant)
+    sg = assert_shade_matches_reference(inputs, (64, 64), use_sh=False)
+    assert sg.channels.shape[-1] == 7
+
+
 @pytest.mark.parametrize("size", [32, 256])
 def test_composite_forward_matches_reference(cuda, size):
     # Same operations in the same rounding order on the same device.
@@ -527,9 +742,11 @@ def test_tiled_gradients_match_dense_oracle(cuda):
         loss = ((img - target) ** 2).mean() + mask.mean() + 1e-3 * depth.mean()
         return torch.autograd.grad(loss, leaves)
 
-    # Every rasterizer kernel runs (the VAE's group_norm_silu, counted
-    # beside them, has no part here).
-    before = {k: v for k, v in kernels.launch_counts.items() if not k.startswith("group_norm_silu")}
+    # Every rasterizer kernel of composite_tiled runs (the VAE's
+    # group_norm_silu, counted beside them, has no part here, nor has the
+    # render's shade_project, which a gradient bypasses).
+    before = {k: v for k, v in kernels.launch_counts.items()
+              if not k.startswith("group_norm_silu") and k != "shade_project"}
     tiled = grads("tiled")
     assert all(kernels.launch_counts[k] > before[k] for k in before)
     for gt, gd in zip(tiled, grads("dense")):

@@ -25,7 +25,7 @@ from latentsplat_tpu.ops.rasterize.tiled import _tile_rects as j_tile_rects
 from latentsplat_tpu.ops.rasterize.tiled import composite_tiled as j_composite_tiled
 from latentsplat_tpu_torch import cuda_build
 from latentsplat_tpu_torch.ops.gaussians import build_covariance
-from latentsplat_tpu_torch.ops.rasterize import kernels, tiled
+from latentsplat_tpu_torch.ops.rasterize import api, kernels, shade, tiled
 from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_screen
 from latentsplat_tpu_torch.ops.rasterize.dense import composite_dense
 from latentsplat_tpu_torch.ops.rasterize.kernels import (
@@ -40,6 +40,8 @@ from latentsplat_tpu_torch.ops.rasterize.tiled import (
     sort_pairs,
     tile_rects,
 )
+from tests.test_torch_render_pass import LEAVES, OUTPUTS, render_fn, run
+from tests.test_torch_render_pass import scene as pass_scene
 from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 H = W = 32
@@ -229,6 +231,117 @@ class TestTileRects:
         kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
         assert restype is ctypes.c_int and len(argtypes) == len(params) == 16
         assert [a for a in argtypes] == [ctypes.c_void_p if "*" in p else kinds[p.split()[0]] for p in params]
+
+
+def parent_render(inputs, size):
+    """The render of one pass as the port computed it before the shade was
+    one kernel: the shade inline (gathered scene rows, view_channels a
+    scene, the 1/near scale, the projection), then composite_tiled."""
+    b, v = inputs["extrinsics"].shape[:2]
+    ext, intr, near = (inputs[k].reshape(b * v, *inputs[k].shape[2:]) for k in ("extrinsics", "intrinsics", "near"))
+
+    def gather(x):
+        return x[:, None].expand(b, v, *x.shape[1:]).reshape(b * v, *x.shape[1:])
+
+    means, covs, opacities, background = map(gather, (inputs["gaussian_means"], inputs["gaussian_covariances"],
+                                                      inputs["gaussian_opacities"], inputs["background_color"]))
+    channels = torch.cat([shade.view_channels(means[s * v : (s + 1) * v], inputs["gaussian_color_sh"][s],
+                                              inputs["gaussian_feature_sh"][s], ext[s * v : (s + 1) * v, :3, 3])
+                          for s in range(b)])
+    fill = torch.zeros(channels.shape[0], channels.shape[-1])
+    fill[:, :3] = background[:, :3]
+    scale = 1.0 / near
+    ext_s = ext.clone()
+    ext_s[:, :3, 3] = ext[:, :3, 3] * scale[:, None]
+    sg = project_gaussians_to_screen(means * scale[:, None, None], covs * (scale * scale)[:, None, None, None],
+                                     opacities, channels, ext_s, intr, (size, size))
+    images, masks, depths, pairs = composite_tiled(sg, (size, size), fill)
+    images = images.reshape(b, v, -1, size, size)
+    return api.RenderOutput(color=images[:, :, :3], feature=images[:, :, 3:], mask=masks.reshape(b, v, size, size),
+                            depth=depths.reshape(b, v, size, size), num_pairs=pairs.reshape(b, v))
+
+
+class TestShade:
+    """The render's shade (ops/rasterize/shade.py): the choice between the
+    shade_project kernel and the plain shade. The kernel itself is held to
+    the plain shade on the card (tests/test_torch_cuda.py)."""
+
+    @pytest.mark.parametrize("grad", [False, True])
+    def test_cpu_path_runs_the_plain_shade(self, monkeypatch, grad):
+        # On the CPU, with or without gradient, the render shades in
+        # PyTorch: no kernel library is loaded and no launch is counted.
+        def refuse():
+            raise AssertionError("the CPU path loaded the kernel library")
+
+        monkeypatch.setattr(shade, "load_library", refuse)
+        monkeypatch.setattr(tiled, "load_library", refuse)
+        before = kernels.launch_counts["shade_project"]
+        outputs, grads = run(render_fn("exact"), False, monkeypatch, grad)
+        assert all(torch.isfinite(x).all() for x in outputs)
+        assert kernels.launch_counts["shade_project"] == before == 0
+        assert len(grads) == (len(LEAVES) if grad else 0)
+
+    @pytest.mark.parametrize("case", ["no_grad", "grad_without_leaves", "grad", "dc_payload", "float64_tables",
+                                      "payload", "payload_grad"])
+    def test_the_kernel_runs_where_no_input_needs_a_gradient(self, monkeypatch, case):
+        # With every input taken for a CUDA one, `shade` picks the kernel
+        # exactly where no input needs a gradient, whatever the dtypes and
+        # payload (the kernel raises on what it does not take; use_sh=False
+        # hands it the DC coefficients as a payload); the plain shade
+        # elsewhere.
+        kernel = case not in ("grad", "payload_grad")
+        calls = []
+        monkeypatch.setattr(kernels, "_on_cuda", lambda *tensors: True)
+        monkeypatch.setattr(shade, "shade_project", lambda *args: calls.append(args) or "kernel")
+        s = pass_scene()
+        tables = {"color": s["gaussian_color_sh"], "feature": s["gaussian_feature_sh"]}
+        payload = torch.rand(3, s["gaussian_means"].shape[1], 3) if case.startswith("payload") else None
+        if case == "float64_tables":
+            tables = {k: v.double() for k, v in tables.items()}
+        if case in ("grad", "payload_grad"):
+            s["gaussian_means"].requires_grad_()
+        use_sh = case not in ("dc_payload", "payload", "payload_grad")
+        if case == "dc_payload":
+            tables = {k: v[..., :1] for k, v in tables.items()}
+        args = (s["gaussian_means"], s["gaussian_covariances"], s["gaussian_opacities"], tables,
+                s["extrinsics"][0], s["intrinsics"][0], s["near"][0], 0, 3, payload, True, use_sh, (32, 32))
+        with torch.set_grad_enabled(case != "no_grad"):
+            out = shade.shade(*args)
+        assert (out == "kernel") == kernel and len(calls) == int(kernel)
+        if not kernel:
+            assert isinstance(out, tiled.ScreenGaussians)
+        elif case == "dc_payload":
+            # The plain shade's channels of use_sh=False, as they are.
+            want = shade.shade_reference(*args).channels
+            assert calls[0][9].dtype == want.dtype and torch.equal(calls[0][9], want)
+        else:
+            assert calls[0][9] is payload and calls[0][3] is tables
+
+    def test_gradients_equal_the_inline_shade(self, monkeypatch):
+        # Under autograd the render's outputs and every leaf's gradient are
+        # the bits of the shade as it was inline in the render.
+        got = run(render_fn("exact"), False, monkeypatch, True)
+        want = run(lambda inputs: parent_render(inputs, 32), False, monkeypatch, True)
+        for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])):
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+
+    def test_no_grad_outputs_equal_grad_outputs(self, monkeypatch):
+        # The shade's choice follows grad mode; the outputs do not.
+        no_grad, _ = run(render_fn("exact"), False, monkeypatch, False)
+        grad, _ = run(render_fn("exact"), False, monkeypatch, True)
+        assert len(no_grad) == len(OUTPUTS) + 1 and all(torch.equal(a, b) for a, b in zip(no_grad, grad))
+
+    def test_the_library_declares_shade_project(self):
+        # The ctypes signatures match the C entry points, argument by
+        # argument: the ints, then the pointers and the stream.
+        kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+        source = (cuda_build.CSRC_DIR / "shade_project.cu").read_text()
+        assert source.count('extern "C"') == 1
+        argtypes, restype = cuda_build._SIGNATURES["shade_project"]
+        params = [p.split("//")[0].strip() for p in
+                  re.search(r'extern "C" int shade_project\(([^)]*)\)', source).group(1).split(",")]
+        assert restype is ctypes.c_int and len(argtypes) == len(params) == 28
+        assert list(argtypes) == [ctypes.c_void_p if "*" in p else kinds[p.split()[0]] for p in params]
 
 
 def jax_pairs(j_sg, tiles):

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from latentsplat_tpu_torch.ops.rasterize import api, kernels
+from latentsplat_tpu_torch.ops.rasterize.shade import view_channels
 from latentsplat_tpu_torch.ops.rasterize.camera import project_gaussians_to_screen
 from latentsplat_tpu_torch.ops.rasterize.tiled import (
     depth_code_bits,
@@ -213,8 +214,8 @@ def screen_pass(precision: str = "exact"):
     """Scene 0's 3 views as one pass of screen Gaussians (items first)."""
     s = scene()
     ext, intr = s["extrinsics"][0], s["intrinsics"][0]
-    channels = api.view_channels(s["gaussian_means"][0].expand(V, G, 3), s["gaussian_color_sh"][0],
-                                 s["gaussian_feature_sh"][0], ext[:, :3, 3])
+    channels = view_channels(s["gaussian_means"][0].expand(V, G, 3), s["gaussian_color_sh"][0],
+                             s["gaussian_feature_sh"][0], ext[:, :3, 3])
     return project_gaussians_to_screen(s["gaussian_means"][0].expand(V, G, 3),
                                        s["gaussian_covariances"][0].expand(V, G, 3, 3),
                                        s["gaussian_opacities"][0].expand(V, G), channels, ext, intr, (SIZE, SIZE))
