@@ -2,49 +2,41 @@
 
     python3 chip_smoke.py [--seed N] [--profile DIR] [--parent DIR]
 
-1. Builds the CUDA kernels from latentsplat_tpu_torch/csrc (sm_90a).
-   With --parent DIR, first runs TURN_CODE (bench_render's views/s, ms a
+1. Builds the CUDA kernels from latentsplat_tpu_torch/csrc (sm_90a), then
+   runs the card tests, tests/test_torch_cuda.py, in a pytest subprocess:
+   they hold every kernel to its plain PyTorch version, at the cells'
+   shapes too, and this script checks no kernel against it again.
+   With --parent DIR, then runs TURN_CODE (bench_render's views/s, ms a
    view and peak at fast and exact, the slice's decoder seconds,
    bench_train --full --batch 2's seconds a step and peak) in the checkout
    DIR and in this tree, in turns (parent, this tree, this tree, parent),
    each in its own process.
 2. Kernel phase: on a pass of the flagship model's 4 target views (the
-   items of one render call, each view's own pair count), holds each
-   forward kernel against its plain PyTorch version (ids, keys, each
-   view's pair total, tile ranges and each pixel's last contributor
-   exactly; channels and transmittance within 1e-5), times both with CUDA
-   events (a kernel's device time with the host queued ahead, per launch
-   and per view; duplicate_with_keys' launch alone with L2 flushed, and
-   its wrapper with the host's one read of the per-view pair totals) and
+   items of one render call, each view's own pair count), times each
+   forward kernel and its plain PyTorch version with CUDA events (a
+   kernel's device time with the host queued ahead, per launch and per
+   view; duplicate_with_keys' launch alone with L2 flushed, and its
+   wrapper with the host's one read of the per-view pair totals) and
    counts on the card the (pair, pixel) and (pair, warp) work the pass
    needs, from which each kernel's bound follows.
 2b. Tile-cull phase: the tile_cull kernel (tiled.tile_rects on the card)
-   against its plain version (tiled.tile_rects_reference) on the video
-   cell's pass (30 views) and the train step's pass (8 views) of
-   bench_render's 393,216-Gaussian scene at 256x256: counts, base, nx and
-   mask the same bits, one launch each; the kernel's device ms with L2
-   flushed and warm, its bound (bytes) and share, the plain version's ms.
+   on the video cell's pass (30 views) and the train step's pass (8 views)
+   of bench_render's 393,216-Gaussian scene at 256x256: the kernel's
+   device ms with L2 flushed and warm, its bound (bytes) and share, the
+   plain version's ms.
 2c. Shade phase: the shade_project kernel (shade.shade on the card
-   without gradient) against the plain shade (shade.shade_reference) on
-   the video cell's pass (30 views) and a serve request's pass (3 views)
-   of bench_render's scene at 256x256: every ScreenGaussians field the
-   same bits, one launch each; the kernel's device ms with L2 flushed and
-   warm, its bound (bytes) and share, the plain shade's ms.
-2d. VAE phase: the video cell's decode (30 views at 256x256, the
-   published kl_f8 decoder with skips, three seeds) in channels-last with
-   the group_norm_silu kernel against the frozen NCHW copy of the module
-   (perfbench/reference) with TF32 off, within 1e-5 of the image's rms,
-   one kernel launch for each of the decoder's 30 norms; the kernel's
-   forward and backward (SiLU on) at the top-level norm (30, 128, 256,
-   256), float32 and bfloat16, held to the card tests' limits against
-   nn.GroupNorm + F.silu in float64 (y, dx, dgamma, dbeta) and timed with
-   L2 flushed and warm beside its bound and the plain version's ms.
+   without gradient) on the video cell's pass (30 views) and a serve
+   request's pass (3 views) of bench_render's scene at 256x256: the
+   kernel's device ms with L2 flushed and warm, its bound (bytes) and
+   share, the plain shade's ms.
+2d. VAE phase: the group_norm_silu kernel's forward and backward (SiLU
+   on) at the VAE decoder's top-level norm on the video cell's decode
+   (30, 128, 256, 256), float32 and bfloat16, timed with L2 flushed and
+   warm beside its bound and the plain version's ms.
 3. Backward kernel phase: on the same pass, with a seeded random
-   cotangent, holds composite_backward against its plain version (within
-   1e-4 of each gradient column's largest value; bit-identical on a
-   second launch) and reduce_pairs against its plain version run on the CPU
-   (exactly), and times both; reduce_pairs with L2 flushed and warm, in
-   three rounds beside index_add_ and segment_reduce.
+   cotangent, times composite_backward and reduce_pairs beside their plain
+   versions; reduce_pairs with L2 flushed and warm, in three rounds beside
+   index_add_ and segment_reduce.
 4. Slice phase: serves one batch (1 scene, 2 context and 4 target views at
    256x256, probabilistic) through `render_full` on the flagship re10k
    model at full width with seeded random weights, checks the output and
@@ -54,31 +46,28 @@
    rows composite_tiled prepares at "fast"; composite_forward's coef
    (serving) and fast (training, writing the block state) variants and
    composite_backward's fast variant (on the fast forward's outputs and
-   block state, a seeded random cotangent) held against their plain
-   versions (forward: `last` exactly, T 1e-5, each channel 1e-5 of its
-   largest value, the block state exactly; backward: 1e-4 of each column's
-   largest value or one bfloat16 step of the value, the same bits again),
-   timed and their work counted, with the shape of the fast backward's
+   block state, a seeded random cotangent) timed beside their plain
+   versions and their work counted, with the shape of the fast backward's
    split walk (pairs and scan blocks a tile, counted from each view's
    first pair, the thread blocks it runs); then `render_full` at
    precision fast on the slice batch: finite outputs, the coef variant
    launched once (one pass) and no exact composite, the render's PSNR
    against exact.
 5. Depth phase: on the slice's Gaussians, composite_forward at 4 channels
-   (render_depth's payload) against its plain version and timed on a pass
-   of the 4 target views; the splatting decoder in each depth mode (depth,
-   disparity, relative_disparity, log) over the 4 target views, with
-   finite depths, one 4-channel launch in each special mode, one
-   shade_project launch a pass, each mode's time per view and the
-   invariant depth x disparity >= mask^2.
+   (render_depth's payload) timed on a pass of the 4 target views; the
+   splatting decoder in each depth mode (depth, disparity,
+   relative_disparity, log) over the 4 target views, with finite depths,
+   one 4-channel launch in each special mode, one shade_project launch a
+   pass, each mode's time per view and the invariant depth x disparity >=
+   mask^2.
 5b. Pass phase: bench_render's 64 views in one pass against one item a
-   pass (api.PASS_ROWS patched to 1), at exact and fast serving: the
-   outputs and pair counts the same bits, one launch of each forward
-   kernel and one host read (also counted by torch.cuda's sync debug
-   mode) against 64; then a train render of 2 scenes x 4 views at exact
-   and fast: the forward the same bits, every input's gradient within
-   1e-4 of its largest value (fast: or one bfloat16 step), no
-   shade_project launch (the plain shade runs under autograd).
+   pass (api.PASS_ROWS patched to 1), at exact and fast serving: one
+   launch of each forward kernel and one host read (the program's
+   host_read spans, and torch.cuda's sync debug mode) against 64, the
+   seconds of each and one pass's peak memory a row; then a train render
+   of 2 scenes x 4 views at exact and fast, with its backward: no
+   shade_project launch (the plain shade runs under autograd), the
+   seconds and one pass's peak a row.
 6. Train phase: 3 VAE-GAN train steps of the flagship re10k model at full
    width (random weights for the generator, the PatchGAN discriminator and
    LPIPS) on one batch of 2 scenes, 2 context + 4 target views at 256x256,
@@ -121,8 +110,8 @@
    not fit); (s2) encode_latents with the ResNet-50 backbone: a serving
    batch, 2 train steps and `main` in test mode, whose benchmark.json holds
    autoencoder_encoder; (s3) variational=latents: composite_forward and
-   composite_backward at 12 channels and reduce_pairs at rows of 18 against
-   their plain versions and timed on a pass of the 4 target views, the fast
+   composite_backward at 12 channels and reduce_pairs at rows of 18 timed
+   beside their plain versions on a pass of the 4 target views, the fast
    family's variants at 12 channels as in the fast phase, then 2 train
    steps, a render without gradient and 1 train step at precision fast (1
    coef, 1 fast forward and 1 fast backward launch: one pass each); (s4)
@@ -148,7 +137,7 @@
    render_projections at 256x256 of a scene's 393,216 Gaussians through
    the tiled kernels (each axis's largest rect, pairs, ms, 3 launches of
    composite_forward<4>), duplicate_with_keys at its inputs with int32 and
-   int64 masks against its plain version, a 128x128 projection of 32,768
+   int64 masks (the same pairs, timed), a 128x128 projection of 32,768
    Gaussians against the dense plain version within 2e-4; (iii) the
    encoder panels and the PLY export, read back exactly; (iv)
    scripts.render_uncertainty and scripts.visualize_epipolar_lines.
@@ -169,11 +158,6 @@
    of one `render_full` and one render backward, holding both annotated
    spans and the four kernels; (p4) the six `paper/` generators over the
    trainer phase's test output (c), each figure at its layout's size.
-12. Small-input checks: the tiled (kernel) render of a narrow model against
-   the dense oracle render, composite_backward and reduce_pairs at 4
-   channels against their plain versions, and the narrow model's
-   train-step gradients through the tiled kernels against those through
-   the dense oracle.
 13. Bench phase: the port's bench scripts (latentsplat_tpu_torch.scripts)
    at their full shapes with PyTorch's TF32 defaults, as a user runs
    them: bench_train at 128x128 batch 1, --full --batch 2, --full
@@ -219,6 +203,7 @@ Exits non-zero without printing a result when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
@@ -235,33 +220,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from latentsplat_tpu_torch.scripts.measure import device_ms
+from latentsplat_tpu_torch import cuda_build
+from latentsplat_tpu_torch.cuda_build import KERNELS, launched
+from latentsplat_tpu_torch.entry import like_trained
+from latentsplat_tpu_torch.misc import profiler
+from latentsplat_tpu_torch.scripts.measure import FLUSH_BYTES, HBM_BYTES_PER_S, bound, cuda_ms, device_ms, device_name
 
-KERNEL_ATOL = 1e-5
-# composite_backward sums each pair's partials over the tile in its own
-# order and recovers T with one reciprocal, the plain version sums in
-# torch.sum's order and divides: float32 rounding of ~256-term sums.
-BACKWARD_RTOL = 1e-4
-# Published peaks of one H100 SXM (NVIDIA's data sheet, 700 W).
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-FLUSH_BYTES = 128 << 20
-# group_norm_silu against nn.GroupNorm + F.silu in float64 (the card tests'
-# limits): the kernel rounds x - mean and its product with rstd gamma once
-# each and SiLU's exp by ~2 ulp, so y is held to 1e-5 absolute; dx to 1e-5
-# of its largest value (the group sums' float32 rounding besides); dgamma
-# and dbeta, float32 sums of up to 2e8 products, to 1e-4 of their largest
-# value. In bfloat16 each value may also move by the one rounding of its
-# output, at most 2^-8 of it (nearly that just above a power of two, so a
-# large case reads close to 1 of its limit by construction).
-GN_FORWARD_ATOL = 1e-5
-GN_DX_RTOL = 1e-5
-GN_PARAM_RTOL = 1e-4
-BF16_ROUNDING = 2.0 ** -8
-# The video decode against the NCHW copy of the module: within this share
-# of the image's root mean square.
-VAE_DECODE_RTOL = 1e-5
-VAE_DECODE_SEEDS = 3
+CARD = torch.device("cuda")
+# The card tests (each kernel against its plain version), run first.
+CARD_TESTS = "tests/test_torch_cuda.py"
 
 
 def backward_composited_ops(n_ch: int) -> int:
@@ -287,13 +254,6 @@ def passes(items: int, gaussians: int = FLAGSHIP_GAUSSIANS) -> int:
     from latentsplat_tpu_torch.ops.rasterize.api import pass_ranges
 
     return len(pass_ranges(items, gaussians))
-SMALL_OVERRIDES = [
-    "model.encoder.backbone.model=dino_vits8",
-    "model.encoder.d_feature=32",
-    "model.encoder.epipolar_transformer.num_layers=1",
-    "model.encoder.epipolar_transformer.self_attention.num_layers=1",
-    "model.autoencoder.block_out_channels=[16,16,16,16]",
-]
 
 
 def make_batch(rng: np.random.Generator, n_context: int, n_target: int, size: int, device,
@@ -321,29 +281,6 @@ def make_batch(rng: np.random.Generator, n_context: int, n_target: int, size: in
     }
 
 
-def card() -> str:
-    """The card's name and power limit as nvidia-smi prints them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-
-
-def like_trained(model, peaked_depth: bool = True):
-    """Random weights that look like trained ones where it matters: the
-    zero-initialized leaves get random values too, so nothing rides on a
-    zero, and (with `peaked_depth`) the depth head is scaled so that each
-    pixel's depth pdf is peaked, as a trained one is: the scene is mostly
-    opaque and the compositor's early stop is exercised."""
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith(("cls_token", "pos_embed")) or "skip_conv" in name:
-                p.normal_(0.0, 0.02)
-        if peaked_depth:
-            model.encoder.depth_predictor.projection.weight.mul_(50.0)
-    return model
-
-
 def build_model(cfg, seed: int, device, peaked_depth: bool = True):
     from latentsplat_tpu_torch.model.latentsplat import LatentSplat
 
@@ -351,37 +288,14 @@ def build_model(cfg, seed: int, device, peaked_depth: bool = True):
     return like_trained(LatentSplat(cfg.model).to(device).eval(), peaked_depth)
 
 
-def cuda_ms(fn, repeats: int) -> float:
-    """Median milliseconds of `fn` over `repeats` runs, timed with CUDA events
-    around each call: the host's time inside the call counts too."""
-    fn()
-    times = []
-    for _ in range(repeats):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
-    """Least milliseconds one H100 SXM could take: the larger of the bytes
-    over HBM's rate and the operations over the float32 rate."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def entry(name: str, source: str, replaces: str, err: float, ms: float, plain_ms: float,
-          n_bytes: int, n_ops: int, library_ms: float | None = None, **extra: float) -> dict:
+def entry(name: str, source: str, replaces: str, ms: float, plain_ms: float, n_bytes: int, n_ops: int,
+          library_ms: float | None = None, **extra: float) -> dict:
     """One kernel's record of the `kernels` JSON line (launches come later)."""
     bound_ms, bound_by = bound(n_bytes, n_ops)
     print(f"{name}: bound {bound_ms:.4f} ms by {bound_by} ({n_bytes} bytes, {n_ops} operations), "
           f"{ms:.4f} ms: {bound_ms / ms:.1%} of the bound")
     return {"name": name, "route": "cuda", "source": f"latentsplat_tpu_torch/csrc/{source}",
-            "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "replaces": replaces, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms,
             "library_ms": library_ms, **extra}
 
@@ -440,11 +354,10 @@ def target_views(model, batch, seed: int, depth_payload: bool = False, flatten: 
 
 def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
     """The forward kernels on a pass of the slice's target views (each
-    view's own pair count): duplicate_with_keys (ids and keys exactly, the
-    per-item pair totals against the counts), the sort's ranges, and
-    composite_forward (`last` exactly, T and each channel within
-    KERNEL_ATOL) against their plain versions, timed, with the work the
-    pass needs counted on the card."""
+    view's own pair count): duplicate_with_keys (its launch alone with L2
+    flushed and warm, its wrapper with the host read, beside yardsticks)
+    and composite_forward, timed beside their plain versions, with the work
+    the pass needs counted on the card."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.ops.rasterize.tiled import pack_attributes, sort_pairs, tile_rects
 
@@ -463,16 +376,8 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
         raise AssertionError(f"kernel phase: the pass's views should differ in pair count, got {counted}")
 
     # duplicate_with_keys
-    gids, keys, pairs = kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9, n_items)
-    ref_gids, ref_keys = kernels.duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, 9)
-    torch.cuda.synchronize()
-    if not (torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys)) or pairs.tolist() != counted:
-        raise AssertionError("duplicate_with_keys disagrees with its plain version or the counts")
-    dup_err = max((gids - ref_gids).abs().max().item(), (keys - ref_keys).abs().max().item())
+    gids, keys, _ = kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9, n_items)
     sorted_gids, ranges, order = sort_pairs(gids, keys, n_tiles)
-    ref_sorted, ref_ranges, _ = sort_pairs(ref_gids, ref_keys, n_tiles)
-    if not (torch.equal(sorted_gids, ref_sorted) and torch.equal(ranges, ref_ranges)):
-        raise AssertionError("sorted pairs or tile ranges differ")
     # The kernel's launch alone, as the wrapper makes it once the pair total
     # is known, with L2 flushed; then the whole wrapper, whose read of the
     # per-item totals waits on the device.
@@ -480,11 +385,10 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
     offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
     dup_args = (offsets, mask, base, nx, depth, tiles_x, torch.empty_like(gids), torch.empty_like(keys))
     dup_ms = device_ms(lambda: kernels._launch_duplicate_with_keys(*dup_args), flush=flush)
-    dup_wrapper_ms = cuda_ms(lambda: kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9, n_items),
-                             20)
-    dup_plain_ms = cuda_ms(
-        lambda: kernels.duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, 9), 5
-    )
+    dup_wrapper_ms = statistics.median(cuda_ms(
+        lambda: kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9, n_items), 20))
+    dup_plain_ms = statistics.median(cuda_ms(
+        lambda: kernels.duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, 9), 5))
     # Yardsticks: the kernel warm, a one-element fill (the least device_ms
     # reads for any launch) and a copy reading and writing as many bytes as
     # the kernel's bound counts, L2 flushed.
@@ -492,7 +396,7 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
     tiny = torch.empty(1, device=depth.device)
     n_copy = (16 * g_count + 12 * p_count) // 8
     copy_src, copy_dst = torch.empty(n_copy, device=depth.device), torch.empty(n_copy, device=depth.device)
-    print(f"duplicate_with_keys: exact match; {dup_ms:.4f} ms (device, L2 flushed), {dup_warm_ms:.4f} warm, "
+    print(f"duplicate_with_keys: {dup_ms:.4f} ms (device, L2 flushed), {dup_warm_ms:.4f} warm, "
           f"wrapper {dup_wrapper_ms:.4f} ms (host read included: {dup_wrapper_ms - dup_ms:.4f} ms more) vs "
           f"plain {dup_plain_ms:.4f} ms; a one-element fill {device_ms(tiny.zero_):.4f} ms, a copy of as many "
           f"bytes {device_ms(lambda: copy_dst.copy_(copy_src), flush=flush):.4f} ms (L2 flushed); per view "
@@ -502,23 +406,11 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
     attrs = pack_attributes(sg)
     comp_args = (sorted_gids, ranges, attrs, tiles_x, (h, w))
     out = kernels.composite_forward(*comp_args)
-    ref = kernels.composite_forward_reference(*comp_args)
-    torch.cuda.synchronize()
-    err_ch = (out[0] - ref[0]).abs().max().item()
-    err_t = (out[1] - ref[1]).abs().max().item()
-    last_mismatch = int((out[2] != ref[2]).sum())
-    saturated = (ref[1] < kernels.TRANSMITTANCE_MIN).float().mean().item()
-    print(f"composite_forward: max |channels err| {err_ch:.3e}, max |T err| {err_t:.3e}, "
-          f"last-contributor mismatches {last_mismatch}, saturated pixels {saturated:.3f}")
-    if not (err_ch <= KERNEL_ATOL and err_t <= KERNEL_ATOL):
-        raise AssertionError(f"composite_forward disagrees with its plain version beyond {KERNEL_ATOL}")
-    if last_mismatch:
-        raise AssertionError("composite_forward's last contributors differ from its plain version's")
-    err = max(err_ch, err_t)
+    saturated = (out[1] < kernels.TRANSMITTANCE_MIN).float().mean().item()
     comp_ms = device_ms(lambda: kernels.composite_forward(*comp_args))
-    comp_plain_ms = cuda_ms(lambda: kernels.composite_forward_reference(*comp_args), 3)
+    comp_plain_ms = statistics.median(cuda_ms(lambda: kernels.composite_forward_reference(*comp_args), 3))
     print(f"composite_forward: {comp_ms:.4f} ms (device) vs plain {comp_plain_ms:.4f} ms; per view "
-          f"{comp_ms / n_items:.4f} ms")
+          f"{comp_ms / n_items:.4f} ms; saturated pixels {saturated:.3f}")
     view = {"gids": sorted_gids, "ranges": ranges, "order": order, "counts": counts, "attrs": attrs,
             "tiles_x": tiles_x, "shape": (h, w), "t_final": out[1], "last": out[2], "items": n_items}
     view["work"] = work = counted_work(view)
@@ -528,10 +420,9 @@ def kernel_phase(model, batch, seed: int) -> tuple[dict, list[dict]]:
         # Mask, base, nx and depth of each Gaussian, one exclusive offset per
         # block of 512 Gaussians, and 12 bytes per pair written.
         entry("duplicate_with_keys", "duplicate_with_keys.cu", "latentsplat_tpu/ops/rasterize/expand.py:159",
-              float(dup_err), dup_ms, dup_plain_ms,
-              n_bytes=16 * g_count + 8 * math.ceil(g_count / 512) + 12 * p_count, n_ops=0,
+              dup_ms, dup_plain_ms, n_bytes=16 * g_count + 8 * math.ceil(g_count / 512) + 12 * p_count, n_ops=0,
               wrapper_ms=dup_wrapper_ms, views=n_items),
-        forward_entry(err, comp_ms, comp_plain_ms, view),
+        forward_entry(comp_ms, comp_plain_ms, view),
     ]
 
 
@@ -566,12 +457,10 @@ def cull_pass_gaussians(scene: dict, size: int = 256):
 
 
 def tile_cull_phase(seed: int, device) -> list[dict]:
-    """tile_cull against its plain version on CULL_PASSES of bench_render's
-    393,216-Gaussian scene at 256x256 (cap 9, the exact margin): the four
-    outputs the same bits in one launch; its device ms with L2 flushed (a
-    render finds the projection's outputs in L2 only in part) and warm,
-    its bound and share, and the plain version's ms."""
-    from latentsplat_tpu_torch.ops.rasterize import kernels
+    """tile_cull on CULL_PASSES of bench_render's 393,216-Gaussian scene at
+    256x256 (cap 9, the exact margin): its device ms with L2 flushed (a
+    render finds the projection's outputs in L2 only in part) and warm, its
+    bound and share, and the plain version's ms."""
     from latentsplat_tpu_torch.ops.rasterize.tiled import tile_rects, tile_rects_reference
     from latentsplat_tpu_torch.scripts.bench_render import make_scene
 
@@ -580,26 +469,18 @@ def tile_cull_phase(seed: int, device) -> list[dict]:
     for label, n_views in CULL_PASSES:
         sg = cull_pass_gaussians(make_scene(seed, n_views=n_views, device=device))
         args = (sg, 16, 16)
-        before = kernels.launch_counts["tile_cull"]
-        out = tile_rects(*args)
-        ref = tile_rects_reference(*args)
-        torch.cuda.synchronize()
-        if kernels.launch_counts["tile_cull"] != before + 1:
-            raise AssertionError(f"tile_cull ({label}): {kernels.launch_counts['tile_cull'] - before} launches, not 1")
-        differ = {name: int((a != b).sum()) for name, a, b in zip(("counts", "base", "nx", "mask"), out, ref)}
-        if any(differ.values()) or any(a.dtype != b.dtype for a, b in zip(out, ref)):
-            raise AssertionError(f"tile_cull ({label}) differs from its plain version in {differ} rows")
-        rows, pairs = out[0].shape[0], int(out[0].sum())
+        counts = tile_rects(*args)[0]
+        rows, pairs = counts.shape[0], int(counts.sum())
         ms = device_ms(lambda: tile_rects(*args), flush=flush)
         warm_ms = device_ms(lambda: tile_rects(*args))
-        plain_ms = cuda_ms(lambda: tile_rects_reference(*args), 5)
-        print(f"tile_cull ({label}, {n_views} views, {rows} rows, {pairs} pairs): the same bits; {ms:.4f} ms "
-              f"(device, L2 flushed), {warm_ms:.4f} warm, plain {plain_ms:.4f} ms; per view {ms / n_views:.4f} ms")
+        plain_ms = statistics.median(cuda_ms(lambda: tile_rects_reference(*args), 5))
+        print(f"tile_cull ({label}, {n_views} views, {rows} rows, {pairs} pairs): {ms:.4f} ms (device, L2 "
+              f"flushed), {warm_ms:.4f} warm, plain {plain_ms:.4f} ms; per view {ms / n_views:.4f} ms")
         records.append(entry(
-            "tile_cull", "tile_cull.cu", "none: latentsplat_tpu/ops/rasterize/tiled.py::_tile_rects is jnp", 0.0,
-            ms, plain_ms, n_bytes=CULL_ROW_BYTES * rows, n_ops=CULL_ROW_OPS * rows, warm_ms=warm_ms,
-            views=n_views, pass_label=label, pairs=pairs))
-        del sg, out, ref
+            "tile_cull", "tile_cull.cu", "none: latentsplat_tpu/ops/rasterize/tiled.py::_tile_rects is jnp", ms,
+            plain_ms, n_bytes=CULL_ROW_BYTES * rows, n_ops=CULL_ROW_OPS * rows, warm_ms=warm_ms, views=n_views,
+            pass_label=label, pairs=pairs))
+        del sg, counts
     return records
 
 
@@ -613,14 +494,11 @@ SHADE_PASSES = (("video", 30), ("serve", 3))
 
 
 def shade_phase(seed: int, device) -> list[dict]:
-    """shade_project (shade.shade on the card without gradient) against the
-    plain shade (shade.shade_reference) on SHADE_PASSES of bench_render's
-    393,216-Gaussian scene at 256x256, scale-invariant: every
-    ScreenGaussians field the same bits, in one launch; the kernel's device
-    ms with L2 flushed and warm, its bound (bytes) and share, and the plain
-    shade's ms."""
-    from latentsplat_tpu_torch.ops.rasterize import kernels
-    from latentsplat_tpu_torch.ops.rasterize.shade import shade, shade_project, shade_reference
+    """shade_project (the kernel of shade.shade without gradient) on
+    SHADE_PASSES of bench_render's 393,216-Gaussian scene at 256x256,
+    scale-invariant: its device ms with L2 flushed and warm, its bound
+    (bytes) and share, and the plain shade's ms."""
+    from latentsplat_tpu_torch.ops.rasterize.shade import shade_project, shade_reference
     from latentsplat_tpu_torch.scripts.bench_render import make_scene, shade_bytes, shade_inputs
 
     flush = torch.empty(FLUSH_BYTES // 4, device=device)
@@ -628,97 +506,31 @@ def shade_phase(seed: int, device) -> list[dict]:
     for label, n_views in SHADE_PASSES:
         scene = make_scene(seed, n_views=n_views, device=device)
         args = shade_inputs(scene)
-        before = kernels.launch_counts["shade_project"]
         with torch.no_grad():
-            out = shade(*args, True, (256, 256))
-            ref = shade_reference(*args, True, (256, 256))
-        torch.cuda.synchronize()
-        if kernels.launch_counts["shade_project"] != before + 1:
-            raise AssertionError(f"shade_project ({label}): {kernels.launch_counts['shade_project'] - before} "
-                                 f"launches, not 1")
-        differ = {name: int((getattr(out, name).view(torch.int32) != getattr(ref, name).view(torch.int32)).sum())
-                  for name in vars(ref)}
-        if any(differ.values()) or any(getattr(out, k).shape != getattr(ref, k).shape for k in vars(ref)):
-            raise AssertionError(f"shade_project ({label}) differs from the plain shade in {differ} values")
-        rows, live = out.radius.numel(), int((out.radius > 0).sum())
-        del out, ref
-        with torch.no_grad():
+            radius = shade_project(*args, (256, 256)).radius
+            rows, live = radius.numel(), int((radius > 0).sum())
             ms = device_ms(lambda: shade_project(*args, (256, 256)), flush=flush)
             warm_ms = device_ms(lambda: shade_project(*args, (256, 256)))
-            plain_ms = cuda_ms(lambda: shade_reference(*args, True, (256, 256)), 5)
-        print(f"shade_project ({label}, {n_views} views, {rows} rows, {live} with a radius): the same bits; "
-              f"{ms:.4f} ms (device, L2 flushed), {warm_ms:.4f} warm, plain {plain_ms:.4f} ms; per view "
-              f"{ms / n_views:.4f} ms")
+            plain_ms = statistics.median(cuda_ms(lambda: shade_reference(*args, True, (256, 256)), 5))
+        print(f"shade_project ({label}, {n_views} views, {rows} rows, {live} with a radius): {ms:.4f} ms (device, "
+              f"L2 flushed), {warm_ms:.4f} warm, plain {plain_ms:.4f} ms; per view {ms / n_views:.4f} ms")
         records.append(entry(
             "shade_project", "shade_project.cu",
-            "none: latentsplat_tpu/ops/sh.py::eval_sh and ops/rasterize/camera.py are jnp", 0.0, ms, plain_ms,
+            "none: latentsplat_tpu/ops/sh.py::eval_sh and ops/rasterize/camera.py are jnp", ms, plain_ms,
             n_bytes=shade_bytes(scene), n_ops=SHADE_ROW_OPS * rows, warm_ms=warm_ms, views=n_views,
             pass_label=label))
-        del scene, args
+        del scene, args, radius
     return records
 
 
-def group_norm_limits(got, want, rounding: float) -> list[float]:
-    """(y, dx, dgamma, dbeta)'s largest |got - want| each over its limit:
-    `rounding` |want| plus GN_FORWARD_ATOL (y), GN_DX_RTOL (dx) or
-    GN_PARAM_RTOL (dgamma, dbeta) of want's largest value. At most 1
-    passes."""
-    atols = [GN_FORWARD_ATOL] + [rtol * float(w.abs().max()) for rtol, w in
-                                 zip((GN_DX_RTOL, GN_PARAM_RTOL, GN_PARAM_RTOL), want[1:])]
-    return [float(((a.double() - w).abs() / (rounding * w.abs() + atol)).max())
-            for a, w, atol in zip(got, want, atols)]
-
-
 def vae_phase(seed: int, device) -> list[dict]:
-    """The VAE decoder in channels-last with the group_norm_silu kernel
-    (ops/group_norm.py): the video cell's decode (30 views at 256x256, the
-    published kl_f8 decoder with skips, random weights), for
-    VAE_DECODE_SEEDS seeds of weights and inputs, against the frozen NCHW
-    copy of the module (perfbench/reference, plain nn.GroupNorm + F.silu)
-    within VAE_DECODE_RTOL of the image's root mean square (TF32 off, as
-    in every phase but the bench phase), with one forward launch for each
-    of the decoder's norms; then the
-    kernel alone at the decoder's top-level norm (30, 128, 256, 256),
-    forward and backward with SiLU, in float32 and bfloat16, each held to
-    the GN_* limits against nn.GroupNorm + F.silu in float64 and timed
-    (device ms with L2 flushed and warm) against its bound (x read and y
+    """The group_norm_silu kernel (ops/group_norm.py) alone at the VAE
+    decoder's top-level norm on the video cell's decode, (30, 128, 256,
+    256), forward and backward with SiLU, in float32 and bfloat16: its
+    device ms with L2 flushed and warm against its bound (x read and y
     written once; x and dy read and dx written once) and the plain
     version's ms. Records the float32 kernel's two rows."""
     from latentsplat_tpu_torch.ops import group_norm
-    from latentsplat_tpu_torch.ops.rasterize import kernels
-    from latentsplat_tpu_torch.scripts.bench_vae import build, decode_inputs
-    from perfbench.reference.model.autoencoder import kl as nchw
-
-    decode_errs, faults = [], []
-    for s in range(seed, seed + VAE_DECODE_SEEDS):
-        model = build(s, device)
-        ref = nchw.AutoencoderKL(nchw.AutoencoderKLCfg(skip_connections=True), d_in=3, d_skip_extra=3).to(device)
-        ref.load_state_dict(model.state_dict())
-        z, skip = decode_inputs(30, s + 1, device)
-        norms = sum(isinstance(m, torch.nn.GroupNorm) for m in model.decoder.modules())
-        with torch.no_grad():
-            before = kernels.launch_counts["group_norm_silu"]
-            out = model.decode(z, skip)
-            torch.cuda.synchronize()
-            launches = kernels.launch_counts["group_norm_silu"] - before
-            want = ref.decode(z, skip)
-            exact = ref.double().decode(z.double(), skip.double())
-        rms = float(want.pow(2).mean().sqrt())
-        err = float((out - want).abs().max()) / rms
-        decode_errs.append(err)
-        print(f"vae decode seed {s} (30 views, {norms} norms): {launches} group_norm_silu launches; max |decode - "
-              f"NCHW copy| {err:.3e} of the image's rms (limit {VAE_DECODE_RTOL}); against the copy in float64: "
-              f"this path {float((out - exact).abs().max()) / rms:.3e}, the copy in float32 "
-              f"{float((want - exact).abs().max()) / rms:.3e}")
-        if launches != norms:
-            faults.append(f"seed {s}: the decode launched group_norm_silu {launches} times for {norms} norms")
-        if err > VAE_DECODE_RTOL:
-            faults.append(f"seed {s}: the decode departs from the NCHW copy by {err:.3e} of the image's rms")
-        del model, ref, out, want, exact, z, skip
-        torch.cuda.empty_cache()
-    print(f"vae decode over {VAE_DECODE_SEEDS} seeds: max |decode - NCHW copy| / rms {decode_errs}")
-    if faults:
-        raise AssertionError("; ".join(faults))
 
     n, c, side, groups = 30, 128, 256, 32
     g = torch.Generator(device=device).manual_seed(seed)
@@ -729,25 +541,11 @@ def vae_phase(seed: int, device) -> list[dict]:
     bias32 = torch.rand(c, generator=g, device=device) - 0.5
     flush = torch.empty(FLUSH_BYTES // 4, device=device)
     records = []
-    for dtype, rounding in ((torch.float32, 0.0), (torch.bfloat16, BF16_ROUNDING)):
+    for dtype in (torch.float32, torch.bfloat16):
         x, dy, weight, bias = (t.to(dtype) for t in (x32, dy32, weight32, bias32))
         gamma, beta = weight.float(), bias.float()
-        y, mean, rstd = group_norm.forward(x, gamma, beta, groups, 1e-6, True)
-        dx, dgamma, dbeta = group_norm.backward(x, dy, gamma, beta, mean, rstd, groups, True)
-        leaves = [t.double().requires_grad_() for t in (x, weight, bias)]
-        out = group_norm.group_norm_silu_reference(*leaves, groups, 1e-6, True)
-        want = (out.detach(), *torch.autograd.grad(out, leaves, dy.double()))
-        del out, leaves
-        limits = group_norm_limits((y, dx, dgamma, dbeta), want, rounding)
-        abs_errs = [float((a.double() - w).abs().max()) for a, w in zip((y, dx), want)]
-        del want
-        torch.cuda.empty_cache()
+        _, mean, rstd = group_norm.forward(x, gamma, beta, groups, 1e-6, True)
         tag = str(dtype).replace("torch.", "")
-        print(f"group_norm_silu {tag} at (30, 128, 256, 256) against nn.GroupNorm + F.silu in float64, largest "
-              f"|diff| over its limit (<= 1 passes): y {limits[0]:.3f}, dx {limits[1]:.3f}, dgamma {limits[2]:.3f}, "
-              f"dbeta {limits[3]:.3f}; max |diff| y {abs_errs[0]:.3e}, dx {abs_errs[1]:.3e}")
-        if max(limits) > 1.0:
-            raise AssertionError(f"group_norm_silu {tag}: {limits} of the limits against float64")
         leaf = x.contiguous().requires_grad_()
         w_leaf, b_leaf = weight.clone().requires_grad_(), bias.clone().requires_grad_()
         plain = group_norm.group_norm_silu_reference(leaf, w_leaf, b_leaf, groups, 1e-6, True)
@@ -757,9 +555,9 @@ def vae_phase(seed: int, device) -> list[dict]:
         plain_fwd = lambda: group_norm.group_norm_silu_reference(x_nchw, weight, bias, groups, 1e-6, True)  # noqa: E731
         plain_bwd = lambda: torch.autograd.grad(plain, (leaf, w_leaf, b_leaf), dy, retain_graph=True)  # noqa: E731
         tensor = x.numel() * x.element_size()
-        for name, fn, plain_fn, n_bytes, passes, err in (
-            ("group_norm_silu", fwd, plain_fwd, 2 * tensor, 3, abs_errs[0]),
-            ("group_norm_silu_backward", bwd, plain_bwd, 3 * tensor, 5, abs_errs[1]),
+        for name, fn, plain_fn, n_bytes, passes in (
+            ("group_norm_silu", fwd, plain_fwd, 2 * tensor, 3),
+            ("group_norm_silu_backward", bwd, plain_bwd, 3 * tensor, 5),
         ):
             ms = device_ms(fn, flush=flush)
             warm_ms = device_ms(fn)
@@ -769,16 +567,15 @@ def vae_phase(seed: int, device) -> list[dict]:
                   f"{pass_share:.1%} of the bound of its {passes} tensor-passes")
             if dtype == torch.float32:
                 records.append(entry(
-                    name, "group_norm_silu.cu", "none: the JAX package leaves GroupNorm + SiLU to XLA", err, ms,
+                    name, "group_norm_silu.cu", "none: the JAX package leaves GroupNorm + SiLU to XLA", ms,
                     plain_ms, n_bytes=n_bytes, n_ops=0, warm_ms=warm_ms, share_of_passes=pass_share,
                     passes=passes, shape=[n, c, side, side]))
-        del x, dy, y, dx, leaf, plain, x_nchw, fwd, bwd, plain_fwd, plain_bwd
+        del x, dy, mean, rstd, leaf, plain, x_nchw, fwd, bwd, plain_fwd, plain_bwd
         torch.cuda.empty_cache()
     return records
 
 
-def forward_entry(err: float, ms: float, plain_ms: float, view: dict, variant: str = "exact",
-                  extra_bytes: int = 0) -> dict:
+def forward_entry(ms: float, plain_ms: float, view: dict, variant: str = "exact", extra_bytes: int = 0) -> dict:
     """composite_forward's record: the pairs' ids, the tile ranges and every
     Gaussian's attribute row read once, the channels, T and `last` written
     (and `extra_bytes`: a fast variant's block state); operations as counted
@@ -789,15 +586,14 @@ def forward_entry(err: float, ms: float, plain_ms: float, view: dict, variant: s
     p_count, (g_count, row) = view["gids"].shape[0], attrs.shape
     n_ch, plane = row - 6, view["items"] * view["shape"][0] * view["shape"][1]
     record = entry("composite_forward", "composite_forward.cu", "latentsplat_tpu/ops/rasterize/pallas_kernels.py:399",
-                   err, ms, plain_ms,
+                   ms, plain_ms,
                    n_bytes=4 * p_count + 4 * ranges.numel() + 4 * row * g_count + 4 * (n_ch + 2) * plane + extra_bytes,
                    n_ops=EVAL_OPS * work["forward_evaluations"] + forward_composited_ops(n_ch) * work["composited"],
                    channels=n_ch, views=view["items"])
     return {**record, "variant": variant} if variant != "exact" else record
 
 
-def backward_entry(err: float, ms: float, plain_ms: float, view: dict, variant: str = "exact",
-                   extra_bytes: int = 0) -> dict:
+def backward_entry(ms: float, plain_ms: float, view: dict, variant: str = "exact", extra_bytes: int = 0) -> dict:
     """composite_backward's record: ids, ranges, order, the attribute rows,
     `last`, T and the cotangents read once, the pair rows written (and
     `extra_bytes`: a fast variant's block state read); operations as
@@ -808,7 +604,7 @@ def backward_entry(err: float, ms: float, plain_ms: float, view: dict, variant: 
     p_count, n_ch = view["gids"].shape[0], attrs.shape[1] - 6
     plane = view["items"] * view["shape"][0] * view["shape"][1]
     record = entry("composite_backward", "composite_backward.cu", "latentsplat_tpu/ops/rasterize/pallas_kernels.py:667",
-                   err, ms, plain_ms,
+                   ms, plain_ms,
                    n_bytes=4 * p_count + 4 * ranges.numel() + 8 * p_count + 4 * (n_ch + 6) * attrs.shape[0]
                    + 4 * (n_ch + 3) * plane + 4 * (n_ch + 6) * p_count + extra_bytes,
                    n_ops=EVAL_OPS * work["backward_evaluations"] + backward_composited_ops(n_ch) * work["composited"],
@@ -821,8 +617,7 @@ DEPTH_MODES = ("depth", "disparity", "relative_disparity", "log")
 
 def depth_view(sg, shape: tuple[int, int]) -> dict:
     """Pairs and attribute rows of the screen Gaussians `sg`, duplicated and
-    sorted by the kernels (ids, keys and tile ranges held exactly against
-    the plain versions), with composite_forward's outputs."""
+    sorted by the kernels, with composite_forward's outputs."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.ops.rasterize.tiled import pack_attributes, sort_pairs, tile_rects
 
@@ -832,55 +627,31 @@ def depth_view(sg, shape: tuple[int, int]) -> dict:
     counts, base, nx, mask = tile_rects(sg, tiles_x, tiles_y)
     depth = sg.depth.reshape(-1).contiguous()
     gids, keys, _ = kernels.duplicate_with_keys(counts, mask, base, nx, depth, tiles_x, 9, n_items)
-    ref_gids, ref_keys = kernels.duplicate_with_keys_reference(counts, mask, base, nx, depth, tiles_x, 9)
     sorted_gids, ranges, order = sort_pairs(gids, keys, n_items * tiles_x * tiles_y)
-    ref_sorted, ref_ranges, _ = sort_pairs(ref_gids, ref_keys, n_items * tiles_x * tiles_y)
-    if not (torch.equal(gids, ref_gids) and torch.equal(keys, ref_keys) and torch.equal(sorted_gids, ref_sorted)
-            and torch.equal(ranges, ref_ranges)):
-        raise AssertionError("duplicate_with_keys or the sort disagrees with its plain version")
     attrs = pack_attributes(sg)
     _, t_final, last = kernels.composite_forward(sorted_gids, ranges, attrs, tiles_x, shape)
     return {"gids": sorted_gids, "ranges": ranges, "order": order, "counts": counts, "attrs": attrs,
             "tiles_x": tiles_x, "shape": shape, "t_final": t_final, "last": last, "items": n_items}
 
 
-def held_forward(out: tuple, ref: tuple, label: str) -> float:
-    """composite_forward's outputs against its plain version's: `last`
-    exactly, T within KERNEL_ATOL and each item's each channel within
-    KERNEL_ATOL of its largest value; raises, else returns the largest
-    error."""
-    from latentsplat_tpu_torch.ops.rasterize import kernels
-
-    scale = ref[0].abs().amax(dim=(2, 3)).clamp(min=1e-30)            # each item's each channel
-    err_ch = ((out[0] - ref[0]).abs().amax(dim=(2, 3)) / scale).max().item()
-    err_t = (out[1] - ref[1]).abs().max().item()
-    last_mismatch = int((out[2] != ref[2]).sum())
-    saturated = (ref[1] < kernels.TRANSMITTANCE_MIN).float().mean().item()
-    print(f"{label}: max channel error relative to its largest value {err_ch:.3e}, max |T err| {err_t:.3e}, "
-          f"last-contributor mismatches {last_mismatch}, saturated pixels {saturated:.3f}")
-    if not (err_ch <= KERNEL_ATOL and err_t <= KERNEL_ATOL) or last_mismatch:
-        raise AssertionError(f"{label} disagrees with its plain version")
-    return max(err_ch, err_t)
-
-
-def check_forward(view: dict, label: str) -> float:
-    """composite_forward against its plain version on `view`: `last`
-    exactly, T within KERNEL_ATOL and each channel within KERNEL_ATOL of
-    its largest value (render_depth's channels carry depths, up to ~100).
-    Returns the largest of those errors."""
+def time_forward(view: dict, label: str) -> dict:
+    """composite_forward on `view`: its device ms beside its plain
+    version's and the work it needs counted on the card; its record."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
     args = (view["gids"], view["ranges"], view["attrs"], view["tiles_x"], view["shape"])
-    out = kernels.composite_forward(*args)
-    ref = kernels.composite_forward_reference(*args)
-    torch.cuda.synchronize()
-    return held_forward(out, ref, f"{label}: composite_forward at {view['attrs'].shape[1] - 6} channels")
+    ms = device_ms(lambda: kernels.composite_forward(*args))
+    plain_ms = statistics.median(cuda_ms(lambda: kernels.composite_forward_reference(*args), 3))
+    view["work"] = counted_work(view)
+    print(f"{label}: composite_forward at {view['attrs'].shape[1] - 6} channels {ms:.4f} ms (device) vs plain "
+          f"{plain_ms:.4f} ms; {view['gids'].shape[0]} pairs")
+    return forward_entry(ms, plain_ms, view)
 
 
 def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
     """render_depth on the slice's Gaussians: composite_forward at 4
-    channels (render_depth's 3-channel payload + the expected depth) held
-    against its plain version and timed on a pass of the 4 target views;
+    channels (render_depth's 3-channel payload + the expected depth) timed
+    on a pass of the 4 target views;
     then `DecoderSplatting` in each depth mode over the 4 target views (the
     counted run: render_depth is one pass, one 4-channel launch, in each of
     the 3 special modes), finite depths, each mode's render_depth time per
@@ -889,29 +660,18 @@ def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
     weights). Returns the 4-channel composite_forward's record and the
     launches of the counted run ({kernel: n} and composite_forward's by
     channel count)."""
-    from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.ops.rasterize.api import render_depth
 
     sg, shape = target_views(model, batch, seed, depth_payload=True)
-    view = depth_view(sg, shape)
-    err = check_forward(view, "depth phase, a pass of the target views")
-    args = (view["gids"], view["ranges"], view["attrs"], view["tiles_x"], shape)
-    ms = device_ms(lambda: kernels.composite_forward(*args))
-    plain_ms = cuda_ms(lambda: kernels.composite_forward_reference(*args), 3)
-    view["work"] = counted_work(view)
-    print(f"depth phase: composite_forward at 4 channels {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms; "
-          f"{view['gids'].shape[0]} pairs")
-    record = forward_entry(err, ms, plain_ms, view)
-    del view
+    record = time_forward(depth_view(sg, shape), "depth phase, a pass of the target views")
+    del sg
 
     shimmed, gaussians = slice_gaussians(model, batch, seed)
     target = shimmed["target"]
     cams = (target["extrinsics"], target["intrinsics"], target["near"], target["far"])
     n_views = cams[0].shape[1]
     size = model.scaled_size(model.scale_factor, target["image"].shape[2:4])
-    for key in kernels.launch_counts:
-        kernels.launch_counts[key] = 0
-    kernels.launches_by_channels["composite_forward"].clear()
+    reset_launches()
     outs, seconds = {}, {}
     with torch.no_grad():
         for mode in DEPTH_MODES:
@@ -920,21 +680,19 @@ def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
             outs[mode] = model.decoder(gaussians, *cams, size, depth_mode=mode)
             torch.cuda.synchronize()
             seconds[mode] = time.perf_counter() - start
-    launches = dict(kernels.launch_counts)
-    launches["composite_forward_by_channels"] = dict(kernels.launches_by_channels["composite_forward"])
+    launches = read_launches()
     print(f"depth phase launches (4 modes x {n_views} views): {launches}")
-    if launches["composite_forward_by_channels"].get(4) != (len(DEPTH_MODES) - 1) * passes(n_views):
+    if launched("composite_forward", channels=4, counts=launches) != (len(DEPTH_MODES) - 1) * passes(n_views):
         raise AssertionError("render_depth did not composite its views in one pass at 4 channels in each special mode")
-    if launches["shade_project"] != launches["duplicate_with_keys"]:
-        raise AssertionError(f"the depth modes launched shade_project {launches['shade_project']} times for "
-                             f"{launches['duplicate_with_keys']} passes")
+    if launched("shade_project", counts=launches) != launched("duplicate_with_keys", counts=launches):
+        raise AssertionError(f"the depth modes launched {launches}: shade_project not once a pass")
     with torch.no_grad():
         for mode, out in outs.items():
             d = out.depth
             if d.shape != (1, n_views, *size) or not torch.isfinite(d).all():
                 raise AssertionError(f"depth mode {mode}: shape {tuple(d.shape)} or non-finite values")
-            per_view = cuda_ms(lambda: render_depth(*cams, size, gaussians.means, gaussians.covariances,
-                                                    gaussians.opacities, mode=mode), 3) / n_views
+            per_view = statistics.median(cuda_ms(lambda: render_depth(
+                *cams, size, gaussians.means, gaussians.covariances, gaussians.opacities, mode=mode), 3)) / n_views
             print(f"depth mode {mode}: decoder {seconds[mode]:.4f} s for {n_views} views (host clock, synchronized); "
                   f"render_depth {per_view:.4f} ms per view (CUDA events, host included); depth min "
                   f"{d.min().item():.4g}, mean {d.mean().item():.4g}, max {d.max().item():.4g}")
@@ -952,8 +710,9 @@ def depth_phase(model, batch, seed: int) -> tuple[dict, dict]:
 
 def backward_kernel_phase(view: dict, seed: int) -> list[dict]:
     """composite_backward and reduce_pairs on the kernel phase's pass of
-    flagship views, against their plain versions, with a seeded random
-    cotangent."""
+    flagship views, with a seeded random cotangent: each timed beside its
+    plain version, reduce_pairs with L2 flushed and warm in three rounds
+    beside index_add_, segment_reduce and a copy of as many bytes."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
 
     gids, ranges, order, attrs, tiles_x, shape = (
@@ -964,36 +723,18 @@ def backward_kernel_phase(view: dict, seed: int) -> list[dict]:
     g_t = torch.randn((view["items"], *shape), generator=gen, device=device)
     args = (gids, ranges, order, attrs, tiles_x, shape, view["last"], view["t_final"], g_out, g_t)
     d_rows = kernels.composite_backward(*args)
-    ref = kernels.composite_backward_reference(*args)
-    torch.cuda.synchronize()
-    scale = ref.abs().amax(dim=0).clamp(min=1e-30)
-    bwd_err = ((d_rows - ref).abs() / scale).max().item()
-    print(f"composite_backward: {gids.shape[0]} pair rows of {attrs.shape[1]}, max error relative to "
-          f"each column's largest value {bwd_err:.3e} (tolerance {BACKWARD_RTOL})")
-    if not bwd_err <= BACKWARD_RTOL:
-        raise AssertionError("composite_backward disagrees with its plain version")
-    if not torch.equal(d_rows, kernels.composite_backward(*args)):
-        raise AssertionError("composite_backward is not deterministic")
     bwd_ms = device_ms(lambda: kernels.composite_backward(*args))
-    bwd_plain_ms = cuda_ms(lambda: kernels.composite_backward_reference(*args), 3)
-    print(f"composite_backward: {bwd_ms:.4f} ms (device) vs plain {bwd_plain_ms:.4f} ms; "
-          f"{bwd_ms * 1e6 / view['work']['tile_walk_max']:.1f} ns per pair of the longest tile walk")
+    bwd_plain_ms = statistics.median(cuda_ms(lambda: kernels.composite_backward_reference(*args), 3))
+    print(f"composite_backward: {gids.shape[0]} pair rows of {attrs.shape[1]}, {bwd_ms:.4f} ms (device) vs plain "
+          f"{bwd_plain_ms:.4f} ms; {bwd_ms * 1e6 / view['work']['tile_walk_max']:.1f} ns per pair of the longest "
+          f"tile walk")
 
     counts = view["counts"]
     offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
-    rows = kernels.reduce_pairs(d_rows, offsets)
-    # The plain version on the CPU adds each Gaussian's rows in slot order,
-    # as the kernel does: the same bits.
-    ref_rows = kernels.reduce_pairs_reference(d_rows.cpu(), offsets.cpu())
-    torch.cuda.synchronize()
-    red_err = (rows.cpu() - ref_rows).abs().max().item()
-    print(f"reduce_pairs: {rows.shape[0]} Gaussians, max abs error {red_err:.3e} (exact expected)")
-    if not torch.equal(rows.cpu(), ref_rows):
-        raise AssertionError("reduce_pairs disagrees with its plain version")
+    g_count, row = offsets.shape[0], d_rows.shape[1]
     # Yardsticks, never called by the port: index_add_ of the sorted rows by
     # Gaussian id (what the plain version was), and segment_reduce of the
     # Gaussian-major rows.
-    g_count, row = rows.shape
     sorted_rows, sorted_ids, lengths = d_rows[order], gids.long(), counts.long()
 
     def index_add():
@@ -1002,8 +743,6 @@ def backward_kernel_phase(view: dict, seed: int) -> list[dict]:
     def segment_reduce():
         return torch.segment_reduce(d_rows, "sum", lengths=lengths, axis=0, unsafe=True)
 
-    lib_err = {f.__name__: ((f() - rows).abs().max() / rows.abs().max()).item() for f in (index_add, segment_reduce)}
-    print(f"reduce_pairs yardsticks, max error relative to the largest sum: {lib_err}")
     flush = torch.empty(FLUSH_BYTES // 4, device=device)
     # The card's streaming rate at this size: a copy that reads and writes
     # as many bytes in all as the kernel's bound counts.
@@ -1027,36 +766,19 @@ def backward_kernel_phase(view: dict, seed: int) -> list[dict]:
     wins = sum(r["kernel"] <= min(r["index_add_"], r["segment_reduce"]) for r in rounds)
     red_ms = statistics.median(r["kernel"] for r in rounds)
     library_ms = min(statistics.median(r[k] for r in rounds) for k in ("index_add_", "segment_reduce"))
-    red_plain_ms = cuda_ms(lambda: kernels.reduce_pairs_reference(d_rows, offsets), 5)
-    print(f"reduce_pairs: {red_ms:.4f} ms (device, L2 flushed), warm "
+    red_plain_ms = statistics.median(cuda_ms(lambda: kernels.reduce_pairs_reference(d_rows, offsets), 5))
+    print(f"reduce_pairs: {g_count} Gaussians, {red_ms:.4f} ms (device, L2 flushed), warm "
           f"{statistics.median(r['kernel_warm'] for r in rounds):.4f} ms; library {library_ms:.4f} ms; "
           f"no slower than the library in {wins} of {len(rounds)} rounds; plain on the card "
           f"{red_plain_ms:.4f} ms")
 
     p_count = gids.shape[0]
     return [
-        backward_entry((d_rows - ref).abs().max().item(), bwd_ms, bwd_plain_ms, view),
-        entry("reduce_pairs", "reduce_pairs.cu", "latentsplat_tpu/ops/rasterize/expand.py:254", red_err,
-              red_ms, red_plain_ms, n_bytes=4 * row * p_count + 8 * g_count + 4 * row * g_count, n_ops=0,
+        backward_entry(bwd_ms, bwd_plain_ms, view),
+        entry("reduce_pairs", "reduce_pairs.cu", "latentsplat_tpu/ops/rasterize/expand.py:254", red_ms,
+              red_plain_ms, n_bytes=4 * row * p_count + 8 * g_count + 4 * row * g_count, n_ops=0,
               library_ms=library_ms, views=view["items"]),
     ]
-
-
-# A fast-family gradient row is rounded to bfloat16 when it is written; a
-# row whose float32 sum the kernel takes in another order than the plain
-# version may round the other way: one bfloat16 step, at most 2^-7 of the value.
-BF16_STEP = 2.0**-7
-
-
-def timed_once(fn):
-    """(fn(), its milliseconds by CUDA events, the host's time included): a
-    plain version, slow enough at flagship shapes that one call is timed."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end)
 
 
 def split_report(view: dict, blocks, label: str) -> None:
@@ -1103,7 +825,7 @@ def kernel_times(fn, n: int = 10) -> dict:
     return {name: us / 1e3 / n for name, (us, _) in times.items()}
 
 
-def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str) -> list[dict]:
+def fast_kernel_times(sg, shape: tuple[int, int], seed: int, label: str) -> list[dict]:
     """The fast family's kernel variants on a pass of screen Gaussians `sg`
     (the items' axis first), with
     the pairs and rows `composite_tiled` prepares at "fast" (the wider cull,
@@ -1111,14 +833,11 @@ def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str) -> lis
     code's depth): composite_forward's coef (serving) and fast (training,
     writing the block state) variants, and composite_backward's fast
     variant on the fast forward's outputs and block state with a seeded
-    random cotangent, each against its plain version on the same inputs
-    (forward: the exact rows' bounds, and the block state exactly;
-    backward: BACKWARD_RTOL of each column's largest value, or one bfloat16
-    step of the value, and the same bits again) and timed (the plain
-    version once, by CUDA events: seconds at these shapes); the work each
-    needs counted on the card; the backward's split walk described
-    (`split_report`) and its two launches timed apart (`kernel_times`).
-    Returns their records (launches come later)."""
+    random cotangent, each timed beside its plain version (once, by CUDA
+    events: seconds at these shapes); the work each needs counted on the
+    card; the backward's split walk described (`split_report`) and its two
+    launches timed apart (`kernel_times`). Returns their records (launches
+    come later)."""
     from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.ops.rasterize.tiled import (
         depth_code_bits, pack_attributes, precision_knobs, quantize_attributes, tile_pairs)
@@ -1134,32 +853,32 @@ def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str) -> lis
     print(f"{label}: fast pairs {gids.shape[0]} (per view {pairs.tolist()}), {n_ch} channels")
     records = []
 
+    def plain_ms(fn) -> float:
+        return cuda_ms(fn, 1, warm_up=False)[0]
+
     out = kernels.composite_forward(*base, coef=True)
-    ref, plain_ms = timed_once(lambda: kernels.composite_forward_reference(*base, coef=True))
-    err = held_forward(out, ref, f"{label}: composite_forward (coef)")
     ms = device_ms(lambda: kernels.composite_forward(*base, coef=True))
+    slow_ms = plain_ms(lambda: kernels.composite_forward_reference(*base, coef=True))
     view = {"gids": gids, "ranges": ranges, "order": order, "counts": counts, "attrs": attrs, "tiles_x": tiles_x,
             "shape": shape, "t_final": out[1], "last": out[2], "items": n_items}
     view["work"] = counted_work(view)
-    print(f"{label}: composite_forward (coef) {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms")
-    records.append(forward_entry(err, ms, plain_ms, view, "coef"))
+    print(f"{label}: composite_forward (coef) {ms:.4f} ms (device) vs plain {slow_ms:.4f} ms")
+    records.append(forward_entry(ms, slow_ms, view, "coef"))
 
     blocks = kernels.block_state(ranges, gids.shape[0], tiles_x * (h // 16))
     blocks[1].zero_()
-    ref_blocks = (blocks[0], torch.zeros_like(blocks[1]))
     fast = dict(f16_xy=True, bf16_mm=True)
     out = kernels.composite_forward(*base, **fast, blocks=blocks)
-    ref, plain_ms = timed_once(lambda: kernels.composite_forward_reference(*base, **fast, blocks=ref_blocks))
-    err = held_forward(out, ref, f"{label}: composite_forward (fast)")
     written = int((blocks[1][..., 1] != 0).sum())
-    if not torch.equal(blocks[1], ref_blocks[1]) or written == 0:
-        raise AssertionError(f"{label}: composite_forward (fast) wrote another block state than its plain version")
     ms = device_ms(lambda: kernels.composite_forward(*base, **fast, blocks=blocks))
+    plain_blocks = (blocks[0], torch.zeros_like(blocks[1]))
+    slow_ms = plain_ms(lambda: kernels.composite_forward_reference(*base, **fast, blocks=plain_blocks))
+    del plain_blocks
     view = {**view, "t_final": out[1], "last": out[2]}
     view["work"] = counted_work(view)
-    print(f"{label}: composite_forward (fast) {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms; block state equal, "
-          f"{written} (block, pixel) entries written of {blocks[1].shape[0] * blocks[1].shape[1]}")
-    records.append(forward_entry(err, ms, plain_ms, view, "fast", extra_bytes=8 * written))
+    print(f"{label}: composite_forward (fast) {ms:.4f} ms (device) vs plain {slow_ms:.4f} ms; {written} (block, "
+          f"pixel) entries of the block state written of {blocks[1].shape[0] * blocks[1].shape[1]}")
+    records.append(forward_entry(ms, slow_ms, view, "fast", extra_bytes=8 * written))
     split_report(view, blocks, label)
 
     gen = torch.Generator(device=attrs.device).manual_seed(seed + 1)
@@ -1167,20 +886,11 @@ def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str) -> lis
     g_t = torch.randn((n_items, *shape), generator=gen, device=attrs.device)
     args = (gids, ranges, order, attrs, tiles_x, shape, out[2], out[1], g_out, g_t)
     knobs = dict(f16_xy=True, bf16_mm=True, bf16_grads=True, blocks=blocks)
-    d_rows = kernels.composite_backward(*args, **knobs)
-    ref, plain_ms = timed_once(lambda: kernels.composite_backward_reference(*args, **knobs))
-    scale = ref.abs().amax(dim=0).clamp(min=1e-30)
-    excess = (d_rows - ref).abs() - BACKWARD_RTOL * scale - BF16_STEP * ref.abs()
-    rel = ((d_rows - ref).abs() / scale).max().item()
-    print(f"{label}: composite_backward (fast): {gids.shape[0]} pair rows, max error relative to each column's "
-          f"largest value {rel:.3e}; {int((d_rows != ref).sum())} elements differ, {int((excess > 0).sum())} beyond "
-          f"{BACKWARD_RTOL} of the column or one bfloat16 step")
-    if (excess > 0).any() or not torch.equal(d_rows, kernels.composite_backward(*args, **knobs)):
-        raise AssertionError(f"{label}: composite_backward (fast) disagrees with its plain version")
     ms = device_ms(lambda: kernels.composite_backward(*args, **knobs))
-    print(f"{label}: composite_backward (fast) {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms")
-    records.append(backward_entry((d_rows - ref).abs().max().item(), ms, plain_ms, view, "fast",
-                                  extra_bytes=8 * written))
+    slow_ms = plain_ms(lambda: kernels.composite_backward_reference(*args, **knobs))
+    print(f"{label}: composite_backward (fast): {gids.shape[0]} pair rows, {ms:.4f} ms (device) vs plain "
+          f"{slow_ms:.4f} ms")
+    records.append(backward_entry(ms, slow_ms, view, "fast", extra_bytes=8 * written))
     # The split walk's two launches apart.
     times = kernel_times(lambda: kernels.composite_backward(*args, **knobs))
     passes = {key: [v for name, v in times.items() if kernel in name]
@@ -1196,7 +906,7 @@ def fast_kernel_checks(sg, shape: tuple[int, int], seed: int, label: str) -> lis
 
 def fast_serve_phase(model, batch, seed: int) -> tuple[list[dict], dict]:
     """The fast precision on the flagship: the kernel variants on a pass of
-    the target views (`fast_kernel_checks`, 8 channels), then `render_full`
+    the target views (`fast_kernel_times`, 8 channels), then `render_full`
     at model.decoder.precision=fast on the slice batch (the counted run):
     the coefficient-layout forward once a pass and no exact composite,
     finite outputs of the slice's shapes, and the render's PSNR against the
@@ -1204,7 +914,7 @@ def fast_serve_phase(model, batch, seed: int) -> tuple[list[dict], dict]:
     from latentsplat_tpu_torch.model.latentsplat import render_full
 
     sg, shape = target_views(model, batch, seed)
-    records = fast_kernel_checks(sg, shape, seed, "fast phase, the target views")
+    records = fast_kernel_times(sg, shape, seed, "fast phase, the target views")
     del sg
     gen = torch.Generator(device=batch["target"]["image"].device)
     exact = render_full(model, batch, generator=gen.manual_seed(seed))
@@ -1224,20 +934,19 @@ def fast_serve_phase(model, batch, seed: int) -> tuple[list[dict], dict]:
     for key in ("image", "render", "depth"):
         if out[key].shape != exact[key].shape or not torch.isfinite(out[key]).all():
             raise AssertionError(f"fast phase: {key} of shape {tuple(out[key].shape)} or non-finite")
-    expected = {"composite_forward": {"coef": {8: passes(n_target)}}, "composite_backward": {}}
-    if launches["by_variant"] != expected or launches["duplicate_with_keys"] != passes(n_target):
+    expected = {("composite_forward", "coef", 8): passes(n_target)}
+    if composite_launches(launches) != expected or launched("duplicate_with_keys", counts=launches) != passes(n_target):
         raise AssertionError(f"fast phase: render_full launched {launches}, not {expected}")
     mse = {k: (out[k].clamp(0, 1) - exact[k].clamp(0, 1)).square().mean().item() for k in ("render", "image")}
     print(f"fast phase: render_full at precision fast {seconds:.4f} s (host clock, synchronized); render PSNR "
           f"against exact {-10 * math.log10(max(mse['render'], 1e-12)):.3f} dB, decoded image "
           f"{-10 * math.log10(max(mse['image'], 1e-12)):.3f} dB; pairs per view {out['num_pairs'].reshape(-1).tolist()} "
-          f"(exact {exact['num_pairs'].reshape(-1).tolist()}); launches {launches['by_variant']}")
+          f"(exact {exact['num_pairs'].reshape(-1).tolist()}); launches {composite_launches(launches)}")
     return records, launches
 
 
 def slice_phase(model, batch, seed: int, profile_dir: str | None = None) -> dict:
     from latentsplat_tpu_torch.model.latentsplat import render_full
-    from latentsplat_tpu_torch.ops.rasterize import kernels
 
     stage_s: dict[str, float] = {}
 
@@ -1250,14 +959,12 @@ def slice_phase(model, batch, seed: int, profile_dir: str | None = None) -> dict
         stage_s[name] = time.perf_counter() - start
 
     gen = torch.Generator(device=batch["target"]["image"].device)
-    render_full(model, batch, generator=gen.manual_seed(seed))    # warm-up
-    for key in kernels.launch_counts:
-        kernels.launch_counts[key] = 0
-    reads = dict(kernels.host_reads)
+    with host_reads() as reads:
+        render_full(model, batch, generator=gen.manual_seed(seed))    # warm-up, its host reads counted
+    reset_launches()
     out = render_full(model, batch, generator=gen.manual_seed(seed), timer=timer)
     torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
-    reads = {k: kernels.host_reads[k] - v for k, v in reads.items()}
+    launches = read_launches()
     image = out["image"]
     n_target = batch["target"]["image"].shape[1]
     expected = (1, n_target, *batch["target"]["image"].shape[2:4], 3)
@@ -1267,7 +974,7 @@ def slice_phase(model, batch, seed: int, profile_dir: str | None = None) -> dict
         if not torch.isfinite(out[key]).all():
             raise AssertionError(f"non-finite values in {key}")
     n_passes = passes(n_target)
-    if any(launches[k] != n_passes for k in FORWARD_KERNELS) or reads["duplicate_with_keys"] != n_passes:
+    if any(launched(k, counts=launches) != n_passes for k in FORWARD_KERNELS) or reads.get("pair_totals") != n_passes:
         raise AssertionError(f"the serving path launched {launches} with host reads {reads}, not one each a pass "
                              f"({n_passes})")
     pairs = out["num_pairs"].reshape(-1).tolist()
@@ -1341,8 +1048,6 @@ def build_trainer(cfg, seed: int, device, peaked_depth: bool = True):
 def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: int = 256) -> tuple[dict, dict]:
     """3 flagship train steps on one batch, then 2 at precision fast;
     returns the kernels' launch counts over each run."""
-    from latentsplat_tpu_torch.ops.rasterize import kernels
-
     scenes = 2
     state, _, train_step = switch_state(cfg, seed, device)
     batch = state.model.data_shim(make_batch(np.random.default_rng(seed + 2), 2, 4, size, device, scenes))
@@ -1365,8 +1070,7 @@ def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: in
         stage_s.setdefault(name, []).append(time.perf_counter() - start)
 
     gen = torch.Generator(device=device).manual_seed(seed + 3)
-    for key in kernels.launch_counts:
-        kernels.launch_counts[key] = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     step_s, all_logs = [], []
     for _ in range(3):
@@ -1376,7 +1080,7 @@ def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: in
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - start)
         all_logs.append({k: float(v) for k, v in logs.items()})
-    launches = dict(kernels.launch_counts)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     for i, logs in enumerate(all_logs):
         print(f"train step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in sorted(logs.items())))
@@ -1394,7 +1098,8 @@ def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: in
             raise AssertionError(f"the {net}'s parameters did not change")
     # Every kernel but shade_project, which the step's render bypasses: it
     # needs gradients, so the plain shade runs.
-    if launches["shade_project"] or min(v for k, v in launches.items() if k != "shade_project") < 1:
+    if launched("shade_project", counts=launches) or min(
+            launched(k, counts=launches) for k in KERNELS if k != "shade_project") < 1:
         raise AssertionError(f"a kernel of the train path did not run, or shade_project did: {launches}")
     later = step_s[1:]
     print(f"train seconds per step: {[round(x, 4) for x in step_s]}; median after the first "
@@ -1413,8 +1118,8 @@ def train_phase(cfg, seed: int, device, profile_dir: str | None = None, size: in
     finally:
         state.model.decoder.cfg.precision = "exact"
     n = 2 * passes(scenes * 4)
-    expected = {"composite_forward": {"fast": {8: n}}, "composite_backward": {"fast": {8: n}}}
-    if fast_launches["by_variant"] != expected or fast_launches["reduce_pairs"] != n:
+    expected = {("composite_forward", "fast", 8): n, ("composite_backward", "fast", 8): n}
+    if composite_launches(fast_launches) != expected or launched("reduce_pairs", counts=fast_launches) != n:
         raise AssertionError(f"train phase at precision fast: launches {fast_launches}, not {expected}")
     if profile_dir:
         profile_once(
@@ -1471,12 +1176,11 @@ def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, di
     composite_forward's also by channel count."""
     from latentsplat_tpu_torch.config import load_config
     from latentsplat_tpu_torch.main import main as run_main
-    from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.scripts import generate_evaluation_index
     from latentsplat_tpu_torch.training.checkpointing import latest_checkpoint, save_checkpoint
     from latentsplat_tpu_torch.training.trainer import Trainer
 
-    print(f"trainer phase on {card()}")
+    print(f"trainer phase on {device_name(device)}")
     sampler = dataclasses.asdict(load_config("re10k").dataset.view_sampler)
     data = {"name": "synthetic", "num_scenes": 4, "num_frames": 48, "image_shape": [256, 256],
             "view_sampler": sampler}
@@ -1506,9 +1210,7 @@ def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, di
         trainer.logger.close()
         del trainer, state
 
-        for key in kernels.launch_counts:
-            kernels.launch_counts[key] = 0
-        kernels.launches_by_channels["composite_forward"].clear()
+        reset_launches()
         videos = []
         with watch_videos(videos):
             run_a = call("a", "mode=train", f"checkpointing.load={init}", "trainer.max_steps=2",
@@ -1541,8 +1243,7 @@ def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, di
         del trainer, state
         run_b = call("b", "mode=train", f"checkpointing.load={resume}", "checkpointing.resume=true",
                      f"trainer.max_steps={TRAIN_STEP + 2}")
-        fit_launches = dict(kernels.launch_counts)
-        fit_launches["composite_forward_by_channels"] = dict(kernels.launches_by_channels["composite_forward"])
+        fit_launches = read_launches()
         resume.unlink()
         train_b = read_records(run_b)
         if [r["step"] for r in train_b] != [TRAIN_STEP + 1, TRAIN_STEP + 2]:
@@ -1575,14 +1276,11 @@ def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, di
         if sorted(entries) != [f"synthetic_{i:04d}" for i in range(4)] or not all(
                 len(v) == 1 and len(v[0]["target"]) == 3 for v in entries.values()):
             raise AssertionError("the evaluation index does not hold one entry of 3 targets for each scene")
-        for key in kernels.launch_counts:
-            kernels.launch_counts[key] = 0
-        kernels.launches_by_channels["composite_forward"].clear()
+        reset_launches()
         evaluation = {"name": "evaluation", "index_path": str(index)}
         call("c", "mode=test", f"checkpointing.load={ckpt_a}", "wandb.name=evaluation",
              f"dataset.view_sampler={json.dumps(evaluation)}")
-        test_launches = dict(kernels.launch_counts)
-        test_launches["composite_forward_by_channels"] = dict(kernels.launches_by_channels["composite_forward"])
+        test_launches = read_launches()
         means_c = check_test_output(tmp / "c" / "test" / "evaluation", 4 * 3)
         evaluation_phase(seed, device, dict(data, view_sampler=evaluation), tmp / "c" / "test" / "evaluation", tmp)
         if keep is not None:
@@ -1590,7 +1288,7 @@ def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, di
             shutil.copy(tmp / "metrics" / "scores.mean.json", keep / "scores.mean.json")
 
     print(f"trainer phase launches: (a)+(b) {fit_launches}, (c) {test_launches}")
-    if min(fit_launches[k] for k in kernels.launch_counts) < 1:
+    if min(launched(k, counts=fit_launches) for k in KERNELS) < 1:
         raise AssertionError(f"a kernel did not run in the trainer's fit: {fit_launches}")
     # 4 train steps of 2 scenes x 4 target views, the validation's two
     # renders of 4 views, two videos of 30 views and two tests of 4 scenes
@@ -1598,11 +1296,11 @@ def trainer_phase(seed: int, device, keep: Path | None = None) -> tuple[dict, di
     # shade_project runs in all but the train steps, whose render needs
     # gradients.
     expected = 4 * passes(2 * 4) + 2 * passes(4) + 2 * passes(30) + 2 * 4 * passes(48)
-    if (any(fit_launches[k] != expected for k in RENDER_KERNELS)
-            or fit_launches["shade_project"] != expected - 4 * passes(2 * 4)):
+    if (any(launched(k, counts=fit_launches) != expected for k in RENDER_KERNELS)
+            or launched("shade_project", counts=fit_launches) != expected - 4 * passes(2 * 4)):
         raise AssertionError(f"the trainer's fit launched the forward kernels {fit_launches}, not {expected} times "
                              f"({expected - 4 * passes(2 * 4)} shade_project)")
-    if min(test_launches[k] for k in FORWARD_KERNELS) < 1:
+    if min(launched(k, counts=test_launches) for k in FORWARD_KERNELS) < 1:
         raise AssertionError(f"a forward kernel did not run in the trainer's test: {test_launches}")
     print("trainer phase benchmark.json means per scene (encoder) and per view: "
           + "; ".join(f"({n}) " + ", ".join(f"{k} {v:.4f}" for k, v in m.items())
@@ -1615,7 +1313,6 @@ def watch_videos(videos: list):
     """While open, every `Trainer.render_video` call appends its mode, its
     frames, seconds, kernel launches and the peak memory since the
     enclosing call's start to `videos`."""
-    from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.training.trainer import Trainer
 
     original = Trainer.render_video
@@ -1624,7 +1321,7 @@ def watch_videos(videos: list):
         logged = {}
         log_video = self.logger.log_video
         self.logger.log_video = lambda key, frames, step_: logged.update(frames=frames) or log_video(key, frames, step_)
-        before = dict(kernels.launch_counts)
+        before = {k: launched(k) for k in KERNELS}
         torch.cuda.synchronize()
         start = time.perf_counter()
         try:
@@ -1634,7 +1331,7 @@ def watch_videos(videos: list):
         torch.cuda.synchronize()
         videos.append({"mode": mode, "step": step, "frames": logged.get("frames", []),
                        "seconds": time.perf_counter() - start, "peak": torch.cuda.max_memory_allocated(),
-                       "launches": {k: v - before[k] for k, v in kernels.launch_counts.items()}})
+                       "launches": {k: launched(k) - before[k] for k in KERNELS}})
 
     Trainer.render_video = render_video
     try:
@@ -1734,110 +1431,6 @@ def evaluation_phase(seed: int, device, data: dict, rendered: Path, tmp: Path, n
         raise AssertionError("the benchmark table lacks a tag")
 
 
-# -- the released checkpoint's layout (inspection phase) ------------------------
-#
-# The reference's module paths for the port's, as the released latentSplat
-# .ckpt names them: the inverse of training/pretrained.py's key maps, kept
-# here so that the converters are held against a map written apart from
-# them. Each rule is (port pattern, reference template); every rule whose
-# pattern matches the whole name rewrites it, in order.
-_REFERENCE_RULES = [
-    # DINO trunk (facebookresearch/dino); the query/key/value Linears are
-    # fused into qkv below.
-    (r"encoder\.backbone\.dino\.patch_embed\.(weight|bias)", r"encoder.backbone.dino.patch_embed.proj.\1"),
-    (r"encoder\.backbone\.dino\.block_(\d+)\.LayerNorm_0\.(.*)", r"encoder.backbone.dino.blocks.\1.norm1.\2"),
-    (r"encoder\.backbone\.dino\.block_(\d+)\.LayerNorm_1\.(.*)", r"encoder.backbone.dino.blocks.\1.norm2.\2"),
-    (r"encoder\.backbone\.dino\.block_(\d+)\.MultiHeadDotProductAttention_0\.out\.(.*)",
-     r"encoder.backbone.dino.blocks.\1.attn.proj.\2"),
-    (r"encoder\.backbone\.dino\.block_(\d+)\.Dense_0\.(.*)", r"encoder.backbone.dino.blocks.\1.mlp.fc1.\2"),
-    (r"encoder\.backbone\.dino\.block_(\d+)\.Dense_1\.(.*)", r"encoder.backbone.dino.blocks.\1.mlp.fc2.\2"),
-    (r"encoder\.backbone\.dino\.LayerNorm_0\.(.*)", r"encoder.backbone.dino.norm.\1"),
-    (r"encoder\.backbone\.dino\.(cls_token|pos_embed)", r"encoder.backbone.dino.\1"),
-    (r"encoder\.backbone\.Dense_0\.(.*)", r"encoder.backbone.global_token_mlp.0.\1"),
-    (r"encoder\.backbone\.Dense_1\.(.*)", r"encoder.backbone.global_token_mlp.2.\1"),
-    (r"encoder\.backbone\.Dense_2\.(.*)", r"encoder.backbone.local_token_mlp.0.\1"),
-    (r"encoder\.backbone\.Dense_3\.(.*)", r"encoder.backbone.local_token_mlp.2.\1"),
-    (r"encoder\.backbone_projection\.(.*)", r"encoder.backbone_projection.1.\1"),
-    # Epipolar transformer and the SRT transformers inside it: attention in
-    # layers.{i}.0, the feed-forward in layers.{i}.1 (an MLP net =
-    # Sequential(Linear, GELU, Dropout, Linear, Dropout), or ConvFeedForward
-    # with its convolutions at layers.0 and layers.3).
-    (r"(.*)\.refine_0\.(.*)", r"\1.upscale_refinement.0.\2"),
-    (r"(.*)\.refine_1\.(.*)", r"\1.upscale_refinement.2.\2"),
-    (r"(.*)\.depth_encoding\.(.*)", r"\1.depth_encoding.1.\2"),
-    (r"(.*)\.pe_proj\.(.*)", r"\1.positional_encoding.1.\2"),
-    (r"(.*)\.self_attention\.patch_embed\.(.*)", r"\1.self_attention.patch_embedder.0.\2"),
-    (r"(.*)\.norm_attn_(\d+)\.(.*)", r"\1.layers.\2.0.norm.\3"),
-    (r"(.*)\.attn_(\d+)\.to_out\.(.*)", r"\1.layers.\2.0.fn.to_out.0.\3"),
-    (r"(.*)\.attn_(\d+)\.(to_q|to_kv|to_qkv)\.(.*)", r"\1.layers.\2.0.fn.\3.\4"),
-    (r"(.*)\.norm_ff_(\d+)\.(.*)", r"\1.layers.\2.1.norm.\3"),
-    (r"(.*)\.ff_(\d+)\.Dense_0\.(.*)", r"\1.layers.\2.1.fn.net.0.\3"),
-    (r"(.*)\.ff_(\d+)\.Dense_1\.(.*)", r"\1.layers.\2.1.fn.net.3.\3"),
-    (r"(.*)\.ConvFeedForward_(\d+)\.Conv_0\.(.*)", r"\1.layers.\2.1.fn.layers.0.\3"),
-    (r"(.*)\.ConvFeedForward_(\d+)\.Conv_1\.(.*)", r"\1.layers.\2.1.fn.layers.3.\3"),
-    (r"(.*)\.ConvFeedForward_(\d+)\.self_attention\.(.*)", r"\1.layers.\2.1.fn.self_attention.\3"),
-    (r"encoder\.high_resolution_skip\.(.*)", r"encoder.high_resolution_skip.0.\1"),
-    (r"encoder\.to_gaussians\.(.*)", r"encoder.to_gaussians.1.\1"),
-    (r"encoder\.depth_predictor\.projection\.(.*)", r"encoder.depth_predictor.projection.1.\1"),
-    # The VAE (diffusers AutoencoderKL under autoencoder.model) and
-    # latentSplat's skip convolutions beside it.
-    (r"autoencoder\.decoder\.skip_conv_(\d+)\.(.*)", r"autoencoder.skip_convs.\1.\2"),
-    (r"autoencoder\.encoder\.down_(\d+)_resnet_(\d+)\.(.*)", r"autoencoder.model.encoder.down_blocks.\1.resnets.\2.\3"),
-    (r"autoencoder\.encoder\.down_(\d+)_downsample\.(.*)", r"autoencoder.model.encoder.down_blocks.\1.downsamplers.0.\2"),
-    (r"autoencoder\.decoder\.up_(\d+)_resnet_(\d+)\.(.*)", r"autoencoder.model.decoder.up_blocks.\1.resnets.\2.\3"),
-    (r"autoencoder\.decoder\.up_(\d+)_upsample\.(.*)", r"autoencoder.model.decoder.up_blocks.\1.upsamplers.0.\2"),
-    (r"autoencoder\.(encoder|decoder)\.mid_resnet_(\d+)\.(.*)", r"autoencoder.model.\1.mid_block.resnets.\2.\3"),
-    (r"autoencoder\.(encoder|decoder)\.mid_attn\.to_out\.(.*)", r"autoencoder.model.\1.mid_block.attentions.0.to_out.0.\2"),
-    (r"autoencoder\.(encoder|decoder)\.mid_attn\.(.*)", r"autoencoder.model.\1.mid_block.attentions.0.\2"),
-    (r"autoencoder\.(?!model\.|skip_convs\.)(.*)", r"autoencoder.model.\1"),
-    (r"(encoder\..*)", r"\1"),
-]
-
-
-def reference_state_dict(generator: dict, discriminator: dict | None, n_layers: int = 3) -> dict:
-    """The port's generator (and PatchGAN) state dicts in the released
-    checkpoint's layout: fused DINO qkv projections, taming's
-    NLayerDiscriminator `main.{i}` Sequential with BatchNorm running
-    statistics (which the port's train-mode BatchNorm does not keep)."""
-    import re
-
-    out = {}
-    qkv = {}
-    for key, value in generator.items():
-        m = re.fullmatch(r"encoder\.backbone\.dino\.block_(\d+)\.MultiHeadDotProductAttention_0\."
-                         r"(query|key|value)\.(weight|bias)", key)
-        if m:
-            qkv.setdefault((m[1], m[3]), {})[m[2]] = value
-            continue
-        name, matched = key, False
-        for pattern, template in _REFERENCE_RULES:
-            if re.fullmatch(pattern, name):
-                name, matched = re.sub(pattern, template, name), True
-        if not matched:
-            raise KeyError(f"no reference name for {key}")
-        out[name] = value
-    for (block, part), values in qkv.items():
-        out[f"encoder.backbone.dino.blocks.{block}.attn.qkv.{part}"] = torch.cat(
-            [values["query"], values["key"], values["value"]])
-    if discriminator is not None:
-        # [Conv, LeakyReLU], n_layers x [Conv, BatchNorm, LeakyReLU], Conv.
-        def index(name):
-            kind, n = name.split("_")
-            if n == "out":
-                return 3 * n_layers + 2
-            return 0 if n == "0" else 3 * int(n) - (kind == "conv")
-
-        for key, value in discriminator.items():
-            name, part = key.rsplit(".", 1)
-            kind = name.split("_")[0]
-            out[f"discriminator.main.{index(name)}.{part}"] = value
-            if kind == "bn":
-                out[f"discriminator.main.{index(name)}.running_mean"] = torch.zeros_like(value)
-                out[f"discriminator.main.{index(name)}.running_var"] = torch.ones_like(value)
-                out[f"discriminator.main.{index(name)}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
-    return out
-
-
 def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int = 256) -> dict:
     """What a user does with a released model, on the flagship re10k model
     at full width (seeded weights as `like_trained` leaves them):
@@ -1853,8 +1446,8 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
           composite_forward<4> launches; a 128x128
           projection of a 32,768-Gaussian subset against the dense plain
           version within 2e-4; duplicate_with_keys at the widest
-          projection's inputs with its cap and with 64 slots (int64 masks)
-          against its plain version (exactly) and timed;
+          projection's inputs with its cap and with 64 slots (int64 masks):
+          the same pairs, timed;
       (iii) the encoder panels (capture_attention on the epipolar
           transformer) and export_gaussians_ply of the 393,216 Gaussians,
           read back exactly by load_ply;
@@ -1877,6 +1470,7 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
     from latentsplat_tpu_torch.ops.rasterize import api, kernels
     from latentsplat_tpu_torch.ops.rasterize.tiled import MAX_TILES_PER_GAUSSIAN, tile_rects
     from latentsplat_tpu_torch.scripts import convert_checkpoint, render_uncertainty, visualize_epipolar_lines
+    from latentsplat_tpu_torch.training.pretrained import reference_state_dict
     from latentsplat_tpu_torch.visualization import validation_in_3d
 
     on_card = device.type == "cuda"   # the kernels launch (and count) only there
@@ -1885,7 +1479,7 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
         if on_card:
             torch.cuda.synchronize()
 
-    print(f"inspection phase on {card() if device.type == 'cuda' else device}")
+    print(f"inspection phase on {device_name(device)}")
     phase_start = time.perf_counter()
     out: dict = {"launches": {}, "seconds": {}}
     cfg = load_config("re10k", [f"seed={seed}", *model_overrides])
@@ -1934,7 +1528,7 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
         if len(own_pngs) != 6 or own_pngs != converted_pngs:
             raise AssertionError(f"(i) the converted checkpoint served other PNGs ({len(converted_pngs)} "
                                  f"against {len(own_pngs)}, {sum(own_pngs.get(k) != v for k, v in converted_pngs.items())} differ)")
-        if on_card and any(launches[k] != 2 * passes(3) for k in FORWARD_KERNELS):
+        if on_card and any(launched(k, counts=launches) != 2 * passes(3) for k in FORWARD_KERNELS):
             raise AssertionError(f"(i) forward kernel launches {launches}, not {2 * passes(3)} each (a pass a scene)")
         print(f"  (i) convert_checkpoint: {counts}; serving the converted file: 6 PNGs bit for bit those of the "
               f"model's own checkpoint, launches {launches}")
@@ -1974,15 +1568,16 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
         out["launches"]["projections"] = launches
         if images.shape[:2] != (1, 3) or not np.isfinite(images).all():
             raise AssertionError(f"(ii) projections {images.shape}, finite {np.isfinite(images).all()}")
-        if on_card and (launches["composite_forward_by_channels"] != {4: 3} or launches["duplicate_with_keys"] != 3):
+        if on_card and (composite_launches(launches) != {("composite_forward", "exact", 4): 3}
+                        or launched("duplicate_with_keys", counts=launches) != 3):
             raise AssertionError(f"(ii) projection launches {launches}, not 3 of composite_forward<4>")
         out["projections"] = [{k: r[k] for k in ("cap", "pairs", "ms")} for r in records]
         print(f"  (ii) projections at {size}x{size} of {gaussians.means.shape[1]} Gaussians, per axis (largest rect in "
               f"tiles = cap, pairs, ms): {out['projections']}; launches {launches}")
         # duplicate_with_keys at the widest projection's inputs, with its
         # covering cap and with the most slots an int64 mask holds (the
-        # 64-bit instantiation): both exact against the plain version, the
-        # same pairs (the covering cap keeps every slot), and timed.
+        # 64-bit instantiation): the same pairs (the covering cap keeps
+        # every slot), and timed.
         widest = max(records, key=lambda r: r["cap"])
         sg, cap = widest["sg"], widest["cap"]
         depth = sg.depth.reshape(-1).contiguous()
@@ -1991,9 +1586,6 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
         for slots in (cap, MAX_TILES_PER_GAUSSIAN):
             counts_, base, nx, mask = tile_rects(sg, size // 16, size // 16, slots)
             ids, keys, _ = kernels.duplicate_with_keys(counts_, mask, base, nx, depth, size // 16, slots)
-            ref_ids, ref_keys = kernels.duplicate_with_keys_reference(counts_, mask, base, nx, depth, size // 16, slots)
-            if not (torch.equal(ids, ref_ids) and torch.equal(keys, ref_keys)):
-                raise AssertionError(f"(ii) duplicate_with_keys ({mask.dtype} mask, cap {slots}) differs from its plain version")
             pairs.append((ids, keys))
             if on_card:
                 args = (torch.cumsum(counts_, dim=0, dtype=torch.int64), mask, base, nx, depth, size // 16,
@@ -2016,7 +1608,7 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
         err = float(np.abs(tiled - dense).max())
         out["projection_vs_dense"] = err
         print(f"  (ii) duplicate_with_keys at the widest projection, covering cap {cap} and cap "
-              f"{MAX_TILES_PER_GAUSSIAN}: exact, the same pairs; launch ms (L2 flushed) {out['duplicate_ms']}; "
+              f"{MAX_TILES_PER_GAUSSIAN}: the same pairs; launch ms (L2 flushed) {out['duplicate_ms']}; "
               f"{size // 2}x{size // 2} projections of 32,768 Gaussians, tiled vs dense plain: max |diff| {err:.3g}")
         if err > 2e-4:
             raise AssertionError(f"(ii) tiled projection vs dense: {err} > 2e-4")
@@ -2078,7 +1670,7 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
         images = [load_image(p) for p in pngs]
         if len(pngs) != 6 or any(i.shape != (size, 3 * size + 16, 3) for i in images):
             raise AssertionError(f"(iv) render_uncertainty wrote {[i.shape for i in images]}")
-        if on_card and any(launches[k] != 2 * passes(3) for k in FORWARD_KERNELS):
+        if on_card and any(launched(k, counts=launches) != 2 * passes(3) for k in FORWARD_KERNELS):
             raise AssertionError(f"(iv) render_uncertainty launches {launches}, not {2 * passes(3)} each")
         root = tmp / "re10k"
         jpeg_tools().write_re10k_root(root, scenes=2, frames=48)
@@ -2097,40 +1689,47 @@ def inspection_phase(seed: int, device, model_overrides: tuple = (), size: int =
     return out
 
 
-def launches_at(launches: dict, entry: dict) -> int:
-    """A kernel row's launches in `launches` (read_launches' dict), the
-    compositing kernels' read at the row's channel count (the kernel and
-    backward phases' rows are the flagship's 8 channels) and the two
-    composite kernels' at the row's variant ("exact" unless it names one)."""
+def launches_at(launches: collections.Counter, entry: dict) -> int:
+    """A kernel row's launches in `launches` (a read_launches copy), the
+    compositing kernels' at the row's variant ("exact" unless it names one)
+    and channel count (the kernel and backward phases' rows are the
+    flagship's 8 channels)."""
     name = entry["name"]
-    if name not in launches["by_channels"]:
-        return launches[name]
-    channels = entry.get("channels", entry.get("row", 14) - 6)
-    if name in launches["by_variant"]:
-        return launches["by_variant"][name].get(entry.get("variant", "exact"), {}).get(channels, 0)
-    return launches["by_channels"][name].get(channels, 0)
+    if name not in ("composite_forward", "composite_backward", "reduce_pairs"):
+        return launched(name, counts=launches)
+    return launched(name, entry.get("variant", "exact"), entry.get("channels", entry.get("row", 14) - 6), launches)
 
 
 def reset_launches() -> None:
-    from latentsplat_tpu_torch.ops.rasterize import kernels
-
-    for key in kernels.launch_counts:
-        kernels.launch_counts[key] = 0
-    for counts in (*kernels.launches_by_channels.values(), *kernels.launches_by_variant.values()):
-        counts.clear()
+    cuda_build.launches.clear()
 
 
-def read_launches() -> dict:
-    """Each kernel's launches, composite_forward's by channel count, each
-    compositing kernel's by channel count under "by_channels" and the
-    composite kernels' by variant and channel count under "by_variant"."""
-    from latentsplat_tpu_torch.ops.rasterize import kernels
+def read_launches() -> collections.Counter:
+    """A copy of the launches counted so far (cuda_build.launches)."""
+    return collections.Counter(cuda_build.launches)
 
-    return {**kernels.launch_counts,
-            "composite_forward_by_channels": dict(kernels.launches_by_channels["composite_forward"]),
-            "by_channels": {k: dict(v) for k, v in kernels.launches_by_channels.items()},
-            "by_variant": {k: {variant: dict(c) for variant, c in v.items()}
-                           for k, v in kernels.launches_by_variant.items()}}
+
+def composite_launches(launches: collections.Counter) -> dict:
+    """The two composite kernels' launches in `launches`, by (kernel,
+    variant, channels)."""
+    return {key: n for key, n in launches.items() if key[0] in ("composite_forward", "composite_backward")}
+
+
+@contextmanager
+def host_reads():
+    """Counts the host's reads of the card inside the block: the program's
+    `host_read.<site>` spans (misc/profiler.py), kept while a CPU-only
+    torch.profiler session records, by site, in the dict it yields."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reads: dict[str, int] = {}
+    profiler.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        yield reads
+    for span in profiler.records():
+        if span.name.startswith("host_read."):
+            site = span.name.removeprefix("host_read.")
+            reads[site] = reads.get(site, 0) + 1
 
 
 def jpeg_tools():
@@ -2225,8 +1824,8 @@ def time_input_path(root: Path) -> dict:
                 loader.close()
         out[f"examples_per_s_{workers}_workers"] = rate
         out[f"first_batch_s_{workers}_workers"] = first_s
-    print(f"data phase on {card()} (host CPU: {os.cpu_count()} cores): decode {out['decode_ms']:.3f} ms and crop "
-          f"shim {out['crop_ms']:.3f} ms per 640x360 frame (medians of 30); RE10k train loader "
+    print(f"data phase on {device_name(CARD)} (host CPU: {os.cpu_count()} cores): decode {out['decode_ms']:.3f} ms and "
+          f"crop shim {out['crop_ms']:.3f} ms per 640x360 frame (medians of 30); RE10k train loader "
           f"{out['examples_per_s_0_workers']:.2f} examples/s with 0 workers (first batch "
           f"{out['first_batch_s_0_workers']:.2f} s), {out['examples_per_s_4_workers']:.2f} with 4 (first batch "
           f"{out['first_batch_s_4_workers']:.2f} s), against 2 examples a train step")
@@ -2408,7 +2007,7 @@ def data_phase(seed: int, device, model_overrides: tuple = (), size: int = 256) 
     if device.type == "cuda":
         for name, launches in out["launches"].items():
             kernel_names = ALL_KERNELS if name in ("d", "f") else FORWARD_KERNELS
-            if min(launches[k] for k in kernel_names) < 1:
+            if min(launched(k, counts=launches) for k in kernel_names) < 1:
                 raise AssertionError(f"({name}): a kernel of {kernel_names} did not run: {launches}")
     return out
 
@@ -2525,7 +2124,7 @@ def switch_sites(seed: int, device, size: int = 256) -> None:
     print("switches (s1) last step: " + ", ".join(f"{k} {v:.5g}" for k, v in sorted(logs.items())
                                                  if k.startswith(("train/", "target_render_latent", "context/",
                                                                   "target_autoencoder/", "generator/"))))
-    if min(launches[k] for k in ALL_KERNELS) < 1:
+    if min(launched(k, counts=launches) for k in ALL_KERNELS) < 1:
         raise AssertionError(f"(s1): a kernel did not run: {launches}")
 
 
@@ -2574,14 +2173,14 @@ def switch_encode_latents(seed: int, device, size: int = 256) -> None:
           + f"; launches {launches}")
     if n_gaussians != 2 * size * size * cfg.model.encoder.gaussians_per_pixel:
         raise AssertionError(f"(s2): {n_gaussians} Gaussians a scene")
-    if min(launches[k] for k in FORWARD_KERNELS) < 1 or "autoencoder_encoder" not in stage_s:
+    if min(launched(k, counts=launches) for k in FORWARD_KERNELS) < 1 or "autoencoder_encoder" not in stage_s:
         raise AssertionError("(s2): the serving path skipped the VAE encoder or a kernel")
     batch = model.data_shim(make_batch(np.random.default_rng(seed + 2), 2, 4, size, device, 2))
     before = {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith("autoencoder.encoder.")}
     _, _, _, _, launches = timed_steps("switches (s2) encode_latents train", state, train_step, batch, seed + 3, 2)
     moved = sum(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters() if n in before)
     print(f"switches (s2): VAE encoder tensors changed by the steps {moved} of {len(before)}")
-    if moved == 0 or min(launches[k] for k in ALL_KERNELS) < 1:
+    if moved == 0 or min(launched(k, counts=launches) for k in ALL_KERNELS) < 1:
         raise AssertionError("(s2): the VAE encoder did not train or a kernel did not run")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_latents_") as tmp:
@@ -2608,22 +2207,20 @@ def switch_encode_latents(seed: int, device, size: int = 256) -> None:
           + f"; launches {launches}")
     if set(bench) != {"autoencoder_encoder", "encoder", "decoder", "autoencoder_decoder"} or len(pngs) != 6:
         raise AssertionError(f"(s2) test mode: tags {sorted(bench)}, {len(pngs)} PNGs")
-    if launches["composite_forward"] != 2 * passes(3):
-        raise AssertionError(f"(s2) test mode: composite_forward ran {launches['composite_forward']} times, "
+    if launched("composite_forward", counts=launches) != 2 * passes(3):
+        raise AssertionError(f"(s2) test mode: composite_forward ran {launched('composite_forward', counts=launches)} times, "
                              f"not {2 * passes(3)} (a pass a scene)")
 
 
 def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict]:
     """(s3) variational=latents: on a pass of the target views
     composite_forward and composite_backward at 12 channels and reduce_pairs
-    at rows of 18 against
-    their plain versions, timed beside their bounds, and the fast family's
-    variants at 12 channels (`fast_kernel_checks`); then 2 train steps, a
-    render without gradient and 1 train step at precision fast. Returns the
-    records (the fast ones with their launches) and the exact steps'
-    launches."""
+    at rows of 18 timed beside their plain versions and their bounds, and
+    the fast family's variants at 12 channels (`fast_kernel_times`); then 2
+    train steps, a render without gradient and 1 train step at precision
+    fast. Returns the records (the fast ones with their launches) and the
+    exact steps' launches."""
     from latentsplat_tpu_torch.config import load_config
-    from latentsplat_tpu_torch.ops.rasterize import kernels
 
     cfg = load_config("re10k", ["model.variational=latents"])
     state, _, train_step = switch_state(cfg, seed, device)
@@ -2632,27 +2229,20 @@ def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict
     view = depth_view(sg, shape)
     if view["attrs"].shape[1] != 18:
         raise AssertionError(f"(s3): rows of {view['attrs'].shape[1]}, not 6 + 12")
-    err = check_forward(view, "switches (s3) target views")
-    args = (view["gids"], view["ranges"], view["attrs"], view["tiles_x"], shape)
-    ms = device_ms(lambda: kernels.composite_forward(*args))
-    plain_ms = cuda_ms(lambda: kernels.composite_forward_reference(*args), 3)
-    view["work"] = counted_work(view)
-    print(f"switches (s3): composite_forward at 12 channels {ms:.4f} ms (device) vs plain {plain_ms:.4f} ms; "
-          f"{view['gids'].shape[0]} pairs")
-    records = [forward_entry(err, ms, plain_ms, view)]
+    records = [time_forward(view, "switches (s3) target views")]
     records += backward_kernel_phase(view, seed)
     records[1]["channels"] = 12
     records[2]["row"] = 18
-    fast_records = fast_kernel_checks(sg, shape, seed, "switches (s3) target views")
+    fast_records = fast_kernel_times(sg, shape, seed, "switches (s3) target views")
     del view, sg
     serve_batch = make_batch(np.random.default_rng(seed), 2, 4, size, device)
     model.train()
     batch = model.data_shim(make_batch(np.random.default_rng(seed + 2), 2, 4, size, device, 2))
     _, _, _, _, launches = timed_steps("switches (s3) variational=latents train", state, train_step, batch,
                                        seed + 3, 2)
-    by_channels = launches["composite_forward_by_channels"]
     n = 2 * passes(2 * 4)
-    if by_channels.get(12) != n or launches["composite_backward"] != n or launches["reduce_pairs"] != n:
+    if (launched("composite_forward", channels=12, counts=launches), launched("composite_backward", counts=launches),
+            launched("reduce_pairs", counts=launches)) != (n, n, n):
         raise AssertionError(f"(s3): the 12-channel kernels ran {launches}, not once a pass, {n} in 2 steps")
     # At precision fast: the decoder without gradient on a batch's mean and
     # logvar Gaussians, as the step renders them (the coef variant once a
@@ -2678,11 +2268,11 @@ def switch_latents(seed: int, device, size: int = 256) -> tuple[list[dict], dict
         model.decoder.cfg.precision = "exact"
     if not all(torch.isfinite(x).all() for x in (served.color, served.feature_posterior.mean, served.depth)):
         raise AssertionError("(s3) at precision fast: non-finite render")
-    expected = ({"composite_forward": {"coef": {12: passes(4)}}, "composite_backward": {}},
-                {"composite_forward": {"fast": {12: passes(8)}}, "composite_backward": {"fast": {12: passes(8)}}})
-    if (serve_launches["by_variant"], fast_launches["by_variant"]) != expected:
-        raise AssertionError(f"(s3) at precision fast: launches {serve_launches['by_variant']} serving, "
-                             f"{fast_launches['by_variant']} training, not {expected}")
+    expected = ({("composite_forward", "coef", 12): passes(4)},
+                {("composite_forward", "fast", 12): passes(8), ("composite_backward", "fast", 12): passes(8)})
+    got = (composite_launches(serve_launches), composite_launches(fast_launches))
+    if got != expected:
+        raise AssertionError(f"(s3) at precision fast: launches {got[0]} serving, {got[1]} training, not {expected}")
     for record in fast_records:
         record["launches"] = launches_at(serve_launches if record["variant"] == "coef" else fast_launches, record)
     return records + fast_records, launches
@@ -2777,14 +2367,14 @@ def switch_remat_bf16(seed: int, device, size: int = 256) -> None:
         if abs(total - plain_total) > 1e-6 * abs(plain_total) or err > max(1e-6, 4 * floor_err):
             raise AssertionError(f"(s4) remat {policy} differs from the plain step")
         n = 2 * passes(2 * 4)
-        if launches["composite_forward"] != n or launches["duplicate_with_keys"] != n:
-            raise AssertionError(f"(s4) remat {policy}: {launches['composite_forward']} forward launches, not {n}: "
+        if launched("composite_forward", counts=launches) != n or launched("duplicate_with_keys", counts=launches) != n:
+            raise AssertionError(f"(s4) remat {policy}: {launched('composite_forward', counts=launches)} forward launches, not {n}: "
                                  "the pass and its recomputation")
         del out
     mcfg.remat, mcfg.remat_policy = False, "nothing"
     model.decoder.cfg.remat = False
     torch.backends.cudnn.deterministic = False
-    remat_peaks(stages, card())
+    remat_peaks(stages, device_name(device))
 
     for dtype in ("bfloat16", "vae:bfloat16,lpips:bfloat16,disc:bfloat16"):
         mcfg.compute_dtype = dtype
@@ -2878,7 +2468,7 @@ def switch_backbones(seed: int, device, size: int = 256) -> None:
 def switches_phase(seed: int, device) -> list[dict]:
     """(s1)-(s6); returns the 12-channel composite kernels' and the row-18
     reduce_pairs' records."""
-    print(f"switches phase on {card()}")
+    print(f"switches phase on {device_name(device)}")
     start = time.perf_counter()
     switch_sites(seed, device)
     torch.cuda.empty_cache()
@@ -2887,112 +2477,14 @@ def switches_phase(seed: int, device) -> list[dict]:
     records, launches = switch_latents(seed, device)
     for record in records:
         if "launches" not in record:
-            record["launches"] = (launches["composite_forward_by_channels"][12]
-                                  if record["name"] == "composite_forward" else launches[record["name"]])
+            record["launches"] = launched(record["name"], channels=12 if record["name"] == "composite_forward" else None,
+                                          counts=launches)
     torch.cuda.empty_cache()
     switch_remat_bf16(seed, device)
     torch.cuda.empty_cache()
     switch_backbones(seed, device)
     print(f"switches phase: {time.perf_counter() - start:.1f} s")
     return records
-
-
-def small_gradient_check(seed: int, device) -> None:
-    """The narrow model's train-step gradients through the tiled kernels
-    against those through the dense oracle, same weights and noise;
-    normalised by each leaf's largest gradient, atol 5e-3 (the JAX
-    package's tiled-vs-dense gradient tolerance). The depth head is left
-    unscaled: on a mostly opaque scene the tiled path stops each pixel at
-    T < 1e-4 and the dense oracle never stops, which moves the gradients
-    of a few encoder leaves by ~7e-3 by design (no kernel fault)."""
-    from latentsplat_tpu_torch.config import load_config
-    from latentsplat_tpu_torch.ops.rasterize import kernels
-    from latentsplat_tpu_torch.training.step import generator_grads, make_step_flags
-
-    cfg = load_config("re10k", SMALL_OVERRIDES)
-    state, losses, _ = build_trainer(cfg, seed, device, peaked_depth=False)
-    batch = state.model.data_shim(make_batch(np.random.default_rng(seed), 2, 2, 32, device))
-    gen = torch.Generator(device=device).manual_seed(seed)
-    gpp = cfg.model.encoder.gaussians_per_pixel
-    d_sh = (cfg.model.encoder.gaussian_adapter.feature_sh_degree + 1) ** 2
-    c = cfg.model.autoencoder.latent_channels
-    noise = {
-        "depth": torch.rand((1, 2, 32 * 32, 1, gpp), generator=gen, device=device),
-        "gaussians": torch.randn((1, 2 * 32 * 32 * gpp, c, d_sh), generator=gen, device=device),
-        "latent": torch.randn((1, 2, 32, 32, c), generator=gen, device=device),
-    }
-    flags = make_step_flags(losses, TRAIN_STEP)
-    # Every kernel but shade_project, which a render that needs gradients
-    # bypasses (the plain shade runs).
-    before = {k: v for k, v in kernels.launch_counts.items() if k != "shade_project"}
-    tiled, _, _, _ = generator_grads(state, losses, flags, batch, TRAIN_STEP, noise=noise)
-    if not all(kernels.launch_counts[k] > before[k] for k in before):
-        raise AssertionError("the tiled gradients did not run every kernel")
-    state.model.decoder.cfg.backend = "dense"
-    dense, _, _, _ = generator_grads(state, losses, flags, batch, TRAIN_STEP, noise=noise)
-    state.model.decoder.cfg.backend = "tiled"
-    # A leaf whose gradient is zero but for rounding (a conv bias right
-    # before a GroupNorm) is normalised by 1e-4 of the largest gradient.
-    floor = 1e-4 * max(g.abs().max() for g in dense.values())
-    errs = sorted(
-        (((tiled[name] - g).abs().max() / torch.clamp(g.abs().max(), min=floor)).item(), name)
-        for name, g in dense.items()
-    )
-    worst = errs[-1][0]
-    print(f"small input, train-step gradients tiled vs dense oracle: {len(dense)} leaves, normalised "
-          f"by each leaf's largest gradient (floor {floor.item():.3e}); worst "
-          + ", ".join(f"{n} {e:.3e}" for e, n in reversed(errs[-3:])))
-    if worst > 5e-3:
-        raise AssertionError("tiled train-step gradients disagree with the dense oracle")
-
-
-def small_input_check(seed: int, device) -> None:
-    """Tiled (kernel) render of a narrow model against the dense oracle."""
-    from latentsplat_tpu_torch.config import load_config
-    from latentsplat_tpu_torch.model.latentsplat import render_full
-
-    cfg = load_config("re10k", SMALL_OVERRIDES)
-    model = build_model(cfg, seed, device)
-    batch = make_batch(np.random.default_rng(seed), 2, 2, 32, device)
-    tiled = render_full(model, batch, deterministic=True)
-    model.decoder.cfg.backend = "dense"
-    dense = render_full(model, batch, deterministic=True)
-    errs = {k: (tiled[k] - dense[k]).abs().max().item() for k in ("render", "depth", "image")}
-    print(f"small input, tiled vs dense oracle: {errs}")
-    if errs["render"] > 2e-4 or errs["depth"] > 2e-3 or errs["image"] > 2e-3:
-        raise AssertionError(f"tiled render disagrees with the dense oracle: {errs}")
-
-
-def small_depth_backward_check(seed: int, device) -> None:
-    """composite_backward at 4 channels (render_depth's payload) against its
-    plain version on a pass of the narrow model's 2 target views at 32x32, with a seeded
-    random cotangent: 1e-4 of each gradient column's largest value, the
-    same bits on a second launch; reduce_pairs over its rows (10 floats)
-    exactly against its plain version on the CPU."""
-    from latentsplat_tpu_torch.config import load_config
-    from latentsplat_tpu_torch.ops.rasterize import kernels
-
-    model = build_model(load_config("re10k", SMALL_OVERRIDES), seed, device)
-    sg, shape = target_views(model, make_batch(np.random.default_rng(seed), 2, 2, 32, device), seed,
-                             depth_payload=True)
-    view = depth_view(sg, shape)
-    check_forward(view, "small input")
-    gen = torch.Generator(device=device).manual_seed(seed + 2)
-    n = view["items"]
-    args = (view["gids"], view["ranges"], view["order"], view["attrs"], view["tiles_x"], shape, view["last"],
-            view["t_final"], torch.randn((n, 4, *shape), generator=gen, device=device),
-            torch.randn((n, *shape), generator=gen, device=device))
-    d_rows = kernels.composite_backward(*args)
-    ref = kernels.composite_backward_reference(*args)
-    torch.cuda.synchronize()
-    err = ((d_rows - ref).abs() / ref.abs().amax(dim=0).clamp(min=1e-30)).max().item()
-    offsets = torch.cumsum(view["counts"], dim=0, dtype=torch.int64)
-    rows = kernels.reduce_pairs(d_rows, offsets)
-    exact = torch.equal(rows.cpu(), kernels.reduce_pairs_reference(d_rows.cpu(), offsets.cpu()))
-    print(f"small input, composite_backward at 4 channels: {d_rows.shape[0]} pair rows, max error relative to each "
-          f"column's largest value {err:.3e} (tolerance {BACKWARD_RTOL}); reduce_pairs exact {exact}")
-    if not (err <= BACKWARD_RTOL and torch.equal(d_rows, kernels.composite_backward(*args)) and exact):
-        raise AssertionError("composite_backward or reduce_pairs at 4 channels disagrees with its plain version")
 
 
 # -- the parallel phase ----------------------------------------------------------
@@ -3313,7 +2805,7 @@ def parallel_step_check(cfg, seed: int, device, size: int = 256, n_repeats: int 
     # moves a sample across a bucket's edge now and then, so the total's own
     # repeats differ by more than float32's rounding.
     total_repeat = max(abs(r[0]["generator/total"] - ref_total) for r in refs[1:]) / abs(ref_total)
-    print(f"parallel (p1) on {card()}: generator/total 2 ranks {total!r}, one process {ref_total!r} "
+    print(f"parallel (p1) on {device_name(device)}: generator/total 2 ranks {total!r}, one process {ref_total!r} "
           f"(repeats {[r[0]['generator/total'] for r in refs[1:]]}); relative difference {total_err:.3e}, "
           f"the repeats' {total_repeat:.3e}")
     if total_err > max(1e-6, 4 * total_repeat) or ranks[1]["logs"]["generator/total"] != total:
@@ -3322,7 +2814,7 @@ def parallel_step_check(cfg, seed: int, device, size: int = 256, n_repeats: int 
         failures.append("no adaptive weight at step 125000")
     for key, w_split in split.items():
         err, repeat = abs(ours["logs"][key] - w_split), max(abs(r[0][key] - ref_logs[key]) for r in refs[1:])
-        print(f"parallel (p1) on {card()}: {key} 2 ranks {ours['logs'][key]!r}; one process {ref_logs[key]!r}, with its "
+        print(f"parallel (p1) on {device_name(device)}: {key} 2 ranks {ours['logs'][key]!r}; one process {ref_logs[key]!r}, with its "
               f"nll probe scene by scene {w_split!r}; difference from the latter {err:.3e}, from the former "
               f"{abs(ours['logs'][key] - ref_logs[key]):.3e}; one-process repeat {repeat:.3e}")
         if err > max(1e-6, 4 * repeat):
@@ -3346,7 +2838,7 @@ def parallel_step_check(cfg, seed: int, device, size: int = 256, n_repeats: int 
     m = [l.size for l in ref_logits[0]]
     bias = "discriminator.conv_out.bias"
     eps = float(torch.finfo(torch.float32).eps)
-    print(f"parallel (p1) on {card()}: hinge masks of the discriminator's {len(coefs)} calls ({m} logits; inside "
+    print(f"parallel (p1) on {device_name(device)}: hinge masks of the discriminator's {len(coefs)} calls ({m} logits; inside "
           f"the hinge, 2 ranks {[h['own'] for h in hinge]}, one process {[h['ref'] for h in hinge]}): "
           f"{[h['differ'] for h in hinge]} logits differ (furthest from the edge {max(h['edge'] for h in hinge):.3e}); "
           f"the repeats' against the one process {repeat_flips}; one logit's share "
@@ -3357,7 +2849,7 @@ def parallel_step_check(cfg, seed: int, device, size: int = 256, n_repeats: int 
         shares = sum(c / n * h[key] for c, n, h in zip(coefs, m, hinge))
         tol = 64 * eps * sum(abs(c) / n * h[key] for c, n, h in zip(coefs, m, hinge))
         err = abs(float(value.sum()) - shares)
-        print(f"parallel (p1) on {card()}: {bias} gradient, {label}: {float(value.sum())!r}; its masks' shares "
+        print(f"parallel (p1) on {device_name(device)}: {bias} gradient, {label}: {float(value.sum())!r}; its masks' shares "
               f"{shares!r}, apart {err:.3e} (bound {tol:.3e})")
         if err > tol:
             failures.append(f"{bias}, {label}: {float(value.sum())!r} is not its masks' shares {shares!r}")
@@ -3381,7 +2873,7 @@ def parallel_step_check(cfg, seed: int, device, size: int = 256, n_repeats: int 
         ("updated parameters", ours["params"], refs[0][2], [r[2] for r in refs[1:]], 1e-5),
     ):
         over, line = leaf_report(got, ref, repeats or [ref], floor)
-        print(f"parallel (p1) on {card()}: {label}: {line}; over: {[(n, f'{e:.2e}', f'{u:.2e}') for n, e, u in over[:6]]}")
+        print(f"parallel (p1) on {device_name(device)}: {label}: {line}; over: {[(n, f'{e:.2e}', f'{u:.2e}') for n, e, u in over[:6]]}")
         if repeats and len(repeats) > 3:   # the bound of the first three repeats, beside it
             first = leaf_report(got, ref, repeats[:3], floor)[0]
             print(f"parallel (p1): {label}, bound of repeats 1-3 only: {len(first)} over: "
@@ -3390,9 +2882,9 @@ def parallel_step_check(cfg, seed: int, device, size: int = 256, n_repeats: int 
             failures.append(f"{len(over)} {label}")
     for r, rank in enumerate(ranks):
         for i, launches in enumerate(rank["launches"]):
-            if min((launches[k] for k in ALL_KERNELS), default=1) < 1:
+            if min((launched(k, counts=launches) for k in ALL_KERNELS), default=1) < 1:
                 failures.append(f"rank {r}'s step {i + 1} launches {launches}")
-    print(f"parallel (p1) on {card()}: seconds per step (host clock, synchronized) rank 0 "
+    print(f"parallel (p1) on {device_name(device)}: seconds per step (host clock, synchronized) rank 0 "
           f"{[round(x, 4) for x in ranks[0]['seconds']]}, rank 1 {[round(x, 4) for x in ranks[1]['seconds']]}; "
           f"one process with both scenes {[round(x, 4) for x in ref_s]}; peak memory rank 0 "
           f"{ranks[0]['peak'] / 2**30:.3f} GiB, rank 1 {ranks[1]['peak'] / 2**30:.3f} GiB; state broadcast "
@@ -3456,7 +2948,7 @@ def parallel_render_check(cfg, seed: int, device, size: int = 256) -> None:
     for field in ("color", "feature", "mask", "depth", "num_pairs"):
         if not torch.equal(getattr(outs["plain"], field), getattr(outs["view_parallel"], field)):
             raise AssertionError(f"the view-parallel render's {field} differs from the plain render's")
-    print(f"parallel (p2) on {card()}: 30 views at {size}x{size}, view-parallel over 2 shards on one card bit-equal "
+    print(f"parallel (p2) on {device_name(device)}: 30 views at {size}x{size}, view-parallel over 2 shards on one card bit-equal "
           f"to the plain render; {seconds['view_parallel']:.4f} s against {seconds['plain']:.4f} s (host clock)")
 
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -3475,7 +2967,7 @@ def parallel_render_check(cfg, seed: int, device, size: int = 256) -> None:
     kernels = {k: sum(1 for e in events if e.get("cat") == "kernel" and f"{k}_kernel" in e.get("name", ""))
                for k in ALL_KERNELS}
     found = sorted(spans & {"render_full", "render_backward"})
-    print(f"parallel (p3) on {card()}: the trace holds the spans {found} and the kernels {kernels} "
+    print(f"parallel (p3) on {device_name(device)}: the trace holds the spans {found} and the kernels {kernels} "
           f"({len(events)} events)")
     if not {"render_full", "render_backward"} <= spans or min(kernels.values(), default=1) < 1:
         raise AssertionError("the profiler's trace lacks an annotated span or a kernel")
@@ -3533,8 +3025,8 @@ def paper_check(rendered: Path, scores: Path, out: Path) -> None:
         "features.png": grid(column("Ref.", half), column("Target View"), column("Color")),
     }
     sizes = {name: load_image(out / name).shape[:2] for name in expected}
-    print(f"parallel (p4) on {card()}: the six paper generators over {len(pngs)} test PNGs in {seconds:.2f} s; "
-          f"figures {sizes}")
+    print(f"parallel (p4) on {device_name(CARD)}: the six paper generators over {len(pngs)} test PNGs in "
+          f"{seconds:.2f} s; figures {sizes}")
     if sizes != expected:
         raise AssertionError(f"paper figures of sizes {sizes}, not {expected}")
 
@@ -3624,7 +3116,7 @@ def parent_turns(parent: str) -> list:
         if proc.returncode or line is None:
             raise AssertionError(f"--parent: the {turn}'s turn failed: {proc.stderr[-4000:]}")
         turns.append((turn, json.loads(line[5:])))
-        print(f"parent vs this tree on {card()}, turn {len(turns)} ({turn}): {line[5:]}")
+        print(f"parent vs this tree on {device_name(CARD)}, turn {len(turns)} ({turn}): {line[5:]}")
     return turns
 
 
@@ -3635,53 +3127,62 @@ def pass_phase(seed: int, device) -> dict:
     """A render call's items in one pass against one item a pass (the bound
     api.PASS_ROWS patched to 1): bench_render's 64 views of 393,216
     Gaussians at 256x256, at exact and at fast (serving, the coef
-    variant), without gradient: color, feature, mask, depth and num_pairs
-    the same bits, one pass and one host read (kernels.host_reads, and the
-    synchronizing calls that torch.cuda's sync debug mode reports) against
-    64 and 64; then a train render of 2 scenes x 4 views of that scene
-    (the second scene's opacities scaled by 0.9) with gradient at exact
-    and fast: the forward the same bits, each input's gradient within
-    BACKWARD_RTOL of its largest value (fast: or one bfloat16 step of the
-    value), the per-item passes summing a scene's gradient over its views
-    in another order. Each one-pass render's peak of allocated memory
-    above what was allocated before it, over its (item, Gaussian) rows,
-    is printed: what api.PASS_ROWS is sized from. Returns the seconds of
-    each render and these bytes a row."""
+    variant), without gradient: one pass and one host read (the
+    synchronizing calls that torch.cuda's sync debug mode reports in the
+    timed call, and the `host_read.pair_totals` spans of one more) against
+    64 and 64; then a train
+    render of 2 scenes x 4 views of that scene (the second scene's
+    opacities scaled by 0.9) with gradient at exact and fast, without a
+    shade_project launch. Each one-pass render's peak of allocated memory
+    above what was allocated before it (the train render's with its
+    backward), over its (item, Gaussian) rows, is printed: what
+    api.PASS_ROWS is sized from. Returns the seconds of each render and
+    these bytes a row. tests/test_torch_cuda.py holds a pass's outputs and
+    gradients to those of one item a pass."""
     import warnings
 
-    from latentsplat_tpu_torch.ops.rasterize import api, kernels
+    from latentsplat_tpu_torch.ops.rasterize import api
     from latentsplat_tpu_torch.scripts.bench_render import make_scene
 
     scene = make_scene(seed, device=device)
     names = ("color", "feature", "mask", "depth")
     out = {}
 
-    def call(precision: str, one_item: bool, inputs: dict, grad: bool):
+    def render(precision: str, one_item: bool, inputs: dict):
         old = api.PASS_ROWS
         api.PASS_ROWS = 1 if one_item else old
-        reset_launches()
-        reads = dict(kernels.host_reads)
         try:
-            sync(device)
-            start = time.perf_counter()
-            with warnings.catch_warnings(record=True) as caught, torch.set_grad_enabled(grad):
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    result = api.render(
-                        inputs["extrinsics"], inputs["intrinsics"], inputs["near"], inputs["far"], (256, 256),
-                        inputs["background_color"], inputs["gaussian_means"], inputs["gaussian_covariances"],
-                        inputs["gaussian_opacities"], inputs["gaussian_color_sh"], inputs["gaussian_feature_sh"],
-                        precision=precision)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            sync(device)
-            seconds = time.perf_counter() - start
+            return api.render(
+                inputs["extrinsics"], inputs["intrinsics"], inputs["near"], inputs["far"], (256, 256),
+                inputs["background_color"], inputs["gaussian_means"], inputs["gaussian_covariances"],
+                inputs["gaussian_opacities"], inputs["gaussian_color_sh"], inputs["gaussian_feature_sh"],
+                precision=precision)
         finally:
             api.PASS_ROWS = old
+
+    def call(precision: str, one_item: bool, inputs: dict, grad: bool):
+        reset_launches()
+        sync(device)
+        start = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught, torch.set_grad_enabled(grad):
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                result = render(precision, one_item, inputs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sync(device)
+        seconds = time.perf_counter() - start
         syncs = sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
-        reads = {k: kernels.host_reads[k] - v for k, v in reads.items()}
-        return result, seconds, read_launches(), reads, syncs
+        return result, seconds, read_launches(), syncs
+
+    def reads_of(precision: str, one_item: bool) -> dict:
+        """The host reads of one more render, untimed: the profiler session
+        that keeps their spans turns every span on."""
+        with host_reads() as reads, torch.no_grad():
+            render(precision, one_item, scene)
+            sync(device)
+        return reads
 
     def row_bytes(base: int, rows: int) -> float:
         return (torch.cuda.max_memory_allocated(device) - base) / rows
@@ -3692,29 +3193,26 @@ def pass_phase(seed: int, device) -> dict:
             sync(device)
             torch.cuda.reset_peak_memory_stats(device)
             base = torch.cuda.memory_allocated(device)
-            one, one_s, one_launches, one_reads, one_syncs = call(precision, False, scene, False)
+            one, one_s, one_launches, one_syncs = call(precision, False, scene, False)
             out[f"{precision}_pass_bytes_a_row"] = row_bytes(base, scene["extrinsics"].shape[1] * gaussians)
-            per, per_s, per_launches, per_reads, per_syncs = call(precision, True, scene, False)
+            per, per_s, per_launches, per_syncs = call(precision, True, scene, False)
+        del one, per
+        one_reads, per_reads = reads_of(precision, False), reads_of(precision, True)
         n_views = scene["extrinsics"].shape[1]
-        same = {k: torch.equal(getattr(one, k), getattr(per, k)) for k in (*names, "num_pairs")}
         print(f"pass phase, {precision}: {n_views} views in one pass {one_s:.4f} s (launches "
-              f"{one_launches['duplicate_with_keys']}, host reads {one_reads}, synchronizing calls {one_syncs}), one "
-              f"item a pass {per_s:.4f} s (launches {per_launches['duplicate_with_keys']}, host reads {per_reads}, "
-              f"synchronizing calls {per_syncs}); the same bits {same}; pairs per view "
-              f"{one.num_pairs.reshape(-1).tolist()[:8]}...; one pass's peak "
-              f"{out[f'{precision}_pass_bytes_a_row']:.1f} B a (item, Gaussian) row")
-        if not all(same.values()):
-            raise AssertionError(f"pass phase, {precision}: one pass and one item a pass differ: {same}")
-        if (one_launches["shade_project"], one_launches["tile_cull"], one_launches["duplicate_with_keys"],
-                one_launches["composite_forward"], one_reads["duplicate_with_keys"], one_syncs) != (1,) * 6:
+              f"{launched('duplicate_with_keys', counts=one_launches)}, host reads {one_reads}, synchronizing calls {one_syncs}), one "
+              f"item a pass {per_s:.4f} s (launches {launched('duplicate_with_keys', counts=per_launches)}, host reads {per_reads}, "
+              f"synchronizing calls {per_syncs}); one pass's peak {out[f'{precision}_pass_bytes_a_row']:.1f} B a "
+              f"(item, Gaussian) row")
+        if (launched("shade_project", counts=one_launches), launched("tile_cull", counts=one_launches), launched("duplicate_with_keys", counts=one_launches),
+                launched("composite_forward", counts=one_launches), one_reads.get("pair_totals"), one_syncs) != (1,) * 6:
             raise AssertionError(f"pass phase, {precision}: one pass launched {one_launches} with host reads "
                                  f"{one_reads} and {one_syncs} synchronizing calls, not one each")
-        if (per_launches["shade_project"], per_launches["tile_cull"], per_launches["composite_forward"],
-                per_reads["duplicate_with_keys"], per_syncs) != (n_views,) * 5:
+        if (launched("shade_project", counts=per_launches), launched("tile_cull", counts=per_launches), launched("composite_forward", counts=per_launches),
+                per_reads.get("pair_totals"), per_syncs) != (n_views,) * 5:
             raise AssertionError(f"pass phase, {precision}: one item a pass launched {per_launches} with host "
                                  f"reads {per_reads} and {per_syncs} synchronizing calls, not {n_views} each")
         out[f"{precision}_one_pass_s"], out[f"{precision}_one_item_a_pass_s"] = one_s, per_s
-        del one, per
 
     # The train render: 2 scenes x 4 views with gradient.
     train = {}
@@ -3726,42 +3224,27 @@ def pass_phase(seed: int, device) -> dict:
     del scene
     gen = torch.Generator(device=device).manual_seed(seed + 5)
     for precision in ("exact", "fast"):
-        grads = []
         for one_item in (False, True):
             inputs = {k: v.clone().requires_grad_(v.dtype.is_floating_point and k not in ("near", "far"))
                       for k, v in train.items()}
             sync(device)
             torch.cuda.reset_peak_memory_stats(device)
             base = torch.cuda.memory_allocated(device)
-            result, seconds, launches, reads, _ = call(precision, one_item, inputs, True)
-            if launches["shade_project"]:
+            result, seconds, launches, _ = call(precision, one_item, inputs, True)
+            if launched("shade_project", counts=launches):
                 raise AssertionError(f"pass phase, train render at {precision}: shade_project ran under autograd")
             weights = [torch.randn(getattr(result, k).shape, generator=gen.manual_seed(seed + i), device=device)
                        for i, k in enumerate(names)]
             loss = sum((getattr(result, k) * w).sum() for k, w in zip(names, weights))
             leaves = [k for k, v in inputs.items() if v.requires_grad]
-            grads.append((result, dict(zip(leaves, torch.autograd.grad(loss, [inputs[k] for k in leaves])))))
+            grads = torch.autograd.grad(loss, [inputs[k] for k in leaves])
             peak = ""
             if not one_item:
                 out[f"train_{precision}_pass_bytes_a_row"] = row_bytes(base, train["near"].numel() * gaussians)
                 peak = f", peak {out[f'train_{precision}_pass_bytes_a_row']:.1f} B a (item, Gaussian) row"
             print(f"pass phase, train render at {precision}, {'one item a pass' if one_item else 'one pass'}: "
-                  f"{seconds:.4f} s forward, launches {launches['composite_forward']}, host reads {reads}{peak}")
-        (one, g_one), (per, g_per) = grads
-        same = {k: torch.equal(getattr(one, k), getattr(per, k)) for k in (*names, "num_pairs")}
-        errs = {}
-        for k, g in g_one.items():
-            scale = g.abs().max().clamp(min=1e-30)
-            slack = BACKWARD_RTOL * scale + (BF16_STEP * g_per[k].abs() if precision == "fast" else 0.0)
-            errs[k] = ((g - g_per[k]).abs().max() / scale).item()
-            if ((g - g_per[k]).abs() > slack).any():
-                raise AssertionError(f"pass phase, train render at {precision}: the gradient of {k} differs by "
-                                     f"{errs[k]:.3e} of its largest value")
-        print(f"pass phase, train render at {precision}: forward the same bits {same}; gradients, largest difference "
-              f"relative to each input's largest value: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-        if not all(same.values()):
-            raise AssertionError(f"pass phase, train render at {precision}: the forwards differ: {same}")
-        del grads, one, per, g_one, g_per
+                  f"{seconds:.4f} s forward, launches {launched('composite_forward', counts=launches)}{peak}")
+            del result, loss, grads, inputs
     return out
 
 
@@ -3785,9 +3268,10 @@ def bench_phase(seed: int, device) -> dict:
     bench_render (64 views of 393,216 Gaussians at 256x256, fast then
     exact, one pass a call) with duplicate_with_keys and
     composite_forward<8> launched exactly 6 times at each precision (coef,
-    then exact) in its warm-up and 5 timed calls, and one host read a call
-    (its operation count and PSNR, which launch more, run after), no pair
-    dropped, finite value_fast, value_exact
+    then exact) in its warm-up and 5 timed calls (its operation count and
+    PSNR, which launch more, run after), one host read a call (the
+    `host_read.pair_totals` spans of one more call at each precision), no
+    pair dropped, finite value_fast, value_exact
     and fast_vs_exact_psnr_db; bench_precision_knobs --views 8 with every
     mode finite; the three stage benches with finite positive stage
     times; bench_trace_step's top kernels, with device self time within
@@ -3795,12 +3279,11 @@ def bench_phase(seed: int, device) -> dict:
     sharing the card. Records go to a temp dir. Returns each run's
     launches."""
     from latentsplat_tpu_torch.entry import dryrun_multichip
-    from latentsplat_tpu_torch.ops.rasterize import kernels
     from latentsplat_tpu_torch.scripts.bench_enc_stages import main as enc_stages
     from latentsplat_tpu_torch.scripts.bench_precision_knobs import MODES as PRECISION_KNOB_MODES
     from latentsplat_tpu_torch.scripts.bench_precision_knobs import main as precision_knobs_bench
     from latentsplat_tpu_torch.scripts.bench_render import PRECISIONS as RENDER_PRECISIONS
-    from latentsplat_tpu_torch.scripts.bench_render import make_scene, summarize, time_render
+    from latentsplat_tpu_torch.scripts.bench_render import make_scene, render_scene, summarize, time_render
     from latentsplat_tpu_torch.scripts.bench_render_stages import main as render_stages
     from latentsplat_tpu_torch.scripts.bench_trace_step import main as trace_step
     from latentsplat_tpu_torch.scripts.bench_train import main as train_bench
@@ -3820,14 +3303,14 @@ def bench_phase(seed: int, device) -> dict:
             expected = {"duplicate_with_keys": per_step * (2 if result["decoder_remat"] else 1),
                         "composite_backward": per_step, "reduce_pairs": per_step, "shade_project": 0}
             expected["composite_forward"] = expected["tile_cull"] = expected["duplicate_with_keys"]
-            got = {k: launches[label][k] for k in expected}
+            got = {k: launched(k, counts=launches[label]) for k in expected}
             print(f"bench phase: bench_train {' '.join(argv) or '(default)'}: {result['value']!r} steps/s, peak "
                   f"{result['peak_gib']!r} GiB, {result['train_flops_per_step']!r} FLOPs a step, train_mfu "
                   f"{result['train_mfu']!r}; launches {got} over {result['steps_run']} steps")
             variant = "fast" if "--fast" in argv else "exact"
-            by_variant = {"composite_forward": {variant: {8: expected["composite_forward"]}},
-                          "composite_backward": {variant: {8: expected["composite_backward"]}}}
-            if got != expected or launches[label]["by_variant"] != by_variant:
+            by_variant = {("composite_forward", variant, 8): expected["composite_forward"],
+                          ("composite_backward", variant, 8): expected["composite_backward"]}
+            if got != expected or composite_launches(launches[label]) != by_variant:
                 raise AssertionError(f"bench_train {argv}: launches {launches[label]}, not {expected} ({by_variant})")
             if not (math.isfinite(result["value"]) and result["value"] > 0 and result["train_flops_per_step"] > 0):
                 raise AssertionError(f"bench_train {argv}: {result}")
@@ -3836,19 +3319,27 @@ def bench_phase(seed: int, device) -> dict:
 
         scene = make_scene(seed, device=device)
         reset_launches()
-        reads = dict(kernels.host_reads)
         timings = {p: time_render(scene, 256, precision=p) for p in RENDER_PRECISIONS}
         sync(device)
         launches["render"] = read_launches()
-        reads = {k: kernels.host_reads[k] - v for k, v in reads.items()}
         n_calls, n_views = 1 + len(timings["fast"]["seconds"]), scene["extrinsics"].shape[1]
-        n = n_calls * passes(n_views, scene["gaussian_means"].shape[1])
-        if reads != {"duplicate_with_keys": 2 * n, "covering_cap": 0}:
-            raise AssertionError(f"bench_render: host reads {reads}, not one a pass ({2 * n})")
+        n_passes = passes(n_views, scene["gaussian_means"].shape[1])
+        n = n_calls * n_passes
+        # The host's reads of the card, on one more call at each precision
+        # (untimed: the profiler session that keeps the spans costs host time).
+        with host_reads() as reads:
+            for p in RENDER_PRECISIONS:
+                render_scene(scene, 256, 0, p)
+            sync(device)
+        reads = {k: reads.get(k, 0) for k in ("pair_totals", "covering_cap")}
+        if reads != {"pair_totals": len(RENDER_PRECISIONS) * n_passes, "covering_cap": 0}:
+            raise AssertionError(f"bench_render: host reads {reads} in a call at each precision, not one a pass "
+                                 f"({n_passes})")
         expected = {"shade_project": 2 * n, "tile_cull": 2 * n, "duplicate_with_keys": 2 * n,
                     "composite_forward": 2 * n, "composite_backward": 0, "reduce_pairs": 0}
-        by_variant = {"composite_forward": {"coef": {8: n}, "exact": {8: n}}, "composite_backward": {}}
-        if {k: launches["render"][k] for k in expected} != expected or launches["render"]["by_variant"] != by_variant:
+        by_variant = {("composite_forward", "coef", 8): n, ("composite_forward", "exact", 8): n}
+        got = {k: launched(k, counts=launches["render"]) for k in expected}
+        if got != expected or composite_launches(launches["render"]) != by_variant:
             raise AssertionError(f"bench_render: launches {launches['render']}, not {expected} ({by_variant})")
         render = summarize(scene, 256, timings, device, Path(records))   # raises on a dropped pair
         print(f"device: {render['device']}")
@@ -3857,7 +3348,8 @@ def bench_phase(seed: int, device) -> dict:
               f"a view), value_exact {render['value_exact']!r} views/s ({render['ms_per_view_exact']!r} ms), "
               f"fast_vs_exact_psnr_db {render['fast_vs_exact_psnr_db']!r}, {render['pairs_per_view_mean']!r} pairs a "
               f"fast view ({render['pairs_per_view_mean_exact']!r} exact), render_mfu {render['render_mfu']!r}; "
-              f"launches {by_variant} and host reads {reads} in {n_calls} calls of {n_views} views at each precision")
+              f"launches {by_variant} in {n_calls} calls of {n_views} views at each precision, host reads {reads} in "
+              f"one more call at each")
         if not all(math.isfinite(render[k]) and render[k] > 0
                    for k in ("value", "value_exact", "render_flops_per_view", "fast_vs_exact_psnr_db")):
             raise AssertionError(f"bench_render: {render}")
@@ -3880,7 +3372,7 @@ def bench_phase(seed: int, device) -> dict:
             raise AssertionError(f"bench_trace_step: device self time {traced['self_ms']} ms, wall {traced['wall_ms']} ms")
     torch.backends.cudnn.allow_tf32 = False
     dry = dryrun_multichip(2)
-    print(f"bench phase on {card()}: {time.perf_counter() - start:.1f} s in all; stages {json.dumps(stages)}; "
+    print(f"bench phase on {device_name(device)}: {time.perf_counter() - start:.1f} s in all; stages {json.dumps(stages)}; "
           f"trace: wall {traced['wall_ms']:.1f} ms, device self {traced['self_ms']:.1f} ms; dryrun_multichip(2) "
           f"generator/total {dry['generator/total']!r}")
     return launches
@@ -3914,7 +3406,7 @@ def convergence_phase(seed: int, device) -> dict:
     launches = read_launches()
     curves = record["curves"]
     render, combined = curves["train/target_render/psnr"], curves["train/target_combined/psnr"]
-    print(f"convergence phase on {card()}: {steps} steps at {size}x{size}, seed {seed}, sh_l2 0.01, "
+    print(f"convergence phase on {device_name(device)}: {steps} steps at {size}x{size}, seed {seed}, sh_l2 0.01, "
           f"TF32 {record['tf32']}, {time.perf_counter() - start:.1f} s in all, median step "
           f"{record['seconds_per_step_median']:.4f} s, first {record['first_step_seconds']:.2f} s; launches {launches}")
     print("convergence phase PSNR (step: render, combined): "
@@ -3931,10 +3423,31 @@ def convergence_phase(seed: int, device) -> dict:
     if not gain >= CONVERGENCE_GAIN_DB:
         raise AssertionError(f"convergence phase: render PSNR gained {gain:.3f} dB, under {CONVERGENCE_GAIN_DB}")
     n = steps * passes(4, 2 * size * size * 3)
-    wrong = {k: launches[k] for k in ALL_KERNELS if launches[k] != n}
+    wrong = {k: launched(k, counts=launches) for k in ALL_KERNELS if launched(k, counts=launches) != n}
     if wrong:
         raise AssertionError(f"convergence phase: launches {wrong}, not {n} each")
     return launches
+
+
+def card_tests() -> None:
+    """CARD_TESTS in a pytest subprocess on the card (each kernel against
+    its plain version, at the shapes of the cells too); raises unless every
+    test it collects passes. A test skips where the subprocess sees no CUDA
+    device, so a skip fails here too: the counts are read from pytest's
+    JUnit XML report."""
+    import xml.etree.ElementTree as ElementTree
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_card_tests_") as tmp:
+        report = Path(tmp) / "card_tests.xml"
+        proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", CARD_TESTS, "-q", "-p",
+                               "no:cacheprovider", f"--junitxml={report}"], cwd=Path(__file__).resolve().parent)
+        suite = ElementTree.parse(report).getroot() if report.exists() else None
+    suite = suite.find("testsuite") if suite is not None and suite.tag != "testsuite" else suite
+    counts = {k: int(suite.get(k)) for k in ("tests", "failures", "errors", "skipped")} if suite is not None else {}
+    print(f"card tests: {CARD_TESTS} exited {proc.returncode} in {time.perf_counter() - start:.1f} s: {counts}")
+    if proc.returncode or not counts.get("tests") or any(counts[k] for k in ("failures", "errors", "skipped")):
+        raise AssertionError(f"the card tests did not all run and pass (pytest exit code {proc.returncode}, {counts})")
 
 
 def main() -> int:
@@ -3963,6 +3476,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
 
+    card_tests()
     if args.parent:
         parent_turns(args.parent)
     cfg = load_config("re10k")
@@ -3993,19 +3507,19 @@ def main() -> int:
     # trainer's fit (a)+(b) and of its test mode (c).
     for entry in results:
         path = serve_launches if entry["name"] in FORWARD_KERNELS else train_launches
-        entry["launches"] = path[entry["name"]]
-        entry["trainer_fit_launches"] = fit_launches[entry["name"]]
-        entry["trainer_test_launches"] = test_launches[entry["name"]]
-        entry["data_launches"] = {run: launches[entry["name"]] for run, launches in data["launches"].items()}
-        entry["inspection_launches"] = {step: launches[entry["name"]]
-                                        for step, launches in inspection["launches"].items()}
-    depth_record["launches"] = depth_launches["composite_forward_by_channels"][4]
-    depth_record["data_launches"] = {run: launches["composite_forward_by_channels"].get(4, 0)
-                                     for run, launches in data["launches"].items()}
-    for key, launches in (("trainer_fit_launches", fit_launches), ("trainer_test_launches", test_launches)):
-        depth_record[key] = launches["composite_forward_by_channels"].get(4, 0)
-    depth_record["inspection_launches"] = {step: launches["composite_forward_by_channels"].get(4, 0)
-                                           for step, launches in inspection["launches"].items()}
+        name = entry["name"]
+        entry["launches"] = launched(name, counts=path)
+        entry["trainer_fit_launches"] = launched(name, counts=fit_launches)
+        entry["trainer_test_launches"] = launched(name, counts=test_launches)
+        entry["data_launches"] = {run: launched(name, counts=n) for run, n in data["launches"].items()}
+        entry["inspection_launches"] = {step: launched(name, counts=n) for step, n in inspection["launches"].items()}
+    depth_record["launches"] = launched("composite_forward", channels=4, counts=depth_launches)
+    depth_record["data_launches"] = {run: launched("composite_forward", channels=4, counts=n)
+                                     for run, n in data["launches"].items()}
+    for key, n in (("trainer_fit_launches", fit_launches), ("trainer_test_launches", test_launches)):
+        depth_record[key] = launched("composite_forward", channels=4, counts=n)
+    depth_record["inspection_launches"] = {step: launched("composite_forward", channels=4, counts=n)
+                                           for step, n in inspection["launches"].items()}
     results.append(depth_record)
     # The fast family's rows: coef from serving at precision fast, the
     # training variants from the train phase's fast steps.
@@ -4020,9 +3534,6 @@ def main() -> int:
     # scene of 4 target views).
     for entry in results:
         entry["parallel_launches_per_rank_step"] = launches_at(parallel["launches_per_rank_step"], entry)
-    small_input_check(args.seed, device)
-    small_depth_backward_check(args.seed, device)
-    small_gradient_check(args.seed, device)
     torch.cuda.empty_cache()
     bench_launches = bench_phase(args.seed, device)
     torch.cuda.empty_cache()
@@ -4031,12 +3542,12 @@ def main() -> int:
         entry["bench_launches"] = {run: launches_at(launches, entry) for run, launches in bench_launches.items()}
         entry["convergence_launches"] = launches_at(convergence_launches, entry)
 
-    print(f"data phase summary on {card()}: " + json.dumps({k: v for k, v in data.items() if k != "launches"}))
-    print(f"inspection phase summary on {card()}: "
+    print(f"data phase summary on {device_name(device)}: " + json.dumps({k: v for k, v in data.items() if k != "launches"}))
+    print(f"inspection phase summary on {device_name(device)}: "
           + json.dumps({k: v for k, v in inspection.items() if k != "launches"}))
-    print(f"parallel phase summary on {card()}: "
+    print(f"parallel phase summary on {device_name(device)}: "
           + json.dumps({k: v for k, v in parallel.items() if k != "launches_per_rank_step"}))
-    print(card())
+    print(device_name(device))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

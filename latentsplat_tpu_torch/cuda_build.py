@@ -9,10 +9,18 @@ reused. Nothing is built at import: the first kernel launch builds. The
 composite kernels' fast-family variants are instantiated only at the
 channel counts the splatting decoder reaches (`composite_fast_channels`:
 5, 8 and 12), beside the exact ones at 4, 5, 8 and 12.
+
+Every kernel is launched through `launch`, which calls a C entry point,
+raises on the CUDA error it reports and counts the launch in `launches`,
+keyed by (kernel, variant, channels): the kernel's name (one of KERNELS),
+a composite kernel's variant ("exact" for every other kernel) and the
+channel count a compositing kernel was launched for (0 for the others).
+`launched` sums it over any of the three.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -49,8 +57,15 @@ _SIGNATURES = {
     "group_norm_silu_backward": ([_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
 }
 
+# The kernels that `launch` counts, under these names: a C entry point's
+# variants (duplicate_with_keys64, composite_forward_fast, ...) count under
+# their kernel's.
+KERNELS = ("duplicate_with_keys", "composite_forward", "composite_backward", "reduce_pairs", "tile_cull",
+           "shade_project", "group_norm_silu", "group_norm_silu_backward")
+
 _library = None
 build_info: dict = {}
+launches: collections.Counter = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -120,7 +135,20 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def check(rc: int, name: str) -> None:
-    """Raise if a kernel's C entry point reported a CUDA error."""
+def launch(entry: str, *args, kernel: str, variant: str = "exact", channels: int = 0) -> None:
+    """Call the C entry point `entry` with `args` (loading the library on
+    first use) and count one launch of `kernel`; raises, naming the kernel
+    and counting nothing, where the entry point reports a CUDA error."""
+    rc = getattr(load_library(), entry)(*args)
     if rc != 0:
+        name = kernel if variant == "exact" else f"{kernel} ({variant})"
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    launches[kernel, variant, channels] += 1
+
+
+def launched(kernel: str, variant: str | None = None, channels: int | None = None,
+             counts: collections.Counter | None = None) -> int:
+    """Launches of `kernel` so far (in `counts`, a copy of `launches`, where
+    given), of `variant` and at `channels` where given, of any where not."""
+    return sum(n for (k, v, c), n in (launches if counts is None else counts).items()
+               if k == kernel and variant in (None, v) and channels in (None, c))

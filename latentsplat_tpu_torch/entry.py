@@ -37,6 +37,15 @@ ENTRY_SIZE = 64
 DRYRUN_SIZE = 32
 # The spawned ranks' join limit: the tiny step takes seconds on either device.
 DRYRUN_JOIN_S = 600
+# The flagship's structure at small width: the narrow model that the tests
+# and the CPU rehearsals of chip_smoke.py's phases build.
+SMALL_OVERRIDES = [
+    "model.encoder.backbone.model=dino_vits8",
+    "model.encoder.d_feature=32",
+    "model.encoder.epipolar_transformer.num_layers=1",
+    "model.encoder.epipolar_transformer.self_attention.num_layers=1",
+    "model.autoencoder.block_out_channels=[16,16,16,16]",
+]
 
 
 def resolve(device) -> torch.device:
@@ -100,6 +109,21 @@ def flagship_model(overrides: Sequence[str] = (), device=None, seed: int = 0) ->
         torch.manual_seed(seed)
         model = LatentSplat(cfg.model, tuple(cfg.dataset.background_color))
     return cfg, model.to(resolve(device))
+
+
+def like_trained(model, peaked_depth: bool = True):
+    """Random weights that look like trained ones where it matters: the
+    zero-initialized leaves get random values too, so nothing rides on a
+    zero, and (with `peaked_depth`) the depth head is scaled so that each
+    pixel's depth pdf is peaked, as a trained one is: the scene is mostly
+    opaque and the compositor's early stop is exercised."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("cls_token", "pos_embed")) or "skip_conv" in name:
+                p.normal_(0.0, 0.02)
+        if peaked_depth:
+            model.encoder.depth_predictor.projection.weight.mul_(50.0)
+    return model
 
 
 @dataclass

@@ -5,8 +5,8 @@ VAE (model/autoencoder/kl.py), over channels-last (NHWC) tensors.
 the `nn.GroupNorm` that holds gamma and beta. A CUDA tensor goes through
 the `group_norm_silu` kernel (csrc/group_norm_silu.cu): one launch of the
 forward (statistics, their merge, the normalisation with its SiLU) and one
-of the backward, counted in `kernels.launch_counts` as "group_norm_silu"
-and "group_norm_silu_backward". The kernel reads and writes float32 or
+of the backward, counted (`cuda_build.launched`) as "group_norm_silu" and
+"group_norm_silu_backward". The kernel reads and writes float32 or
 bfloat16 (the `vae:bfloat16` compute dtype) and computes in float32; any
 other dtype, or a shape it does not take, raises. Its output is
 channels-last whatever the input's layout; the backward keeps the input and
@@ -22,8 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..cuda_build import check, load_library
-from .rasterize import kernels
+from ..cuda_build import launch
 
 # A forward or backward pass splits each sample's rows into chunks: enough
 # blocks to fill the card (~2048 over the batch), none with fewer than
@@ -64,12 +63,11 @@ def forward(
     y = torch.empty_like(x, memory_format=torch.channels_last)
     partials = torch.empty((n, chunks, groups, 3), dtype=torch.float32, device=x.device)
     mean, rstd = (torch.empty((n, groups), dtype=torch.float32, device=x.device) for _ in range(2))
-    rc = load_library().group_norm_silu_forward(
-        n, h * w, c, groups, chunks, eps, int(silu), KERNEL_DTYPES[x.dtype], x.data_ptr(), weight.data_ptr(),
-        bias.data_ptr(), y.data_ptr(), partials.data_ptr(), mean.data_ptr(), rstd.data_ptr(), _stream(x.device),
+    launch(
+        "group_norm_silu_forward", n, h * w, c, groups, chunks, eps, int(silu), KERNEL_DTYPES[x.dtype], x.data_ptr(),
+        weight.data_ptr(), bias.data_ptr(), y.data_ptr(), partials.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+        _stream(x.device), kernel="group_norm_silu",
     )
-    check(rc, "group_norm_silu")
-    kernels.launch_counts["group_norm_silu"] += 1
     return y, mean, rstd
 
 
@@ -86,13 +84,11 @@ def backward(
     partials = torch.empty((n, chunks, 2, c), dtype=torch.float32, device=x.device)
     sums = torch.empty((n, 2, c), dtype=torch.float32, device=x.device)
     coef = torch.empty((n, groups, 2), dtype=torch.float32, device=x.device)
-    rc = load_library().group_norm_silu_backward(
-        n, h * w, c, groups, chunks, int(silu), KERNEL_DTYPES[x.dtype], x.data_ptr(), dy.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(), bias.data_ptr(), dx.data_ptr(), partials.data_ptr(),
-        sums.data_ptr(), coef.data_ptr(), _stream(x.device),
+    launch(
+        "group_norm_silu_backward", n, h * w, c, groups, chunks, int(silu), KERNEL_DTYPES[x.dtype], x.data_ptr(),
+        dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(), weight.data_ptr(), bias.data_ptr(), dx.data_ptr(),
+        partials.data_ptr(), sums.data_ptr(), coef.data_ptr(), _stream(x.device), kernel="group_norm_silu_backward",
     )
-    check(rc, "group_norm_silu backward")
-    kernels.launch_counts["group_norm_silu_backward"] += 1
     dgamma, dbeta = sums.sum(0)
     return dx, dgamma, dbeta
 

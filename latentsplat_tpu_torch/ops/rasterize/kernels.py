@@ -26,19 +26,8 @@ axis: channels (N, n_ch, H, W), transmittance and `last` (N, H, W). A pass
 of one item is the same code with N = 1.
 
 A wrapper given CPU tensors runs the `*_reference` version; given CUDA
-tensors it launches the kernel or raises. `launch_counts` counts kernel
-launches (not reference calls), `tile_cull`'s and `shade_project`'s too,
-and those of the
-VAE's `group_norm_silu` (ops/group_norm.py; forward and backward under
-names of their own), which are no rasterizer's; `launches_by_channels`
-splits the three compositing kernels' by the channel count they were
-launched for (`reduce_pairs`: its row's width less the 6 attributes);
-`launches_by_variant` splits the two composite kernels' by variant (see
-`variant_name`) and channel count. `host_reads` counts the reads of device
-values by the host on the card's path, by site: one a pass in
-`duplicate_with_keys` (the per-item pair totals), and one a pass in
-`tiled.covering_cap` where a render sizes its slot cap (orthographic),
-each inside a `host_read.<site>` span (misc/profiler.py).
+tensors it launches the kernel (`cuda_build.launch`, which counts each
+launch by kernel, variant and channel count) or raises.
 
 The composite kernels take the per-pair knobs of the JAX package's fast
 precision family (latentsplat_tpu/ops/rasterize/tiled.py): `f16_xy`, the
@@ -69,7 +58,7 @@ import math
 import numpy as np
 import torch
 
-from ...cuda_build import check, load_library
+from ...cuda_build import launch, load_library
 from ...misc.profiler import host_read
 from .camera import ALPHA_CLAMP, ALPHA_THRESHOLD
 
@@ -89,17 +78,6 @@ WARP_ROWS, WARP_COLS = 4, 8
 # degenerate the rounding of power could outgrow the box's margins.
 FOOTPRINT_DET_MIN = 1e-3
 
-launch_counts = {
-    "duplicate_with_keys": 0, "composite_forward": 0, "composite_backward": 0, "reduce_pairs": 0,
-    "tile_cull": 0, "shade_project": 0, "group_norm_silu": 0, "group_norm_silu_backward": 0,
-}
-launches_by_channels: dict[str, dict[int, int]] = {
-    "composite_forward": {}, "composite_backward": {}, "reduce_pairs": {},
-}
-host_reads = {"duplicate_with_keys": 0, "covering_cap": 0}
-launches_by_variant: dict[str, dict[str, dict[int, int]]] = {"composite_forward": {}, "composite_backward": {}}
-
-
 def variant_name(f16_xy: bool = False, bf16_mm: bool = False, coef: bool = False, bf16_grads: bool = False) -> str:
     """A composite kernel's variant: "exact", "fast" (f16_xy and bf16_mm,
     with bf16_grads in the backward), "coef" (fast with coef), or the one
@@ -110,15 +88,6 @@ def variant_name(f16_xy: bool = False, bf16_mm: bool = False, coef: bool = False
         return "fast"
     on = [name for name, v in (("f16_xy", f16_xy), ("bf16_mm", bf16_mm), ("bf16_grads", bf16_grads)) if v]
     return on[0] if on else "exact"
-
-
-def _count(name: str, n_ch: int, variant: str = "") -> None:
-    launch_counts[name] += 1
-    by_channels = launches_by_channels[name]
-    by_channels[n_ch] = by_channels.get(n_ch, 0) + 1
-    if variant:
-        by_variant = launches_by_variant[name].setdefault(variant, {})
-        by_variant[n_ch] = by_variant.get(n_ch, 0) + 1
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -201,7 +170,6 @@ def duplicate_with_keys(
     offsets = torch.cumsum(counts, dim=0, dtype=torch.int64)
     with host_read("pair_totals"):
         ends = offsets.reshape(items, -1)[:, -1].cpu() if g else torch.zeros(items, dtype=torch.int64)
-    host_reads["duplicate_with_keys"] += 1
     total = int(ends[-1])
     gids = torch.empty((total,), dtype=torch.int32, device=counts.device)
     keys = torch.empty((total,), dtype=torch.int64, device=counts.device)
@@ -218,14 +186,11 @@ def _launch_duplicate_with_keys(
     `mask` launches the 64-bit instantiation."""
     if gids.data_ptr() % 16 or keys.data_ptr() % 16:
         raise ValueError("duplicate_with_keys: gids and keys must be 16-byte aligned")
-    lib = load_library()
-    launch = lib.duplicate_with_keys64 if mask.dtype == torch.int64 else lib.duplicate_with_keys
-    rc = launch(
-        offsets.shape[0], offsets.data_ptr(), mask.data_ptr(), base.data_ptr(), nx.data_ptr(),
-        depth.data_ptr(), tiles_x, gids.data_ptr(), keys.data_ptr(), _stream(),
+    launch(
+        "duplicate_with_keys64" if mask.dtype == torch.int64 else "duplicate_with_keys", offsets.shape[0],
+        offsets.data_ptr(), mask.data_ptr(), base.data_ptr(), nx.data_ptr(), depth.data_ptr(), tiles_x,
+        gids.data_ptr(), keys.data_ptr(), _stream(), kernel="duplicate_with_keys",
     )
-    check(rc, "duplicate_with_keys")
-    launch_counts["duplicate_with_keys"] += 1
 
 
 # -- composite_forward -----------------------------------------------------------
@@ -550,19 +515,15 @@ def composite_forward(
     channels = torch.empty((items, n_ch, h, w), dtype=torch.float32, device=attrs.device)
     transmittance = torch.empty((items, h, w), dtype=torch.float32, device=attrs.device)
     last = torch.empty((items, h, w), dtype=torch.int32, device=attrs.device)
-    lib = load_library()
     outputs = (tiles_x, h, w, channels.data_ptr(), transmittance.data_ptr(), last.data_ptr())
+    counted = {"kernel": "composite_forward", "variant": variant, "channels": n_ch}
     if variant == "exact":
-        rc = lib.composite_forward(
-            n_ch, items, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(), attrs.data_ptr(), *outputs, _stream(),
-        )
+        launch("composite_forward", n_ch, items, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(),
+               attrs.data_ptr(), *outputs, _stream(), **counted)
     else:
-        rc = lib.composite_forward_fast(
-            n_ch, int(coef), _knob_bits(f16_xy, bf16_mm), items, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(),
-            attrs.data_ptr(), *outputs, *_block_pointers(blocks), _stream(),
-        )
-    check(rc, f"composite_forward ({variant})")
-    _count("composite_forward", n_ch, variant)
+        launch("composite_forward_fast", n_ch, int(coef), _knob_bits(f16_xy, bf16_mm), items, num_tiles,
+               gids.data_ptr(), tile_ranges.data_ptr(), attrs.data_ptr(), *outputs, *_block_pointers(blocks),
+               _stream(), **counted)
     return channels, transmittance, last
 
 
@@ -698,8 +659,8 @@ def composite_backward(
     bf16_mm needs the `blocks` that the forward filled, and splits the walk
     at the scan blocks: two CUDA launches (each scan block's suffix sums
     into a (B, PIX) float32 scratch, then one block per scan block), which
-    `launch_counts` and `launches_by_variant` count as one launch of this
-    wrapper. Without bf16_mm, one launch walks each tile serially."""
+    count as one launch of this wrapper. Without bf16_mm, one launch walks
+    each tile serially."""
     h, w = image_shape
     items, num_tiles = pass_items(tile_ranges, image_shape)
     n_ch = attrs.shape[1] - 6
@@ -732,22 +693,19 @@ def composite_backward(
         _check_blocks(blocks, tile_ranges, gids.shape[0], "composite_backward")
     # The kernel writes every row, those of pairs no pixel used as zeros.
     d_rows = torch.empty((gids.shape[0], 6 + n_ch), dtype=torch.float32, device=attrs.device)
-    lib = load_library()
     args = (items, num_tiles, gids.data_ptr(), tile_ranges.data_ptr(), order.data_ptr(), attrs.data_ptr(), tiles_x,
             h, w, last.data_ptr(), t_final.data_ptr(), g_channels.data_ptr(), g_t.data_ptr())
+    counted = {"kernel": "composite_backward", "variant": variant, "channels": n_ch}
     if variant == "exact":
-        rc = lib.composite_backward(n_ch, *args, d_rows.data_ptr(), _stream())
+        launch("composite_backward", n_ch, *args, d_rows.data_ptr(), _stream(), **counted)
     else:
         capacity, scratch = 0, None
         if blocks is not None:
             capacity = blocks[1].shape[0]
             scratch = torch.empty((capacity, PIX), dtype=torch.float32, device=attrs.device)
-        rc = lib.composite_backward_fast(n_ch, _knob_bits(f16_xy, bf16_mm, bf16_grads), *args,
-                                         *_block_pointers(blocks), capacity,
-                                         scratch.data_ptr() if scratch is not None else None,
-                                         d_rows.data_ptr(), _stream())
-    check(rc, f"composite_backward ({variant})")
-    _count("composite_backward", n_ch, variant)
+        launch("composite_backward_fast", n_ch, _knob_bits(f16_xy, bf16_mm, bf16_grads), *args,
+               *_block_pointers(blocks), capacity, scratch.data_ptr() if scratch is not None else None,
+               d_rows.data_ptr(), _stream(), **counted)
     return d_rows
 
 
@@ -778,9 +736,6 @@ def reduce_pairs(
     if d_rows.data_ptr() % 8:
         raise ValueError("reduce_pairs: d_rows must be 8-byte aligned")
     out = torch.empty((offsets.shape[0], row), dtype=torch.float32, device=d_rows.device)
-    rc = load_library().reduce_pairs(
-        offsets.shape[0], row, d_rows.data_ptr(), offsets.data_ptr(), out.data_ptr(), _stream(),
-    )
-    check(rc, "reduce_pairs")
-    _count("reduce_pairs", row - 6)
+    launch("reduce_pairs", offsets.shape[0], row, d_rows.data_ptr(), offsets.data_ptr(), out.data_ptr(), _stream(),
+           kernel="reduce_pairs", channels=row - 6)
     return out

@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from ...cuda_build import check, load_library
+from ...cuda_build import launch
 from ..sh import eval_sh
 from . import kernels
 from .camera import project_gaussians_to_screen
@@ -148,7 +148,6 @@ def shade_project(
     if n * g >= 2**31:
         raise ValueError(f"shade_project: {n * g} rows exceed the kernel's int32 index")
     color, feature = (tables.get(name) if payload is None else None for name in ("color", "feature"))
-    lib = load_library()
     inputs = [t.detach().contiguous() for t in (means, covariances, opacities, extrinsics, intrinsics, near)]
     sh = [t.detach().contiguous() if t is not None else None for t in (color, feature)]
     device = means.device
@@ -157,8 +156,8 @@ def shade_project(
         channels = torch.empty(n, g, sum(t.shape[-2] for t in sh if t is not None), device=device)
     out = {name: torch.empty(n, g, *width, device=device) for name, width in
            (("mean2d", (2,)), ("conic", (3,)), ("depth", ()), ("radius", ()), ("opacity", ()), ("extent", (2,)))}
-    rc = lib.shade_project(
-        n, g, start, views, w, h, int(scale_invariant),
+    launch(
+        "shade_project", n, g, start, views, w, h, int(scale_invariant),
         color.shape[-1] if color is not None else 0, _degree(color) if color is not None else -1,
         feature.shape[-2] if feature is not None else 0, feature.shape[-1] if feature is not None else 0,
         _degree(feature) if feature is not None else -1,
@@ -166,9 +165,8 @@ def shade_project(
         *(t.data_ptr() for t in inputs[3:]),
         *(out[k].data_ptr() for k in ("mean2d", "conic", "depth", "radius", "opacity")),
         channels.data_ptr() if channels is not None else None, out["extent"].data_ptr(), kernels._stream(),
+        kernel="shade_project",
     )
-    check(rc, "shade_project")
-    kernels.launch_counts["shade_project"] += 1
     return ScreenGaussians(channels=payload if payload is not None else channels, **out)
 
 

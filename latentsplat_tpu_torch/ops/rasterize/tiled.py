@@ -36,7 +36,7 @@ import math
 
 import torch
 
-from ...cuda_build import check, load_library
+from ...cuda_build import launch
 from ...misc.profiler import host_read, span
 from . import kernels
 from .kernels import (
@@ -190,8 +190,6 @@ def covering_cap(sg: ScreenGaussians, image_shape: tuple[int, int]) -> int:
     sizes = torch.where(sg.radius > 0.0, nx * ny, torch.zeros_like(nx))
     with host_read("covering_cap"):
         largest = max(int(sizes.max()), 1) if sizes.numel() else 1
-    if sizes.is_cuda:
-        kernels.host_reads["covering_cap"] += 1
     if largest > MAX_TILES_PER_GAUSSIAN:
         raise ValueError(
             f"a Gaussian's tile rect spans {largest} tiles of {image_shape}; the slot mask "
@@ -238,12 +236,10 @@ def tile_rects(
     mask_dtype = torch.int32 if cap <= mask_bits(torch.int32) else torch.int64
     counts, base, nx = (torch.empty(rows, dtype=torch.int32, device=sg.radius.device) for _ in range(3))
     mask = torch.empty(rows, dtype=mask_dtype, device=sg.radius.device)
-    rc = load_library().tile_cull(
-        rows, gaussians, tiles_x, tiles_y, cap, cull_margin, *(t.data_ptr() for t in flat),
-        counts.data_ptr(), base.data_ptr(), nx.data_ptr(), mask.data_ptr(), kernels._stream(),
+    launch(
+        "tile_cull", rows, gaussians, tiles_x, tiles_y, cap, cull_margin, *(t.data_ptr() for t in flat),
+        counts.data_ptr(), base.data_ptr(), nx.data_ptr(), mask.data_ptr(), kernels._stream(), kernel="tile_cull",
     )
-    check(rc, "tile_cull")
-    kernels.launch_counts["tile_cull"] += 1
     return counts, base, nx, mask
 
 

@@ -36,7 +36,8 @@ of all the views (the video cell's pass: --views 30), and prints one JSON
 line (`time_shade`): the `shade_project` kernel's device ms with L2
 flushed and warm, the plain shade's (`shade_reference`), the
 kernel's least time on the card (its bytes over HBM's rate) and its share
-of it, after checking that the kernel gives the plain version's bits:
+of it (tests/test_torch_cuda.py holds the kernel to the plain shade's
+bits):
 
     python -m latentsplat_tpu_torch.scripts.bench_render --shade --views 30
 """
@@ -56,6 +57,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from ..entry import arc_cameras
+from ..cuda_build import KERNELS, launched
 from ..ops.rasterize import kernels
 from ..ops.rasterize.api import render
 from ..ops.rasterize.shade import shade_project, shade_reference
@@ -73,8 +75,8 @@ from . import resolve_device
 from .measure import (
     FLUSH_BYTES,
     FP32_FLOPS,
-    HBM_BYTES_PER_S,
     RECORD_DIR,
+    bound,
     device_ms,
     device_name,
     median_seconds,
@@ -174,7 +176,7 @@ def time_render(scene: dict, size: int, iters: int = ITERS, precision: str = "ex
     `precision`; each call's pairs per view, its seconds and the kernels'
     launches over all the calls."""
     device = scene["gaussian_means"].device
-    before = dict(kernels.launch_counts)
+    before = {k: launched(k) for k in KERNELS}
     pairs = []
 
     def call(i):
@@ -185,7 +187,7 @@ def time_render(scene: dict, size: int, iters: int = ITERS, precision: str = "ex
     sync(device)
     median, seconds = median_seconds(call, iters, device)
     return {"median_s": median, "seconds": seconds, "pairs": pairs,
-            "launches": {k: kernels.launch_counts[k] - before[k] for k in before}}
+            "launches": {k: launched(k) - before[k] for k in KERNELS}}
 
 
 def check_pairs(scene: dict, size: int, pairs: list, precision: str = "exact") -> None:
@@ -362,36 +364,23 @@ def shade_bytes(scene: dict) -> int:
 
 
 def time_shade(scene: dict, size: int) -> dict:
-    """The shade kernel against the plain shade on one pass of all views:
-    raises unless every field has the plain version's bits and the kernel
-    launched once; then the kernel's device ms (`device_ms`, L2 flushed
-    before each call, and warm), the plain shade's (`timed_ms`: host clock
-    around synchronized calls, which the device paces), the bound and the
-    share."""
+    """The shade kernel and the plain shade on one pass of all views: the
+    kernel's device ms (`device_ms`, L2 flushed before each call, and warm),
+    the plain shade's (`timed_ms`: host clock around synchronized calls,
+    which the device paces), the bound and the share."""
     args = shade_inputs(scene)
-    before = kernels.launch_counts["shade_project"]
-    with torch.no_grad():
-        got = shade_project(*args, (size, size))
-        want = shade_reference(*args, True, (size, size))
     device = scene["gaussian_means"].device
-    sync(device)
-    if kernels.launch_counts["shade_project"] != before + 1:
-        raise AssertionError(f"shade_project: {kernels.launch_counts['shade_project'] - before} launches, not 1")
-    differ = {k: int((getattr(got, k).view(torch.int32) != getattr(want, k).view(torch.int32)).sum())
-              for k in vars(want)}
-    if any(differ.values()):
-        raise AssertionError(f"shade_project differs from the plain shade in {differ} values")
     flush = torch.empty(FLUSH_BYTES // 4, device=device)
     with torch.no_grad():
         ms = device_ms(lambda: shade_project(*args, (size, size)), flush=flush)
         warm_ms = device_ms(lambda: shade_project(*args, (size, size)))
         plain_ms = timed_ms(lambda _: shade_reference(*args, True, (size, size)), 5, device)
     n_bytes = shade_bytes(scene)
-    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = bound(n_bytes)
     return {"metric": "shade_project_ms", "device": device_name(device),
             "views": scene["extrinsics"].shape[1], "gaussians": scene["gaussian_means"].shape[1], "size": size,
             "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms, "bytes": n_bytes, "bound_ms": bound_ms,
-            "bound_by": "bytes", "share": bound_ms / ms}
+            "bound_by": bound_by, "share": bound_ms / ms}
 
 
 def newest_train_record(record_dir: Path):

@@ -40,7 +40,7 @@ from pathlib import Path
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from ..ops.rasterize import kernels
+from ..cuda_build import KERNELS, launched
 from . import resolve_device
 from .measure import BF16_FLOPS, OBJECTIVE, RECORD_DIR, device_name, median_seconds, sync, train_setup
 
@@ -109,7 +109,7 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
         state, logs = train_step(state, batch, 0, generator=generator)
         totals.append(float(logs["generator/total"]))   # the host read ends the step
 
-    before = dict(kernels.launch_counts)
+    before = {k: launched(k) for k in KERNELS}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     start = time.perf_counter()
@@ -121,7 +121,7 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
     with FlopCounterMode(display=False) as counter:
         step()
     flops = counter.get_total_flops()
-    launches = {k: kernels.launch_counts[k] - before[k] for k in before}
+    launches = {k: launched(k) - before[k] for k in KERNELS}
     if not all(math.isfinite(t) for t in totals):
         raise AssertionError(f"bench_train: non-finite generator/total {totals}")
     on_card = device.type == "cuda"

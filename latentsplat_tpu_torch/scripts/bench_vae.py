@@ -18,7 +18,10 @@ kernel alone is timed by chip_smoke.py's VAE phase.
 
 The imports are absolute, so that the file also runs by its path against
 another checkout of the package (PYTHONPATH=<checkout>), which is how two
-trees are compared on one card. Prints the card's name and power limit,
+trees are compared on one card. It then imports that checkout's
+`scripts/measure.py`, which must define `cuda_ms` and `device_name`; a
+checkout whose `measure.py` does not is timed with its own copy of this
+script. Prints the card's name and power limit,
 then one JSON line (also written to DIR/bench_vae.json with --out). The
 command line runs on the card.
 """
@@ -28,23 +31,18 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
 from latentsplat_tpu_torch.model.autoencoder.kl import AutoencoderKL, AutoencoderKLCfg
+from latentsplat_tpu_torch.scripts.measure import cuda_ms, device_name
 
 TRANSPOSES = ("nchwToNhwc", "nhwcToNchw")
 # The video decode: latents 4 channels at 1/8 of 256x256, the skip tensor
 # the rendered color (3) and latent sample (4) at 256x256.
 LATENT, SIDE, D_SKIP_EXTRA = 4, 256, 3
-
-
-def card() -> str:
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 def build(seed: int, device, dtype: torch.dtype = torch.float32) -> AutoencoderKL:
@@ -75,19 +73,6 @@ def decode_call(model, z, skip, backward: bool):
         model.zero_grad(set_to_none=True)
         (model.decode(z, skip) * cot).sum().backward()
     return call
-
-
-def cuda_ms(fn, iters: int) -> list[float]:
-    fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
 
 
 def device_ops(fn) -> tuple[dict, int]:
@@ -140,8 +125,8 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         sys.exit("bench_vae needs a CUDA device")
     device = torch.device("cuda")
-    print(card())
-    out = {"card": card(), "torch": torch.__version__, "decode": decode_report(args, device)}
+    print(device_name(device))
+    out = {"card": device_name(device), "torch": torch.__version__, "decode": decode_report(args, device)}
     line = json.dumps(out)
     print(line)
     if args.out is not None:

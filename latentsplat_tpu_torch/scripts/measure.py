@@ -1,7 +1,9 @@
-"""What the bench scripts share (bench_render, bench_train, the stage
-benches, bench_trace_step): the card's published peaks, its name and power
-limit, synchronized median timing, a kernel's device time with L2 cold or
-warm (`device_ms`), the directory of their records, a
+"""What the bench scripts and chip_smoke.py share (bench_render,
+bench_train, bench_vae, the stage benches, bench_trace_step): the card's
+published peaks, its name and power limit, synchronized median timing,
+CUDA-event timing (`cuda_ms`), a kernel's device time with L2 cold or warm
+(`device_ms`) and its least time on the card (`bound`), the directory of
+their records, a
 view's screen Gaussians as the render makes them, and the train shape's
 setup (the flagship, its train state, step and batch)."""
 
@@ -42,9 +44,9 @@ OBJECTIVE = [
     "loss.target_combined.discriminator={name: discriminator, loss: hinge}",
 ]
 
-__all__ = ["BF16_FLOPS", "FLUSH_BYTES", "FP32_FLOPS", "HBM_BYTES_PER_S", "OBJECTIVE", "RECORD_DIR", "device_ms",
-           "device_name", "gaussian_sum", "grad_sum", "median_seconds", "screen_view", "sync", "timed_ms",
-           "train_setup"]
+__all__ = ["BF16_FLOPS", "FLUSH_BYTES", "FP32_FLOPS", "HBM_BYTES_PER_S", "OBJECTIVE", "RECORD_DIR", "bound",
+           "cuda_ms", "device_ms", "device_name", "gaussian_sum", "grad_sum", "median_seconds", "screen_view", "sync",
+           "timed_ms", "train_setup"]
 
 
 def sync(device: torch.device) -> None:
@@ -63,6 +65,23 @@ def median_seconds(fn, iters: int, device: torch.device) -> tuple[float, list]:
         sync(device)
         times.append(time.perf_counter() - start)
     return statistics.median(times), times
+
+
+def cuda_ms(fn, repeats: int, warm_up: bool = True) -> list[float]:
+    """Milliseconds of each of `repeats` calls of `fn` (after one warm-up
+    call where `warm_up`), timed with CUDA events around each call: the
+    host's time inside the call counts too."""
+    if warm_up:
+        fn()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
 
 
 def device_ms(fn, repeats: int = 20, flush: torch.Tensor | None = None) -> float:
@@ -92,6 +111,15 @@ def device_ms(fn, repeats: int = 20, flush: torch.Tensor | None = None) -> float
             return statistics.median(start.elapsed_time(end) for start, end in pairs)
         cycles *= 4
     raise RuntimeError("device_ms: the host never got ahead of the device")
+
+
+def bound(n_bytes: int, n_ops: int = 0) -> tuple[float, str]:
+    """Least milliseconds one H100 SXM could take to move `n_bytes` and
+    compute `n_ops` float32 operations: the larger of the bytes over HBM's
+    rate and the operations over the float32 rate, and which it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def timed_ms(fn, iters: int, device: torch.device) -> float:

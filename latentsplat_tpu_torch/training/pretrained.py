@@ -27,6 +27,7 @@ result with `load_state_dict(strict=True)`.
 from __future__ import annotations
 
 import pickle
+import re
 from pathlib import Path
 from typing import Dict, Mapping
 
@@ -421,4 +422,107 @@ def convert_dists(sd: Mapping) -> StateDict:
             n += 1
     out["alpha"] = sd["alpha"].reshape(-1)
     out["beta"] = sd["beta"].reshape(-1)
+    return out
+
+
+# -- the released checkpoint's layout, from the port's ----------------------------
+#
+# The reference's module paths for the port's, as the released latentSplat
+# .ckpt names them: the inverse of the converters' key maps above, written
+# apart from them (no rule is derived from a converter), so that the
+# converters are held against an independent map. Each rule is (port
+# pattern, reference template); every rule whose pattern matches the whole
+# name rewrites it, in order.
+_REFERENCE_RULES = [
+    # DINO trunk (facebookresearch/dino); the query/key/value Linears are
+    # fused into qkv below.
+    (r"encoder\.backbone\.dino\.patch_embed\.(weight|bias)", r"encoder.backbone.dino.patch_embed.proj.\1"),
+    (r"encoder\.backbone\.dino\.block_(\d+)\.LayerNorm_0\.(.*)", r"encoder.backbone.dino.blocks.\1.norm1.\2"),
+    (r"encoder\.backbone\.dino\.block_(\d+)\.LayerNorm_1\.(.*)", r"encoder.backbone.dino.blocks.\1.norm2.\2"),
+    (r"encoder\.backbone\.dino\.block_(\d+)\.MultiHeadDotProductAttention_0\.out\.(.*)",
+     r"encoder.backbone.dino.blocks.\1.attn.proj.\2"),
+    (r"encoder\.backbone\.dino\.block_(\d+)\.Dense_0\.(.*)", r"encoder.backbone.dino.blocks.\1.mlp.fc1.\2"),
+    (r"encoder\.backbone\.dino\.block_(\d+)\.Dense_1\.(.*)", r"encoder.backbone.dino.blocks.\1.mlp.fc2.\2"),
+    (r"encoder\.backbone\.dino\.LayerNorm_0\.(.*)", r"encoder.backbone.dino.norm.\1"),
+    (r"encoder\.backbone\.dino\.(cls_token|pos_embed)", r"encoder.backbone.dino.\1"),
+    (r"encoder\.backbone\.Dense_0\.(.*)", r"encoder.backbone.global_token_mlp.0.\1"),
+    (r"encoder\.backbone\.Dense_1\.(.*)", r"encoder.backbone.global_token_mlp.2.\1"),
+    (r"encoder\.backbone\.Dense_2\.(.*)", r"encoder.backbone.local_token_mlp.0.\1"),
+    (r"encoder\.backbone\.Dense_3\.(.*)", r"encoder.backbone.local_token_mlp.2.\1"),
+    (r"encoder\.backbone_projection\.(.*)", r"encoder.backbone_projection.1.\1"),
+    # Epipolar transformer and the SRT transformers inside it: attention in
+    # layers.{i}.0, the feed-forward in layers.{i}.1 (an MLP net =
+    # Sequential(Linear, GELU, Dropout, Linear, Dropout), or ConvFeedForward
+    # with its convolutions at layers.0 and layers.3).
+    (r"(.*)\.refine_0\.(.*)", r"\1.upscale_refinement.0.\2"),
+    (r"(.*)\.refine_1\.(.*)", r"\1.upscale_refinement.2.\2"),
+    (r"(.*)\.depth_encoding\.(.*)", r"\1.depth_encoding.1.\2"),
+    (r"(.*)\.pe_proj\.(.*)", r"\1.positional_encoding.1.\2"),
+    (r"(.*)\.self_attention\.patch_embed\.(.*)", r"\1.self_attention.patch_embedder.0.\2"),
+    (r"(.*)\.norm_attn_(\d+)\.(.*)", r"\1.layers.\2.0.norm.\3"),
+    (r"(.*)\.attn_(\d+)\.to_out\.(.*)", r"\1.layers.\2.0.fn.to_out.0.\3"),
+    (r"(.*)\.attn_(\d+)\.(to_q|to_kv|to_qkv)\.(.*)", r"\1.layers.\2.0.fn.\3.\4"),
+    (r"(.*)\.norm_ff_(\d+)\.(.*)", r"\1.layers.\2.1.norm.\3"),
+    (r"(.*)\.ff_(\d+)\.Dense_0\.(.*)", r"\1.layers.\2.1.fn.net.0.\3"),
+    (r"(.*)\.ff_(\d+)\.Dense_1\.(.*)", r"\1.layers.\2.1.fn.net.3.\3"),
+    (r"(.*)\.ConvFeedForward_(\d+)\.Conv_0\.(.*)", r"\1.layers.\2.1.fn.layers.0.\3"),
+    (r"(.*)\.ConvFeedForward_(\d+)\.Conv_1\.(.*)", r"\1.layers.\2.1.fn.layers.3.\3"),
+    (r"(.*)\.ConvFeedForward_(\d+)\.self_attention\.(.*)", r"\1.layers.\2.1.fn.self_attention.\3"),
+    (r"encoder\.high_resolution_skip\.(.*)", r"encoder.high_resolution_skip.0.\1"),
+    (r"encoder\.to_gaussians\.(.*)", r"encoder.to_gaussians.1.\1"),
+    (r"encoder\.depth_predictor\.projection\.(.*)", r"encoder.depth_predictor.projection.1.\1"),
+    # The VAE (diffusers AutoencoderKL under autoencoder.model) and
+    # latentSplat's skip convolutions beside it.
+    (r"autoencoder\.decoder\.skip_conv_(\d+)\.(.*)", r"autoencoder.skip_convs.\1.\2"),
+    (r"autoencoder\.encoder\.down_(\d+)_resnet_(\d+)\.(.*)", r"autoencoder.model.encoder.down_blocks.\1.resnets.\2.\3"),
+    (r"autoencoder\.encoder\.down_(\d+)_downsample\.(.*)", r"autoencoder.model.encoder.down_blocks.\1.downsamplers.0.\2"),
+    (r"autoencoder\.decoder\.up_(\d+)_resnet_(\d+)\.(.*)", r"autoencoder.model.decoder.up_blocks.\1.resnets.\2.\3"),
+    (r"autoencoder\.decoder\.up_(\d+)_upsample\.(.*)", r"autoencoder.model.decoder.up_blocks.\1.upsamplers.0.\2"),
+    (r"autoencoder\.(encoder|decoder)\.mid_resnet_(\d+)\.(.*)", r"autoencoder.model.\1.mid_block.resnets.\2.\3"),
+    (r"autoencoder\.(encoder|decoder)\.mid_attn\.to_out\.(.*)", r"autoencoder.model.\1.mid_block.attentions.0.to_out.0.\2"),
+    (r"autoencoder\.(encoder|decoder)\.mid_attn\.(.*)", r"autoencoder.model.\1.mid_block.attentions.0.\2"),
+    (r"autoencoder\.(?!model\.|skip_convs\.)(.*)", r"autoencoder.model.\1"),
+    (r"(encoder\..*)", r"\1"),
+]
+
+
+def reference_state_dict(generator: dict, discriminator: dict | None, n_layers: int = 3) -> dict:
+    """The port's generator (and PatchGAN) state dicts in the released
+    checkpoint's layout: fused DINO qkv projections, taming's
+    NLayerDiscriminator `main.{i}` Sequential with BatchNorm running
+    statistics (which the port's train-mode BatchNorm does not keep)."""
+    out = {}
+    qkv = {}
+    for key, value in generator.items():
+        m = re.fullmatch(r"encoder\.backbone\.dino\.block_(\d+)\.MultiHeadDotProductAttention_0\."
+                         r"(query|key|value)\.(weight|bias)", key)
+        if m:
+            qkv.setdefault((m[1], m[3]), {})[m[2]] = value
+            continue
+        name, matched = key, False
+        for pattern, template in _REFERENCE_RULES:
+            if re.fullmatch(pattern, name):
+                name, matched = re.sub(pattern, template, name), True
+        if not matched:
+            raise KeyError(f"no reference name for {key}")
+        out[name] = value
+    for (block, part), values in qkv.items():
+        out[f"encoder.backbone.dino.blocks.{block}.attn.qkv.{part}"] = torch.cat(
+            [values["query"], values["key"], values["value"]])
+    if discriminator is not None:
+        # [Conv, LeakyReLU], n_layers x [Conv, BatchNorm, LeakyReLU], Conv.
+        def index(name):
+            kind, n = name.split("_")
+            if n == "out":
+                return 3 * n_layers + 2
+            return 0 if n == "0" else 3 * int(n) - (kind == "conv")
+
+        for key, value in discriminator.items():
+            name, part = key.rsplit(".", 1)
+            kind = name.split("_")[0]
+            out[f"discriminator.main.{index(name)}.{part}"] = value
+            if kind == "bn":
+                out[f"discriminator.main.{index(name)}.running_mean"] = torch.zeros_like(value)
+                out[f"discriminator.main.{index(name)}.running_var"] = torch.ones_like(value)
+                out[f"discriminator.main.{index(name)}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
     return out

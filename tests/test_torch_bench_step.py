@@ -11,9 +11,9 @@ from pathlib import Path
 
 import pytest
 
+from latentsplat_tpu_torch.entry import SMALL_OVERRIDES as SMALL
 from latentsplat_tpu_torch.scripts import bench_train, bench_trace_step
 
-from tests.test_torch_convergence import SMALL
 from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent

@@ -9,17 +9,9 @@ import numpy as np
 import pytest
 
 from bench_convergence import overfit_batch as jax_overfit_batch
+from latentsplat_tpu_torch.entry import SMALL_OVERRIDES
 from latentsplat_tpu_torch.scripts import convergence
 from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
-
-# The flagship's structure at small width (chip_smoke.SMALL_OVERRIDES).
-SMALL = [
-    "model.encoder.backbone.model=dino_vits8",
-    "model.encoder.d_feature=32",
-    "model.encoder.epipolar_transformer.num_layers=1",
-    "model.encoder.epipolar_transformer.self_attention.num_layers=1",
-    "model.autoencoder.block_out_channels=[16,16,16,16]",
-]
 
 
 @pytest.mark.parametrize("size", [32, 128])
@@ -49,10 +41,10 @@ def test_objective_follows_bench_convergence():
 
 def test_convergence_runs_on_the_cpu(tmp_path):
     out = convergence.main(["--size", "32", "--steps", "3", "--seed", "1", "--sh-l2", "0.01",
-                            "--out", str(tmp_path / "run" / "seed1.json"), *SMALL], device="cpu")
+                            "--out", str(tmp_path / "run" / "seed1.json"), *SMALL_OVERRIDES], device="cpu")
     record = json.loads(out.read_text())
     assert record["device"] == "cpu" and record["steps"] == 3 and record["sh_l2_weight"] == 0.01
-    assert record["overrides"] == SMALL
+    assert record["overrides"] == SMALL_OVERRIDES
     for key in ("initial_render_psnr", "final_render_psnr", "initial_combined_psnr", "final_combined_psnr",
                 "max_abs_color_sh_largest", "max_abs_color_sh_final", "seconds_per_step_median",
                 "seconds_per_step_mean", "first_step_seconds"):

@@ -15,9 +15,9 @@ import torch
 
 import __graft_entry__ as graft
 from latentsplat_tpu_torch import entry
+from latentsplat_tpu_torch.entry import SMALL_OVERRIDES as SMALL
 from latentsplat_tpu_torch.scripts import bench_train
 
-from tests.test_torch_convergence import SMALL
 from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 

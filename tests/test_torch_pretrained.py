@@ -8,7 +8,6 @@ command is held against the JAX command and served by `main` in test mode.
 """
 
 import json
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -17,6 +16,7 @@ import torch
 
 import latentsplat_tpu.training.pretrained as jax_pretrained
 from latentsplat_tpu_torch.config import load_config
+from latentsplat_tpu_torch.entry import SMALL_OVERRIDES, like_trained
 from latentsplat_tpu_torch.evaluation.metrics import DISTSNet
 from latentsplat_tpu_torch.loss.lpips import LPIPS
 from latentsplat_tpu_torch.model.autoencoder.kl import AttnBlock, AutoencoderKL, AutoencoderKLCfg, ResnetBlock
@@ -24,6 +24,7 @@ from latentsplat_tpu_torch.model.discriminator.patch_gan import DiscriminatorPat
 from latentsplat_tpu_torch.model.encoder.backbone import DinoViT, ViTBlock
 from latentsplat_tpu_torch.model.latentsplat import LatentSplat
 from latentsplat_tpu_torch.training import pretrained
+from latentsplat_tpu_torch.training.pretrained import reference_state_dict
 from latentsplat_tpu_torch.weights import params_from_jax
 
 from tests.test_pretrained import (
@@ -38,9 +39,6 @@ from tests.test_pretrained import (
 )
 from tests.test_torch_data import TINY
 from tests.torch_threads import one_intra_op_thread  # noqa: F401 (autouse)
-
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-import chip_smoke  # noqa: E402  (the released layout's inverse key map)
 
 ATOL = 1e-5
 
@@ -254,7 +252,7 @@ def test_load_pretrained_helpers(tmp_path):
     torch.manual_seed(6)
     # A LatentSplat whose VAE has the tiny mirror's widths and whose trunk is
     # a 2-block dino_vits8-wide DINO.
-    cfg = load_config("re10k", chip_smoke.SMALL_OVERRIDES + [
+    cfg = load_config("re10k", SMALL_OVERRIDES + [
         "model.autoencoder.block_out_channels=[8, 16]", "model.autoencoder.layers_per_block=1",
         "model.autoencoder.skip_connections=false", "model.supersampling_factor=2",
     ])
@@ -343,9 +341,9 @@ def test_latentsplat_encoder(encoder_model):
 
 
 def reference_checkpoint(model, discriminator):
-    """The released layout of `model` and `discriminator`, as chip_smoke.py
-    writes it."""
-    return chip_smoke.reference_state_dict(model.state_dict(), discriminator.state_dict())
+    """The released layout of `model` and `discriminator`
+    (`pretrained.reference_state_dict`)."""
+    return reference_state_dict(model.state_dict(), discriminator.state_dict())
 
 
 def test_latentsplat_checkpoint(encoder_model):
@@ -354,7 +352,7 @@ def test_latentsplat_checkpoint(encoder_model):
     cfg = load_config("re10k", ENCODER_OVERRIDES)
     torch.manual_seed(8)
     discriminator = DiscriminatorPatchGan(cfg.model.discriminator)
-    chip_smoke.like_trained(encoder_model, peaked_depth=False)
+    like_trained(encoder_model, peaked_depth=False)
     ref = reference_checkpoint(encoder_model, discriminator)
     sd = pretrained.RecordingStateDict(ref)
     ours = pretrained.convert_latentsplat_checkpoint(sd, num_heads=6)
@@ -387,7 +385,7 @@ def test_convert_checkpoint_serves_the_released_model(tmp_path):
 
     cfg = load_config(None, CLI_OVERRIDES)
     torch.manual_seed(9)
-    model = chip_smoke.like_trained(LatentSplat(cfg.model), peaked_depth=False)
+    model = like_trained(LatentSplat(cfg.model), peaked_depth=False)
     discriminator = DiscriminatorPatchGan(cfg.model.discriminator)
     ref = reference_checkpoint(model, discriminator)
     torch.save({"state_dict": ref, "global_step": 123, "epoch": 4}, tmp_path / "released.ckpt")

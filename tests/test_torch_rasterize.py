@@ -212,14 +212,14 @@ class TestTileRects:
         def refuse():
             raise AssertionError("the CPU path loaded the kernel library")
 
-        monkeypatch.setattr(tiled, "load_library", refuse)
+        monkeypatch.setattr(cuda_build, "load_library", refuse)
         _, t_sg = cull_scene()
-        before = kernels.launch_counts["tile_cull"]
+        before = cuda_build.launched("tile_cull")
         for cap in (9, 40):
             got = tile_rects(t_sg, CULL_TILES, CULL_TILES, cap)
             want = tiled.tile_rects_reference(t_sg, CULL_TILES, CULL_TILES, cap)
             assert all(torch.equal(a, b) for a, b in zip(got, want))
-        assert kernels.launch_counts["tile_cull"] == before == 0
+        assert cuda_build.launched("tile_cull") == before == 0
 
     def test_the_library_declares_tile_cull(self):
         # The ctypes signature matches the C entry point, argument by
@@ -273,12 +273,11 @@ class TestShade:
         def refuse():
             raise AssertionError("the CPU path loaded the kernel library")
 
-        monkeypatch.setattr(shade, "load_library", refuse)
-        monkeypatch.setattr(tiled, "load_library", refuse)
-        before = kernels.launch_counts["shade_project"]
+        monkeypatch.setattr(cuda_build, "load_library", refuse)
+        before = cuda_build.launched("shade_project")
         outputs, grads = run(render_fn("exact"), False, monkeypatch, grad)
         assert all(torch.isfinite(x).all() for x in outputs)
-        assert kernels.launch_counts["shade_project"] == before == 0
+        assert cuda_build.launched("shade_project") == before == 0
         assert len(grads) == (len(LEAVES) if grad else 0)
 
     @pytest.mark.parametrize("case", ["no_grad", "grad_without_leaves", "grad", "dc_payload", "float64_tables",

@@ -2,10 +2,15 @@
 (the trace of tests/test_tools.py), `misc/fraction_utils.py`, the
 autoencoder interface (`model/autoencoder/base.py`) and the alternative
 depth heads (`model/encoder/alt_depth.py`) with the same weights and
-noise."""
+noise. Also the kernel launch helper (`cuda_build.launch`) on a stub
+library, and the group norm's imports."""
 
+import collections
 import json
+import subprocess
+import sys
 from fractions import Fraction
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,6 +23,7 @@ from latentsplat_tpu.misc import fraction_utils as j_fraction_utils
 from latentsplat_tpu.model.autoencoder.base import Autoencoder as JAutoencoder
 from latentsplat_tpu.model.encoder.alt_depth import AttentionDistribution as JAttentionDistribution
 from latentsplat_tpu.model.encoder.alt_depth import DistributionDepthPredictor as JDistributionDepthPredictor
+from latentsplat_tpu_torch import cuda_build
 from latentsplat_tpu_torch.misc import fraction_utils
 from latentsplat_tpu_torch.misc.profiler import annotate, device_memory_profile, trace
 from latentsplat_tpu_torch.model.autoencoder.base import Autoencoder
@@ -117,3 +123,71 @@ def test_distribution_depth_predictor_matches_jax(deterministic):
         generator = torch.Generator().manual_seed(0)
         depth, _ = model(*map(torch.from_numpy, (queries, keys, depths)), generator=generator)
         assert depth.shape == (2, 5) and torch.isin(depth, torch.from_numpy(depths)).all()
+
+
+class StubLibrary:
+    """A kernel library whose every entry point records its arguments and
+    returns `rc`."""
+
+    def __init__(self, rc: int):
+        self.rc, self.calls = rc, []
+
+    def __getattr__(self, entry):
+        return lambda *args: self.calls.append((entry, args)) or self.rc
+
+
+@pytest.fixture
+def stub_launches(monkeypatch):
+    """A fresh launch counter and a stub library that returns 0."""
+    library = StubLibrary(0)
+    monkeypatch.setattr(cuda_build, "load_library", lambda: library)
+    monkeypatch.setattr(cuda_build, "launches", collections.Counter())
+    return library
+
+
+def test_launch_counts_one_launch_under_its_key(stub_launches):
+    cuda_build.launch("composite_forward_fast", 8, 1, 2, kernel="composite_forward", variant="coef", channels=8)
+    cuda_build.launch("duplicate_with_keys64", 5, kernel="duplicate_with_keys")
+    assert stub_launches.calls == [("composite_forward_fast", (8, 1, 2)), ("duplicate_with_keys64", (5,))]
+    assert cuda_build.launches == {("composite_forward", "coef", 8): 1, ("duplicate_with_keys", "exact", 0): 1}
+
+
+def test_launch_raises_on_a_cuda_error_and_counts_nothing(stub_launches):
+    stub_launches.rc = 719
+    with pytest.raises(RuntimeError, match=r"^composite_backward \(fast\): CUDA error 719 at launch$"):
+        cuda_build.launch("composite_backward_fast", 8, kernel="composite_backward", variant="fast", channels=8)
+    with pytest.raises(RuntimeError, match=r"^shade_project: CUDA error 719 at launch$"):
+        cuda_build.launch("shade_project", kernel="shade_project")
+    assert not cuda_build.launches and cuda_build.launched("composite_backward") == 0
+
+
+def test_launched_sums_over_variant_and_channels(stub_launches):
+    for variant, channels, n in (("exact", 8, 3), ("fast", 8, 2), ("exact", 12, 1), ("coef", 5, 4)):
+        for _ in range(n):
+            cuda_build.launch("composite_forward", kernel="composite_forward", variant=variant, channels=channels)
+    cuda_build.launch("reduce_pairs", kernel="reduce_pairs", channels=8)
+    assert cuda_build.launched("composite_forward") == 10
+    assert cuda_build.launched("composite_forward", variant="exact") == 4
+    assert cuda_build.launched("composite_forward", channels=8) == 5
+    assert cuda_build.launched("composite_forward", "fast", 8) == 2
+    assert cuda_build.launched("composite_forward", "fast", 12) == 0
+    assert cuda_build.launched("reduce_pairs") == cuda_build.launched("reduce_pairs", "exact", 8) == 1
+    assert cuda_build.launched("tile_cull") == 0
+    assert {k for k, _, _ in cuda_build.launches} <= set(cuda_build.KERNELS)
+    # A copy of the counter is read the same way, and later launches leave it.
+    copy = collections.Counter(cuda_build.launches)
+    cuda_build.launch("composite_forward", kernel="composite_forward", variant="fast", channels=8)
+    assert cuda_build.launched("composite_forward", "fast", 8, copy) == 2
+    assert cuda_build.launched("composite_forward", "fast", 8) == 3
+
+
+def test_group_norm_imports_no_rasterizer():
+    # The VAE's norm launches and counts through cuda_build alone.
+    code = (
+        "import sys\n"
+        "import latentsplat_tpu_torch.ops.group_norm\n"
+        "loaded = sorted(m for m in sys.modules if m.startswith('latentsplat_tpu_torch.ops.rasterize'))\n"
+        "assert not loaded, loaded\n"
+    )
+    root = Path(__file__).resolve().parent.parent
+    subprocess.run([sys.executable, "-c", code], cwd=root, check=True, timeout=120)
