@@ -30,9 +30,10 @@
    kernel's device ms with L2 flushed and warm, its bound (bytes) and
    share, the plain shade's ms.
 2d. VAE phase: the group_norm_silu kernel's forward and backward (SiLU
-   on) at the VAE decoder's top-level norm on the video cell's decode
-   (30, 128, 256, 256), float32 and bfloat16, timed with L2 flushed and
-   warm beside its bound and the plain version's ms.
+   on, without and with a shift) and the residual_add kernel (both
+   biases) at the VAE decoder's top-level norm and sum on the video
+   cell's decode (30, 128, 256, 256), float32 and bfloat16, timed with L2
+   flushed and warm beside their bounds and the plain versions' ms.
 3. Backward kernel phase: on the same pass, with a seeded random
    cotangent, times composite_backward and reduce_pairs beside their plain
    versions; reduce_pairs with L2 flushed and warm, in three rounds beside
@@ -528,9 +529,12 @@ def vae_phase(seed: int, device) -> list[dict]:
     decoder's top-level norm on the video cell's decode, (30, 128, 256,
     256), forward and backward with SiLU, in float32 and bfloat16: its
     device ms with L2 flushed and warm against its bound (x read and y
-    written once; x and dy read and dx written once) and the plain
-    version's ms. Records the float32 kernel's two rows."""
-    from latentsplat_tpu_torch.ops import group_norm
+    written once; x and dy read and dx written once), the plain version's
+    ms, and its ms L2 flushed with a shift (`shift_ms`); the residual_add
+    kernel (ops/residual_add.py) at the same shape with both biases (a and
+    b read, out written once) against the plain ops. Records the float32
+    kernels' three rows."""
+    from latentsplat_tpu_torch.ops import group_norm, residual_add
 
     n, c, side, groups = 30, 128, 256, 32
     g = torch.Generator(device=device).manual_seed(seed)
@@ -539,10 +543,11 @@ def vae_phase(seed: int, device) -> list[dict]:
     dy32 = torch.randn(x32.shape, generator=g, device=device).contiguous(memory_format=torch.channels_last)
     weight32 = torch.rand(c, generator=g, device=device) + 0.5
     bias32 = torch.rand(c, generator=g, device=device) - 0.5
+    shift32 = torch.rand(c, generator=g, device=device) - 0.5
     flush = torch.empty(FLUSH_BYTES // 4, device=device)
     records = []
     for dtype in (torch.float32, torch.bfloat16):
-        x, dy, weight, bias = (t.to(dtype) for t in (x32, dy32, weight32, bias32))
+        x, dy, weight, bias, shift = (t.to(dtype) for t in (x32, dy32, weight32, bias32, shift32))
         gamma, beta = weight.float(), bias.float()
         _, mean, rstd = group_norm.forward(x, gamma, beta, groups, 1e-6, True)
         tag = str(dtype).replace("torch.", "")
@@ -552,25 +557,42 @@ def vae_phase(seed: int, device) -> list[dict]:
         x_nchw = x.contiguous()
         fwd = lambda: group_norm.forward(x, gamma, beta, groups, 1e-6, True)  # noqa: E731
         bwd = lambda: group_norm.backward(x, dy, gamma, beta, mean, rstd, groups, True)  # noqa: E731
+        fwd_shift = lambda: group_norm.forward(x, gamma, beta, groups, 1e-6, True, shift32)  # noqa: E731
+        bwd_shift = lambda: group_norm.backward(x, dy, gamma, beta, mean, rstd, groups, True, shift32)  # noqa: E731
         plain_fwd = lambda: group_norm.group_norm_silu_reference(x_nchw, weight, bias, groups, 1e-6, True)  # noqa: E731
         plain_bwd = lambda: torch.autograd.grad(plain, (leaf, w_leaf, b_leaf), dy, retain_graph=True)  # noqa: E731
         tensor = x.numel() * x.element_size()
-        for name, fn, plain_fn, n_bytes, passes in (
-            ("group_norm_silu", fwd, plain_fwd, 2 * tensor, 3),
-            ("group_norm_silu_backward", bwd, plain_bwd, 3 * tensor, 5),
+        for name, fn, shifted_fn, plain_fn, n_bytes, passes in (
+            ("group_norm_silu", fwd, fwd_shift, plain_fwd, 2 * tensor, 3),
+            ("group_norm_silu_backward", bwd, bwd_shift, plain_bwd, 3 * tensor, 5),
         ):
             ms = device_ms(fn, flush=flush)
             warm_ms = device_ms(fn)
+            shift_ms = device_ms(shifted_fn, flush=flush)
             plain_ms = device_ms(plain_fn, flush=flush)
             pass_share = passes * tensor / HBM_BYTES_PER_S * 1e3 / ms
-            print(f"{name} {tag}: {ms:.4f} ms (device, L2 flushed), {warm_ms:.4f} warm, plain {plain_ms:.4f} ms; "
-                  f"{pass_share:.1%} of the bound of its {passes} tensor-passes")
+            print(f"{name} {tag}: {ms:.4f} ms (device, L2 flushed), {warm_ms:.4f} warm, with a shift {shift_ms:.4f} "
+                  f"({shift_ms / ms - 1:+.1%}), plain {plain_ms:.4f} ms; {pass_share:.1%} of the bound of its "
+                  f"{passes} tensor-passes")
             if dtype == torch.float32:
                 records.append(entry(
                     name, "group_norm_silu.cu", "none: the JAX package leaves GroupNorm + SiLU to XLA", ms,
-                    plain_ms, n_bytes=n_bytes, n_ops=0, warm_ms=warm_ms, share_of_passes=pass_share,
-                    passes=passes, shape=[n, c, side, side]))
-        del x, dy, mean, rstd, leaf, plain, x_nchw, fwd, bwd, plain_fwd, plain_bwd
+                    plain_ms, n_bytes=n_bytes, n_ops=0, warm_ms=warm_ms, shift_ms=shift_ms,
+                    share_of_passes=pass_share, passes=passes, shape=[n, c, side, side]))
+        # The residual sum: x and dy as its operands, beta and the shift as
+        # their biases.
+        add = lambda: residual_add.forward(x, shift32, dy, beta)  # noqa: E731
+        plain_add = lambda: residual_add.residual_add_reference(x, shift, dy, bias)  # noqa: E731
+        ms = device_ms(add, flush=flush)
+        warm_ms = device_ms(add)
+        plain_ms = device_ms(plain_add, flush=flush)
+        print(f"residual_add {tag}: {ms:.4f} ms (device, L2 flushed), {warm_ms:.4f} warm, plain {plain_ms:.4f} ms; "
+              f"{3 * tensor / HBM_BYTES_PER_S * 1e3 / ms:.1%} of its bound")
+        if dtype == torch.float32:
+            records.append(entry(
+                "residual_add", "residual_add.cu", "none: the JAX package leaves the bias and residual adds to XLA",
+                ms, plain_ms, n_bytes=3 * tensor, n_ops=0, warm_ms=warm_ms, shape=[n, c, side, side]))
+        del x, dy, mean, rstd, leaf, plain, x_nchw, fwd, bwd, fwd_shift, bwd_shift, plain_fwd, plain_bwd, add, plain_add
         torch.cuda.empty_cache()
     return records
 

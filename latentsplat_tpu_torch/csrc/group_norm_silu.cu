@@ -45,6 +45,15 @@
 // dgamma and dbeta, and forms each group's A = sum gamma S1 and B = sum
 // gamma S2. Then dx = rstd gamma g - rstd B / M - xh rstd A / M (M = HW D).
 //
+// Shift. Where the wrapper passes a per-channel shift (the bias of the
+// convolution that wrote x, which the VAE runs without it), every pass
+// reads x + shift in registers in place of x: the float32 sum, rounded to
+// bfloat16 for a bfloat16 x, as PyTorch's `add_` of the bias rounds it, so
+// the norm sees the bits it saw when the bias was added in a pass of its
+// own. The backward keeps the unshifted x and shifts it again; dx is the
+// gradient of the shifted value too, and the shift's is its per-channel
+// sum (the wrapper's).
+//
 // Any (N, H, W, C) with C divisible by `groups` and C / VEC <= 1024; the
 // kernels allocate nothing (the wrapper passes the scratch) and launch on
 // the given stream.
@@ -123,6 +132,35 @@ __device__ __forceinline__ void store(T* p, const float (&v)[VEC]) {
   }
 }
 
+// A float32 result as T stores it: bfloat16's rounding, float32 as it is.
+template <typename T>
+__device__ __forceinline__ float rounded(float v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return v;
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+}
+
+// The thread's VEC channels of the shift (none where `shift` is null),
+// added to each x it loads.
+template <typename T, int VEC>
+struct Shift {
+  bool on;
+  float s[VEC];
+
+  __device__ __forceinline__ Shift(const float* shift, int col) : on(shift != nullptr) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) s[i] = on ? shift[col * VEC + i] : 0.0f;
+  }
+
+  __device__ __forceinline__ void apply(float (&v)[VEC]) const {
+    if (!on) return;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) v[i] = rounded<T>(v[i] + s[i]);
+  }
+};
+
 __device__ __forceinline__ float sigmoid(float y) { return 1.0f / (1.0f + expf(-y)); }
 
 // A thread's place in its block: `col` of the row's `cols` vectors, `row`
@@ -187,7 +225,8 @@ __device__ __forceinline__ void welford(const float (&v)[VEC], float& count, flo
 // partials: (N, chunks, groups, 3) float (count, mean, M2).
 template <typename T, int VEC, int BLOCK>
 __global__ void __launch_bounds__(BLOCK)
-    stats_kernel(int hw, int c, int groups, int per_chunk, const T* __restrict__ x, float* __restrict__ partials) {
+    stats_kernel(int hw, int c, int groups, int per_chunk, const T* __restrict__ x, const float* __restrict__ shift,
+                 float* __restrict__ partials) {
   extern __shared__ float smem[];
   const Place p = place<VEC>(c);
   const int n = blockIdx.y, chunk = blockIdx.x;
@@ -196,6 +235,7 @@ __global__ void __launch_bounds__(BLOCK)
 #pragma unroll
   for (int i = 0; i < VEC; ++i) mean[i] = m2[i] = 0.0f;
   if (p.active) {
+    const Shift<T, VEC> sh(shift, p.col);
     const T* base = x + static_cast<size_t>(n) * hw * c + p.col * VEC;
     int r = r0 + p.row;
     for (; r + (kUnroll - 1) * p.rows < r1; r += kUnroll * p.rows) {
@@ -203,11 +243,15 @@ __global__ void __launch_bounds__(BLOCK)
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) load<T, VEC>(base + static_cast<size_t>(r + u * p.rows) * c, v[u]);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) welford<VEC>(v[u], count, mean, m2);
+      for (int u = 0; u < kUnroll; ++u) {
+        sh.apply(v[u]);
+        welford<VEC>(v[u], count, mean, m2);
+      }
     }
     for (; r < r1; r += p.rows) {
       float v[VEC];
       load<T, VEC>(base + static_cast<size_t>(r) * c, v);
+      sh.apply(v);
       welford<VEC>(v, count, mean, m2);
     }
   }
@@ -275,15 +319,17 @@ __global__ void stats_merge_kernel(int chunks, int groups, float eps, const floa
 template <typename T, int VEC, bool SILU, int BLOCK>
 __global__ void __launch_bounds__(BLOCK)
     normalize_kernel(int hw, int c, int groups, int per_chunk, const T* __restrict__ x,
-                     const float* __restrict__ mean, const float* __restrict__ rstd, const float* __restrict__ gamma,
+                     const float* __restrict__ shift, const float* __restrict__ mean, const float* __restrict__ rstd, const float* __restrict__ gamma,
                      const float* __restrict__ beta, T* __restrict__ y) {
   const Place p = place<VEC>(c);
   if (!p.active) return;
   const int n = blockIdx.y;
   const int r0 = blockIdx.x * per_chunk, r1 = min(hw, r0 + per_chunk);
   const Coefs<VEC> k = coefs<VEC>(n, c, groups, p.col, mean, rstd, gamma, beta);
+  const Shift<T, VEC> sh(shift, p.col);
   const size_t offset = static_cast<size_t>(n) * hw * c + p.col * VEC;
   auto apply = [&](float (&v)[VEC]) {
+    sh.apply(v);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       const float o = fmaf(v[i] - k.mean[i], k.scale[i], k.beta[i]);
@@ -325,7 +371,7 @@ __device__ __forceinline__ float gate(float centered, float scale, float beta, f
 template <typename T, int VEC, bool SILU, int BLOCK>
 __global__ void __launch_bounds__(BLOCK)
     grad_sums_kernel(int hw, int c, int groups, int per_chunk, const T* __restrict__ x,
-                     const T* __restrict__ dy, const float* __restrict__ mean, const float* __restrict__ rstd,
+                     const float* __restrict__ shift, const T* __restrict__ dy, const float* __restrict__ mean, const float* __restrict__ rstd,
                      const float* __restrict__ gamma, const float* __restrict__ beta, float* __restrict__ partials) {
   extern __shared__ float smem[];
   const Place p = place<VEC>(c);
@@ -336,8 +382,10 @@ __global__ void __launch_bounds__(BLOCK)
   for (int i = 0; i < VEC; ++i) s1[i] = s2[i] = 0.0f;
   if (p.active) {
     const Coefs<VEC> k = coefs<VEC>(n, c, groups, p.col, mean, rstd, gamma, beta);
+    const Shift<T, VEC> sh(shift, p.col);
     const size_t offset = static_cast<size_t>(n) * hw * c + p.col * VEC;
-    auto add = [&](const float (&v)[VEC], const float (&w)[VEC]) {
+    auto add = [&](float (&v)[VEC], const float (&w)[VEC]) {
+      sh.apply(v);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         const float centered = v[i] - k.mean[i];
@@ -433,7 +481,7 @@ __global__ void grad_merge_kernel(int hw, int c, int groups, int chunks, const f
 template <typename T, int VEC, bool SILU, int BLOCK>
 __global__ void __launch_bounds__(BLOCK)
     grad_input_kernel(int hw, int c, int groups, int per_chunk, const T* __restrict__ x,
-                      const T* __restrict__ dy, const float* __restrict__ mean, const float* __restrict__ rstd,
+                      const float* __restrict__ shift, const T* __restrict__ dy, const float* __restrict__ mean, const float* __restrict__ rstd,
                       const float* __restrict__ gamma, const float* __restrict__ beta,
                       const float* __restrict__ coef, T* __restrict__ dx) {
   const Place p = place<VEC>(c);
@@ -449,8 +497,10 @@ __global__ void __launch_bounds__(BLOCK)
     c0[i] = coef[g * 2];
     c1[i] = coef[g * 2 + 1];
   }
+  const Shift<T, VEC> sh(shift, p.col);
   const size_t offset = static_cast<size_t>(n) * hw * c + p.col * VEC;
   auto grad = [&](float (&v)[VEC], const float (&w)[VEC]) {
+    sh.apply(v);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       const float centered = v[i] - k.mean[i];
@@ -493,38 +543,39 @@ int block_threads(int cols) { return cols <= kThreads ? kThreads : (cols + 31) /
 
 template <typename T, int VEC, bool SILU, int BLOCK>
 struct Forward {
-  static void run(int n, int hw, int c, int groups, int chunks, float eps, const void* x, const float* gamma,
-                  const float* beta, void* y, float* partials, float* mean, float* rstd, cudaStream_t stream) {
+  static void run(int n, int hw, int c, int groups, int chunks, float eps, const void* x, const float* shift,
+                  const float* gamma, const float* beta, void* y, float* partials, float* mean, float* rstd,
+                  cudaStream_t stream) {
     const int threads = block_threads(c / VEC);
     const dim3 grid(chunks, n);
     const int per_chunk = (hw + chunks - 1) / chunks;
     const size_t shared = static_cast<size_t>(threads) * (1 + 2 * VEC) * sizeof(float);
     stats_kernel<T, VEC, BLOCK><<<grid, threads, shared, stream>>>(hw, c, groups, per_chunk,
-                                                                   static_cast<const T*>(x), partials);
+                                                                   static_cast<const T*>(x), shift, partials);
     stats_merge_kernel<<<n, 32 * (groups < 32 ? groups : 32), 0, stream>>>(chunks, groups, eps, partials, mean,
                                                                            rstd);
     normalize_kernel<T, VEC, SILU, BLOCK><<<grid, threads, 0, stream>>>(
-        hw, c, groups, per_chunk, static_cast<const T*>(x), mean, rstd, gamma, beta, static_cast<T*>(y));
+        hw, c, groups, per_chunk, static_cast<const T*>(x), shift, mean, rstd, gamma, beta, static_cast<T*>(y));
   }
 };
 
 template <typename T, int VEC, bool SILU, int BLOCK>
 struct Backward {
-  static void run(int n, int hw, int c, int groups, int chunks, const void* x, const void* dy, const float* mean,
-                  const float* rstd, const float* gamma, const float* beta, void* dx, float* partials, float* sums,
-                  float* coef, cudaStream_t stream) {
+  static void run(int n, int hw, int c, int groups, int chunks, const void* x, const float* shift, const void* dy,
+                  const float* mean, const float* rstd, const float* gamma, const float* beta, void* dx,
+                  float* partials, float* sums, float* coef, cudaStream_t stream) {
     const int threads = block_threads(c / VEC);
     const dim3 grid(chunks, n);
     const int per_chunk = (hw + chunks - 1) / chunks;
     const size_t shared = static_cast<size_t>(threads) * 2 * VEC * sizeof(float);
     const T* xt = static_cast<const T*>(x);
     const T* dyt = static_cast<const T*>(dy);
-    grad_sums_kernel<T, VEC, SILU, BLOCK><<<grid, threads, shared, stream>>>(hw, c, groups, per_chunk, xt, dyt,
-                                                                             mean, rstd, gamma, beta, partials);
+    grad_sums_kernel<T, VEC, SILU, BLOCK><<<grid, threads, shared, stream>>>(
+        hw, c, groups, per_chunk, xt, shift, dyt, mean, rstd, gamma, beta, partials);
     grad_merge_kernel<<<n, kThreads, 2 * static_cast<size_t>(c) * sizeof(float), stream>>>(
         hw, c, groups, chunks, partials, rstd, gamma, sums, coef);
     grad_input_kernel<T, VEC, SILU, BLOCK><<<grid, threads, 0, stream>>>(
-        hw, c, groups, per_chunk, xt, dyt, mean, rstd, gamma, beta, coef, static_cast<T*>(dx));
+        hw, c, groups, per_chunk, xt, shift, dyt, mean, rstd, gamma, beta, coef, static_cast<T*>(dx));
   }
 };
 
@@ -573,33 +624,35 @@ void dispatch(bool is_bf16, int vec, bool silu, int c, Args... args) {
 }  // namespace
 
 // x and y (N, H, W, C) channels-last, float32 or (is_bf16) bfloat16, hw =
-// H W; gamma and beta (C,) float32; partials (N, chunks, groups, 3)
+// H W; shift (C,) float32 or null; gamma and beta (C,) float32; partials (N, chunks, groups, 3)
 // scratch; mean and rstd (N, groups) float32 out. Returns a CUDA error code
 // (1, invalid value, for a shape it does not take).
 extern "C" int group_norm_silu_forward(int n, int hw, int c, int groups, int chunks, float eps, int silu,
-                                       int is_bf16, const void* x, const void* gamma, const void* beta, void* y,
-                                       void* partials, void* mean, void* rstd, void* stream) {
+                                       int is_bf16, const void* x, const void* shift, const void* gamma,
+                                       const void* beta, void* y, void* partials, void* mean, void* rstd,
+                                       void* stream) {
   const int vec = vector_width(n, hw, c, groups, chunks, is_bf16 ? 2 : 4, {x, y});
   if (vec == 0) return static_cast<int>(cudaErrorInvalidValue);
   dispatch<Forward>(is_bf16 != 0, vec, silu != 0, c, n, hw, c, groups, chunks, eps, x,
-                    static_cast<const float*>(gamma), static_cast<const float*>(beta), y,
+                    static_cast<const float*>(shift), static_cast<const float*>(gamma), static_cast<const float*>(beta), y,
                     static_cast<float*>(partials), static_cast<float*>(mean), static_cast<float*>(rstd),
                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, dy and dx (N, H, W, C) channels-last, float32 or (is_bf16) bfloat16;
-// mean and rstd the forward's; gamma and beta float32; partials (N,
-// chunks, 2, C) and coef (N, groups, 2) scratch; sums (N, 2, C) float32
-// out: per sample, sum g xh and sum g a channel (the wrapper sums them
+// shift the forward's (or null); mean and rstd the forward's; gamma and
+// beta float32; partials (N, chunks, 2, C) and coef (N, groups, 2)
+// scratch; sums (N, 2, C) float32 out: per sample, sum g xh and sum g a channel (the wrapper sums them
 // over N into dgamma and dbeta).
 extern "C" int group_norm_silu_backward(int n, int hw, int c, int groups, int chunks, int silu, int is_bf16,
-                                        const void* x, const void* dy, const void* mean, const void* rstd,
-                                        const void* gamma, const void* beta, void* dx, void* partials, void* sums,
-                                        void* coef, void* stream) {
+                                        const void* x, const void* shift, const void* dy, const void* mean,
+                                        const void* rstd, const void* gamma, const void* beta, void* dx,
+                                        void* partials, void* sums, void* coef, void* stream) {
   const int vec = vector_width(n, hw, c, groups, chunks, is_bf16 ? 2 : 4, {x, dy, dx});
   if (vec == 0) return static_cast<int>(cudaErrorInvalidValue);
-  dispatch<Backward>(is_bf16 != 0, vec, silu != 0, c, n, hw, c, groups, chunks, x, dy,
+  dispatch<Backward>(is_bf16 != 0, vec, silu != 0, c, n, hw, c, groups, chunks, x,
+                     static_cast<const float*>(shift), dy,
                      static_cast<const float*>(mean), static_cast<const float*>(rstd),
                      static_cast<const float*>(gamma), static_cast<const float*>(beta), dx,
                      static_cast<float*>(partials), static_cast<float*>(sums), static_cast<float*>(coef),

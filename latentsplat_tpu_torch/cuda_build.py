@@ -13,7 +13,8 @@ channel counts the splatting decoder reaches (`composite_fast_channels`:
 Every kernel is launched through `launch`, which calls a C entry point,
 raises on the CUDA error it reports and counts the launch in `launches`,
 keyed by (kernel, variant, channels): the kernel's name (one of KERNELS),
-a composite kernel's variant ("exact" for every other kernel) and the
+a composite kernel's variant, "shift" for a group norm launched with a
+per-channel shift of its input ("exact" for every other launch) and the
 channel count a compositing kernel was launched for (0 for the others).
 `launched` sums it over any of the three.
 """
@@ -53,15 +54,16 @@ _SIGNATURES = {
     "reduce_pairs": ([_I, _I, _P, _P, _P, _P], _I),
     "tile_cull": ([_I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     "shade_project": ([_I] * 12 + [_P] * 16, _I),
-    "group_norm_silu_forward": ([_I, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P], _I),
-    "group_norm_silu_backward": ([_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+    "group_norm_silu_forward": ([_I, _I, _I, _I, _I, _F, _I, _I] + [_P] * 9, _I),
+    "group_norm_silu_backward": ([_I] * 7 + [_P] * 12, _I),
+    "residual_add": ([_I, _I, _I] + [_P] * 6, _I),
 }
 
 # The kernels that `launch` counts, under these names: a C entry point's
 # variants (duplicate_with_keys64, composite_forward_fast, ...) count under
 # their kernel's.
 KERNELS = ("duplicate_with_keys", "composite_forward", "composite_backward", "reduce_pairs", "tile_cull",
-           "shade_project", "group_norm_silu", "group_norm_silu_backward")
+           "shade_project", "group_norm_silu", "group_norm_silu_backward", "residual_add")
 
 _library = None
 build_info: dict = {}

@@ -16,6 +16,17 @@ stays channels-last (on the card cuDNN runs its NHWC kernels with no
 transposes around them), the attention's flatten and the outputs' permute
 to (..., H, W, c) are views. Each group norm, with the SiLU after it, is
 one `ops/group_norm.py::group_norm_silu` call (a kernel on the card).
+
+The convolutions whose output a group norm or a residual or skip sum reads
+next (`BiasLaterConv2d`: conv_in, the resnets' convs, the resampling and
+skip convs) run without their bias, which the module still holds (the
+parameters are nn.Conv2d's): that reader adds it, the norm as its shift,
+the sum (`ops/residual_add.py::residual_add`, a kernel on the card) as
+the bias of its operand, so no conv output is written, read and written
+again to add a per-channel constant. A conv output read by a norm and a
+sum (conv_in, a Downsample's) gives both its bias; one read by a
+conv_shortcut takes its bias first (a one-operand residual_add). The
+other convolutions (quant_conv, post_quant_conv, conv_out) keep theirs.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from torch import nn
 
 from ...ops.distributions import DiagonalGaussian
 from ...ops.group_norm import group_norm_silu
+from ...ops.residual_add import residual_add
 from ..transformer import attention
 from .base import Autoencoder
 
@@ -46,6 +58,14 @@ def _nchw_view(t: torch.Tensor) -> torch.Tensor:
 def _group_norm(channels: int) -> nn.GroupNorm:
     """32 groups at production widths; gcd(32, c) for narrow test nets."""
     return nn.GroupNorm(math.gcd(32, channels), channels, eps=GROUP_NORM_EPS)
+
+
+class BiasLaterConv2d(nn.Conv2d):
+    """nn.Conv2d whose call leaves out the bias: the caller hands
+    `self.bias` to whatever reads the output next."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight, None)
 
 
 @dataclass
@@ -67,18 +87,26 @@ class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
         self.norm1 = _group_norm(in_channels)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = BiasLaterConv2d(in_channels, out_channels, 3, padding=1)
         self.norm2 = _group_norm(out_channels)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = BiasLaterConv2d(out_channels, out_channels, 3, padding=1)
         if in_channels != out_channels:
-            self.conv_shortcut = nn.Conv2d(in_channels, out_channels, 1)
+            self.conv_shortcut = BiasLaterConv2d(in_channels, out_channels, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(group_norm_silu(x, self.norm1, silu=True))
-        h = self.conv2(group_norm_silu(h, self.norm2, silu=True))
-        if hasattr(self, "conv_shortcut"):
-            x = self.conv_shortcut(x)
-        return x + h
+    def forward(self, x: torch.Tensor, x_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The block on x + x_bias (x_bias: the bias a BiasLaterConv2d left
+        out of x, or None). Callers pass x_bias by keyword: module hooks see
+        the positional inputs only, and a parameter among them breaks
+        torch's multi-grad hooks (FlopCounterMode's module tracker) under
+        torch.autograd.grad."""
+        shortcut = getattr(self, "conv_shortcut", None)
+        if shortcut is not None and x_bias is not None:
+            x, x_bias = residual_add(x, x_bias), None
+        h = self.conv1(group_norm_silu(x, self.norm1, silu=True, shift=x_bias))
+        h = self.conv2(group_norm_silu(h, self.norm2, silu=True, shift=self.conv1.bias))
+        if shortcut is not None:
+            return residual_add(shortcut(x), shortcut.bias, h, self.conv2.bias)
+        return residual_add(x, x_bias, h, self.conv2.bias)
 
 
 class AttnBlock(nn.Module):
@@ -101,25 +129,26 @@ class AttnBlock(nn.Module):
 
 
 class Downsample(nn.Module):
-    """Pad (0, 1) at the bottom and right, then a stride-2 valid 3x3 conv."""
+    """Pad (0, 1) at the bottom and right, then a stride-2 valid 3x3 conv
+    (without its bias)."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2)
+        self.conv = BiasLaterConv2d(channels, channels, 3, stride=2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(F.pad(x, (0, 1, 0, 1)))
 
 
 class Upsample(nn.Module):
-    """Nearest 2x (each pixel repeated into a 2x2 block), then a 3x3 conv.
-    The repeat is one copy of a broadcast view of the NHWC memory into a
-    channels-last tensor (on the card 1.8x as fast as F.interpolate's
-    channels-last kernel, the same values)."""
+    """Nearest 2x (each pixel repeated into a 2x2 block), then a 3x3 conv
+    (without its bias). The repeat is one copy of a broadcast view of the
+    NHWC memory into a channels-last tensor (on the card 1.8x as fast as
+    F.interpolate's channels-last kernel, the same values)."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = BiasLaterConv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
@@ -135,7 +164,7 @@ class VaeEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         chans = cfg.block_out_channels
-        self.conv_in = nn.Conv2d(d_in, chans[0], 3, padding=1)
+        self.conv_in = BiasLaterConv2d(d_in, chans[0], 3, padding=1)
         prev = chans[0]
         for i, ch in enumerate(chans):
             for j in range(cfg.layers_per_block):
@@ -151,13 +180,14 @@ class VaeEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_blocks = len(self.cfg.block_out_channels)
-        h = self.conv_in(x)
+        h, h_bias = self.conv_in(x), self.conv_in.bias   # h + h_bias: the activation
         for i in range(n_blocks):
             for j in range(self.cfg.layers_per_block):
-                h = getattr(self, f"down_{i}_resnet_{j}")(h)
+                h, h_bias = getattr(self, f"down_{i}_resnet_{j}")(h, x_bias=h_bias), None
             if i < n_blocks - 1:
-                h = getattr(self, f"down_{i}_downsample")(h)
-        h = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(h)))
+                down = getattr(self, f"down_{i}_downsample")
+                h, h_bias = down(h), down.conv.bias
+        h = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(h, x_bias=h_bias)))
         return self.conv_out(group_norm_silu(h, self.conv_norm_out, silu=True))
 
 
@@ -169,14 +199,14 @@ class VaeDecoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         chans = list(reversed(cfg.block_out_channels))
-        self.conv_in = nn.Conv2d(cfg.latent_channels, chans[0], 3, padding=1)
+        self.conv_in = BiasLaterConv2d(cfg.latent_channels, chans[0], 3, padding=1)
         self.mid_resnet_0 = ResnetBlock(chans[0], chans[0])
         self.mid_attn = AttnBlock(chans[0])
         self.mid_resnet_1 = ResnetBlock(chans[0], chans[0])
         prev = chans[0]
         for i, ch in enumerate(chans):
             if cfg.skip_connections:
-                setattr(self, f"skip_conv_{i}", nn.Conv2d(d_skip, prev, 1))
+                setattr(self, f"skip_conv_{i}", BiasLaterConv2d(d_skip, prev, 1))
             for j in range(cfg.layers_per_block + 1):
                 setattr(self, f"up_{i}_resnet_{j}", ResnetBlock(prev, ch))
                 prev = ch
@@ -192,18 +222,21 @@ class VaeDecoder(nn.Module):
         """Everything but conv_out: its input."""
         cfg = self.cfg
         n_blocks = len(cfg.block_out_channels)
-        h = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(self.conv_in(z))))
+        h = self.mid_resnet_1(self.mid_attn(self.mid_resnet_0(self.conv_in(z), x_bias=self.conv_in.bias)))
+        h_bias = None   # h + h_bias: the activation
         for i in range(n_blocks):
             if cfg.skip_connections:
                 assert skip_z is not None, "decoder expects skip_z"
                 resized = F.interpolate(
                     skip_z, size=h.shape[-2:], mode="bilinear", align_corners=True
                 )
-                h = h + getattr(self, f"skip_conv_{i}")(resized)
+                skip_conv = getattr(self, f"skip_conv_{i}")
+                h, h_bias = residual_add(h, h_bias, skip_conv(resized), skip_conv.bias), None
             for j in range(cfg.layers_per_block + 1):
-                h = getattr(self, f"up_{i}_resnet_{j}")(h)
+                h, h_bias = getattr(self, f"up_{i}_resnet_{j}")(h, x_bias=h_bias), None
             if i < n_blocks - 1:
-                h = getattr(self, f"up_{i}_upsample")(h)
+                up = getattr(self, f"up_{i}_upsample")
+                h, h_bias = up(h), up.conv.bias
         return group_norm_silu(h, self.conv_norm_out, silu=True)
 
 

@@ -9,8 +9,13 @@ The decode: random weights from the seed, one warm-up call, then --iters
 calls each timed with CUDA events (the median ms), the peak of the card's
 allocated memory over one more call, then one call under torch.profiler:
 the device ms by kernel name (the top 15), the ms of cuDNN's layout
-transposes (names holding `nchwToNhwc` or `nhwcToNchw`) and the device
-events' count. `--backward` times the decode's forward and backward (a
+transposes (names holding `nchwToNhwc` or `nhwcToNchw`), the ms of
+torch's elementwise kernels (names holding `elementwise_kernel`: bias
+adds, sums, copies, casts), the count of torch's `aten::add_` and
+`aten::add` calls (a convolution's bias add is an `add_`; the VAE's own
+convolutions leave their biases to the group_norm_silu and residual_add
+kernels, so post_quant_conv's and conv_out's remain), the launches of the
+port's kernels by name and the device events' count. `--backward` times the decode's forward and backward (a
 seeded cotangent) instead of the decode alone. `--dtype bfloat16` runs
 the model, its inputs and the cotangent in bfloat16, as the
 `vae:bfloat16` compute dtype does. cuDNN runs in TF32, as the benchmark runs the program. The group norm
@@ -29,6 +34,7 @@ command line runs on the card.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import statistics
 import sys
@@ -36,10 +42,13 @@ from pathlib import Path
 
 import torch
 
+from latentsplat_tpu_torch import cuda_build
 from latentsplat_tpu_torch.model.autoencoder.kl import AutoencoderKL, AutoencoderKLCfg
 from latentsplat_tpu_torch.scripts.measure import cuda_ms, device_name
 
 TRANSPOSES = ("nchwToNhwc", "nhwcToNchw")
+ELEMENTWISE = "elementwise_kernel"
+ADD_OPS = ("aten::add_", "aten::add")
 # The video decode: latents 4 channels at 1/8 of 256x256, the skip tensor
 # the rendered color (3) and latent sample (4) at 256x256.
 LATENT, SIDE, D_SKIP_EXTRA = 4, 256, 3
@@ -75,20 +84,22 @@ def decode_call(model, z, skip, backward: bool):
     return call
 
 
-def device_ops(fn) -> tuple[dict, int]:
-    """{kernel name: device ms} of one call under torch.profiler, and the
-    count of device events."""
+def device_ops(fn) -> tuple[dict, int, dict]:
+    """{kernel name: device ms} of one call under torch.profiler, the
+    count of device events and {operator: calls} of ADD_OPS."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ops, events = {}, 0
+    ops, events, adds = {}, 0, dict.fromkeys(ADD_OPS, 0)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             ops[e.name] = ops.get(e.name, 0.0) + e.device_time_total / 1e3
             events += 1
-    return ops, events
+        elif e.name in adds:
+            adds[e.name] += 1
+    return ops, events, adds
 
 
 def decode_report(args, device) -> dict:
@@ -102,13 +113,19 @@ def decode_report(args, device) -> dict:
     call()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    ops, events = device_ops(call)
+    before = collections.Counter(cuda_build.launches)
+    ops, events, adds = device_ops(call)
+    launches = cuda_build.launches - before
     top = dict(sorted(ops.items(), key=lambda kv: -kv[1])[:15])
     return {
         "views": args.views, "backward": args.backward, "dtype": args.dtype,
         "ms": statistics.median(times), "ms_all": times, "peak_bytes": peak,
         "device_ms": sum(ops.values()), "device_events": events,
         "transpose_ms": sum(v for k, v in ops.items() if any(t in k for t in TRANSPOSES)),
+        "elementwise_ms": sum(v for k, v in ops.items() if ELEMENTWISE in k), "add_calls": adds,
+        "launches": {k: cuda_build.launched(k, counts=launches) for k in cuda_build.KERNELS
+                     if cuda_build.launched(k, counts=launches)},
+        "shift_launches": cuda_build.launched("group_norm_silu", "shift", counts=launches),
         "top_ms": top,
     }
 

@@ -130,7 +130,7 @@ def test_port_imports_no_jax():
         "model.encoder.alt_depth", "scripts.convergence", "entry", "scripts.measure", "scripts.bench_render",
         "scripts.bench_train", "scripts.bench_render_stages", "scripts.bench_enc_stages",
         "scripts.bench_train_stages", "scripts.bench_trace_step", "scripts.bench_precision_knobs",
-        "ops.rasterize.tiled", "ops.group_norm", "scripts.bench_vae",
+        "ops.rasterize.tiled", "ops.group_norm", "scripts.bench_vae", "ops.residual_add",
     )
     code = (
         "import sys\n"

@@ -11,6 +11,8 @@ runs this file first, then times the kernels and runs the whole program.
 Every limit below is the one place its value is set.
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -1402,3 +1404,221 @@ def test_vae_gradients_match_nchw(cuda):
     errors = {name: float((grads[0][name] - want).abs().max()) / max(float(want.abs().max()), floor)
               for name, want in grads[1].items()}
     assert max(errors.values()) <= 1e-4, sorted(errors.items(), key=lambda kv: -kv[1])[:5]
+
+
+# -- residual_add (ops/residual_add.py) and the norm's shift -----------------------
+
+# The decoder's sums: (channels, side) of each distinct shape at the video
+# cell's 30 views (32² and 64² at 512, 128² at 512 (the skip sum) and 256,
+# 256² at 256 (the skip sum) and 128).
+DECODER_SUMS = [(512, 32), (512, 64), (512, 128), (256, 128), (256, 256), (128, 256)]
+
+
+def residual_case(n, channels, side, device, dtype, seed, layout=torch.channels_last, offset=False):
+    """Two operands and two biases (float32 biases for float32 operands,
+    bfloat16 for bfloat16, as the `vae:bfloat16` site casts them)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    a, b = (torch.randn((n, channels, side, side), generator=g, device=device).to(dtype) for _ in range(2))
+    if offset:   # channels-last memory one value past a 16-byte boundary: the scalar path
+        views = []
+        for t in (a, b):
+            buf = torch.empty(t.numel() + 1, device=device, dtype=dtype)
+            view = buf[1:].view(n, side, side, channels).permute(0, 3, 1, 2)
+            view.copy_(t)
+            views.append(view)
+        a, b = views
+    else:
+        a, b = (t.contiguous(memory_format=layout) for t in (a, b))
+    bias_a, bias_b = (torch.randn(channels, generator=g, device=device).to(dtype) for _ in range(2))
+    return a, bias_a, b, bias_b
+
+
+def residual_check(a, bias_a, b, bias_b):
+    """The kernel against the plain ops, bit for bit, with one launch."""
+    from latentsplat_tpu_torch.ops.residual_add import residual_add, residual_add_reference
+
+    before = launched("residual_add")
+    out = residual_add(a, bias_a, b, bias_b)
+    torch.cuda.synchronize()
+    assert launched("residual_add") == before + 1
+    assert out.is_contiguous(memory_format=torch.channels_last) and out.dtype == a.dtype
+    assert torch.equal(out, residual_add_reference(a, bias_a, b, bias_b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,side", DECODER_SUMS)
+def test_residual_add_decoder_shapes(cuda, channels, side, dtype):
+    residual_check(*residual_case(30, channels, side, cuda, dtype, channels + side))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["channels_last", "contiguous", "offset"])
+@pytest.mark.parametrize("biases", ["both", "a", "b", "none", "one_operand"])
+def test_residual_add_biases_and_layouts(cuda, biases, layout, dtype):
+    # Each bias present or absent, and a alone with its bias (the sum that
+    # gives a conv_shortcut its input's bias); an NCHW input is copied to
+    # channels-last first; one a value off a 16-byte boundary takes the
+    # scalar path.
+    memory = {"contiguous": torch.contiguous_format}.get(layout, torch.channels_last)
+    a, bias_a, b, bias_b = residual_case(2, 128, 24, cuda, dtype, 3, layout=memory, offset=layout == "offset")
+    args = {"both": (a, bias_a, b, bias_b), "a": (a, bias_a, b, None), "b": (a, None, b, bias_b),
+            "none": (a, None, b, None), "one_operand": (a, bias_a, None, None)}[biases]
+    residual_check(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [6, 12, 1536, 4098])
+def test_residual_add_narrow_and_wide(cuda, channels, dtype):
+    # 6 channels: the scalar path (C % 4 and C % 8); 12: float4 loads but
+    # the scalar path in bfloat16; 1536 (float32) and 4098 (the scalar
+    # path): rows of more vectors than a block's 256 threads, split by
+    # grid.y.
+    residual_check(*residual_case(3, channels, 9, cuda, dtype, channels))
+
+
+def test_residual_add_gradients(cuda):
+    # dy reaches both operands as it is; each bias gets its per-channel
+    # sum, the sum a convolution's backward computes for its bias.
+    from latentsplat_tpu_torch.ops.residual_add import residual_add, residual_add_reference
+
+    leaves = [t.detach().requires_grad_() for t in residual_case(2, 128, 24, cuda, torch.float32, 5)]
+    dy = torch.randn(leaves[0].shape, device=cuda).contiguous(memory_format=torch.channels_last)
+    got = torch.autograd.grad(residual_add(*leaves), leaves, dy)
+    assert got[0] is got[2] or torch.equal(got[0], got[2])
+    assert torch.equal(got[0], dy) and torch.equal(got[1], dy.sum((0, 2, 3))) and torch.equal(got[3], got[1])
+    want = torch.autograd.grad(residual_add_reference(*leaves), leaves, dy)
+    for x, y in zip(got, want):
+        assert torch.allclose(x, y, rtol=1e-5, atol=1e-5)
+
+
+def test_residual_add_refuses_what_the_kernel_does_not_take(cuda):
+    # Another dtype, operands of other shapes or dtypes, a bias of another
+    # length: a ValueError, and no launch.
+    from latentsplat_tpu_torch.ops.residual_add import residual_add
+
+    before = dict(cuda_build.launches)
+    for dtype in (torch.float16, torch.float64):
+        a = torch.randn((2, 8, 4, 4), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            residual_add(a, None, a, None)
+    a = torch.randn((2, 8, 4, 4), device=cuda)
+    for b in (torch.randn((2, 8, 4, 5), device=cuda), a.to(torch.bfloat16), a[0]):
+        with pytest.raises(ValueError):
+            residual_add(a, None, b, None)
+    with pytest.raises(ValueError):
+        residual_add(a, torch.zeros(7, device=cuda), a, None)
+    with pytest.raises(ValueError):
+        residual_add(a[0], None, a[0], None)
+    assert dict(cuda_build.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,side,offset", [(c, s, False) for c, s in DECODER_NORMS] + [(128, 48, True)])
+def test_group_norm_silu_shift(cuda, channels, side, offset, dtype):
+    # The norm of x with a shift against the norm of x + shift made by
+    # torch's add (the bias add of the convolution that wrote x), forward
+    # and backward, bit for bit; the shift's gradient is dx's per-channel
+    # sum. One launch each way, of the "shift" variant.
+    from latentsplat_tpu_torch.ops.group_norm import group_norm_silu
+
+    x, weight, bias, dy, groups = group_norm_case(channels, side, cuda, channels + side, offset=offset, dtype=dtype)
+    shift = (torch.rand(channels, generator=torch.Generator().manual_seed(side)) - 0.5).to(cuda, dtype)
+    norm = torch.nn.GroupNorm(groups, channels, eps=1e-6).to(cuda, dtype)
+    with torch.no_grad():
+        norm.weight.copy_(weight)
+        norm.bias.copy_(bias)
+    leaves = [x.detach().clone().requires_grad_(), norm.weight, norm.bias, shift.clone().requires_grad_()]
+    before = {k: launched(k, "shift") for k in ("group_norm_silu", "group_norm_silu_backward")}
+    y = group_norm_silu(leaves[0], norm, True, shift=leaves[3])
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert {k: launched(k, "shift") - n for k, n in before.items()} == {
+        "group_norm_silu": 1, "group_norm_silu_backward": 1}
+    shifted = (x.detach() + shift[:, None, None]).requires_grad_()
+    want = group_norm_silu(shifted, norm, True)
+    want_grads = torch.autograd.grad(want, [shifted, norm.weight, norm.bias], dy)
+    assert torch.equal(y, want)
+    for got, ref in zip(grads[:3], want_grads):
+        assert torch.equal(got, ref)
+    assert grads[3].dtype == dtype and torch.equal(grads[3], want_grads[0].sum((0, 2, 3)))
+
+
+def biased_flow(monkeypatch):
+    """The VAE's data flow as before its convolutions left their biases to
+    the next reader: every convolution adds its own bias, the sums are
+    torch's adds and the norms take no shift."""
+    from latentsplat_tpu_torch.model.autoencoder import kl
+
+    norm = kl.group_norm_silu
+    monkeypatch.setattr(kl.BiasLaterConv2d, "forward", torch.nn.Conv2d.forward)
+    monkeypatch.setattr(kl, "residual_add", lambda a, bias_a=None, b=None, bias_b=None: a if b is None else a + b)
+    monkeypatch.setattr(kl, "group_norm_silu", lambda x, n, silu, shift=None: norm(x, n, silu))
+
+
+def counted_call(fn):
+    """fn() without gradients, synchronized, and the kernel launches it
+    made (a Counter)."""
+    before = collections.Counter(cuda_build.launches)
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, cuda_build.launches - before
+
+
+def deterministic_cudnn(monkeypatch, tf32):
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", tf32)
+
+
+@pytest.mark.parametrize("dtype,tf32", [(torch.float32, False), (torch.float32, True), (torch.bfloat16, False)])
+def test_vae_decode_bias_free_equals_biased(cuda, dtype, tf32, monkeypatch):
+    # The published kl_f8 decoder with skips on the video cell's 30 views:
+    # its convolutions without their biases, each bias added by the norm or
+    # the sum that reads the output, give the bits of the same weights
+    # decoded with biased convolutions and torch's adds (cuDNN
+    # deterministic, no autotuning; TF32 on as the benchmark runs the
+    # program, and off). A skip decode launches residual_add 18 times (14
+    # resnets, 4 skip sums) and group_norm_silu with a shift 15 times (every
+    # norm2, and mid_resnet_0's norm1 for conv_in's bias), 30 norms in all.
+    deterministic_cudnn(monkeypatch, tf32)
+    ours, _ = vae_pair([128, 256, 512, 512], cuda, 0)
+    ours = ours.to(dtype)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    z = torch.randn((1, 30, 32, 32, 4), generator=g, device=cuda).to(dtype)
+    skip = torch.randn((1, 30, 256, 256, 7), generator=g, device=cuda).to(dtype)
+    out, new = counted_call(lambda: ours.decode(z, skip))
+    assert {k: launched(k, counts=new) for k in ("residual_add", "group_norm_silu")} == {
+        "residual_add": 18, "group_norm_silu": 30}
+    assert launched("group_norm_silu", "shift", counts=new) == 15
+    biased_flow(monkeypatch)
+    want, new = counted_call(lambda: ours.decode(z, skip))
+    assert launched("residual_add", counts=new) == 0 and launched("group_norm_silu", "shift", counts=new) == 0
+    assert torch.equal(out, want)
+
+
+def test_vae_encode_and_plain_decode_bias_free_equal_biased(cuda, monkeypatch):
+    # The paths a skip decode does not take, bit for bit against the
+    # biased flow (TF32 on, cuDNN deterministic), 4 views at 256x256: the
+    # decoder without skips (up_1's first block takes the upsample's bias
+    # as its norm's shift and its sum's bias; up_2's and up_3's, which have
+    # a conv_shortcut, take it in a one-operand sum first) and the encoder
+    # (conv_in's bias to down_0's first block, down_0's and down_1's
+    # downsample biases to a one-operand sum, down_2's to down_3's first
+    # block's norm and sum). Launches: residual_add 14 + 2 decoding and
+    # 10 + 2 encoding, group_norm_silu with a shift 14 + 2 and 10 + 2.
+    from latentsplat_tpu_torch.model.autoencoder.kl import AutoencoderKL, AutoencoderKLCfg
+
+    deterministic_cudnn(monkeypatch, True)
+    torch.manual_seed(2)
+    model = AutoencoderKL(AutoencoderKLCfg(skip_connections=False), d_in=3).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    z = torch.randn((1, 4, 32, 32, 4), generator=g, device=cuda)
+    images = torch.rand((1, 4, 256, 256, 3), generator=g, device=cuda)
+    got, new = counted_call(lambda: (model.decode(z), model.encode(images).mean))
+    assert launched("residual_add", counts=new) == 16 + 12
+    assert launched("group_norm_silu", "shift", counts=new) == 16 + 12
+    biased_flow(monkeypatch)
+    want, new = counted_call(lambda: (model.decode(z), model.encode(images).mean))
+    assert launched("residual_add", counts=new) == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

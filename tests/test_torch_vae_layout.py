@@ -177,3 +177,169 @@ def test_the_library_declares_group_norm_silu(name):
 ])
 def test_chunks(n, hw, c, want):
     assert gn.chunks_for(n, hw, c) == want
+
+
+def biased_flow(monkeypatch):
+    """The VAE's data flow as before its convolutions left their biases to
+    the next reader: every convolution adds its own bias, the sums are
+    plain adds and the norms take no shift."""
+    from latentsplat_tpu_torch.model.autoencoder import kl
+
+    norm = kl.group_norm_silu
+    monkeypatch.setattr(kl.BiasLaterConv2d, "forward", nn.Conv2d.forward)
+    monkeypatch.setattr(kl, "residual_add", lambda a, bias_a=None, b=None, bias_b=None: a if b is None else a + b)
+    monkeypatch.setattr(kl, "group_norm_silu", lambda x, n, silu, shift=None: norm(x, n, silu))
+
+
+def decode_and_encode_grads(model):
+    """The decode's and the encode's outputs and every gradient leaf of a
+    seeded loss on both."""
+    z, skip = (t.requires_grad_() for t in inputs())
+    out = model.decode(z, skip) if model.cfg.skip_connections else model.decode(z)
+    moments = model.encode(torch.rand((2, 16, 12, 3), generator=torch.Generator().manual_seed(3),
+                                      dtype=torch.float64))
+    g = torch.Generator().manual_seed(2)
+    loss = (out * torch.randn(out.shape, generator=g, dtype=torch.float64)).sum() + moments.mean.square().sum()
+    loss.backward()
+    grads = {"z": z.grad, **{n: p.grad for n, p in model.named_parameters() if p.grad is not None}}
+    if skip.grad is not None:
+        grads["skip"] = skip.grad
+    return {"decode": out.detach(), "encode": moments.mean.detach()}, grads
+
+
+@pytest.mark.parametrize("skip_connections", [True, False])
+def test_bias_free_flow_equals_biased_flow(skip_connections, monkeypatch):
+    # In float64 the two flows differ by rounding alone (~1e-16 a layer):
+    # the outputs, and every gradient leaf, each conv bias's among them,
+    # within 1e-12 of its largest value, floored at 1e-3 of the largest
+    # leaf's (a conv bias before a group norm of one channel a group has a
+    # gradient of rounding alone, ~1e-14 against ~6 for the largest leaf).
+    # Without skips, the decoder's upsample biases go through the
+    # conv_shortcut path (a one-operand sum) and the norm of a block
+    # without one.
+    ours, _ = pair()
+    if not skip_connections:
+        ours.cfg.skip_connections = False
+        ours.decoder.cfg.skip_connections = False
+    got, got_grads = decode_and_encode_grads(ours)
+    ours.zero_grad(set_to_none=True)
+    biased_flow(monkeypatch)
+    want, want_grads = decode_and_encode_grads(ours)
+    for k in want:
+        assert close(got[k], want[k], float(want[k].abs().max())) <= 1e-12, k
+    assert got_grads.keys() == want_grads.keys()
+    assert sum(k.endswith("conv1.bias") for k in want_grads) >= 4
+    floor = 1e-3 * max(float(g.abs().max()) for g in want_grads.values())
+    for name, g in want_grads.items():
+        assert close(got_grads[name], g, max(float(g.abs().max()), floor)) <= 1e-12, name
+
+
+@pytest.mark.parametrize("skip_connections", [True, False])
+def test_gradients_under_a_flop_counter(skip_connections):
+    # FlopCounterMode tracks modules with multi-grad hooks on their
+    # positional tensor inputs, which torch.autograd.grad refuses for a
+    # leaf: a conv bias handed to a block must not be one of them.
+    from torch.utils.flop_counter import FlopCounterMode
+
+    ours, _ = pair()
+    ours.cfg.skip_connections = ours.decoder.cfg.skip_connections = skip_connections
+    z, skip = inputs()
+    params = [p for p in ours.parameters()]
+    with FlopCounterMode(display=False) as counter:
+        out = ours.decode(z, skip if skip_connections else None).sum() + ours.encode(
+            torch.rand((1, 16, 12, 3), dtype=torch.float64)).mean.sum()
+        grads = torch.autograd.grad(out, params, allow_unused=True)
+    assert counter.get_total_flops() > 0 and sum(g is not None for g in grads) > len(params) // 2
+
+
+def test_skip_conv_pre_hook_reads_the_resized_skip():
+    # The last skip conv is still called as a module: its forward pre-hook
+    # fires once a decode, on the skip tensor resized to full size.
+    ours, _ = pair()
+    z, skip = inputs()
+    decoder = ours.decoder
+    seen = []
+    last = getattr(decoder, f"skip_conv_{len(decoder.cfg.block_out_channels) - 1}")
+    handle = last.register_forward_pre_hook(lambda module, args: seen.append(args[0]))
+    ours.decode(z, skip)
+    handle.remove()
+    flat = skip.reshape(-1, *skip.shape[-3:]).permute(0, 3, 1, 2)
+    want = F.interpolate(flat, size=flat.shape[-2:], mode="bilinear", align_corners=True)
+    assert len(seen) == 1 and torch.equal(seen[0], want)
+
+
+def test_bias_later_convs_are_conv2d_modules():
+    # The convolutions that leave their bias to the next reader are
+    # nn.Conv2d modules still: each holds its weight and bias.
+    from latentsplat_tpu_torch.model.autoencoder.kl import BiasLaterConv2d
+
+    ours, _ = pair()
+    later = [n for n, m in ours.named_modules() if isinstance(m, BiasLaterConv2d)]
+    assert all(isinstance(m, nn.Conv2d) and m.bias is not None for m in ours.modules() if isinstance(m, BiasLaterConv2d))
+    assert sorted(n.rsplit(".", 1)[-1] for n in later if "resnet" not in n) == sorted(
+        ["conv_in", "conv_in", "conv", "conv", *[f"skip_conv_{i}" for i in range(2)]])
+    assert not any(isinstance(m, BiasLaterConv2d) for m in (ours.quant_conv, ours.post_quant_conv,
+                                                            ours.decoder.conv_out, ours.encoder.conv_out))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("bias_a,b,bias_b", [(True, True, True), (False, True, True), (True, True, False),
+                                             (False, True, False), (True, False, False)])
+def test_residual_add_is_plain_on_the_cpu(dtype, bias_a, b, bias_b, monkeypatch):
+    # A CPU tensor runs (a + bias_a) + (b + bias_b) in torch's ops; no
+    # kernel library is loaded and no launch is counted.
+    from latentsplat_tpu_torch.ops.residual_add import residual_add
+
+    def refuse():
+        raise AssertionError("the CPU path loaded the kernel library")
+
+    monkeypatch.setattr(cuda_build, "load_library", refuse)
+    g = torch.Generator().manual_seed(4)
+    a_t, b_t = (torch.randn((2, 6, 5, 3), generator=g).to(dtype).contiguous(memory_format=torch.channels_last)
+                for _ in range(2))
+    ba, bb = (torch.randn(6, generator=g).to(dtype) for _ in range(2))
+    args = (a_t, ba if bias_a else None, b_t if b else None, bb if bias_b else None)
+    want = a_t + ba[:, None, None] if bias_a else a_t
+    if b:
+        want = want + (b_t + bb[:, None, None] if bias_b else b_t)
+    before = dict(cuda_build.launches)
+    assert torch.equal(residual_add(*args), want)
+    assert dict(cuda_build.launches) == before
+
+
+@pytest.mark.parametrize("needs", ["all", "operands", "biases"])
+def test_residual_add_backward(needs, monkeypatch):
+    # The card's autograd Function with its launch replaced by the plain
+    # version, in float32 (the kernel's biases): dy to both operands as it
+    # is, its per-channel sum to each bias (torch sums a broadcast's
+    # gradient in another order: 1e-6 of the sum).
+    from latentsplat_tpu_torch.ops import residual_add as ra
+
+    monkeypatch.setattr(ra, "forward", ra.residual_add_reference)
+    g = torch.Generator().manual_seed(5)
+    a, b = (torch.randn((2, 6, 5, 3), generator=g) for _ in range(2))
+    ba, bb = (torch.randn(6, generator=g) for _ in range(2))
+    leaves = [a, ba, b, bb]
+    for i, t in enumerate(leaves):
+        t.requires_grad_(needs == "all" or (needs == "operands") == (i % 2 == 0))
+    out = ra._ResidualAdd.apply(*leaves)
+    assert torch.equal(out, ra.residual_add_reference(a, ba, b, bb))
+    dy = torch.randn(out.shape, generator=g)
+    want = torch.autograd.grad(ra.residual_add_reference(*leaves), [t for t in leaves if t.requires_grad], dy)
+    got = torch.autograd.grad(out, [t for t in leaves if t.requires_grad], dy)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and torch.allclose(x, y, rtol=1e-6, atol=0)
+
+
+def test_the_library_declares_residual_add():
+    # The ctypes signature matches the C entry point, argument by argument.
+    from latentsplat_tpu_torch.ops import residual_add as ra
+
+    argtypes, restype = cuda_build._SIGNATURES["residual_add"]
+    source = (cuda_build.CSRC_DIR / "residual_add.cu").read_text()
+    params = [p.strip() for p in re.search(r'extern "C" int residual_add\(([^)]*)\)', source).group(1).split(",")]
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float}
+    assert restype is ctypes.c_int and len(argtypes) == len(params)
+    assert list(argtypes) == [ctypes.c_void_p if "*" in p else kinds[p.split()[0]] for p in params]
+    assert "int is_bf16" in params and len(ra.KERNEL_DTYPES) == 2
+    assert "residual_add" in cuda_build.KERNELS
